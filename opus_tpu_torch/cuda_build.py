@@ -1,0 +1,91 @@
+"""Builds the port's CUDA kernels at first use and binds them with ctypes.
+
+``opus_tpu_torch/csrc/*.cu`` (and only those sources) are compiled by
+``nvcc`` for sm_90a into one shared library with a plain C interface,
+``.torch_build/libopus_tpu_torch.so`` at the repository root.  The file
+name carries a hash of the sources, so an edit rebuilds and a fresh
+checkout builds on its first call.  A failed build raises with nvcc's
+stderr; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG.parent / ".torch_build"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+ptxas_log = ""            # nvcc's resource report (registers, stack, spills)
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"libopus_tpu_torch.{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if no library of their hash exists yet."""
+    global ptxas_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)
+    ptxas_log = proc.stderr
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The built library, with argument types set on its entry points."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.opus_celt_dec_frame_launch.argtypes = [
+            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.opus_celt_dec_frame_launch.restype = ci
+        lib.opus_deemphasis_launch.argtypes = [
+            vp, vp, vp, vp, ci, ci, ctypes.c_float, vp]
+        lib.opus_deemphasis_launch.restype = ci
+        lib.opus_cuda_error_string.argtypes = [ci]
+        lib.opus_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError)."""
+    if rc != 0:
+        msg = library().opus_cuda_error_string(rc).decode()
+        raise RuntimeError(f"CUDA launch of {name} failed: {msg} ({rc})")

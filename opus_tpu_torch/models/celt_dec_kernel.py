@@ -1,0 +1,200 @@
+"""Packets -> PCM at 10/20 ms with the symbol pass of kernel K1.
+
+Port of ``opus_tpu/models/celt_dec_kernel.py`` (``build_frame_fn``'s
+``fn``, ``kernel_celt_decode_to_pcm`` and ``KernelCeltDecoder``).
+``decode_frame`` is the wrapper of kernel K1: a CPU tensor runs the plain
+torch symbol pass (``celt_dec_fused.fused_celt_decode_frame``), a CUDA
+tensor runs the hand-written CUDA kernel
+(``opus_tpu_torch/csrc/celt_dec_frame.cu``) or raises.  The TPU-only
+parts of the JAX module (the ``batch % 1024`` rule, the [W, R, 128]
+word packing, the node program and the wrapper matrices) are gone: the
+kernel reads each stream's bytes from ``buf [B, P]`` directly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from opus_tpu.celt.tables import COMB_GAINS, COMBFILTER_MINPERIOD
+from ..ops.device_cache import const
+from ..ops.rc_kernel import M32, ilog
+from .celt_dec_fused import DecTabs, fused_celt_decode_frame, \
+    fused_celt_init_state
+from .batched_decode import decode_step
+
+INT_KEYS = ("silence", "is_transient", "intra", "anti_collapse_on",
+            "pf_pitch", "pf_tapset", "error", "tell", "rng")
+
+# launches of kernel K1 (counted where the kernel is launched, only there)
+launches = 0
+
+
+@lru_cache(maxsize=None)
+def dec_tabs(fs: int = 48000, frame_size: int = 960) -> DecTabs:
+    return DecTabs(fs, frame_size)
+
+
+def decode_frame(buf_u8, lens, old_e, prevmin, seed, tabs=None) -> dict:
+    """One frame's mono CELT symbol pass for B streams.
+
+    buf_u8 [B, P] uint8 packet bytes, lens [B] byte lengths (clamped to
+    [0, P]), old_e/prevmin [B, nb] f32 (energy memory and min of the two
+    previous frames' energies), seed [B] (uint32 values, int64).  Returns
+    X [B, M*eBands[nb]], energies [B, nb] and pf_gain [B] (f32), and the
+    int64 [B] lanes silence, is_transient, intra, anti_collapse_on,
+    pf_pitch, pf_tapset, error, tell and rng."""
+    tabs = dec_tabs() if tabs is None else tabs
+    if buf_u8.device.type == "cpu":
+        return decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs)
+    return _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs)
+
+
+def decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs) -> dict:
+    """The plain torch version of kernel K1 (any device)."""
+    lens = lens.to(torch.int64).clamp(0, buf_u8.shape[1])
+    nb = tabs.nb
+    out, d = fused_celt_decode_frame(
+        buf_u8, lens, [old_e[:, i] for i in range(nb)],
+        [prevmin[:, i] for i in range(nb)], seed.to(torch.int64), tabs,
+        torch.ones_like(lens, dtype=torch.bool))
+    res = {k: out[k].to(torch.int64) for k in INT_KEYS[:6]}
+    res.update(X=out["X"], energies=torch.stack(out["energies"], dim=1),
+               pf_gain=out["pf_gain"], error=d["error"],
+               tell=d["nbits_total"] - ilog(d["rng"]), rng=d["rng"])
+    return res
+
+
+def _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs) -> dict:
+    from ..cuda_build import check_launch, library
+
+    global launches
+    dev = buf_u8.device
+    if not buf_u8.is_cuda or any(t.device != dev for t in
+                                 (lens, old_e, prevmin, seed)):
+        raise ValueError("decode_frame: all inputs on one CUDA device")
+    b, p = buf_u8.shape
+    nb = tabs.nb
+    if buf_u8.dtype != torch.uint8 or old_e.shape != (b, nb) \
+            or prevmin.shape != (b, nb) or seed.shape != (b,):
+        raise ValueError("decode_frame: buf [B, P] uint8, old_e/prevmin "
+                         "[B, nb] f32, seed [B]")
+    buf_u8 = buf_u8.contiguous()
+    lens32 = lens.clamp(0, p).to(torch.int32).contiguous()
+    old_e = old_e.to(torch.float32).contiguous()
+    prevmin = prevmin.to(torch.float32).contiguous()
+    seed = seed.to(torch.int64).contiguous()
+    tab = const(("k1_table", int(tabs.mode.Fs), tabs.lm),
+                tabs.kernel_table, dev)
+    nx = tabs.nx
+    x_t = torch.empty((nx, b), dtype=torch.float32, device=dev)
+    energies = torch.empty((b, nb), dtype=torch.float32, device=dev)
+    ints = torch.empty((b, 9), dtype=torch.int32, device=dev)
+    pf_gain = torch.empty((b,), dtype=torch.float32, device=dev)
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    vp = ctypes.c_void_p
+    rc = lib.opus_celt_dec_frame_launch(
+        vp(buf_u8.data_ptr()), p, vp(lens32.data_ptr()),
+        vp(old_e.data_ptr()), vp(prevmin.data_ptr()), vp(seed.data_ptr()),
+        vp(tab.data_ptr()), vp(x_t.data_ptr()), vp(energies.data_ptr()),
+        vp(ints.data_ptr()), vp(pf_gain.data_ptr()), b, nx, vp(stream))
+    check_launch(rc, "celt_dec_frame")
+    launches += 1
+    ints = ints.to(torch.int64)
+    res = {k: ints[:, j] for j, k in enumerate(INT_KEYS)}
+    res["rng"] = res["rng"] & M32
+    res.update(X=x_t.t(), energies=energies, pf_gain=pf_gain)
+    return res
+
+
+def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
+                              frame_fn=None):
+    """One frame at 10/20 ms: the K1 symbol pass + the synthesis stage
+    (IMDCT/TDAC, postfilter, de-emphasis with K2).  state: the
+    fused_celt_init_state dict.  Mirrors celt_decoder.c:1209-1614;
+    returns (pcm [B, 1, N], new state, err [B])."""
+    frame_fn = decode_frame if frame_fn is None else frame_fn
+    prevmin = torch.minimum(state["prev1"], state["prev2"])
+    out = frame_fn(buf_u8, lens, state["old_e"], prevmin, state["seed"],
+                   tabs)
+    err = out["error"] != 0
+    silence = out["silence"] != 0
+    transient = out["is_transient"] != 0
+    energies = out["energies"]
+    dev = energies.device
+
+    n_full = tabs.mode.shortMdctSize << tabs.lm
+    x = torch.nn.functional.pad(out["X"], (0, n_full - tabs.nx))[:, None, :]
+    minp = COMBFILTER_MINPERIOD
+    pf_pitch, pf_gain, pf_tapset = (out["pf_pitch"], out["pf_gain"],
+                                    out["pf_tapset"])
+    periods = torch.stack([state["pf_period_old"].clamp_min(minp),
+                           state["pf_period"].clamp_min(minp),
+                           pf_pitch.clamp_min(minp)], dim=-1)
+    comb = const("comb_gains",
+                 lambda: np.asarray(COMB_GAINS, np.float32), dev)
+    gains3 = torch.stack([state["pf_gain_old"], state["pf_gain"], pf_gain],
+                         dim=-1)
+    tapsets3 = torch.stack([state["pf_tapset_old"], state["pf_tapset"],
+                            pf_tapset], dim=-1)
+    tgains = gains3[..., None] * comb[tapsets3]
+
+    pcm, dsp = decode_step(x, energies[:, None, :], transient, silence,
+                           periods, tgains, state["dsp"], fs=tabs.mode.Fs,
+                           frame_size=n_full, lm=tabs.lm, channels=1)
+
+    # ---- state carry (celt_decoder.c:1560-1614) ----
+    e_sil = torch.where(silence[:, None], -28.0, energies)
+    tr = transient[:, None]
+    new_state = dict(
+        old_e=e_sil,
+        prev1=torch.where(tr, torch.minimum(state["prev1"], e_sil), e_sil),
+        prev2=torch.where(tr, state["prev2"], state["prev1"]),
+        # the next frame's fold/noise seed is the final range, not the
+        # evolved LCG state (celt_decoder.c:1602 st->rng = dec->rng)
+        seed=out["rng"],
+        pf_period_old=pf_pitch, pf_gain_old=pf_gain,
+        pf_tapset_old=pf_tapset,
+        pf_period=pf_pitch, pf_gain=pf_gain, pf_tapset=pf_tapset,
+        dsp=dsp)
+    return pcm, new_state, err
+
+
+class KernelCeltDecoder:
+    """Packets-in -> PCM-out mono CELT decoder at 10/20 ms: kernel K1 for
+    the symbol pass and K2 for de-emphasis when ``device`` is CUDA, their
+    plain torch versions on the CPU."""
+
+    def __init__(self, batch: int, fs: int = 48000, frame_size: int = 960,
+                 max_payload: int = 384, device="cpu"):
+        self.batch = batch
+        self.device = torch.device(device)
+        self.tabs = dec_tabs(fs, frame_size)
+        self.P = max_payload
+        self.state = fused_celt_init_state(batch, self.tabs, self.device)
+
+    def pack(self, payloads):
+        """list of B byte strings -> (buf [B, P] uint8, lens [B]) on the
+        decoder's device."""
+        buf = np.zeros((self.batch, self.P), np.uint8)
+        lens = np.zeros(self.batch, np.int64)
+        for i, p in enumerate(payloads):
+            a = np.frombuffer(p, np.uint8)[:self.P]
+            buf[i, :len(a)] = a
+            lens[i] = len(a)
+        return (torch.from_numpy(buf).to(self.device),
+                torch.from_numpy(lens).to(self.device))
+
+    def decode_packed(self, buf_u8, lens):
+        """buf [B, P] uint8, lens [B] on the device -> (pcm [B, 1, N] f32,
+        err [B] bool)."""
+        pcm, self.state, err = kernel_celt_decode_to_pcm(
+            buf_u8, lens, self.state, self.tabs)
+        return pcm, err
+
+    def decode(self, payloads):
+        return self.decode_packed(*self.pack(payloads))
