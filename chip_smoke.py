@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's main path, the 20 ms mono CELT decoder at 64 kb/s CBR
-(packets -> PCM, ``opus_tpu_torch.models.celt_dec_kernel.
-KernelCeltDecoder``), over 4096 streams plus 32 garbage/truncated ones,
-for 8 consecutive frames:
+Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
+(160-byte packets), in both directions, for 8 consecutive frames:
 
 1. requires CUDA and prints the card's name and power limit;
 2. builds the kernels from ``opus_tpu_torch/csrc`` (nvcc, sm_90a);
-3. holds kernel K1 (the symbol pass) and K2 (de-emphasis) against their
-   plain torch versions on the card, frame by frame with state carried;
-4. runs the decoder end to end with the launch counters reset, and checks
-   it against the scalar decoder's outputs stored in
-   ``tests/data/torch_celt20ms_64k.npz`` (final range, PCM, error lanes);
-5. times K1, K2, their plain versions and the whole decode step with
-   CUDA events.
+3. decode (packets -> PCM, ``KernelCeltDecoder``) over 4096 streams plus
+   32 garbage/truncated ones: kernel K1 (the symbol pass) and K2
+   (de-emphasis) against their plain torch versions, frame by frame with
+   state carried; the decoder end to end with the launch counters reset,
+   against the scalar decoder's outputs stored in
+   ``tests/data/torch_celt20ms_64k.npz``;
+4. encode (PCM -> packets, ``KernelCeltEncoder``) over 4096 fixture
+   streams plus 32 hard ones (silence, full-scale noise, clipped input,
+   a DC step, impulses, 1e-7 noise): kernel K3 (the encode symbol pass)
+   against its plain torch version, frame by frame with state carried;
+5. the duplex chain: the encoder's packets go straight into the decoder
+   on the card, launch counters reset around it; final ranges, error
+   lanes and SNR against the JAX twin's, stored in
+   ``tests/data/torch_celt20ms_64k_enc.npz``;
+6. times K1, K2, K3, their plain versions, the encoder front end and the
+   encode, decode and duplex steps with CUDA events.
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is the result JSON; any failed check
@@ -31,6 +38,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_celt20ms_64k.npz")
+ENC_FIXTURE = os.path.join(REPO, "tests", "data",
+                           "torch_celt20ms_64k_enc.npz")
 B_MAIN = 4096            # fixture streams tiled over the main batch
 N_BAD = 32               # garbage and truncated lanes appended
 NFRAMES = 8
@@ -51,6 +60,17 @@ K2_REL_TOL = 1e-5
 # IMDCT is an 800-term dot product (<= 800 u * sum|terms|, ~1e-5 worst
 # case at full scale), the comb filter and de-emphasis add a few u: 1e-4.
 PCM_ABS_TOL = 1e-4
+# K3 vs plain: payload bytes, final range, error and every integer output
+# identical.  The float outputs (energy memory and error, delayed_intra)
+# are the same f32 operations in the same order but for the wrap taps,
+# which the plain version rounds from float64 instead of with fmaf (a
+# double rounding, ~2**-29 likely per tap): a few ULPs of values below
+# 64 (ULP 2**-18 = 3.8e-6), so 3e-5 absolute.
+K3_F_TOL = 3e-5
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
+# memory rate and float32 rate outside the tensor cores, for bound_ms.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -261,6 +281,155 @@ def phase_end_to_end(lanes, stream, fx, dev, plain_outs):
     return pcm_err, counts
 
 
+def hard_signals(n_lanes: int, nframes: int, rng):
+    """[n_lanes, nframes * 960] f32 numpy: digital silence, full-scale
+    white noise, clipped input (|x| up to 4), a DC step, impulses and
+    1e-7-level noise, in turn."""
+    import numpy as np
+    total = nframes * 960
+    out = np.zeros((n_lanes, total), np.float32)
+    for j in range(n_lanes):
+        kind = j % 6
+        if kind == 1:
+            out[j] = rng.uniform(-1, 1, total)
+        elif kind == 2:
+            out[j] = np.clip(3.0 * rng.standard_normal(total), -4, 4)
+        elif kind == 3:
+            out[j, total // 3:] = 0.5 if j % 4 else -0.9
+        elif kind == 4:
+            out[j, rng.integers(0, total, 6 + j % 5)] = 0.99
+        elif kind == 5:
+            out[j] = 1e-7 * rng.standard_normal(total)
+    return out
+
+
+def make_enc_lanes(efx, rng):
+    """[NFRAMES] of pcm [B_MAIN + N_BAD, 960] f32 numpy: the fixture's 8
+    streams tiled over B_MAIN lanes, then the hard lanes."""
+    import numpy as np
+    pcm = efx["pcm"]
+    ns = pcm.shape[0]
+    hard = hard_signals(N_BAD, NFRAMES, rng).reshape(N_BAD, NFRAMES, 960)
+    stream = np.arange(B_MAIN) % ns
+    return [np.concatenate([pcm[stream, f], hard[:, f]]) for f in
+            range(NFRAMES)]
+
+
+def compare_k3(got, ref):
+    """Integer outputs identical; float outputs within K3_F_TOL."""
+    import torch
+    from opus_tpu_torch.models.celt_enc_kernel import INT_OUT
+    for k in ("payload", "rng", "err") + INT_OUT:
+        if not torch.equal(got[k].to(ref[k].dtype), ref[k]):
+            bad = (got[k].to(ref[k].dtype) != ref[k]).reshape(
+                ref[k].shape[0], -1).any(dim=1).nonzero()[:5, 0].tolist()
+            fail(f"K3 vs plain: {k} differs at lanes {bad}")
+    err = 0.0
+    for k in ("old_e", "error", "delayed_intra"):
+        e = (got[k] - ref[k]).abs().max().item()
+        if not e <= K3_F_TOL:
+            fail(f"K3 vs plain: {k} err {e}")
+        err = max(err, e)
+    return err
+
+
+def phase_k3_vs_plain(enc_lanes, dev):
+    """Per frame, K3 and the plain symbol pass on the same front-end
+    outputs, with the plain chain's state carried."""
+    import torch
+    from opus_tpu_torch.models import celt_enc_kernel as EK
+    from opus_tpu_torch.models.celt_enc_fused import fused_celt_enc_init
+
+    tabs = EK.enc_tabs()
+    b = enc_lanes[0].shape[0]
+    state = fused_celt_enc_init(b, tabs, dev)
+    f_err = 0.0
+    for f, pcm in enumerate(enc_lanes):
+        ins, X, front = EK._front_end(torch.from_numpy(pcm).to(dev), state,
+                                      tabs, 160)
+        got = EK.encode_frame(X, ins, tabs, 160)
+        ref = EK.encode_frame_plain(X, ins, tabs, 160)
+        torch.cuda.synchronize()
+        e = compare_k3(got, ref)
+        f_err = max(f_err, e)
+        state = EK._assemble_state(state, front, ref)
+        print(f"frame {f}: K3 == plain (payload, rng, error, ints exact; "
+              f"float err {e:.3g}); lanes flagged: "
+              f"{int(ref['err'].sum())}, silence "
+              f"{int(ins['silence'].sum())}, transient "
+              f"{int(ins['is_transient'].sum())}")
+    return f_err
+
+
+def phase_duplex(enc_lanes, efx, dev):
+    """KernelCeltEncoder feeds KernelCeltDecoder on the card, counters
+    reset around the 8-frame run."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models import celt_enc_kernel as EK
+    from opus_tpu_torch.ops import iir
+    from opus_tpu_torch.quality import best_snr
+
+    b = enc_lanes[0].shape[0]
+    pcm_in = [torch.from_numpy(p).to(dev) for p in enc_lanes]
+    enc = EK.KernelCeltEncoder(b, device=dev)
+    dec = CK.KernelCeltDecoder(b, device=dev, max_payload=160)
+    lens = torch.full((b,), 160, dtype=torch.int64, device=dev)
+    outs = []
+    torch.cuda.synchronize()
+    CK.launches = iir.launches = EK.launches = 0
+    for pcm in pcm_in:
+        payload, rng, err = enc.encode_device(pcm)
+        out, derr = dec.decode_packed(payload, lens)
+        outs.append((payload, rng, err, out, derr, dec.state["seed"]))
+    torch.cuda.synchronize()
+    counts = {"K1": CK.launches, "K2": iir.launches, "K3": EK.launches}
+    print(f"duplex launch counters over {NFRAMES} frames: {counts}")
+    if counts != {"K1": NFRAMES, "K2": NFRAMES, "K3": NFRAMES}:
+        fail(f"expected one launch of K1, K2 and K3 per frame, got {counts}")
+
+    ns = efx["pcm"].shape[0]
+    same = 0
+    dec_pcm = []
+    for f, (payload, rng, err, out, derr, drng) in enumerate(outs):
+        err, derr = err.cpu().numpy(), derr.cpu().numpy()
+        if err[:B_MAIN].any() or derr[:B_MAIN].any():
+            fail(f"frame {f}: fixture lanes flagged (encoder "
+                 f"{int(err[:B_MAIN].sum())}, decoder "
+                 f"{int(derr[:B_MAIN].sum())})")
+        ok = err == 0
+        if not np.array_equal(rng.cpu().numpy()[ok], drng.cpu().numpy()[ok]):
+            fail(f"frame {f}: decoder final range != encoder range")
+        pcm = out[:, 0].cpu().numpy()
+        if not np.isfinite(pcm).all():
+            fail(f"frame {f}: non-finite decoded PCM")
+        pay = payload[:B_MAIN].cpu().numpy()
+        same += int((pay == efx["payload"][f][np.arange(B_MAIN) % ns])
+                    .all(axis=1).sum())
+        dec_pcm.append(pcm[:ns])
+        print(f"frame {f}: decoder range == encoder range on {int(ok.sum())}"
+              f" lanes; hard lanes flagged by the encoder: "
+              f"{int(err[B_MAIN:].sum())}")
+    dec_pcm = np.stack(dec_pcm, axis=1)             # [ns, NFRAMES, 960]
+    snr = []
+    for s_ in range(ns):
+        v = best_snr(efx["pcm"][s_].reshape(-1), dec_pcm[s_].reshape(-1))
+        if not v >= efx["snr"][s_] - 1.0:
+            fail(f"stream {s_}: SNR {v:.2f} dB < JAX twin's "
+                 f"{efx['snr'][s_]:.2f} - 1")
+        snr.append(round(v, 2))
+    print(f"duplex SNR per fixture stream {snr} dB (JAX twin "
+          f"{[round(float(v), 2) for v in efx['snr']]}); payloads "
+          f"byte-identical to the JAX twin: {same}/{B_MAIN * NFRAMES} "
+          f"({same / (B_MAIN * NFRAMES):.4f})")
+    return counts
+
+
+def nbytes_of(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def cuda_ms(fn, reps: int) -> float:
     import torch
     fn()
@@ -275,11 +444,20 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def bound(nbytes: int, flops: float) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the operations over the f32
+    rate."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
 def phase_times(lanes, dev, tabs, k2_in, smi):
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
     from opus_tpu_torch.models.celt_dec_fused import fused_celt_init_state
     from opus_tpu_torch.ops import iir
+    from opus_tpu_torch.ops.device_cache import const
 
     buf = torch.from_numpy(lanes[0][0][:B_MAIN]).to(dev)
     ln = torch.from_numpy(lanes[0][1][:B_MAIN]).to(dev)
@@ -288,17 +466,84 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
     args = (buf, ln, st["old_e"], pm, st["seed"], tabs)
     k1 = cuda_ms(lambda: CK.decode_frame(*args), 20)
     k1p = cuda_ms(lambda: CK.decode_frame_plain(*args), 1)
+    out = CK.decode_frame(*args)
+    tab = const(("k1_table", int(tabs.mode.Fs), tabs.lm), tabs.kernel_table,
+                dev)
+    # bytes: each input read once (packets, lens, energy memories, seeds,
+    # table), each output written once (X, energies, 9 int lanes, gain);
+    # operations: ~20 f32 operations per coefficient (rotation, haar,
+    # renormalise), an estimate from the source that stays below the
+    # bytes bound
+    k1_bytes = nbytes_of(buf, st["old_e"], pm, st["seed"], tab, out["X"],
+                         out["energies"], out["pf_gain"]) \
+        + B_MAIN * 4 * (1 + 9)
+    k1_bound = bound(k1_bytes, 20.0 * tabs.nx * B_MAIN)
     x, mem = k2_in[0][:B_MAIN], k2_in[1][:B_MAIN]
     coef = float(tabs.mode.preemph[0])
     k2 = cuda_ms(lambda: iir.deemphasis(x, mem, coef), 50)
     k2p = cuda_ms(lambda: iir.deemphasis_plain(x, mem, coef), 50)
+    k2_bound = bound(2 * nbytes_of(x, mem), 2.0 * x.numel())
     dec = CK.KernelCeltDecoder(B_MAIN, device=dev, max_payload=160)
     step = cuda_ms(lambda: dec.decode_packed(buf, ln), 10)
     streams = B_MAIN * 20.0 / step
     print(f"times at B={B_MAIN} [{smi}]: K1 {k1:.4f} ms/frame, plain "
           f"{k1p:.2f} ms; K2 {k2:.4f} ms, plain {k2p:.4f} ms; decode step "
           f"{step:.3f} ms/frame -> {streams:.0f} realtime 20 ms streams")
-    return k1, k1p, k2, k2p, step
+    return dict(k1=k1, k1p=k1p, k1_bound=k1_bound, k2=k2, k2p=k2p,
+                k2_bound=k2_bound, dec_step=step)
+
+
+def phase_enc_times(enc_lanes, dev, smi, t):
+    """K3, plain K3, the front end, the encode step and the duplex step at
+    B_MAIN with CUDA events."""
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models import celt_enc_kernel as EK
+    from opus_tpu_torch.models.celt_enc_fused import fused_celt_enc_init
+    from opus_tpu_torch.ops.device_cache import const
+
+    tabs = EK.enc_tabs()
+    pcm = torch.from_numpy(enc_lanes[0][:B_MAIN]).to(dev)
+    state = fused_celt_enc_init(B_MAIN, tabs, dev)
+    ins, X, _front = EK._front_end(pcm, state, tabs, 160)
+    k3 = cuda_ms(lambda: EK.encode_frame(X, ins, tabs, 160), 20)
+    k3p = cuda_ms(lambda: EK.encode_frame_plain(X, ins, tabs, 160), 1)
+    fe = cuda_ms(lambda: EK._front_end(pcm, state, tabs, 160), 10)
+    out = EK.encode_frame(X, ins, tabs, 160)
+    itab = const(("k3_itab", int(tabs.mode.Fs), tabs.lm),
+                 lambda: tabs.kernel_tables()[0], dev)
+    ftab = const(("k3_ftab", int(tabs.mode.Fs), tabs.lm),
+                 lambda: tabs.kernel_tables()[1], dev)
+    # bytes: X, the 2nb+1 float and 7+2nb int inputs, the tables; the
+    # payload, 2nb+1 float and 8 int outputs.  Operations: this run's
+    # pulse-search score evaluations (6 f32 operations each) and the wrap
+    # taps (2 per tap, 8 taps per coefficient)
+    nb = tabs.nb
+    k3_bytes = nbytes_of(X, itab, ftab, out["payload"]) \
+        + B_MAIN * 4 * ((2 * nb + 1) * 2 + (7 + 2 * nb) + 8)
+    evals = float(out["search_evals"].sum().item())
+    k3_bound = bound(k3_bytes, 6.0 * evals + 16.0 * tabs.nx_rows * B_MAIN)
+    enc = EK.KernelCeltEncoder(B_MAIN, device=dev)
+    enc_step = cuda_ms(lambda: enc.encode_device(pcm), 10)
+    dec = CK.KernelCeltDecoder(B_MAIN, device=dev, max_payload=160)
+    lens = torch.full((B_MAIN,), 160, dtype=torch.int64, device=dev)
+    duplex = cuda_ms(lambda: dec.decode_packed(enc.encode_device(pcm)[0],
+                                               lens), 10)
+    print(f"times at B={B_MAIN} [{smi}]: K3 {k3:.4f} ms/frame, plain "
+          f"{k3p:.2f} ms; front end {fe:.3f} ms; encode step "
+          f"{enc_step:.3f} ms/frame -> {B_MAIN * 20.0 / enc_step:.0f} "
+          f"realtime encode streams; duplex step {duplex:.3f} ms/frame -> "
+          f"{B_MAIN * 20.0 / duplex:.0f} realtime duplex streams; K3 pulse "
+          f"search {evals / B_MAIN:.0f} score evaluations per stream")
+    t.update(k3=k3, k3p=k3p, k3_bound=k3_bound, front=fe, enc_step=enc_step,
+             duplex=duplex)
+    return t
+
+
+def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
 
 
 def main() -> int:
@@ -308,9 +553,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if not os.path.exists(FIXTURE):
-        print(f"chip_smoke: missing {FIXTURE}", file=sys.stderr)
-        return 1
+    for path in (FIXTURE, ENC_FIXTURE):
+        if not os.path.exists(path):
+            print(f"chip_smoke: missing {path}", file=sys.stderr)
+            return 1
     sys.path.insert(0, REPO)
     from opus_tpu_torch import cuda_build
     from opus_tpu_torch.models import celt_dec_kernel as CK
@@ -324,7 +570,7 @@ def main() -> int:
     cuda_build.library()
     print(f"build: {time.time() - t0:.1f} s ({cuda_build.library_path().name})")
     for line in cuda_build.ptxas_log.splitlines():
-        if "Used" in line or "stack frame" in line:
+        if "Compiling" in line or "Used" in line or "stack frame" in line:
             print("ptxas:", line.strip())
 
     tabs = CK.dec_tabs(48000, 960)
@@ -336,22 +582,32 @@ def main() -> int:
         lanes, dev, tabs)
     print(f"kernel vs plain: {time.time() - t0:.1f} s")
     pcm_err, counts = phase_end_to_end(lanes, stream, fx, dev, plain_outs)
-    k1, k1p, k2, k2p, step = phase_times(lanes, dev, tabs, k2_in, smi)
+
+    efx = dict(np.load(ENC_FIXTURE))
+    enc_lanes = make_enc_lanes(efx, np.random.default_rng(21))
+    t0 = time.time()
+    k3_err = phase_k3_vs_plain(enc_lanes, dev)
+    print(f"K3 vs plain: {time.time() - t0:.1f} s")
+    dcounts = phase_duplex(enc_lanes, efx, dev)
+
+    t = phase_times(lanes, dev, tabs, k2_in, smi)
+    t = phase_enc_times(enc_lanes, dev, smi, t)
 
     kernels = {"kernels": [
-        dict(name="celt_dec_frame", route="cuda",
-             source="opus_tpu_torch/csrc/celt_dec_frame.cu",
-             replaces="opus_tpu/models/celt_dec_kernel.py:656",
-             launches=counts["K1"], max_abs_err=x_err, ms=k1,
-             plain_ms=k1p),
-        dict(name="deemphasis", route="cuda",
-             source="opus_tpu_torch/csrc/deemphasis.cu",
-             replaces="opus_tpu/ops/iir_pallas.py:47",
-             launches=counts["K2"], max_abs_err=k2_err, ms=k2,
-             plain_ms=k2p),
+        kernel_line("celt_dec_frame", "opus_tpu_torch/csrc/celt_dec_frame.cu",
+                    "opus_tpu/models/celt_dec_kernel.py:656", counts["K1"],
+                    x_err, t["k1"], t["k1p"], t["k1_bound"]),
+        kernel_line("deemphasis", "opus_tpu_torch/csrc/deemphasis.cu",
+                    "opus_tpu/ops/iir_pallas.py:47", counts["K2"], k2_err,
+                    t["k2"], t["k2p"], t["k2_bound"]),
+        kernel_line("celt_enc_frame", "opus_tpu_torch/csrc/celt_enc_frame.cu",
+                    "opus_tpu/models/celt_enc_kernel.py:798", dcounts["K3"],
+                    k3_err, t["k3"], t["k3p"], t["k3_bound"]),
     ]}
-    print(f"decode step {step:.4f} ms/frame; PCM max err vs scalar "
-          f"{pcm_err:.3g}; K1 energies max err {e_err:.3g}")
+    print(f"decode step {t['dec_step']:.4f} ms/frame; encode step "
+          f"{t['enc_step']:.4f} ms/frame; duplex step {t['duplex']:.4f} "
+          f"ms/frame; PCM max err vs scalar {pcm_err:.3g}; K1 energies max "
+          f"err {e_err:.3g}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,17 +2,21 @@
 
 Layout mirrors ``opus_tpu`` so each counterpart is easy to find:
 
-- ``opus_tpu_torch.ops``     — the [B]-lane range decoder, MDCT bases and the
-  de-emphasis IIR (plain torch + CUDA kernel K2).
+- ``opus_tpu_torch.celt``    — the port's own copies of the CELT mode
+  tables (``modes``, ``tables``, ``cwrs``).
+- ``opus_tpu_torch.ops``     — the [B]-lane range decoder and encoder, the
+  MDCT bases and the de-emphasis IIR (plain torch + CUDA kernel K2).
 - ``opus_tpu_torch.models``  — the mono CELT decode symbol pass (plain torch
-  twin of kernel K1 + its CUDA wrapper) and the synthesis ``decode_step``.
+  twin of kernel K1 + its CUDA wrapper), the synthesis ``decode_step``,
+  the encoder's analysis front end and encode symbol pass (plain torch
+  twin of kernel K3 + its CUDA wrapper).
 - ``opus_tpu_torch.csrc``    — the hand-written CUDA sources for sm_90a,
   built at first use by ``opus_tpu_torch.cuda_build``.
-- ``opus_tpu_torch.convert`` — carries decoder state and tables across from
-  the JAX package.
+- ``opus_tpu_torch.convert`` — carries encoder and decoder state and tables
+  across from the JAX package.
 
-The package imports torch and numpy, plus the jax-free numpy modules
-``opus_tpu.celt.{modes,tables,cwrs}``; it never imports jax.
+The package imports torch and numpy only: nothing of jax and nothing of
+the JAX package ``opus_tpu``.
 """
 
 import torch

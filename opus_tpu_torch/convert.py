@@ -1,7 +1,8 @@
-"""Carries decoder state and tables across from the JAX package.
+"""Carries codec state and tables across from the JAX package.
 
 A codec has no weights: what both sides must share to compute the same
-thing are the static mode tables and the per-stream decoder state.
+thing are the static mode tables and the per-stream encoder and decoder
+state.
 
 - ``state_from_jax``: the JAX decoder state (``fused_celt_init_state`` /
   ``kernel_celt_decode_to_pcm`` dict, numpy leaves, per-band lists of [B]
@@ -10,6 +11,10 @@ thing are the static mode tables and the per-stream decoder state.
   leaves (``dsp`` as a dict; ``DecState(**dsp)`` rebuilds the JAX tuple).
 - ``tabs_from_jax``: builds the port's ``DecTabs`` and checks every table
   against the JAX package's ``DecTabs``.
+- ``enc_state_from_jax`` / ``enc_state_to_numpy``: the same for the
+  encoder state (``fused_celt_enc_init`` layout).
+- ``enc_tabs_from_jax``: builds the port's encoder ``ETabs`` and checks the
+  encoder tables and wrap matrices against the JAX package's ``ETabs``.
 """
 
 from __future__ import annotations
@@ -69,4 +74,62 @@ def tabs_from_jax(jax_tabs) -> DecTabs:
     for name in ("eBands", "width", "allocV"):
         if not np.array_equal(getattr(tabs, name), getattr(jax_tabs, name)):
             raise ValueError(f"DecTabs.{name} differs from the JAX twin")
+    return tabs
+
+
+# ---- encoder ----
+_ENC_BAND_KEYS = ("old_band_e", "old_log_e", "old_log_e2", "energy_error")
+_ENC_INT_KEYS = ("consec_transient", "last_coded_bands", "tonal_average",
+                 "hf_average", "tapset_decision", "spread_decision")
+_ENC_F32_KEYS = ("mem", "hist", "overlap_max", "spec_avg", "delayed_intra")
+
+
+def enc_state_from_jax(np_state: dict, device="cpu") -> dict:
+    """JAX encoder state (``fused_celt_enc_init`` layout, numpy leaves,
+    per-band lists of [B] lanes) -> the port's state dict ([B, nb]
+    tensors for the per-band entries)."""
+    def t(v, dtype):
+        return torch.as_tensor(np.array(v), device=device).to(dtype)
+
+    out = {k: t(np.stack([np.asarray(e) for e in np_state[k]], axis=1),
+                torch.float32) for k in _ENC_BAND_KEYS}
+    out.update({k: t(np_state[k], torch.int64) for k in _ENC_INT_KEYS})
+    out.update({k: t(np_state[k], torch.float32) for k in _ENC_F32_KEYS})
+    return out
+
+
+def enc_state_to_numpy(state: dict) -> dict:
+    """The port's encoder state -> the JAX layout, numpy leaves."""
+    def n(v):
+        return v.detach().cpu().numpy()
+
+    out = {k: [n(state[k][:, i]) for i in range(state[k].shape[1])]
+           for k in _ENC_BAND_KEYS}
+    out.update({k: n(state[k]).astype(np.int32) for k in _ENC_INT_KEYS})
+    out.update({k: n(state[k]).astype(np.float32) for k in _ENC_F32_KEYS})
+    return out
+
+
+def enc_tabs_from_jax(jax_tabs):
+    """The port's ETabs for the JAX package's ``celt_enc_kernel.ETabs``,
+    with the encoder tables (``jax_tabs.enc``: the MDCT bases, band map
+    and mask, noise floor) and the input-side wrap matrices checked equal
+    to the JAX twin's."""
+    from .models.celt_enc_kernel import ETabs
+
+    mode = jax_tabs.mode
+    tabs = ETabs(int(mode.Fs), mode.shortMdctSize << jax_tabs.lm)
+    enc = jax_tabs.enc
+    for name in ("basis_l", "basis_s", "band_map", "band_mask"):
+        if not np.array_equal(getattr(tabs, name), getattr(enc, name)):
+            raise ValueError(f"EncTabs.{name} differs from the JAX twin")
+    if list(tabs.noise_floor) != list(enc.noise_floor):
+        raise ValueError("EncTabs.noise_floor differs from the JAX twin")
+    if tabs.ewmat_off != jax_tabs.ewmat_off:
+        raise ValueError("ETabs.ewmat_off differs from the JAX twin")
+    if not np.array_equal(tabs.ewmats, jax_tabs.ewmats):
+        raise ValueError("ETabs.ewmats differs from the JAX twin")
+    for name in ("band_n", "band_base", "nx_rows"):
+        if getattr(tabs, name) != getattr(jax_tabs, name):
+            raise ValueError(f"ETabs.{name} differs from the JAX twin")
     return tabs

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes.
 
 ``opus_tpu_torch/csrc/*.cu`` (and only those sources) are compiled by
-``nvcc`` for sm_90a into one shared library with a plain C interface,
+``nvcc`` for sm_90a (one process per source, all started together) and
+linked into one shared library with a plain C interface,
 ``.torch_build/libopus_tpu_torch.so`` at the repository root.  The file
 name carries a hash of the sources, so an edit rebuilds and a fresh
 checkout builds on its first call.  A failed build raises with nvcc's
@@ -21,7 +22,8 @@ PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / ".torch_build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+         "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lib = None
 ptxas_log = ""            # nvcc's resource report (registers, stack, spills)
@@ -44,25 +46,42 @@ def library_path() -> Path:
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join(FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libopus_tpu_torch.{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the sources if no library of their hash exists yet."""
+    """Compile the sources if no library of their hash exists yet: one
+    ``nvcc -c`` per source, all started together, then one link."""
     global ptxas_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources())]
+    stem = out.with_suffix(f".{os.getpid()}")
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources():
+        obj = Path(f"{stem}.{src.stem}.o")
+        cmd = [nvcc, *FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = [proc.communicate()[1] for _c, _o, proc in jobs]
+    for (cmd, _obj, proc), err in zip(jobs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{err}")
+    tmp = Path(f"{stem}.tmp")
+    cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp),
+           *(str(obj) for _c, obj, _p in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stderr}")
+    for _c, obj, _p in jobs:
+        obj.unlink()
     os.replace(tmp, out)
-    ptxas_log = proc.stderr
+    ptxas_log = "".join(logs)
     return out
 
 
@@ -75,6 +94,9 @@ def library() -> ctypes.CDLL:
         lib.opus_celt_dec_frame_launch.argtypes = [
             vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
         lib.opus_celt_dec_frame_launch.restype = ci
+        lib.opus_celt_enc_frame_launch.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.opus_celt_enc_frame_launch.restype = ci
         lib.opus_deemphasis_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ctypes.c_float, vp]
         lib.opus_deemphasis_launch.restype = ci

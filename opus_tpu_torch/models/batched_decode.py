@@ -18,8 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from opus_tpu.celt.modes import mode_create
-from opus_tpu.celt.tables import E_MEANS
+from ..celt.modes import mode_create
+from ..celt.tables import E_MEANS
 from ..ops.device_cache import const
 from ..ops.iir import deemphasis
 from ..ops.mdct import _backward_basis, _window

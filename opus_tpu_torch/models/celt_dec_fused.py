@@ -25,9 +25,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from opus_tpu.celt import cwrs
-from opus_tpu.celt.modes import mode_create, get_pulses
-from opus_tpu.celt.tables import E_PROB_MODEL
+from ..celt import cwrs
+from ..celt.modes import mode_create, get_pulses
+from ..celt.tables import E_PROB_MODEL
 from ..ops import rc_kernel as K
 from ..ops.device_cache import const
 from ..ops.rc_kernel import M32, ilog
@@ -264,6 +264,13 @@ def _v_row(n: int, cap: int) -> tuple:
     return tuple(min(cwrs.pvq_v(n, k), _U32_SAT) for k in range(cap + 1))
 
 
+def _cwrs_table(fn, rows: int, cols: int) -> np.ndarray:
+    """[rows, cols] int64: fn(n, k) (``cwrs.pvq_u`` or ``pvq_v``) at
+    [k, n], saturated at 2**32-1, for the kernels' CWRS tables."""
+    return np.array([[min(fn(n, k), _U32_SAT) for n in range(cols)]
+                     for k in range(rows)], np.int64)
+
+
 class DecTabs:
     """Static per-(fs, frame_size) tables of the decoder: a numpy copy of
     ``opus_tpu.models.celt_dec_fused.DecTabs`` (whose module imports jax),
@@ -326,10 +333,7 @@ class DecTabs:
                 rows.extend(r)
                 pos += len(r)
         ucols = int(self.width.max())             # largest band / node n
-        u = np.zeros((_MAX_K + 2, ucols + 1), np.uint64)
-        for k in range(_MAX_K + 2):
-            for n in range(ucols + 1):
-                u[k, n] = min(cwrs.pvq_u(n, k), _U32_SAT)
+        u = _cwrs_table(cwrs.pvq_u, _MAX_K + 2, ucols + 1)
         parts = [
             ("eBands", np.asarray(self.eBands, np.int64)),
             ("logN", np.asarray(self.logN, np.int64)),
@@ -338,7 +342,7 @@ class DecTabs:
             ("eprob", np.asarray(self.e_prob, np.int64).reshape(-1)),
             ("rowoff", np.asarray(row_off, np.int64)),
             ("rows", np.asarray(rows, np.int64)),
-            ("u", u.reshape(-1).astype(np.int64)),
+            ("u", u.reshape(-1)),
         ]
         header = [nb, lm, nv, _MAX_K + 2, ucols + 1]
         hdr_len = len(header) + len(parts)

@@ -19,7 +19,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from opus_tpu.celt.tables import COMB_GAINS, COMBFILTER_MINPERIOD
+from ..celt.tables import COMB_GAINS, COMBFILTER_MINPERIOD
 from ..ops.device_cache import const
 from ..ops.rc_kernel import M32, ilog
 from .celt_dec_fused import DecTabs, fused_celt_decode_frame, \
@@ -166,13 +166,16 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
 
 class KernelCeltDecoder:
     """Packets-in -> PCM-out mono CELT decoder at 10/20 ms: kernel K1 for
-    the symbol pass and K2 for de-emphasis when ``device`` is CUDA, their
-    plain torch versions on the CPU."""
+    the symbol pass and K2 for de-emphasis on the card (the default
+    device), their plain torch versions when ``device="cpu"``."""
 
     def __init__(self, batch: int, fs: int = 48000, frame_size: int = 960,
-                 max_payload: int = 384, device="cpu"):
+                 max_payload: int = 384, device="cuda"):
         self.batch = batch
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("KernelCeltDecoder: no CUDA device (pass "
+                               "device='cpu' for the plain versions)")
         self.tabs = dec_tabs(fs, frame_size)
         self.P = max_payload
         self.state = fused_celt_init_state(batch, self.tabs, self.device)

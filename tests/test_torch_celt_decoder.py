@@ -62,7 +62,7 @@ def _chain():
     finally:
         np_shim.uninstall(saved)
 
-    dec = KernelCeltDecoder(2, max_payload=cap)
+    dec = KernelCeltDecoder(2, max_payload=cap, device="cpu")
     port_pcm, port_rng, port_err = [], [], []
     for i, f in enumerate(frames):
         if i == HANDOFF:
@@ -94,7 +94,7 @@ def _check_matches_scalar(chain):
 def _check_continues_from_jax_state(chain):
     """Frames [HANDOFF, NFRAMES) on the port from the JAX decoder's state:
     the same final ranges as the scalar decoder, PCM within 1e-4."""
-    dec = KernelCeltDecoder(2, max_payload=chain["cap"])
+    dec = KernelCeltDecoder(2, max_payload=chain["cap"], device="cpu")
     dec.state = state_from_jax(chain["jax_state_mid"])
     for i in range(HANDOFF, NFRAMES):
         f = chain["frames"][i]
@@ -107,7 +107,7 @@ def _check_continues_from_jax_state(chain):
 def _check_state_roundtrip_bit_identical(chain):
     """Port state -> JAX layout (numpy) -> port continues bit-identically
     to the uninterrupted run."""
-    dec = KernelCeltDecoder(2, max_payload=chain["cap"])
+    dec = KernelCeltDecoder(2, max_payload=chain["cap"], device="cpu")
     dec.state = state_from_jax(chain["port_state_mid"])
     for i in range(HANDOFF, NFRAMES):
         f = chain["frames"][i]

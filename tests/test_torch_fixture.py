@@ -20,7 +20,7 @@ def test_torch_decoder_fixture_final_ranges():
     fx = np.load(FIXTURE)
     frames, lens = fx["frames"], fx["lens"]
     ns, nf, p = frames.shape
-    dec = KernelCeltDecoder(ns, max_payload=p)
+    dec = KernelCeltDecoder(ns, max_payload=p, device="cpu")
     for f in range(nf):
         pcm, err = dec.decode_packed(torch.from_numpy(frames[:, f]),
                                      torch.from_numpy(lens[:, f]))
@@ -48,3 +48,12 @@ def test_torch_wrappers_take_no_other_device():
                      torch.zeros((2, 21), device=meta),
                      torch.zeros((2, 21), device=meta),
                      torch.zeros(2, dtype=torch.int64, device=meta))
+    from opus_tpu_torch.models.celt_enc_kernel import encode_frame
+    ins = {k: torch.zeros(2, dtype=torch.int64, device=meta)
+           for k in ("silence", "is_transient", "tf_select", "spread_calc",
+                     "trim_calc", "prev_cb", "consec_transient")}
+    ins.update({k: torch.zeros((2, 21), device=meta)
+                for k in ("tf_res", "offsets_cnt", "ble_b", "old_e")})
+    ins["delayed_intra"] = torch.zeros(2, device=meta)
+    with pytest.raises(ValueError):
+        encode_frame(torch.zeros((2, 800), device=meta), ins)

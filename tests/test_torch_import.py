@@ -1,11 +1,15 @@
-"""The port (opus_tpu_torch) never imports jax, not even transitively.
+"""The port (opus_tpu_torch) imports nothing of the JAX package and never
+jax itself, not even transitively.
 
-Checked in a fresh interpreter, because tests/conftest.py imports jax
-into this one."""
+Checked in a fresh interpreter, because tests/conftest.py imports jax and
+opus_tpu into this one.  The probe imports every module of the port and
+chip_smoke.py."""
 
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -17,8 +21,10 @@ names = ["opus_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print(len(names), "modules;", "jax modules:", bad)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "opus_tpu") or m.startswith(("jax.",
+                                                          "opus_tpu.")))
+print(len(names), "modules;", "forbidden modules:", bad)
 sys.exit(1 if bad else 0)
 """
 
@@ -30,15 +36,52 @@ def test_torch_port_imports_no_jax():
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "jax modules: []" in proc.stdout
+    assert "forbidden modules: []" in proc.stdout
 
 
-def test_torch_numpy_tables_import_no_jax():
-    """The jax-free numpy modules of opus_tpu that the port imports."""
-    probe = ("import sys\n"
-             "import opus_tpu.celt.modes, opus_tpu.celt.tables, "
-             "opus_tpu.celt.cwrs, opus_tpu.bitstream.range_coder\n"
-             "sys.exit(1 if 'jax' in sys.modules else 0)\n")
-    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+def _same(a, b):
+    if isinstance(a, (int, float, str)) or a is None:
+        return a == b
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and not isinstance(a[0], (int, float)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_torch_table_copies_equal_jax_originals():
+    """Every table in the port's copies of opus_tpu/celt/{tables,cwrs,
+    modes}.py equals the original; _INV_TABLE comes from
+    opus_tpu/celt/encoder.py."""
+    import opus_tpu.celt.cwrs as jc
+    import opus_tpu.celt.encoder as jenc
+    import opus_tpu.celt.modes as jm
+    import opus_tpu.celt.tables as jt
+    import opus_tpu_torch.celt.cwrs as pc
+    import opus_tpu_torch.celt.modes as pm
+    import opus_tpu_torch.celt.tables as pt
+
+    names = [k for k, v in vars(jt).items()
+             if k.isupper() and not callable(v)]
+    assert names
+    for k in names:
+        assert _same(getattr(pt, k), getattr(jt, k)), k
+    assert pt._INV_TABLE == jenc._INV_TABLE
+    for k, v in vars(jc).items():
+        if k.isupper() and not callable(v):
+            assert _same(getattr(pc, k), v), k
+    for n in range(1, 40):
+        for k in range(0, 40):
+            assert pc.pvq_u(n, k) == jc.pvq_u(n, k)
+            assert pc.pvq_v(n, k) == jc.pvq_v(n, k)
+    for frame in (120, 240, 480, 960):
+        a, b = pm.mode_create(48000, frame), jm.mode_create(48000, frame)
+        for f in ("Fs", "overlap", "nbEBands", "effEBands", "shortMdctSize",
+                  "nbShortMdcts", "nbAllocVectors", "maxLM"):
+            assert getattr(a, f) == getattr(b, f), f
+        for f in ("eBands", "logN", "allocVectors", "window", "preemph"):
+            assert _same(getattr(a, f), getattr(b, f)), f
+        for f in ("size", "index", "bits", "caps"):
+            assert _same(getattr(a.cache, f), getattr(b.cache, f)), f
+    for i in range(40):
+        assert pm.get_pulses(i) == jm.get_pulses(i)

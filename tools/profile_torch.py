@@ -1,0 +1,144 @@
+"""Where the port's 20 ms encode, decode or duplex step spends its time on
+the card.
+
+Runs one path of opus_tpu_torch on CUDA over B streams tiled from the
+committed fixtures, under torch.profiler, and prints the device time by
+kernel, the number of device launches per step and the device's busy
+share of the step's wall time:
+
+- ``decode``: KernelCeltDecoder on the fixture's packets
+  (tests/data/torch_celt20ms_64k.npz);
+- ``encode``: KernelCeltEncoder on the encoder fixture's PCM
+  (tests/data/torch_celt20ms_64k_enc.npz), plus the wall time per step of
+  its stages (front end, K3, state carry), each timed alone with the
+  card synchronised around it;
+- ``duplex``: the encoder's packets straight into the decoder.
+
+Run from the repository root on a machine with a card:
+    python3 tools/profile_torch.py [--path encode] [--batch 4096] [--steps 8]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from opus_tpu_torch.models import celt_enc_kernel as EK  # noqa: E402
+from opus_tpu_torch.models.celt_dec_kernel import KernelCeltDecoder  # noqa
+
+
+def _fixture(name):
+    return np.load(os.path.join(REPO, "tests", "data", name))
+
+
+def _steps(args, dev):
+    """(step callables, one per profiled step)."""
+    lane = np.arange(args.batch)
+    if args.path == "decode":
+        fx = _fixture("torch_celt20ms_64k.npz")
+        ns, nf, p = fx["frames"].shape
+        bufs = [(torch.from_numpy(fx["frames"][lane % ns, f % nf]).to(dev),
+                 torch.from_numpy(fx["lens"][lane % ns, f % nf]).to(dev))
+                for f in range(args.steps + 1)]
+        dec = KernelCeltDecoder(args.batch, device=dev, max_payload=p)
+        return [lambda b=b: dec.decode_packed(*b) for b in bufs]
+    pcm = _fixture("torch_celt20ms_64k_enc.npz")["pcm"]
+    ns, nf, _n = pcm.shape
+    frames = [torch.from_numpy(pcm[lane % ns, f % nf]).to(dev)
+              for f in range(args.steps + 1)]
+    enc = EK.KernelCeltEncoder(args.batch, device=dev)
+    if args.path == "encode":
+        return [lambda x=x: enc.encode_device(x) for x in frames]
+    dec = KernelCeltDecoder(args.batch, device=dev, max_payload=enc.nbytes)
+    lens = torch.full((args.batch,), enc.nbytes, dtype=torch.int64,
+                      device=dev)
+    return [lambda x=x: dec.decode_packed(enc.encode_device(x)[0], lens)
+            for x in frames]
+
+
+def _encode_stages(args, dev) -> str:
+    """Wall ms per step of the encoder's front end, K3 and state carry,
+    each synchronised alone, averaged over the steps."""
+    pcm = _fixture("torch_celt20ms_64k_enc.npz")["pcm"]
+    ns, nf, _n = pcm.shape
+    lane = np.arange(args.batch)
+    tabs = EK.enc_tabs()
+    enc = EK.KernelCeltEncoder(args.batch, device=dev)
+    tot = dict(front=0.0, k3=0.0, carry=0.0)
+    for f in range(args.steps + 1):
+        x = torch.from_numpy(pcm[lane % ns, f % nf]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ins, X, front = EK._front_end(x, enc.state, tabs, enc.nbytes)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = EK.encode_frame(X, ins, tabs, enc.nbytes)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enc.state = EK._assemble_state(enc.state, front, out)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if f:                                          # step 0 warms up
+            tot["front"] += t1 - t0
+            tot["k3"] += t2 - t1
+            tot["carry"] += t3 - t2
+    return ", ".join(f"{k} {v * 1e3 / args.steps:.3f}" for k, v in
+                     tot.items())
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("decode", "encode", "duplex"),
+                    default="decode")
+    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    steps = _steps(args, dev)
+    steps[0]()                                       # build + warm up
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for step in steps[1:]:
+            step()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    ka = prof.key_averages()
+    rows = []
+    for e in ka:
+        dt = getattr(e, "device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
+            rows.append((dt, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    launches = sum(r[1] for r in rows)
+    print(f"{args.path} B={args.batch} steps={args.steps}: wall "
+          f"{wall * 1e3:.3f} ms, {wall * 1e3 / args.steps:.3f} ms/step; "
+          f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% of "
+          f"wall); {launches / args.steps:.0f} device launches/step")
+    for dt, cnt, key in rows[:15]:
+        print(f"  {dt / 1e3 / args.steps:9.4f} ms/step {cnt // args.steps:6d}"
+              f"x  {key[:90]}")
+    if args.path == "encode":
+        print(f"encode stages, wall ms/step (unprofiled): "
+              f"{_encode_stages(args, dev)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
