@@ -21,7 +21,15 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    lanes and SNR against the JAX twin's, stored in
    ``tests/data/torch_celt20ms_64k_enc.npz``;
 6. times K1, K2, K3, their plain versions, the encoder front end and the
-   encode, decode and duplex steps with CUDA events.
+   encode, decode and duplex steps with CUDA events;
+7. SILK (``FusedSilkDecoder``, packets -> int16 PCM, wideband 20 ms,
+   24 kb/s) over 4096 streams plus 32 garbage/truncated ones from
+   ``tests/data/torch_silk16k_24k.npz``: the fixed-point helpers
+   (``ops/silk_fixed.py``) on the card against the CPU; kernel K4 (the
+   LPC synthesis) against its plain version on every subframe of the plain
+   chain and on extreme inputs at sf 40/60/80; the decoder end to end with
+   the launch counter reset, against the scalar decoder's PCM and final
+   ranges; CUDA event times of K4, the SILK step and its symbol pass.
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is the result JSON; any failed check
@@ -40,6 +48,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_celt20ms_64k.npz")
 ENC_FIXTURE = os.path.join(REPO, "tests", "data",
                            "torch_celt20ms_64k_enc.npz")
+SILK_FIXTURE = os.path.join(REPO, "tests", "data", "torch_silk16k_24k.npz")
 B_MAIN = 4096            # fixture streams tiled over the main batch
 N_BAD = 32               # garbage and truncated lanes appended
 NFRAMES = 8
@@ -71,6 +80,11 @@ K3_F_TOL = 3e-5
 # memory rate and float32 rate outside the tensor cores, for bound_ms.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+# int32 operations: 64 INT32 lanes per SM against 128 FP32 lanes (Hopper
+# SM), so at most half the f32 rate
+PEAK_I32_S = PEAK_F32_S / 2
+# SILK is integer end to end: K4, the plain chain and the scalar decoder
+# must agree exactly (no tolerance).
 
 
 def fail(msg: str) -> None:
@@ -444,11 +458,11 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def bound(nbytes: int, flops: float) -> tuple:
+def bound(nbytes: int, flops: float, peak_ops: float = PEAK_F32_S) -> tuple:
     """(bound_ms, bound_by): the least time the card could take, the larger
-    of the bytes over the memory rate and the operations over the f32
-    rate."""
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    of the bytes over the memory rate and the operations over their peak
+    rate (f32 unless given)."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak_ops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -540,6 +554,248 @@ def phase_enc_times(enc_lanes, dev, smi, t):
     return t
 
 
+def phase_silk_fixed(dev):
+    """Every helper of ops/silk_fixed.py on ~64 k seeded int32 inputs plus
+    boundary values, on the card and on the CPU: identical outputs."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.ops import silk_fixed as F
+
+    rng = np.random.default_rng(30)
+    edges = np.asarray([0, 1, -1, 32767, -32767, -32768, 65535, 65536,
+                        -2 ** 31, 2 ** 31 - 1, 1 << 30, -(1 << 30)], np.int64)
+    n = 1 << 16
+    a = np.concatenate([np.repeat(edges, len(edges)),
+                        rng.integers(-2 ** 31, 2 ** 31, n)])
+    m = len(a)
+    b = np.concatenate([np.tile(edges, len(edges)),
+                        rng.integers(-2 ** 31, 2 ** 31, n)])
+    b[::97] = 0                                   # zero divisors
+    b16 = np.clip(b, -32768, 32767)
+    sh = np.concatenate([[0, 31, 32, 33, 40, -1], rng.integers(-2, 41,
+                                                               m - 6)])
+    s64 = np.concatenate([[1, 31, 32, 63], rng.integers(1, 64, m - 4)])
+    q = rng.integers(0, 70, m)
+    lg = np.concatenate([np.arange(-200, 4200), a[:m - 4400]])
+    cases = {
+        "w32": lambda t: F.w32(t["a"] * t["b"]),
+        "shl32": lambda t: F.shl32(t["a"], t["sh"]),
+        "smulwb": lambda t: F.smulwb(t["a"], t["b16"]),
+        "smulwb_any_b": lambda t: F.smulwb(t["a"], t["b"]),
+        "smulww": lambda t: F.smulww(t["a"], t["b"]),
+        "smmul": lambda t: F.smmul(t["a"], t["b"]),
+        "sat16": lambda t: F.sat16(t["a"]),
+        "sat32": lambda t: F.sat32((t["a"] * t["b"]) >> 8),
+        "add_sat32": lambda t: F.add_sat32(t["a"], t["b"]),
+        "lshift_sat32": lambda t: torch.stack(
+            [F.lshift_sat32(t["a"], k) for k in (0, 4, 31)]),
+        "lshift_sat32_dyn": lambda t: F.lshift_sat32_dyn(t["a"], t["sh"]),
+        "rshift_round": lambda t: torch.stack(
+            [F.rshift_round(t["a"], k) for k in (1, 8, 12, 31)]),
+        "rshift_round64": lambda t: F.rshift_round64(t["a"] * t["b"],
+                                                     t["s64"]),
+        "rshift_round64_checked": lambda t: torch.stack([
+            x.to(torch.int64) for x in
+            F.rshift_round64_checked(t["a"] * t["b"], t["s64"])]),
+        "clz32": lambda t: F.clz32(t["a"]),
+        "div32": lambda t: F.div32(t["a"], t["b"]),
+        "inverse32_varq": lambda t: torch.stack(
+            [F.inverse32_varq(t["b"], 47), F.inverse32_varq(t["b"], t["q"])]),
+        "div32_varq": lambda t: F.div32_varq(t["a"], t["b"], 16),
+        "log2lin": lambda t: F.log2lin(t["lg"]),
+    }
+    arrays = dict(a=a, b=b, b16=b16, sh=sh, s64=s64, q=q, lg=lg)
+    cpu = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    for name, fn in cases.items():
+        want = fn(cpu)
+        got = fn(card).cpu()
+        if not torch.equal(got, want):
+            bad = (got != want).reshape(-1).nonzero()[:5, 0].tolist()
+            fail(f"silk_fixed.{name}: card != CPU at flat indices {bad}")
+    print(f"silk_fixed: {len(cases)} helpers on {m} inputs (boundary values, "
+          f"shift counts 0/31/32+, zero divisors) identical on the card and "
+          f"the CPU")
+
+
+def phase_silk_k4_vs_plain(lanes, dev):
+    """The SILK chain over NFRAMES frames with the plain LPC, state carried;
+    K4 on every subframe's (slpc, res, a_rev) must give the plain v and
+    state.  Returns the plain chain's per-frame outputs, the first frame's
+    LPC inputs (for timing), the coverage counts and the max error."""
+    import torch
+    from opus_tpu_torch.models import batched_silk as BS
+    from opus_tpu_torch.models import fused_silk_dec as PF
+    from opus_tpu_torch.ops import lpc
+
+    b = lanes[0][0].shape[0]
+    state = PF.fused_init_state(b, 16, dev)
+    first_inputs = []
+    n_sub = [0]
+    max_err = [0]
+
+    def plain_and_k4(slpc, res, a_rev, order_half):
+        v, s = lpc.lpc_subframe_plain(slpc, res, a_rev, order_half)
+        vk, sk = lpc.lpc_subframe(slpc, res, a_rev, order_half)
+        torch.cuda.synchronize()
+        if not (torch.equal(vk, v) and torch.equal(sk, s)):
+            bad = ((vk != v).any(1) | (sk != s).any(1)).nonzero()[:5, 0]
+            fail(f"K4 vs plain: subframe {n_sub[0]} differs at lanes "
+                 f"{bad.tolist()}")
+        max_err[0] = max(max_err[0], int((vk.long() - v.long()).abs().max()),
+                         int((sk.long() - s.long()).abs().max()))
+        if len(first_inputs) < 4:
+            first_inputs.append((slpc.clone(), res.clone(), a_rev.clone(),
+                                 order_half))
+        n_sub[0] += 1
+        return v, s
+
+    cov = dict(voiced=0, interp=0, lbrr=0)
+    frame_syms = []
+    orig_sym = PF._frame_symbols
+
+    def spy_sym(*args):
+        # the frame's last call is its regular frame (an LBRR one precedes)
+        d, error, syms = orig_sym(*args)
+        frame_syms.append(syms)
+        return d, error, syms
+
+    orig_lbrr = PF._parse_frame_symbols
+
+    def spy_lbrr(d, ctx, active, *args):
+        cov["lbrr"] += int(active[:B_MAIN].sum())
+        return orig_lbrr(d, ctx, active, *args)
+
+    outs = []
+    saved = BS.lpc_subframe
+    BS.lpc_subframe = plain_and_k4
+    PF._frame_symbols = spy_sym
+    PF._parse_frame_symbols = spy_lbrr
+    try:
+        for f, (buf, ln) in enumerate(lanes):
+            buf_t = torch.from_numpy(buf).to(dev)
+            ln_t = torch.from_numpy(ln).to(dev)
+            first = state["first_frame"].clone()
+            xq, state, error, d = PF.fused_silk_decode(
+                buf_t, ln_t, state, return_rc=True)
+            syms = frame_syms[-1]
+            cov["voiced"] += int((syms["signal_type"] == 2)[:B_MAIN].sum())
+            cov["interp"] += int(((syms["interp_q2"] < 4)
+                                  & ~first)[:B_MAIN].sum())
+            outs.append(dict(xq=xq, err=error, rng=d["rng"]))
+            print(f"SILK frame {f}: K4 == plain on all {b} lanes of its "
+                  f"subframes; plain chain flags {int(error.sum())} lanes")
+    finally:
+        BS.lpc_subframe = saved
+        PF._frame_symbols = orig_sym
+        PF._parse_frame_symbols = orig_lbrr
+    if n_sub[0] != 4 * len(lanes):
+        fail(f"K4 vs plain: {n_sub[0]} subframes, expected {4 * len(lanes)}")
+
+    # extreme inputs: saturating residuals and states, every subframe length
+    import numpy as np
+    rng = np.random.default_rng(31)
+    for sf in (40, 60, 80):
+        res = torch.from_numpy(rng.choice(np.array(
+            [2 ** 31 - 1, -2 ** 31, 0, 12345, -1], np.int64),
+            size=(B_MAIN, sf))).to(dev)
+        a_rev = torch.from_numpy(rng.integers(-32768, 32768,
+                                              (B_MAIN, 16))).to(dev)
+        slpc = torch.from_numpy(rng.choice(np.array(
+            [2 ** 31 - 1, -2 ** 31, 2 ** 30, -2 ** 30, 7], np.int64),
+            size=(B_MAIN, 16))).to(dev)
+        for oh in (5, 8):
+            v, s = lpc.lpc_subframe(slpc, res, a_rev, oh)
+            vp, sp = lpc.lpc_subframe_plain(slpc, res, a_rev, oh)
+            torch.cuda.synchronize()
+            if not (torch.equal(v, vp) and torch.equal(s, sp)):
+                fail(f"K4 vs plain: extreme inputs at sf {sf} differ")
+    print(f"K4 vs plain: identical v and state on {n_sub[0]} subframes x "
+          f"{b} lanes and on saturating inputs at sf 40/60/80")
+    return outs, first_inputs, cov, max_err[0]
+
+
+def phase_silk_end_to_end(lanes, stream, sfx, dev, plain_outs):
+    """FusedSilkDecoder as a user drives it, the K4 counter reset around
+    the run: PCM and final range against the scalar decoder on the fixture
+    lanes, and everything against the plain chain on every lane."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models import fused_silk_dec as PF
+    from opus_tpu_torch.ops import lpc
+
+    b, p = lanes[0][0].shape
+    bufs = [(torch.from_numpy(bu).to(dev), torch.from_numpy(ln).to(dev))
+            for bu, ln in lanes]
+    dec = PF.FusedSilkDecoder(b, device=dev, max_payload=p)
+    outs = []
+    torch.cuda.synchronize()
+    lpc.launches = 0
+    for buf, ln in bufs:
+        xq, err = dec.decode_packed(buf, ln)
+        outs.append((xq, err, dec.final_range))
+    torch.cuda.synchronize()
+    count = lpc.launches
+    print(f"SILK launch counter over {NFRAMES} frames: K4 {count}")
+    if count != 4 * NFRAMES:
+        fail(f"expected 4 launches of K4 per frame, got {count}")
+    for f, (xq, err, rng) in enumerate(outs):
+        ref = plain_outs[f]
+        if not torch.equal(xq.to(torch.int64), ref["xq"]) \
+                or not torch.equal(err, ref["err"]) \
+                or not torch.equal(rng, ref["rng"]):
+            fail(f"SILK frame {f}: the decoder differs from the plain chain")
+        xq, err, rng = (x.cpu().numpy() for x in (xq, err, rng))
+        if err[:B_MAIN].any():
+            fail(f"SILK frame {f}: {int(err[:B_MAIN].sum())} fixture lanes "
+                 f"flagged")
+        if not np.array_equal(xq[:B_MAIN], sfx["xq"][stream, f]):
+            bad = np.nonzero((xq[:B_MAIN] != sfx["xq"][stream, f])
+                             .any(axis=1))[0][:5]
+            fail(f"SILK frame {f}: PCM != scalar decoder at lanes {bad}")
+        if not np.array_equal(rng[:B_MAIN], sfx["final_range"][stream, f]):
+            fail(f"SILK frame {f}: final range != scalar decoder")
+    print(f"SILK: all {B_MAIN} x {NFRAMES} fixture lane-frames bit-exact with "
+          f"the scalar decoder (int16 PCM and final range); no fixture lane "
+          f"flagged; garbage lanes == the plain chain (PCM, flags, range; "
+          f"{int(outs[-1][1][B_MAIN:].sum())} flagged in the last frame)")
+    return count
+
+
+def phase_silk_times(lanes, dev, smi, k4_in, t):
+    """K4 and its plain version on a main-path subframe, the SILK step and
+    the symbol pass alone, at B_MAIN with CUDA events."""
+    import torch
+    from opus_tpu_torch.models import fused_silk_dec as PF
+    from opus_tpu_torch.ops import lpc
+
+    slpc, res, a_rev = (x[:B_MAIN].to(torch.int32).contiguous()
+                        for x in k4_in[0][:3])
+    oh = k4_in[0][3]
+    k4 = cuda_ms(lambda: lpc.lpc_subframe(slpc, res, a_rev, oh), 50)
+    k4p = cuda_ms(lambda: lpc.lpc_subframe_plain(slpc, res, a_rev, oh), 3)
+    sf = res.shape[1]
+    # bytes: res, a_rev and slpc read, v and the new slpc written (int32);
+    # operations per sample: 16 products, 16 shifts, 16 adds, and ~6 for
+    # the saturating shift and add, at the int32 rate
+    k4_bound = bound(B_MAIN * (2 * sf + 3 * 16) * 4, B_MAIN * sf * 54.0,
+                     PEAK_I32_S)
+    buf = torch.from_numpy(lanes[0][0][:B_MAIN]).to(dev)
+    ln = torch.from_numpy(lanes[0][1][:B_MAIN]).to(dev)
+    dec = PF.FusedSilkDecoder(B_MAIN, device=dev, max_payload=buf.shape[1])
+    step = cuda_ms(lambda: dec.decode_packed(buf, ln), 3)
+    st = PF.fused_init_state(B_MAIN, 16, dev)
+    sym = cuda_ms(lambda: PF.silk_symbols(buf, ln, st), 3)
+    print(f"SILK times at B={B_MAIN} [{smi}]: K4 {k4:.5f} ms/launch (sf "
+          f"{sf}), plain {k4p:.3f} ms, bound {k4_bound[0]:.6f} ms "
+          f"({k4_bound[1]}); SILK step {step:.3f} ms/frame -> "
+          f"{B_MAIN * 20.0 / step:.0f} realtime SILK streams; symbol pass "
+          f"alone {sym:.3f} ms")
+    t.update(k4=k4, k4p=k4p, k4_bound=k4_bound, silk_step=step,
+             silk_sym=sym)
+    return t
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -553,7 +809,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    for path in (FIXTURE, ENC_FIXTURE):
+    for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -590,8 +846,18 @@ def main() -> int:
     print(f"K3 vs plain: {time.time() - t0:.1f} s")
     dcounts = phase_duplex(enc_lanes, efx, dev)
 
+    sfx = dict(np.load(SILK_FIXTURE))
+    slanes, sstream = make_lanes(sfx, np.random.default_rng(22))
+    phase_silk_fixed(dev)
+    t0 = time.time()
+    splain, k4_in, scov, k4_err = phase_silk_k4_vs_plain(slanes, dev)
+    print(f"SILK plain chain with K4 vs plain: {time.time() - t0:.1f} s; "
+          f"coverage (lane-frames of {B_MAIN * NFRAMES}): {scov}")
+    k4_count = phase_silk_end_to_end(slanes, sstream, sfx, dev, splain)
+
     t = phase_times(lanes, dev, tabs, k2_in, smi)
     t = phase_enc_times(enc_lanes, dev, smi, t)
+    t = phase_silk_times(slanes, dev, smi, k4_in, t)
 
     kernels = {"kernels": [
         kernel_line("celt_dec_frame", "opus_tpu_torch/csrc/celt_dec_frame.cu",
@@ -603,11 +869,15 @@ def main() -> int:
         kernel_line("celt_enc_frame", "opus_tpu_torch/csrc/celt_enc_frame.cu",
                     "opus_tpu/models/celt_enc_kernel.py:798", dcounts["K3"],
                     k3_err, t["k3"], t["k3p"], t["k3_bound"]),
+        kernel_line("silk_lpc", "opus_tpu_torch/csrc/silk_lpc.cu",
+                    "opus_tpu/ops/lpc_pallas.py:67", k4_count, k4_err,
+                    t["k4"], t["k4p"], t["k4_bound"]),
     ]}
     print(f"decode step {t['dec_step']:.4f} ms/frame; encode step "
           f"{t['enc_step']:.4f} ms/frame; duplex step {t['duplex']:.4f} "
-          f"ms/frame; PCM max err vs scalar {pcm_err:.3g}; K1 energies max "
-          f"err {e_err:.3g}")
+          f"ms/frame; SILK step {t['silk_step']:.4f} ms/frame (symbol pass "
+          f"{t['silk_sym']:.4f}); PCM max err vs scalar {pcm_err:.3g}; K1 "
+          f"energies max err {e_err:.3g}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

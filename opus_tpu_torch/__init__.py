@@ -4,12 +4,17 @@ Layout mirrors ``opus_tpu`` so each counterpart is easy to find:
 
 - ``opus_tpu_torch.celt``    — the port's own copies of the CELT mode
   tables (``modes``, ``tables``, ``cwrs``).
+- ``opus_tpu_torch.silk``    — the port's own copies of the SILK tables
+  (``tables``, ``tables_data``).
 - ``opus_tpu_torch.ops``     — the [B]-lane range decoder and encoder, the
-  MDCT bases and the de-emphasis IIR (plain torch + CUDA kernel K2).
+  MDCT bases, the de-emphasis IIR (plain torch + CUDA kernel K2), the
+  SILK fixed-point macros and the SILK LPC synthesis (plain torch + CUDA
+  kernel K4).
 - ``opus_tpu_torch.models``  — the mono CELT decode symbol pass (plain torch
   twin of kernel K1 + its CUDA wrapper), the synthesis ``decode_step``,
   the encoder's analysis front end and encode symbol pass (plain torch
-  twin of kernel K3 + its CUDA wrapper).
+  twin of kernel K3 + its CUDA wrapper), the SILK decoder (symbol pass,
+  NLSF -> LPC and decode_core).
 - ``opus_tpu_torch.csrc``    — the hand-written CUDA sources for sm_90a,
   built at first use by ``opus_tpu_torch.cuda_build``.
 - ``opus_tpu_torch.convert`` — carries encoder and decoder state and tables

@@ -15,6 +15,11 @@ state.
   encoder state (``fused_celt_enc_init`` layout).
 - ``enc_tabs_from_jax``: builds the port's encoder ``ETabs`` and checks the
   encoder tables and wrap matrices against the JAX package's ``ETabs``.
+- ``silk_state_from_jax`` / ``silk_state_to_numpy``: the SILK decoder
+  state (``FusedSilkState`` / ``SilkState`` with numpy leaves) to and from
+  the port's dict.
+- ``silk_tabs_from_jax``: builds the port's SILK ``_SilkTabs`` and checks
+  every table against the JAX package's.
 """
 
 from __future__ import annotations
@@ -132,4 +137,72 @@ def enc_tabs_from_jax(jax_tabs):
     for name in ("band_n", "band_base", "nx_rows"):
         if getattr(tabs, name) != getattr(jax_tabs, name):
             raise ValueError(f"ETabs.{name} differs from the JAX twin")
+    return tabs
+
+
+# ---- SILK decoder ----
+_SILK_KEYS = ("prev_nlsf", "last_gain_index", "prev_gain_q16",
+              "first_frame")
+_SYNTH_KEYS = ("slpc", "out_buf")
+
+
+def _leaves(st, keys):
+    return {k: np.asarray(st[k] if isinstance(st, dict) else getattr(st, k))
+            for k in keys}
+
+
+def silk_state_from_jax(np_state, device="cpu") -> dict:
+    """A JAX ``FusedSilkState`` (or its synthesis part, a ``SilkState``)
+    with numpy leaves -> the port's state dict (int64 tensors, first_frame
+    bool; the synthesis fields under ``synth``, or the ``SilkState``'s own
+    two fields)."""
+    def t(v):
+        v = np.array(v, np.bool_ if v.dtype == np.bool_ else np.int64)
+        return torch.from_numpy(v).to(device)
+
+    synth = np_state.get("synth") if isinstance(np_state, dict) \
+        else getattr(np_state, "synth", None)
+    if synth is None:                                   # a SilkState
+        return {k: t(v) for k, v in _leaves(np_state, _SYNTH_KEYS).items()}
+    out = {k: t(v) for k, v in _leaves(np_state, _SILK_KEYS).items()}
+    out["synth"] = {k: t(v) for k, v in _leaves(synth,
+                                                _SYNTH_KEYS).items()}
+    return out
+
+
+def silk_state_to_numpy(state: dict) -> dict:
+    """The port's SILK state (fused or synthesis-only) -> the JAX layout
+    with numpy leaves: int32, first_frame bool; ``FusedSilkState(**d)``
+    and ``SilkState(**d["synth"])`` rebuild the JAX tuples."""
+    def n(v):
+        v = v.detach().cpu().numpy()
+        return v if v.dtype == np.bool_ else v.astype(np.int32)
+
+    if "synth" not in state:
+        return {k: n(state[k]) for k in _SYNTH_KEYS}
+    out = {k: n(state[k]) for k in _SILK_KEYS}
+    out["synth"] = {k: n(state["synth"][k]) for k in _SYNTH_KEYS}
+    return out
+
+
+def silk_tabs_from_jax(jax_tabs):
+    """The port's ``_SilkTabs`` for the JAX package's
+    ``fused_silk_dec._SilkTabs`` (same fs_khz and nb_subfr), with every
+    table array and scalar checked equal to the JAX twin's."""
+    from .models.fused_silk_dec import _SilkTabs
+
+    tabs = _SilkTabs(jax_tabs.fs_khz, jax_tabs.nb_subfr)
+    for name, ref in vars(jax_tabs).items():
+        got = getattr(tabs, name)
+        if name == "cb":                              # NLSFCodebook fields
+            same = vars(got) == vars(ref)
+        elif name == "shell":
+            same = len(got) == len(ref) and all(
+                np.array_equal(g, r) for g, r in zip(got, ref))
+        elif isinstance(ref, np.ndarray):
+            same = np.array_equal(got, ref) and got.dtype == ref.dtype
+        else:
+            same = got == ref
+        if not same:
+            raise ValueError(f"_SilkTabs.{name} differs from the JAX twin")
     return tabs

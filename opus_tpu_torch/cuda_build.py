@@ -100,6 +100,9 @@ def library() -> ctypes.CDLL:
         lib.opus_deemphasis_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ctypes.c_float, vp]
         lib.opus_deemphasis_launch.restype = ci
+        lib.opus_silk_lpc_launch.argtypes = [
+            vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.opus_silk_lpc_launch.restype = ci
         lib.opus_cuda_error_string.argtypes = [ci]
         lib.opus_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

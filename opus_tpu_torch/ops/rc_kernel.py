@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device_cache import const
+
 SYM_BITS = 8
 CODE_BITS = 32
 SYM_MAX = (1 << SYM_BITS) - 1
@@ -67,29 +69,40 @@ def _read_byte_from_end(buf, storage, end_offs):
 
 
 def _normalize(d: dict, buf, storage) -> dict:
-    # rng grows >= 8 bits per step and a symbol consumes < 24 bits, so 3
-    # masked steps always suffice (entdec.c ec_dec_normalize)
+    """ec_dec_normalize (entdec.c): read bytes while rng <= CODE_BOT.  A
+    symbol leaves rng >= 1, so at most 3; the count n and the new state
+    are computed at once.  Each byte b shifts val left 8 and adds
+    255 - (((prev & 1) << 7) | (b >> 1)) (prev the byte before it), all
+    masked to 31 bits; reads at or past ``storage`` give 0."""
     d = dict(d)
-    offs, nbt, rng, val, rem = (d["offs"], d["nbits_total"], d["rng"],
-                                d["val"], d["rem"])
-    for _ in range(3):
-        need = rng <= CODE_BOT
-        byte, offs1 = _read_byte(buf, storage, offs)
-        sym = ((rem << SYM_BITS) | byte) >> (SYM_BITS - CODE_EXTRA)
-        val1 = ((val << SYM_BITS) + (SYM_MAX & ~sym)) & (CODE_TOP - 1)
-        offs = torch.where(need, offs1, offs)
-        nbt = torch.where(need, nbt + SYM_BITS, nbt)
-        rng = torch.where(need, (rng << SYM_BITS) & M32, rng)
-        val = torch.where(need, val1, val)
-        rem = torch.where(need, byte, rem)
-    d.update(offs=offs, nbits_total=nbt, rng=rng, val=val, rem=rem)
+    rng, offs = d["rng"], d["offs"]
+    dev = rng.device
+    n = 3 - torch.bucketize(rng, const("rk_norm_bounds", lambda: np.asarray(
+        [CODE_BOT >> 16, CODE_BOT >> 8, CODE_BOT], np.int64), dev))
+    pos = offs[:, None] + const("rk_ar3", lambda: np.arange(3), dev)
+    b3 = buf.gather(1, pos.clamp(0, buf.shape[1] - 1)).to(torch.int64)
+    b3 = torch.where(pos < storage[:, None], b3, 0)
+    prev = torch.cat([d["rem"][:, None], b3[:, :2]], dim=1)
+    c = SYM_MAX - (((prev & 1) << 7) | (b3 >> 1))
+    c3 = (c * const("rk_w3", lambda: np.asarray([1 << 16, 1 << 8, 1]),
+                    dev)).sum(dim=1)
+    sh = n << 3
+    d.update(
+        offs=offs + (storage - offs).clamp_min(0).minimum(n),
+        nbits_total=d["nbits_total"] + sh,
+        rng=(rng << sh) & M32,
+        val=((d["val"] << sh) | (c3 >> (24 - sh))) & (CODE_TOP - 1),
+        rem=torch.where(n > 0, b3.gather(1, (n - 1).clamp_min(0)[:, None])
+                        [:, 0], d["rem"]))
     return d
 
 
 def _masked(d_new: dict, d_old: dict, active):
     if active is None:
         return d_new
-    return {k: torch.where(active, d_new[k], d_old[k]) for k in d_new}
+    # fields the op left untouched are kept as they are (no select)
+    return {k: v if v is d_old[k] else torch.where(active, v, d_old[k])
+            for k, v in d_new.items()}
 
 
 def _lanes(v, like):
@@ -172,7 +185,11 @@ def rk_dec_bit_logp(d: dict, buf, storage, logp, active=None):
 
 
 def rk_dec_icdf(d: dict, buf, storage, icdf, ftb: int, active=None):
-    """icdf: python tuple of ints (descending).  Returns (symbol, state)."""
+    """icdf: python tuple of ints (descending), or an int64 tensor table,
+    [T] shared or [B, T] one row per lane (rows zero-padded at the end).
+    Returns (symbol, state)."""
+    if torch.is_tensor(icdf):
+        return _dec_icdf_table(d, buf, storage, icdf, ftb, active)
     icdf = tuple(int(v) for v in icdf)
     r = d["rng"] >> ftb
     dv = d["val"]
@@ -187,6 +204,27 @@ def rk_dec_icdf(d: dict, buf, storage, icdf, ftb: int, active=None):
         s = torch.where(ret == idx, r * tv, s)
         if idx > 0:
             t = torch.where(ret == idx, r * icdf[idx - 1], t)
+    new = dict(d)
+    new["val"] = (dv - s) & M32
+    new["rng"] = (t - s) & M32
+    new = _normalize(new, buf, storage)
+    new = _masked(new, d, active)
+    if active is not None:
+        ret = torch.where(active, ret, 0)
+    return ret, new
+
+
+def _dec_icdf_table(d: dict, buf, storage, tab, ftb: int, active):
+    """rk_dec_icdf for a tensor table: the threshold count and gather of
+    ``opus_tpu/ops/range_vec.py:rd_dec_icdf``."""
+    tab = tab if tab.dim() == 2 else tab[None, :]
+    last = tab.shape[1] - 1
+    rng, dv = d["rng"], d["val"]
+    s_all = (rng >> ftb)[:, None] * tab                    # [B, T]
+    ret = (dv[:, None] < s_all).sum(dim=1)
+    s = s_all.gather(1, ret.clamp_max(last)[:, None])[:, 0]
+    t = torch.where(ret > 0, s_all.gather(
+        1, (ret - 1).clamp(0, last)[:, None])[:, 0], rng)
     new = dict(d)
     new["val"] = (dv - s) & M32
     new["rng"] = (t - s) & M32

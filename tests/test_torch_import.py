@@ -51,8 +51,8 @@ def _same(a, b):
 
 def test_torch_table_copies_equal_jax_originals():
     """Every table in the port's copies of opus_tpu/celt/{tables,cwrs,
-    modes}.py equals the original; _INV_TABLE comes from
-    opus_tpu/celt/encoder.py."""
+    modes}.py and opus_tpu/silk/{tables,tables_data}.py equals the
+    original; _INV_TABLE comes from opus_tpu/celt/encoder.py."""
     import opus_tpu.celt.cwrs as jc
     import opus_tpu.celt.encoder as jenc
     import opus_tpu.celt.modes as jm
@@ -85,3 +85,19 @@ def test_torch_table_copies_equal_jax_originals():
             assert _same(getattr(a.cache, f), getattr(b.cache, f)), f
     for i in range(40):
         assert pm.get_pulses(i) == jm.get_pulses(i)
+
+    import opus_tpu.silk.tables as jst
+    import opus_tpu.silk.tables_data as jsd
+    import opus_tpu_torch.silk.tables as pst
+    import opus_tpu_torch.silk.tables_data as psd
+    for jmod, pmod in ((jsd, psd), (jst, pst)):
+        names = [k for k, v in vars(jmod).items()
+                 if k.isupper() and not callable(v)
+                 and not isinstance(v, type(jmod))]      # not `T`
+        assert names
+        for k in names:
+            v = getattr(jmod, k)
+            if hasattr(v, "__dataclass_fields__"):      # NLSF codebooks
+                assert vars(getattr(pmod, k)) == vars(v), k
+            else:
+                assert _same(getattr(pmod, k), v), k

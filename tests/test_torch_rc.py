@@ -116,3 +116,56 @@ def test_torch_pack_words_matches_jax_layout():
     rng = np.random.default_rng(4)
     bufs = rng.integers(0, 256, (5, 37)).astype(np.uint8)
     assert np.array_equal(T.pack_words(bufs, 40), K.pack_words(bufs, 40))
+
+
+def _random_icdf(rng, width):
+    """A descending iCDF (ftb 8) of random length <= width, zero-padded."""
+    n = int(rng.integers(2, width + 1))
+    cuts = np.sort(rng.choice(np.arange(1, 256), n - 1, replace=False))
+    row = np.zeros(width, np.int64)
+    row[:n - 1] = cuts[::-1]
+    return row
+
+
+@pytest.mark.parametrize("seed", [1, 6])
+def test_torch_rc_icdf_tensor_tables_exact(seed):
+    """rk_dec_icdf with tensor tables, one row per lane ([B, T]) and shared
+    ([T]), masked, on truncated and full lanes: symbols and the final state
+    exact against the scalar coder (range_vec.rd_dec_icdf's threshold
+    count and gather)."""
+    rng = np.random.default_rng(seed)
+    B, S, STEPS, W = 40, 80, 48, 18
+    steps = []
+    for _ in range(STEPS):
+        shared = bool(rng.random() < 0.3)
+        rows = np.stack([_random_icdf(rng, W)] * B) if shared else \
+            np.stack([_random_icdf(rng, W) for _ in range(B)])
+        nsym = (rows > 0).sum(axis=1) + 1
+        vals = (rng.random(B) * nsym).astype(np.int64)
+        steps.append((shared, rows, vals, rng.random(B) < 0.8))
+    pencs = [RangeEncoder(S) for _ in range(B)]
+    for shared, rows, vals, act in steps:
+        for b in range(B):
+            if act[b]:
+                pencs[b].enc_icdf(int(vals[b]), tuple(rows[b].tolist()), 8)
+    for pe in pencs:
+        pe.done()
+    bufs = np.stack([np.frombuffer(bytes(pe.buf[:S]), np.uint8)
+                     for pe in pencs])
+    lens = np.where(np.arange(B) % 5 == 4, rng.integers(0, S, B), S)
+    buf, st = torch.from_numpy(bufs), torch.from_numpy(lens)
+    d = T.rk_init(buf, st)
+    pdecs = [RangeDecoder(bytes(bufs[b][:lens[b]])) for b in range(B)]
+    for t, (shared, rows, vals, act) in enumerate(steps):
+        tab = torch.from_numpy(rows[0] if shared else rows)
+        got, d = T.rk_dec_icdf(d, buf, st, tab, 8, torch.from_numpy(act))
+        ref = [pdecs[b].dec_icdf(tuple(rows[b].tolist()), 8) if act[b]
+               else 0 for b in range(B)]
+        assert got.tolist() == ref, f"step {t}"
+        full = lens == S
+        assert (got.numpy()[full & act] == vals[full & act]).all()
+    for b in range(B):
+        p = pdecs[b]
+        assert _state_tuple(d, b) == (p.rng, p.val, p.offs, p.nbits_total,
+                                      p.end_offs, p.end_window,
+                                      p.nend_bits, p.rem), f"lane {b}"

@@ -1,5 +1,5 @@
-"""Where the port's 20 ms encode, decode or duplex step spends its time on
-the card.
+"""Where the port's 20 ms encode, decode, duplex or SILK decode step spends
+its time on the card.
 
 Runs one path of opus_tpu_torch on CUDA over B streams tiled from the
 committed fixtures, under torch.profiler, and prints the device time by
@@ -12,10 +12,14 @@ share of the step's wall time:
   (tests/data/torch_celt20ms_64k_enc.npz), plus the wall time per step of
   its stages (front end, K3, state carry), each timed alone with the
   card synchronised around it;
-- ``duplex``: the encoder's packets straight into the decoder.
+- ``duplex``: the encoder's packets straight into the decoder;
+- ``silk``: FusedSilkDecoder (SILK wideband, 20 ms, 24 kb/s) on the SILK
+  fixture's packets (tests/data/torch_silk16k_24k.npz), plus the wall
+  time per step of its two stages (the symbol pass and decode_core with
+  kernel K4), each timed alone with the card synchronised around it.
 
 Run from the repository root on a machine with a card:
-    python3 tools/profile_torch.py [--path encode] [--batch 4096] [--steps 8]
+    python3 tools/profile_torch.py [--path silk] [--batch 4096] [--steps 8]
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ sys.path.insert(0, REPO)
 
 from opus_tpu_torch.models import celt_enc_kernel as EK  # noqa: E402
 from opus_tpu_torch.models.celt_dec_kernel import KernelCeltDecoder  # noqa
+from opus_tpu_torch.models import fused_silk_dec as SD  # noqa: E402
+from opus_tpu_torch.models.batched_silk import silk_decode_step  # noqa
 
 
 def _fixture(name):
@@ -42,6 +48,10 @@ def _fixture(name):
 def _steps(args, dev):
     """(step callables, one per profiled step)."""
     lane = np.arange(args.batch)
+    if args.path == "silk":
+        dec = SD.FusedSilkDecoder(args.batch, device=dev)
+        return [lambda b=b: dec.decode_packed(*b)
+                for b in _silk_frames(args, dev)]
     if args.path == "decode":
         fx = _fixture("torch_celt20ms_64k.npz")
         ns, nf, p = fx["frames"].shape
@@ -62,6 +72,39 @@ def _steps(args, dev):
                       device=dev)
     return [lambda x=x: dec.decode_packed(enc.encode_device(x)[0], lens)
             for x in frames]
+
+
+def _silk_frames(args, dev):
+    """(buf, lens) on the card per step, the SILK fixture's streams tiled
+    over the batch."""
+    fx = _fixture("torch_silk16k_24k.npz")
+    ns, nf, _p = fx["frames"].shape
+    lane = np.arange(args.batch)
+    return [(torch.from_numpy(fx["frames"][lane % ns, f % nf]).to(dev),
+             torch.from_numpy(fx["lens"][lane % ns, f % nf].astype(
+                 np.int64)).to(dev)) for f in range(args.steps + 1)]
+
+
+def _silk_stages(args, dev) -> str:
+    """Wall ms per step of the SILK symbol pass and of decode_core (with
+    K4), each synchronised alone, averaged over the steps."""
+    state = SD.fused_init_state(args.batch, 16, dev)
+    tot = dict(symbols=0.0, decode_core=0.0)
+    for f, (buf, ln) in enumerate(_silk_frames(args, dev)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_in, carry, err, _d = SD.silk_symbols(buf, ln, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _xq, synth = silk_decode_step(**step_in, state=state["synth"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state = dict(carry, first_frame=torch.zeros_like(err), synth=synth)
+        if f:                                          # step 0 warms up
+            tot["symbols"] += t1 - t0
+            tot["decode_core"] += t2 - t1
+    return ", ".join(f"{k} {v * 1e3 / args.steps:.3f}" for k, v in
+                     tot.items())
 
 
 def _encode_stages(args, dev) -> str:
@@ -96,7 +139,7 @@ def _encode_stages(args, dev) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("decode", "encode", "duplex"),
+    ap.add_argument("--path", choices=("decode", "encode", "duplex", "silk"),
                     default="decode")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=8)
@@ -137,6 +180,9 @@ def main() -> int:
     if args.path == "encode":
         print(f"encode stages, wall ms/step (unprofiled): "
               f"{_encode_stages(args, dev)}")
+    if args.path == "silk":
+        print(f"silk stages, wall ms/step (unprofiled): "
+              f"{_silk_stages(args, dev)}")
     return 0
 
 
