@@ -29,7 +29,20 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    LPC synthesis) against its plain version on every subframe of the plain
    chain and on extreme inputs at sf 40/60/80; the decoder end to end with
    the launch counter reset, against the scalar decoder's PCM and final
-   ranges; CUDA event times of K4, the SILK step and its symbol pass.
+   ranges; CUDA event times of K4, the SILK step and its symbol pass;
+8. hybrid (``FusedHybridDecoder``, packets -> 48 kHz PCM, SILK-WB plus
+   CELT bands 17-20, fullband 20 ms) over 4096 streams plus 32
+   garbage/truncated ones from ``tests/data/torch_hybrid_fb20ms.npz``:
+   kernel K1 at start band 17, continuing SILK's range decoder, against
+   its plain version frame by frame; the decoder end to end with the
+   launch counters reset (K1, K2 and K4), against the scalar decoder's
+   final ranges and PCM; CUDA event times of the hybrid step and of its
+   SILK, CELT and resampler parts;
+9. kernel K5, the op-cost microbenchmarks
+   (``opus_tpu_torch.tools.kbench_ops``): all 13 cases at the TPU's tile
+   (1024 lanes in one block) and the main path's geometry (4096 lanes in
+   64-thread blocks), each exactly equal to its plain version, the ns/op
+   table, and each case's signature instruction count in the SASS.
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is the result JSON; any failed check
@@ -49,6 +62,7 @@ FIXTURE = os.path.join(REPO, "tests", "data", "torch_celt20ms_64k.npz")
 ENC_FIXTURE = os.path.join(REPO, "tests", "data",
                            "torch_celt20ms_64k_enc.npz")
 SILK_FIXTURE = os.path.join(REPO, "tests", "data", "torch_silk16k_24k.npz")
+HYB_FIXTURE = os.path.join(REPO, "tests", "data", "torch_hybrid_fb20ms.npz")
 B_MAIN = 4096            # fixture streams tiled over the main batch
 N_BAD = 32               # garbage and truncated lanes appended
 NFRAMES = 8
@@ -471,7 +485,6 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
     from opus_tpu_torch.models import celt_dec_kernel as CK
     from opus_tpu_torch.models.celt_dec_fused import fused_celt_init_state
     from opus_tpu_torch.ops import iir
-    from opus_tpu_torch.ops.device_cache import const
 
     buf = torch.from_numpy(lanes[0][0][:B_MAIN]).to(dev)
     ln = torch.from_numpy(lanes[0][1][:B_MAIN]).to(dev)
@@ -481,8 +494,7 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
     k1 = cuda_ms(lambda: CK.decode_frame(*args), 20)
     k1p = cuda_ms(lambda: CK.decode_frame_plain(*args), 1)
     out = CK.decode_frame(*args)
-    tab = const(("k1_table", int(tabs.mode.Fs), tabs.lm), tabs.kernel_table,
-                dev)
+    tab = CK.k1_table(tabs, dev)
     # bytes: each input read once (packets, lens, energy memories, seeds,
     # table), each output written once (X, energies, 9 int lanes, gain);
     # operations: ~20 f32 operations per coefficient (rotation, haar,
@@ -796,6 +808,217 @@ def phase_silk_times(lanes, dev, smi, k4_in, t):
     return t
 
 
+def phase_hybrid_k1_vs_plain(lanes, dev, tabs):
+    """The hybrid chain over NFRAMES frames with the plain symbol pass,
+    state carried; per frame K1 (start 17, from the SILK half's coder) on
+    the same inputs must give the plain outputs.  Returns the plain
+    chain's per-frame outputs, frame 0's K1 inputs (for timing), the
+    coverage counts and the max X error."""
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models import fused_silk_dec as PF
+    from opus_tpu_torch.models import hybrid_dec_fused as PH
+
+    b = lanes[0][0].shape[0]
+    state = PH.hybrid_init_state(b, tabs, dev)
+    first_in = []
+    x_err = [0.0]
+    cov = dict(transient=0, anti_collapse=0, bands18_20_no_bits=0, voiced=0)
+    seen = {}
+
+    def plain_and_k1(*args):
+        ref = CK.decode_frame_plain(*args)
+        got = CK.decode_frame(*args)
+        torch.cuda.synchronize()
+        xe, _ee = compare_k1(got, ref, tabs)
+        x_err[0] = max(x_err[0], xe)
+        if not first_in:
+            first_in.append(args)
+        seen["ref"] = ref
+        return ref
+
+    orig_sym = PF._frame_symbols
+
+    def spy_sym(*args):
+        d, error, syms = orig_sym(*args)
+        seen["voiced"] = syms["signal_type"] == 2
+        return d, error, syms
+
+    outs = []
+    PF._frame_symbols = spy_sym
+    try:
+        for f, (buf, ln) in enumerate(lanes):
+            pcm, state, err = PH.fused_hybrid_decode(
+                torch.from_numpy(buf).to(dev), torch.from_numpy(ln).to(dev),
+                state, tabs, plain_and_k1)
+            ref = seen["ref"]
+            main = slice(0, B_MAIN)
+            cov["transient"] += int(ref["is_transient"][main].sum())
+            cov["anti_collapse"] += int(ref["anti_collapse_on"][main].sum())
+            cov["bands18_20_no_bits"] += int(
+                (ref["pulses"][main, 18:21] == 0).sum())
+            cov["voiced"] += int(seen["voiced"][main].sum())
+            outs.append(dict(pcm=pcm, err=err, rng=state["celt"]["seed"]))
+            print(f"hybrid frame {f}: K1 (start 17) == plain (ints exact, X "
+                  f"err within bound); plain chain flags {int(err.sum())} "
+                  f"lanes")
+    finally:
+        PF._frame_symbols = orig_sym
+    return outs, first_in[0], cov, x_err[0]
+
+
+def phase_hybrid_end_to_end(lanes, stream, hfx, dev, plain_outs):
+    """FusedHybridDecoder as a user drives it, the K1, K2 and K4 counters
+    reset around the run: final range and PCM against the scalar decoder on
+    the fixture lanes, flags and ranges against the plain chain on every
+    lane."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models import hybrid_dec_fused as PH
+    from opus_tpu_torch.ops import iir, lpc
+
+    b, p = lanes[0][0].shape
+    bufs = [(torch.from_numpy(bu).to(dev), torch.from_numpy(ln).to(dev))
+            for bu, ln in lanes]
+    dec = PH.FusedHybridDecoder(b, max_payload=p, device=dev)
+    outs = []
+    torch.cuda.synchronize()
+    CK.launches = iir.launches = lpc.launches = 0
+    for buf, ln in bufs:
+        pcm, err = dec.decode_packed(buf, ln)
+        outs.append((pcm, err, dec.final_range))
+    torch.cuda.synchronize()
+    counts = {"K1": CK.launches, "K2": iir.launches, "K4": lpc.launches}
+    print(f"hybrid launch counters over {NFRAMES} frames: {counts}")
+    if counts != {"K1": NFRAMES, "K2": NFRAMES, "K4": 4 * NFRAMES}:
+        fail(f"expected K1 = K2 = {NFRAMES} and K4 = {4 * NFRAMES}, got "
+             f"{counts}")
+    pcm_err = 0.0
+    for f, (pcm, err, rng) in enumerate(outs):
+        ref = plain_outs[f]
+        if not torch.equal(err, ref["err"]) or not torch.equal(rng,
+                                                               ref["rng"]):
+            fail(f"hybrid frame {f}: flags or final range differ from the "
+                 f"plain chain")
+        # garbage lanes reach large values: X differs from the plain
+        # version within X_REL_TOL of a band's maximum, so bound each lane
+        # relative to its own peak
+        scale = ref["pcm"].abs().amax(dim=1).clamp_min(1.0)
+        d = (pcm - ref["pcm"]).abs().amax(dim=1)
+        if not bool((d <= PCM_ABS_TOL * scale).all()):
+            fail(f"hybrid frame {f}: PCM differs from the plain chain by "
+                 f"{d.max().item()}")
+        pcm, err, rng = (x.cpu().numpy() for x in (pcm, err, rng))
+        if err[:B_MAIN].any():
+            fail(f"hybrid frame {f}: {int(err[:B_MAIN].sum())} fixture "
+                 f"lanes flagged")
+        if not np.array_equal(rng[:B_MAIN], hfx["final_range"][stream, f]):
+            bad = np.nonzero(rng[:B_MAIN] != hfx["final_range"][stream, f])
+            fail(f"hybrid frame {f}: final range != scalar decoder at "
+                 f"{bad[0][:5]}")
+        e = float(np.abs(pcm[:B_MAIN] - hfx["pcm"][stream, f]).max())
+        if not np.isfinite(pcm).all() or not e <= PCM_ABS_TOL:
+            fail(f"hybrid frame {f}: PCM err {e} vs scalar decoder")
+        pcm_err = max(pcm_err, e)
+    print(f"hybrid: all {B_MAIN} x {NFRAMES} fixture lane-frames at the "
+          f"scalar decoder's final range, PCM max err {pcm_err:.3g} (bound "
+          f"{PCM_ABS_TOL}); no fixture lane flagged; garbage lanes == the "
+          f"plain chain (flags, range; PCM within the bound; "
+          f"{int(outs[-1][1][B_MAIN:].sum())} flagged in the last frame)")
+    return pcm_err, counts
+
+
+def phase_hybrid_times(lanes, dev, smi, tabs, k1_in, t):
+    """K1 at start 17 and its plain version on frame 0's inputs, the hybrid
+    step and its SILK, CELT and resampler parts, at B_MAIN with CUDA
+    events."""
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models import fused_silk_dec as PF
+    from opus_tpu_torch.models import hybrid_dec_fused as PH
+    from opus_tpu_torch.silk.resampler import upsample_to_48k
+
+    main = slice(0, B_MAIN)
+    buf_k, ln_k, old_e, pm, seed, _tabs, d0 = k1_in
+    args = (buf_k[main], ln_k[main], old_e[main], pm[main], seed[main], tabs,
+            {k: v[main] for k, v in d0.items()})
+    k1 = cuda_ms(lambda: CK.decode_frame(*args), 20)
+    k1p = cuda_ms(lambda: CK.decode_frame_plain(*args), 1)
+    out = CK.decode_frame(*args)
+    tab = CK.k1_table(tabs, dev)
+    # bytes as for K1 at start 0 plus the 10 coder-state words per lane
+    k1_bytes = nbytes_of(args[0], old_e[main], pm[main], seed[main], tab,
+                         out["X"], out["energies"], out["pf_gain"]) \
+        + B_MAIN * 4 * (1 + 9 + 10)
+    k1_bound = bound(k1_bytes, 20.0 * tabs.M * 400 * B_MAIN)
+    buf = torch.from_numpy(lanes[0][0][main]).to(dev)
+    ln = torch.from_numpy(lanes[0][1][main]).to(dev)
+    dec = PH.FusedHybridDecoder(B_MAIN, max_payload=buf.shape[1], device=dev)
+    step = cuda_ms(lambda: dec.decode_packed(buf, ln), 3)
+    st = PH.hybrid_init_state(B_MAIN, tabs, dev)
+    silk = cuda_ms(lambda: PF.fused_silk_decode(buf, ln, st["silk"],
+                                                return_rc=True), 3)
+    celt = cuda_ms(lambda: CK.kernel_celt_decode_to_pcm(
+        *args[:2], st["celt"], tabs, d0=args[6]), 10)
+    xq = torch.zeros((B_MAIN, 320), dtype=torch.int64, device=dev)
+    rs = cuda_ms(lambda: upsample_to_48k(xq, st["rs"]), 3)
+    print(f"hybrid times at B={B_MAIN} [{smi}]: K1 (start 17) {k1:.4f} "
+          f"ms/frame, plain {k1p:.2f} ms, bound {k1_bound[0]:.6f} ms "
+          f"({k1_bound[1]}); hybrid step {step:.3f} ms/frame -> "
+          f"{B_MAIN * 20.0 / step:.0f} realtime hybrid streams; SILK part "
+          f"{silk:.3f} ms, CELT part (K1 + synthesis) {celt:.3f} ms, "
+          f"resampler {rs:.3f} ms")
+    t.update(k1h=k1, k1hp=k1p, k1h_bound=k1_bound, hyb_step=step,
+             hyb_silk=silk, hyb_celt=celt, hyb_rs=rs)
+    return t
+
+
+def phase_k5(dev, smi):
+    """Kernel K5's table through its entry point, the counter reset around
+    it: every case at both geometries == its plain version; the SASS holds
+    each case's chain.  Returns the kernels-line numbers."""
+    import torch
+    from opus_tpu_torch import cuda_build
+    from opus_tpu_torch.tools import kbench_ops as KB
+
+    torch.cuda.synchronize()
+    KB.launches = 0
+    rows = KB.table(device=dev)
+    torch.cuda.synchronize()
+    launches = KB.launches
+    print(f"K5 table [{smi}]: {KB.TRIPS} trips; ns per dependent op per "
+          f"thread, lane-ops/s as the TPU tool counts ops")
+    for r in rows:
+        if not r["equal"]:
+            fail(f"K5 {r['case']} at {r['lanes']} lanes differs from plain")
+        print(f"  K5 {r['case']:14s} {r['lanes']:5d} lanes/{r['threads']:4d} "
+              f"threads: {r['ms']:.5f} ms, {r['ns_per_op']:.4f} ns/op, "
+              f"{r['lane_ops_per_s']:.4g} lane-ops/s, plain "
+              f"{r['plain_ms']:.2f} ms")
+    sass = KB.sass_counts(cuda_build.library_path())
+    for case in KB.CASES:
+        n, want, top = sass.get(case, (0, 0, []))
+        print(f"  K5 SASS {case:14s} {n} signature instructions (chain "
+              f"needs >= {want}); most frequent: {top}")
+        if case not in sass or n < want:
+            fail(f"K5 {case}: {n} signature instructions in the SASS, "
+                 f"expected >= {want} (folded chain)")
+    main = [r for r in rows if r["lanes"] == B_MAIN]
+    ms = sum(r["ms"] for r in main)
+    plain_ms = sum(r["plain_ms"] for r in main)
+    # operations: every case's int32 ops at B_MAIN lanes, as the TPU tool
+    # counts them; bytes: x0, out and aux once each
+    ops = float(sum(B_MAIN * KB.ops_per_lane(r["case"]) for r in main))
+    nbytes = sum(B_MAIN * 8 + (64 if r["case"] == "dyn_read8" else 40 if
+                               r["case"] == "page_sweep40" else 0)
+                 * B_MAIN * 4 for r in main)
+    print(f"K5: {len(rows)} case runs exact; launches {launches}; the 13 "
+          f"cases at {B_MAIN} lanes take {ms:.4f} ms in all")
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms,
+                bound=bound(nbytes, ops, PEAK_I32_S))
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -809,7 +1032,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE):
+    for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -829,6 +1052,7 @@ def main() -> int:
         if "Compiling" in line or "Used" in line or "stack frame" in line:
             print("ptxas:", line.strip())
 
+    phase_s = {}
     tabs = CK.dec_tabs(48000, 960)
     fx = dict(np.load(FIXTURE))
     lanes, stream = make_lanes(fx, np.random.default_rng(20))
@@ -836,48 +1060,84 @@ def main() -> int:
     t0 = time.time()
     plain_outs, x_err, e_err, k2_err, k2_in = phase_kernel_vs_plain(
         lanes, dev, tabs)
-    print(f"kernel vs plain: {time.time() - t0:.1f} s")
     pcm_err, counts = phase_end_to_end(lanes, stream, fx, dev, plain_outs)
+    phase_s["celt_decode"] = time.time() - t0
 
+    t0 = time.time()
     efx = dict(np.load(ENC_FIXTURE))
     enc_lanes = make_enc_lanes(efx, np.random.default_rng(21))
-    t0 = time.time()
     k3_err = phase_k3_vs_plain(enc_lanes, dev)
-    print(f"K3 vs plain: {time.time() - t0:.1f} s")
     dcounts = phase_duplex(enc_lanes, efx, dev)
+    phase_s["celt_encode_duplex"] = time.time() - t0
 
+    t0 = time.time()
     sfx = dict(np.load(SILK_FIXTURE))
     slanes, sstream = make_lanes(sfx, np.random.default_rng(22))
     phase_silk_fixed(dev)
-    t0 = time.time()
     splain, k4_in, scov, k4_err = phase_silk_k4_vs_plain(slanes, dev)
-    print(f"SILK plain chain with K4 vs plain: {time.time() - t0:.1f} s; "
-          f"coverage (lane-frames of {B_MAIN * NFRAMES}): {scov}")
+    print(f"SILK coverage (lane-frames of {B_MAIN * NFRAMES}): {scov}")
     k4_count = phase_silk_end_to_end(slanes, sstream, sfx, dev, splain)
+    phase_s["silk"] = time.time() - t0
 
+    t0 = time.time()
+    htabs = CK.dec_tabs(48000, 960, 17, 21)
+    hfx = dict(np.load(HYB_FIXTURE))
+    hlanes, hstream = make_lanes(hfx, np.random.default_rng(23))
+    hplain, k1h_in, hcov, k1h_err = phase_hybrid_k1_vs_plain(hlanes, dev,
+                                                             htabs)
+    print(f"hybrid coverage (lane-frames of {B_MAIN * NFRAMES}; bands 18-20 "
+          f"with no bits are band-lane-frames, filled by folding or "
+          f"noise): {hcov}")
+    hpcm_err, hcounts = phase_hybrid_end_to_end(hlanes, hstream, hfx, dev,
+                                                hplain)
+    phase_s["hybrid"] = time.time() - t0
+
+    t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
     t = phase_enc_times(enc_lanes, dev, smi, t)
     t = phase_silk_times(slanes, dev, smi, k4_in, t)
+    t = phase_hybrid_times(hlanes, dev, smi, htabs, k1h_in, t)
+    phase_s["times"] = time.time() - t0
+
+    t0 = time.time()
+    k5 = phase_k5(dev, smi)
+    phase_s["k5"] = time.time() - t0
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in phase_s.items()))
+
+    # launches: each path's counters, reset just before it and read just
+    # after, summed over the paths that run the kernel
+    per_path = {"celt decode": counts, "duplex": dcounts,
+                "silk": {"K4": k4_count}, "hybrid": hcounts}
+    print(f"launches per path over {NFRAMES} frames: {per_path}")
+
+    def total(k):
+        return sum(c.get(k, 0) for c in per_path.values())
 
     kernels = {"kernels": [
         kernel_line("celt_dec_frame", "opus_tpu_torch/csrc/celt_dec_frame.cu",
-                    "opus_tpu/models/celt_dec_kernel.py:656", counts["K1"],
-                    x_err, t["k1"], t["k1p"], t["k1_bound"]),
+                    "opus_tpu/models/celt_dec_kernel.py:656", total("K1"),
+                    max(x_err, k1h_err), t["k1"], t["k1p"], t["k1_bound"]),
         kernel_line("deemphasis", "opus_tpu_torch/csrc/deemphasis.cu",
-                    "opus_tpu/ops/iir_pallas.py:47", counts["K2"], k2_err,
+                    "opus_tpu/ops/iir_pallas.py:47", total("K2"), k2_err,
                     t["k2"], t["k2p"], t["k2_bound"]),
         kernel_line("celt_enc_frame", "opus_tpu_torch/csrc/celt_enc_frame.cu",
-                    "opus_tpu/models/celt_enc_kernel.py:798", dcounts["K3"],
+                    "opus_tpu/models/celt_enc_kernel.py:798", total("K3"),
                     k3_err, t["k3"], t["k3p"], t["k3_bound"]),
         kernel_line("silk_lpc", "opus_tpu_torch/csrc/silk_lpc.cu",
-                    "opus_tpu/ops/lpc_pallas.py:67", k4_count, k4_err,
+                    "opus_tpu/ops/lpc_pallas.py:67", total("K4"), k4_err,
                     t["k4"], t["k4p"], t["k4_bound"]),
+        kernel_line("kbench_ops", "opus_tpu_torch/csrc/kbench_ops.cu",
+                    "tools/kbench_ops.py:35", k5["launches"], 0.0, k5["ms"],
+                    k5["plain_ms"], k5["bound"]),
     ]}
     print(f"decode step {t['dec_step']:.4f} ms/frame; encode step "
           f"{t['enc_step']:.4f} ms/frame; duplex step {t['duplex']:.4f} "
           f"ms/frame; SILK step {t['silk_step']:.4f} ms/frame (symbol pass "
-          f"{t['silk_sym']:.4f}); PCM max err vs scalar {pcm_err:.3g}; K1 "
-          f"energies max err {e_err:.3g}")
+          f"{t['silk_sym']:.4f}); hybrid step {t['hyb_step']:.4f} ms/frame "
+          f"(K1 at start 17 {t['k1h']:.4f}); PCM max err vs scalar "
+          f"{pcm_err:.3g} (CELT), {hpcm_err:.3g} (hybrid); K1 energies max "
+          f"err {e_err:.3g}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,11 @@ state.
   the port's dict.
 - ``silk_tabs_from_jax``: builds the port's SILK ``_SilkTabs`` and checks
   every table against the JAX package's.
+- ``hybrid_state_from_jax`` / ``hybrid_state_to_numpy``: the hybrid
+  decoder's state (the JAX ``hybrid_init_state`` dict: ``silk``, ``celt``
+  and the upsampler's ``rs``) to and from the port's dict, which also
+  holds ``smid``, SILK's mono 2-sample output buffer that the JAX layout
+  lacks (zeros when coming from JAX, an extra key going back).
 """
 
 from __future__ import annotations
@@ -206,3 +211,34 @@ def silk_tabs_from_jax(jax_tabs):
         if not same:
             raise ValueError(f"_SilkTabs.{name} differs from the JAX twin")
     return tabs
+
+
+# ---- hybrid decoder ----
+_RS_KEYS = ("s_iir", "s_fir", "delay")
+
+
+def hybrid_state_from_jax(np_state: dict, device="cpu") -> dict:
+    """The JAX hybrid state (numpy leaves; ``rs`` an ``UpsamplerState`` or
+    dict) -> the port's dict; ``smid`` starts at zeros unless given."""
+    rs = _leaves(np_state["rs"], _RS_KEYS)
+    b = rs["s_iir"].shape[0]
+    smid = np.asarray(np_state.get("smid", np.zeros((b, 2))), np.int64)
+    return dict(
+        silk=silk_state_from_jax(np_state["silk"], device),
+        celt=state_from_jax(np_state["celt"], device),
+        rs={k: torch.from_numpy(v.astype(np.int64)).to(device)
+            for k, v in rs.items()},
+        smid=torch.from_numpy(smid).to(device))
+
+
+def hybrid_state_to_numpy(state: dict) -> dict:
+    """The port's hybrid state -> the JAX layout with numpy leaves
+    (``UpsamplerState(**d["rs"])`` rebuilds the JAX tuple) plus
+    ``smid`` as int32, which the JAX decoder does not read."""
+    def n(v):
+        return v.detach().cpu().numpy().astype(np.int32)
+
+    return dict(silk=silk_state_to_numpy(state["silk"]),
+                celt=state_to_numpy(state["celt"]),
+                rs={k: n(state["rs"][k]) for k in _RS_KEYS},
+                smid=n(state["smid"]))

@@ -1,5 +1,8 @@
 // Kernel K1: the mono CELT decode symbol pass for one 10/20 ms frame,
-// one thread per stream.
+// one thread per stream, over the coded bands [start, end): start 0 for a
+// CELT-only frame, 17 for the CELT half of a hybrid frame, which
+// continues the range decoder that SILK leaves behind (the optional
+// per-lane initial coder state; src/opus_decoder.c:432).
 //
 // Replaces the Pallas TPU kernel opus_tpu/models/celt_dec_kernel.py
 // (_frame_kernel, launched by build_frame_fn).  What is kept is the
@@ -72,7 +75,7 @@ __constant__ float BETA_COEF[4] = {30147 / 32768.f, 22282 / 32768.f,
 
 // ---------------------------------------------------------------- tables
 struct Tabs {
-    int nb, lm, nv, urows, ucols;
+    int nb, lm, nv, urows, ucols, start, end;
     const int32_t *eBands, *logN, *caps, *allocV, *eprob, *rowoff, *rows;
     const uint32_t *u;
 };
@@ -84,14 +87,16 @@ __device__ Tabs load_tabs(const int32_t *t) {
     T.nv = t[2];
     T.urows = t[3];
     T.ucols = t[4];
-    T.eBands = t + t[5];
-    T.logN = t + t[6];
-    T.caps = t + t[7];
-    T.allocV = t + t[8];
-    T.eprob = t + t[9];
-    T.rowoff = t + t[10];
-    T.rows = t + t[11];
-    T.u = reinterpret_cast<const uint32_t *>(t + t[12]);
+    T.start = t[5];
+    T.end = t[6];
+    T.eBands = t + t[7];
+    T.logN = t + t[8];
+    T.caps = t + t[9];
+    T.allocV = t + t[10];
+    T.eprob = t + t[11];
+    T.rowoff = t + t[12];
+    T.rows = t + t[13];
+    T.u = reinterpret_cast<const uint32_t *>(t + t[14]);
     return T;
 }
 
@@ -160,6 +165,25 @@ __device__ void rd_init(RD &d, const uint8_t *buf, int storage) {
     d.rem = byte;
     d.val = d.rng - 1 - (uint32_t)(byte >> 1);
     rd_normalize(d);
+}
+
+// a live decoder state: one row of rc_kernel.pack_state's [B, 10] columns
+// (offs, end_offs, end_window, nend_bits, nbits_total, rng, val, ext, rem,
+// error), read on a buffer whose storage is this frame's length
+__device__ void rd_load(RD &d, const uint8_t *buf, int storage,
+                        const int32_t *r) {
+    d.buf = buf;
+    d.storage = storage;
+    d.offs = r[0];
+    d.end_offs = r[1];
+    d.end_window = (uint32_t)r[2];
+    d.nend_bits = r[3];
+    d.nbits_total = r[4];
+    d.rng = (uint32_t)r[5];
+    d.val = (uint32_t)r[6];
+    d.ext = (uint32_t)r[7];
+    d.rem = r[8];
+    d.error = r[9];
 }
 
 __device__ __forceinline__ int rd_tell(const RD &d) {
@@ -725,6 +749,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                       const float *__restrict__ old_e,
                       const float *__restrict__ prevmin,
                       const int64_t *__restrict__ seed_in,
+                      const int32_t *__restrict__ rc_in,
                       const int32_t *__restrict__ tab, float *X_t,
                       float *energies, int32_t *ints, float *pf_gain_out,
                       int B, int nx) {
@@ -732,6 +757,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
     if (lane >= B) return;
     const Tabs T = load_tabs(tab);
     const int nb = T.nb, lm = T.lm, M = 1 << lm;
+    const int start = T.start, end = T.end;
     const int32_t *eB = T.eBands;
     Ctx c;
     float X[NX_MAX];
@@ -743,9 +769,16 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
     int thresh[NB_MAX], collapse[NB_MAX];
 
     int len = lens[lane];
-    rd_init(c.d, buf + (size_t)lane * P, len);
-    for (int i = 0; i < nb; i++) e[i] = old_e[lane * nb + i];
-    for (int j = 0; j < nx; j++) X[j] = 0.f;
+    if (rc_in)
+        rd_load(c.d, buf + (size_t)lane * P, len, rc_in + lane * 10);
+    else
+        rd_init(c.d, buf + (size_t)lane * P, len);
+    for (int i = 0; i < nb; i++) {
+        e[i] = old_e[lane * nb + i];
+        tf_res[i] = offsets[i] = pulses[i] = ebits[i] = 0;
+        fine_priority[i] = collapse[i] = 0;
+    }
+    for (int j = 0; j < nx; j++) X[j] = 0.f;     // uncoded bands stay 0
 
     int total_bits = len * 8;
     int tell = rd_tell(c.d);
@@ -757,9 +790,9 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
     float pf_gain = 0.f;
 
     if (live) {
-        // ---- postfilter (celt_decoder.c:1232)
+        // ---- postfilter (celt_decoder.c:1232), CELT-only frames
         tell = rd_tell(c.d);
-        if (tell + 16 <= total_bits && rd_bit_logp(c.d, 1)) {
+        if (start == 0 && tell + 16 <= total_bits && rd_bit_logp(c.d, 1)) {
             int octave = (int)rd_uint(c.d, 6);
             pf_pitch = (16 << octave) + (int)rd_bits(c.d, 4 + octave) - 1;
             int qg = (int)rd_bits(c.d, 3);
@@ -780,7 +813,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             float beta = intra ? 4915 / 32768.f : BETA_COEF[lm];
             const int32_t *prob = T.eprob + (intra ? 42 : 0);
             float prev = 0.f;
-            for (int i = 0; i < nb; i++) {
+            for (int i = start; i < end; i++) {
                 int t = rd_tell(c.d);
                 int qi;
                 if (total_bits - t >= 15) {
@@ -808,8 +841,9 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 && tell + (is_transient ? 2 : 4) + 1 <= budget;
             budget -= tf_select_rsv;
             int curr = 0, tf_changed = 0;
-            for (int i = 0; i < nb; i++) {
-                int logp = is_transient ? (i == 0 ? 2 : 4) : (i == 0 ? 4 : 5);
+            for (int i = start; i < end; i++) {
+                int logp = is_transient ? (i == start ? 2 : 4)
+                                        : (i == start ? 4 : 5);
                 if (tell + logp <= budget) {
                     curr ^= rd_bit_logp(c.d, logp);
                     tell = rd_tell(c.d);
@@ -821,7 +855,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             int it4 = 4 * is_transient, tf_select = 0;
             if (tf_select_rsv && ts[it4 + tf_changed] != ts[it4 + 2 + tf_changed])
                 tf_select = rd_bit_logp(c.d, 1);
-            for (int i = 0; i < nb; i++)
+            for (int i = start; i < end; i++)
                 tf_res[i] = ts[it4 + 2 * tf_select + tf_res[i]];
         }
         // ---- spread
@@ -834,7 +868,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
         {
             int tellf = rd_tell_frac(c.d);
             int dyn_logp = 6;
-            for (int i = 0; i < nb; i++) {
+            for (int i = start; i < end; i++) {
                 int width = (eB[i + 1] - eB[i]) << lm;
                 int qa = width << BITRES;
                 int qb = (6 << BITRES) > width ? (6 << BITRES) : width;
@@ -871,7 +905,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int w = eB[j + 1] - eB[j];
                 int t = (3 * w << lm << BITRES) >> 4;
                 thresh[j] = t > (1 << BITRES) ? t : (1 << BITRES);
-                trim_off[j] = (w * (trim - 5 - lm) * (nb - 1 - j)
+                trim_off[j] = (w * (trim - 5 - lm) * (end - 1 - j)
                                * (1 << (lm + BITRES))) >> 6;
                 if ((w << lm) == 1) trim_off[j] -= 1 << BITRES;
             }
@@ -881,7 +915,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 if (lo > hi) continue;
                 int mid = (lo + hi) >> 1;
                 int psum = 0, done = 0;
-                for (int j = nb - 1; j >= 0; j--) {
+                for (int j = end - 1; j >= start; j--) {
                     int bj = ((eB[j + 1] - eB[j]) * T.allocV[mid * nb + j])
                         << lm >> 2;
                     if (bj > 0) {
@@ -900,8 +934,8 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 else lo = mid + 1;
             }
             int hi_f = lo, lo_f = lo - 1;
-            int skip_start = 0;
-            for (int j = 0; j < nb; j++) {
+            int skip_start = start;
+            for (int j = start; j < end; j++) {
                 int w = eB[j + 1] - eB[j];
                 int lc = lo_f < 0 ? 0 : (lo_f > nv - 1 ? nv - 1 : lo_f);
                 int hc = hi_f < 0 ? 0 : (hi_f > nv - 1 ? nv - 1 : hi_f);
@@ -929,7 +963,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             for (int it = 0; it < ALLOC_STEPS; it++) {
                 int mid = (lo + hi) >> 1;
                 int psum = 0, done = 0;
-                for (int j = nb - 1; j >= 0; j--) {
+                for (int j = end - 1; j >= start; j--) {
                     int tmp = bits1[j] + ((mid * bits2[j]) >> ALLOC_STEPS);
                     if (tmp >= thresh[j] || done) {
                         done = 1;
@@ -942,7 +976,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 else lo = mid;
             }
             int psum = 0, done = 0;
-            for (int j = nb - 1; j >= 0; j--) {
+            for (int j = end - 1; j >= start; j--) {
                 int tmp = bits1[j] + ((lo * bits2[j]) >> ALLOC_STEPS);
                 if (tmp < thresh[j] && !done) tmp = tmp >= alloc_floor ? alloc_floor : 0;
                 else done = 1;
@@ -950,19 +984,21 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 pulses[j] = tmp;
                 psum += tmp;
             }
-            coded_bands = nb;
+            coded_bands = end;
             int forced_stop = 0;
-            for (int j = nb - 1; j > 0; j--) {
+            // down to j == start, where skipping always stops at
+            // skip_start (rate.c interp_bits2pulses; skip_start >= start)
+            for (int j = end - 1; j >= start; j--) {
                 if (coded_bands != j + 1) break;
                 if (j <= skip_start) {
                     forced_stop = 1;
                     break;
                 }
                 int left = total - psum;
-                int den = eB[j + 1] - eB[0];
+                int den = eB[j + 1] - eB[start];
                 int percoeff = floordiv(left, den);
                 int leftr = left - den * percoeff;
-                int rem = leftr - (eB[j] - eB[0]);
+                int rem = leftr - (eB[j] - eB[start]);
                 if (rem < 0) rem = 0;
                 int band_bits = pulses[j] + percoeff * (eB[j + 1] - eB[j]) + rem;
                 int th = thresh[j] > alloc_floor + (1 << BITRES)
@@ -980,13 +1016,13 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             if (forced_stop) total += skip_rsv;
             int left = total - psum;
             int cb = coded_bands < 0 ? 0 : (coded_bands > nb ? nb : coded_bands);
-            int den = eB[cb] - eB[0];
+            int den = eB[cb] - eB[start];
             if (den < 1) den = 1;
             int percoeff = floordiv(left, den);
             left -= den * percoeff;
-            for (int j = 0; j < nb; j++)
+            for (int j = start; j < end; j++)
                 if (j < coded_bands) pulses[j] += percoeff * (eB[j + 1] - eB[j]);
-            for (int j = 0; j < nb; j++) {
+            for (int j = start; j < end; j++) {
                 if (j >= coded_bands) continue;
                 int w = eB[j + 1] - eB[j];
                 int take = left < w ? left : w;
@@ -995,7 +1031,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             }
             balance = 0;
             const int log_m = lm << BITRES;
-            for (int j = 0; j < nb; j++) {
+            for (int j = start; j < end; j++) {
                 int n = (eB[j + 1] - eB[j]) << lm;
                 int in_c = j < coded_bands;
                 int bitj = pulses[j] + balance;
@@ -1040,15 +1076,17 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             }
         }
         // ---- fine energy
-        for (int i = 0; i < nb; i++) {
+        for (int i = start; i < end; i++) {
             int fq = ebits[i];
             if (fq <= 0) continue;
             int q2 = (int)rd_bits(c.d, fq);
             e[i] = e[i] + (((float)q2 + 0.5f) * ldexpf(1.0f, -fq) - 0.5f);
         }
 
-        // ---- quant_all_bands (bands.c:1589), mono decode
+        // ---- quant_all_bands (bands.c:1589), mono decode; norm holds
+        // absolute positions and nothing below norm_offset
         {
+            const int norm_offset = M * eB[start];
             const int norm_total = M * eB[nb - 1];
             for (int j = 0; j < norm_total; j++) norm[j] = 0.f;
             int tb8 = (len * 8 << BITRES) - ac_rsv;
@@ -1056,10 +1094,10 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             c.seed = (uint32_t)seed_in[lane];
             c.spread = spread;
             int lowband_offset = 0, update_lowband = 1;
-            for (int i = 0; i < nb; i++) {
+            for (int i = start; i < end; i++) {
                 int n = M * (eB[i + 1] - eB[i]);
                 int tl = rd_tell_frac(c.d);
-                if (i != 0) balance -= tl;
+                if (i != start) balance -= tl;
                 int remaining = tb8 - tl - 1;
                 c.rb = remaining;
                 int b = 0;
@@ -1071,9 +1109,16 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                         ? remaining + 1 : pulses[i] + curr_balance;
                     b = b < 0 ? 0 : (b > 16383 ? 16383 : b);
                 }
-                if ((M * eB[i] - n >= 0 && i != 0) || i == 1)
+                if (M * eB[i] - n >= norm_offset || i == start + 1)
                     if (update_lowband || lowband_offset == 0)
                         lowband_offset = i;
+                if (i == start + 1) {
+                    // special_hybrid_folding (bands.c): fill band
+                    // start+1's fold window from the top of band start
+                    int n1 = M * (eB[start + 1] - eB[start]);
+                    for (int j = n1; j < n; j++)
+                        norm[norm_offset + j] = norm[norm_offset + j - n + n1];
+                }
                 int tf_change = tf_res[i];
                 int fold = lowband_offset != 0
                     && (spread != 3 || B_l > 1 || tf_change < 0);
@@ -1082,7 +1127,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 if (fold) {
                     int lo = lowband_offset;
                     int eff = M * eB[lo] - n;
-                    if (eff < 0) eff = 0;
+                    if (eff < norm_offset) eff = norm_offset;
                     int fs_ = lo;
                     do {
                         fs_--;
@@ -1103,7 +1148,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int cm = quant_band(T, c, i, X + base, lb, fold, n, b,
                                     is_transient, tf_change, x_cm);
                 collapse[i] = cm & 0xFF;
-                if (i != nb - 1) {
+                if (i != end - 1) {
                     float nrm = (float)sqrt((double)n);
                     for (int j = 0; j < n; j++) norm[base + j] = nrm * X[base + j];
                 }
@@ -1116,7 +1161,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
         {
             int bl = len * 8 - rd_tell(c.d);
             for (int prio = 0; prio < 2; prio++)
-                for (int i = 0; i < nb; i++) {
+                for (int i = start; i < end; i++) {
                     if (!(bl >= 1 && ebits[i] < MAX_FINE_BITS
                           && fine_priority[i] == prio))
                         continue;
@@ -1128,7 +1173,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
         // ---- anti-collapse (bands.c:259)
         if (ac_on) {
             int kk = 1 << lm;
-            for (int i = 0; i < nb; i++) {
+            for (int i = start; i < end; i++) {
                 int n0 = eB[i + 1] - eB[i];
                 int depth = floordiv(1 + pulses[i], n0) >> lm;
                 float th = 0.5f * exp2f(-0.125f * (float)depth);
@@ -1171,10 +1216,12 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
 
 }  // namespace
 
+// rc_in: NULL, or [B, 10] int32 initial coder states (see rd_load)
 extern "C" int opus_celt_dec_frame_launch(
     const void *buf, int P, const void *lens, const void *old_e,
-    const void *prevmin, const void *seed, const void *tab, void *X_t,
-    void *energies, void *ints, void *pf_gain, int B, int nx, void *stream) {
+    const void *prevmin, const void *seed, const void *rc_in,
+    const void *tab, void *X_t, void *energies, void *ints, void *pf_gain,
+    int B, int nx, void *stream) {
     if (B <= 0) return 0;
     if (nx > NX_MAX) return (int)cudaErrorInvalidValue;
     const int threads = 64;
@@ -1182,7 +1229,8 @@ extern "C" int opus_celt_dec_frame_launch(
                             (cudaStream_t)stream>>>(
         (const uint8_t *)buf, P, (const int32_t *)lens,
         (const float *)old_e, (const float *)prevmin, (const int64_t *)seed,
-        (const int32_t *)tab, (float *)X_t, (float *)energies,
+        (const int32_t *)rc_in, (const int32_t *)tab, (float *)X_t,
+        (float *)energies,
         (int32_t *)ints, (float *)pf_gain, B, nx);
     return (int)cudaGetLastError();
 }

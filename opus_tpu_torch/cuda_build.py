@@ -92,7 +92,7 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.opus_celt_dec_frame_launch.argtypes = [
-            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
         lib.opus_celt_dec_frame_launch.restype = ci
         lib.opus_celt_enc_frame_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
@@ -103,6 +103,8 @@ def library() -> ctypes.CDLL:
         lib.opus_silk_lpc_launch.argtypes = [
             vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.opus_silk_lpc_launch.restype = ci
+        lib.opus_kbench_launch.argtypes = [ci, vp, vp, vp, ci, ci, vp]
+        lib.opus_kbench_launch.restype = ci
         lib.opus_cuda_error_string.argtypes = [ci]
         lib.opus_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

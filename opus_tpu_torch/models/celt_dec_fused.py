@@ -13,7 +13,9 @@ traced JAX graph, eager torch can skip a node, a leaf kind or a rotation
 variant that no lane takes, which leaves every lane's result unchanged
 because all range-coder and context updates are masked per lane.
 
-Scope: mono, start=0, end=nbEBands, no loss handling, no QEXT payload.
+Scope: mono, any coded band range [start, end) (start 0 for CELT-only
+frames, 17 for the CELT half of a hybrid frame, which continues from
+SILK's range decoder), no loss handling, no QEXT payload.
 Reference: celt/celt_decoder.c:1209-1560, bands.c, rate.c, cwrs.c, vq.c.
 """
 
@@ -312,16 +314,16 @@ class DecTabs:
         self.e_prob = [[int(v) for v in E_PROB_MODEL[lm][intra]]
                        for intra in range(2)]
         self.nx = m * int(self.eBands[nb])        # coded spectrum length
-        self.fold_plan = _fold_plan(m, [int(v) for v in self.eBands])
+        self.fold_plan = _fold_plan(m, [int(v) for v in self.eBands],
+                                    start)
 
     def kernel_table(self) -> np.ndarray:
         """Flat int32 table for kernel K1: a header [nb, lm, nv, urows,
-        ucols] and the offsets of eBands, logN, caps, allocV, e_prob, the
-        cache row offsets, the cache rows and the CWRS U table (read by
-        load_tabs in csrc/celt_dec_frame.cu).  uint32 entries are stored
-        as their int32 bits."""
+        ucols, start, end] and the offsets of eBands, logN, caps, allocV,
+        e_prob, the cache row offsets, the cache rows and the CWRS U table
+        (read by load_tabs in csrc/celt_dec_frame.cu).  uint32 entries are
+        stored as their int32 bits."""
         nb, lm = self.nb, self.lm
-        assert self.start == 0 and self.end_band == nb
         nv = self.allocV.shape[0]
         rows = []
         row_off = []
@@ -344,7 +346,8 @@ class DecTabs:
             ("rows", np.asarray(rows, np.int64)),
             ("u", u.reshape(-1)),
         ]
-        header = [nb, lm, nv, _MAX_K + 2, ucols + 1]
+        header = [nb, lm, nv, _MAX_K + 2, ucols + 1, self.start,
+                  self.end_band]
         hdr_len = len(header) + len(parts)
         offs = []
         pos = hdr_len
@@ -607,7 +610,9 @@ def _interp_bits2pulses(d, buf, lens, tabs: DecTabs, bits1, bits2, thresh,
     coded_bands = torch.full_like(total, end)
     finished = ~active
     forced_stop = torch.zeros_like(total, dtype=torch.bool)
-    for j in range(end - 1, start, -1):
+    # down to j == start, where skipping always stops at skip_start
+    # (rate.c interp_bits2pulses; skip_start >= start)
+    for j in range(end - 1, start - 1, -1):
         is_cur = (~finished) & (coded_bands == j + 1) & (j > skip_start)
         at_skip = (~finished) & (coded_bands == j + 1) & (j <= skip_start)
         finished = finished | at_skip
@@ -699,6 +704,24 @@ def _interp_bits2pulses(d, buf, lens, tabs: DecTabs, bits1, bits2, thresh,
     return coded_bands, balance, bits, ebits, fine_priority, d
 
 
+def _postfilter(d, buf, lens, total_bits, live):
+    """The postfilter header (celt_decoder.c:1232): (pitch, gain, tapset,
+    state)."""
+    pf_read = live & (K.rk_tell(d) + 16 <= total_bits)
+    pf_on, d = K.rk_dec_bit_logp(d, buf, lens, 1, pf_read)
+    pf = pf_read & (pf_on != 0)
+    octave, d = K.rk_dec_uint(d, buf, lens, 6, pf)
+    pbits, d = K.rk_dec_bits(d, buf, lens, torch.where(pf, 4 + octave, 0),
+                             pf)
+    pf_pitch = torch.where(pf, (16 << octave) + pbits - 1, 0)
+    qg, d = K.rk_dec_bits(d, buf, lens, torch.where(pf, 3, 0), pf)
+    tp_read = pf & (K.rk_tell(d) + 2 <= total_bits)
+    tapset, d = K.rk_dec_icdf(d, buf, lens, TAPSET_ICDF, 2, tp_read)
+    pf_tapset = torch.where(tp_read, tapset, 0)
+    pf_gain = torch.where(pf, 0.09375 * (qg + 1).to(f32), 0.0)
+    return pf_pitch, pf_gain, pf_tapset, d
+
+
 def fused_plan(d, buf, lens, tabs: DecTabs, old_e, active):
     """Header through fine energy (celt_decoder.c:1209-1462), mono.
 
@@ -717,20 +740,12 @@ def fused_plan(d, buf, lens, tabs: DecTabs, old_e, active):
     live = active & (silence == 0)
 
     # ---- postfilter (only read when start == 0, celt_decoder.c:1232) --
-    tell = K.rk_tell(d)
-    assert tabs.start == 0
-    pf_read = live & (tell + 16 <= total_bits)
-    pf_on, d = K.rk_dec_bit_logp(d, buf, lens, 1, pf_read)
-    pf = pf_read & (pf_on != 0)
-    octave, d = K.rk_dec_uint(d, buf, lens, 6, pf)
-    pbits, d = K.rk_dec_bits(d, buf, lens, torch.where(pf, 4 + octave, 0),
-                             pf)
-    pf_pitch = torch.where(pf, (16 << octave) + pbits - 1, 0)
-    qg, d = K.rk_dec_bits(d, buf, lens, torch.where(pf, 3, 0), pf)
-    tp_read = pf & (K.rk_tell(d) + 2 <= total_bits)
-    tapset, d = K.rk_dec_icdf(d, buf, lens, TAPSET_ICDF, 2, tp_read)
-    pf_tapset = torch.where(tp_read, tapset, 0)
-    pf_gain = torch.where(pf, 0.09375 * (qg + 1).to(f32), 0.0)
+    if tabs.start == 0:
+        pf_pitch, pf_gain, pf_tapset, d = _postfilter(d, buf, lens,
+                                                      total_bits, live)
+    else:
+        pf_pitch = pf_tapset = torch.zeros_like(lens)
+        pf_gain = torch.zeros(lens.shape, dtype=f32, device=lens.device)
 
     # ---- transient + intra ----
     tell = K.rk_tell(d)
@@ -1154,19 +1169,22 @@ def _quant_band_mono(d, buf, lens, ctx, tabs: DecTabs, band: int, n: int,
     return cm_out, x_out, d, ctx
 
 
-def _fold_plan(M: int, eB: list):
+def _fold_plan(M: int, eB: list, start: int = 0):
     """Static per-band folding windows (bands.c:1766-1776): for band i,
     one (lowband_offset lo, window start eff, fold range [fs_, fe_))
-    entry per band lo that lowband_offset can hold."""
+    entry per band lo that lowband_offset can hold.  Windows are absolute
+    positions in the norm buffer, which holds nothing below norm_offset =
+    M*eB[start], so eff is clamped there."""
+    norm_offset = M * eB[start]
     plans = []
     for i in range(len(eB) - 1):
         n = M * (eB[i + 1] - eB[i])
         entries = []
-        for lo in range(1, i + 1):
-            if not (M * eB[lo] - M * (eB[lo + 1] - eB[lo]) >= 0
-                    or lo == 1):
+        for lo in range(start + 1, i + 1):
+            if not (M * eB[lo] - M * (eB[lo + 1] - eB[lo]) >= norm_offset
+                    or lo == start + 1):
                 continue
-            eff = max(0, M * eB[lo] - n)
+            eff = max(norm_offset, M * eB[lo] - n)
             fs_ = lo
             while True:
                 fs_ -= 1
@@ -1182,20 +1200,38 @@ def _fold_plan(M: int, eB: list):
     return tuple(plans)
 
 
+def _hybrid_fold(norm, tabs: DecTabs):
+    """special_hybrid_folding (bands.c; scalar celt/bands.py:1196):
+    before band start+1, copy the n2 - n1 norm coefficients below
+    norm_offset + n1 to norm_offset + n1, so band start+1's fold window
+    is full.  A no-op when the two bands have one width (start 0)."""
+    M, eB, start = tabs.M, [int(v) for v in tabs.eBands], tabs.start
+    off = M * eB[start]
+    n1 = M * (eB[start + 1] - eB[start])
+    n2 = M * (eB[start + 2] - eB[start + 1])
+    if n2 <= n1:
+        return norm
+    norm = norm.clone()
+    norm[:, off + n1:off + n2] = norm[:, off + 2 * n1 - n2:off + n1]
+    return norm
+
+
 def quant_all_bands_mono(d, buf, lens, tabs: DecTabs, plan, total_bits8,
                          balance, seed, active):
-    """bands.c:1589, mono decode.  total_bits8: per-lane 8th-bits budget
-    (len*8*8 - anti_collapse_rsv).  Returns (X [B, nx], collapse
-    list[nb], seed, d)."""
+    """bands.c:1589, mono decode over bands [start, end).  total_bits8:
+    per-lane 8th-bits budget (len*8*8 - anti_collapse_rsv).  Returns (X
+    [B, nx], zero outside the coded bands, collapse list[nb], seed, d)."""
     nb = tabs.nb
+    start, end = tabs.start, tabs.end_band
     M = tabs.M
     eB = [int(v) for v in tabs.eBands]
+    norm_offset = M * eB[start]
     norm_total = M * eB[nb - 1]
     bsz = balance.shape[0]
     dev = balance.device
     norm = torch.zeros((bsz, norm_total), dtype=f32, device=dev)
     collapse = [torch.zeros_like(balance) for _ in range(nb)]
-    X = []
+    X = [torch.zeros((bsz, norm_offset), dtype=f32, device=dev)]
     transient = plan["is_transient"]
     B_lanes = torch.where(transient != 0, M, 1)
     spread = plan["spread"]
@@ -1206,10 +1242,10 @@ def quant_all_bands_mono(d, buf, lens, tabs: DecTabs, plan, total_bits8,
     update_lowband = torch.ones_like(balance, dtype=torch.bool)
     folds = tabs.fold_plan
 
-    for i in range(nb):
+    for i in range(start, end):
         n = M * (eB[i + 1] - eB[i])
         tell = K.rk_tell_frac(d)
-        if i != 0:
+        if i != start:
             balance = balance - tell
         remaining_bits = total_bits8 - tell - 1
         ctx["rb"] = remaining_bits
@@ -1220,9 +1256,11 @@ def quant_all_bands_mono(d, buf, lens, tabs: DecTabs, plan, total_bits8,
             remaining_bits + 1, pulses[i] + curr_balance), 0, 16383), 0)
 
         # lowband_offset update (per-lane); bands.c:1738
-        if (M * eB[i] - n >= 0 and i != 0) or i == 1:
+        if M * eB[i] - n >= norm_offset or i == start + 1:
             upd = active & (update_lowband | (lowband_offset == 0))
             lowband_offset = torch.where(upd, i, lowband_offset)
+        if i == start + 1:
+            norm = _hybrid_fold(norm, tabs)
 
         tf_change = plan["tf_res"][i]
         # folding source selection
@@ -1251,7 +1289,7 @@ def quant_all_bands_mono(d, buf, lens, tabs: DecTabs, plan, total_bits8,
             lb, fold_cond, x_cm, active)
         collapse[i] = torch.where(active, cm_out & 0xFF, 0)
         X.append(x_band)
-        if i != nb - 1:
+        if i != end - 1:
             base = M * eB[i]
             norm = norm.clone()
             norm[:, base:base + n] = torch.where(
@@ -1260,6 +1298,8 @@ def quant_all_bands_mono(d, buf, lens, tabs: DecTabs, plan, total_bits8,
         balance = balance + pulses[i] + tell
         update_lowband = b > (n << BITRES)
 
+    X.append(torch.zeros((bsz, tabs.nx - M * eB[end]), dtype=f32,
+                         device=dev))
     return torch.cat(X, dim=1), collapse, ctx["seed"], d
 
 
@@ -1278,9 +1318,9 @@ def _anti_collapse(tabs: DecTabs, X, collapse, pulses, energies, prevmin,
     eB = [int(v) for v in tabs.eBands]
     bsz = seed.shape[0]
     dev = seed.device
-    segs = []
+    segs = [X[:, :eB[tabs.start] << lm]]
     kb = torch.arange(kk, device=dev)
-    for i in range(tabs.nb):
+    for i in range(tabs.start, tabs.end_band):
         n0 = eB[i + 1] - eB[i]
         depth = torch.div(1 + pulses[i], n0,
                           rounding_mode="floor") >> lm
@@ -1312,17 +1352,21 @@ def _anti_collapse(tabs: DecTabs, X, collapse, pulses, energies, prevmin,
         seed = (ap[sidx] * seed + cs[sidx]) & M32
         seg = _renormalise_arr(seg, torch.ones_like(r), miss.any(dim=1))
         segs.append(seg)
+    segs.append(X[:, eB[tabs.end_band] << lm:])
     return torch.cat(segs, dim=1), seed
 
 
 def fused_celt_decode_frame(buf, lens, old_e, prevmin, seed,
-                            tabs: DecTabs, active):
+                            tabs: DecTabs, active, d0=None):
     """Full mono CELT frame symbol decode: plan + bands + anti-collapse
     + energy finalise (celt_decoder.c:1209-1560 below packet parse).
 
     buf: [B, P] packet bytes; lens/seed: [B]; old_e/prevmin: lists of nb
-    [B] f32.  Returns (out dict, final range-decoder state)."""
-    d = K.rk_init(buf, lens)
+    [B] f32.  d0: optional live range-decoder state to continue from in
+    place of ``rk_init`` (a hybrid frame's CELT half continues SILK's
+    coder, src/opus_decoder.c:432).  Returns (out dict, final
+    range-decoder state)."""
+    d = K.rk_init(buf, lens) if d0 is None else d0
     plan, d = fused_plan(d, buf, lens, tabs, old_e, active)
     live = plan["live"]
     total_bits8 = (lens * 8 << BITRES) - plan["anti_collapse_rsv"]

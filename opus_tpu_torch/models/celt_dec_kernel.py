@@ -21,7 +21,7 @@ import torch
 
 from ..celt.tables import COMB_GAINS, COMBFILTER_MINPERIOD
 from ..ops.device_cache import const
-from ..ops.rc_kernel import M32, ilog
+from ..ops.rc_kernel import M32, ilog, pack_state
 from .celt_dec_fused import DecTabs, fused_celt_decode_frame, \
     fused_celt_init_state
 from .batched_decode import decode_step
@@ -34,41 +34,59 @@ launches = 0
 
 
 @lru_cache(maxsize=None)
-def dec_tabs(fs: int = 48000, frame_size: int = 960) -> DecTabs:
-    return DecTabs(fs, frame_size)
+def dec_tabs(fs: int = 48000, frame_size: int = 960, start: int = 0,
+             end: int | None = None) -> DecTabs:
+    return DecTabs(fs, frame_size, start, end)
 
 
-def decode_frame(buf_u8, lens, old_e, prevmin, seed, tabs=None) -> dict:
-    """One frame's mono CELT symbol pass for B streams.
+def k1_table(tabs: DecTabs, device):
+    """K1's flat table for ``tabs`` on ``device``, uploaded once; the key
+    holds the band range, so decoders of several ranges (CELT-only and
+    hybrid) in one process each get their own."""
+    return const(("k1_table", int(tabs.mode.Fs), tabs.lm, tabs.start,
+                  tabs.end_band), tabs.kernel_table, device)
+
+
+def decode_frame(buf_u8, lens, old_e, prevmin, seed, tabs=None,
+                 d0=None) -> dict:
+    """One frame's mono CELT symbol pass for B streams over the coded
+    bands [tabs.start, tabs.end_band).
 
     buf_u8 [B, P] uint8 packet bytes, lens [B] byte lengths (clamped to
     [0, P]), old_e/prevmin [B, nb] f32 (energy memory and min of the two
-    previous frames' energies), seed [B] (uint32 values, int64).  Returns
-    X [B, M*eBands[nb]], energies [B, nb] and pf_gain [B] (f32), and the
-    int64 [B] lanes silence, is_transient, intra, anti_collapse_on,
-    pf_pitch, pf_tapset, error, tell and rng."""
+    previous frames' energies), seed [B] (uint32 values, int64); d0: the
+    live range-decoder dict to continue from (a hybrid frame's SILK
+    coder), or None to start one on the packet.  Returns X [B,
+    M*eBands[nb]] (zero outside the coded bands), energies [B, nb] and
+    pf_gain [B] (f32), and the int64 [B] lanes silence, is_transient,
+    intra, anti_collapse_on, pf_pitch, pf_tapset, error, tell and rng."""
     tabs = dec_tabs() if tabs is None else tabs
     if buf_u8.device.type == "cpu":
-        return decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs)
-    return _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs)
+        return decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs,
+                                  d0)
+    return _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs, d0)
 
 
-def decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs) -> dict:
-    """The plain torch version of kernel K1 (any device)."""
+def decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs,
+                       d0=None) -> dict:
+    """The plain torch version of kernel K1 (any device); it also returns
+    ``pulses`` [B, nb], each band's bit allocation (8th bits)."""
     lens = lens.to(torch.int64).clamp(0, buf_u8.shape[1])
     nb = tabs.nb
     out, d = fused_celt_decode_frame(
         buf_u8, lens, [old_e[:, i] for i in range(nb)],
         [prevmin[:, i] for i in range(nb)], seed.to(torch.int64), tabs,
-        torch.ones_like(lens, dtype=torch.bool))
+        torch.ones_like(lens, dtype=torch.bool), d0)
     res = {k: out[k].to(torch.int64) for k in INT_KEYS[:6]}
     res.update(X=out["X"], energies=torch.stack(out["energies"], dim=1),
                pf_gain=out["pf_gain"], error=d["error"],
-               tell=d["nbits_total"] - ilog(d["rng"]), rng=d["rng"])
+               tell=d["nbits_total"] - ilog(d["rng"]), rng=d["rng"],
+               pulses=torch.stack(out["pulses"], dim=1))
     return res
 
 
-def _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs) -> dict:
+def _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs,
+                       d0=None) -> dict:
     from ..cuda_build import check_launch, library
 
     global launches
@@ -87,8 +105,14 @@ def _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs) -> dict:
     old_e = old_e.to(torch.float32).contiguous()
     prevmin = prevmin.to(torch.float32).contiguous()
     seed = seed.to(torch.int64).contiguous()
-    tab = const(("k1_table", int(tabs.mode.Fs), tabs.lm),
-                tabs.kernel_table, dev)
+    rc_in = None
+    if d0 is not None:
+        rc_in = pack_state(d0)
+        rc_in = torch.where(rc_in >= 1 << 31, rc_in - (1 << 32),
+                            rc_in).to(torch.int32).contiguous()
+        if rc_in.shape[0] != b or rc_in.device != dev:
+            raise ValueError("decode_frame: d0 lanes [B] on the same device")
+    tab = k1_table(tabs, dev)
     nx = tabs.nx
     x_t = torch.empty((nx, b), dtype=torch.float32, device=dev)
     energies = torch.empty((b, nb), dtype=torch.float32, device=dev)
@@ -100,6 +124,7 @@ def _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs) -> dict:
     rc = lib.opus_celt_dec_frame_launch(
         vp(buf_u8.data_ptr()), p, vp(lens32.data_ptr()),
         vp(old_e.data_ptr()), vp(prevmin.data_ptr()), vp(seed.data_ptr()),
+        vp(None if rc_in is None else rc_in.data_ptr()),
         vp(tab.data_ptr()), vp(x_t.data_ptr()), vp(energies.data_ptr()),
         vp(ints.data_ptr()), vp(pf_gain.data_ptr()), b, nx, vp(stream))
     check_launch(rc, "celt_dec_frame")
@@ -112,15 +137,16 @@ def _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs) -> dict:
 
 
 def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
-                              frame_fn=None):
+                              frame_fn=None, d0=None):
     """One frame at 10/20 ms: the K1 symbol pass + the synthesis stage
     (IMDCT/TDAC, postfilter, de-emphasis with K2).  state: the
-    fused_celt_init_state dict.  Mirrors celt_decoder.c:1209-1614;
+    fused_celt_init_state dict; d0: the live range-decoder dict to
+    continue from (hybrid), or None.  Mirrors celt_decoder.c:1209-1614;
     returns (pcm [B, 1, N], new state, err [B])."""
     frame_fn = decode_frame if frame_fn is None else frame_fn
     prevmin = torch.minimum(state["prev1"], state["prev2"])
     out = frame_fn(buf_u8, lens, state["old_e"], prevmin, state["seed"],
-                   tabs)
+                   tabs, d0)
     err = out["error"] != 0
     silence = out["silence"] != 0
     transient = out["is_transient"] != 0
@@ -150,10 +176,19 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
     # ---- state carry (celt_decoder.c:1560-1614) ----
     e_sil = torch.where(silence[:, None], -28.0, energies)
     tr = transient[:, None]
+    prev1 = torch.where(tr, torch.minimum(state["prev1"], e_sil), e_sil)
+    prev2 = torch.where(tr, state["prev2"], state["prev1"])
+    if tabs.start > 0 or tabs.end_band < tabs.nb:
+        # bands outside [start, end) reset to 0 / -28 every frame
+        # (celt_decoder.c:1604-1612)
+        inside = const(("k1_bands", tabs.nb, tabs.start, tabs.end_band),
+                       lambda: (np.arange(tabs.nb) >= tabs.start)
+                       & (np.arange(tabs.nb) < tabs.end_band), dev)
+        e_sil = torch.where(inside, e_sil, 0.0)
+        prev1 = torch.where(inside, prev1, -28.0)
+        prev2 = torch.where(inside, prev2, -28.0)
     new_state = dict(
-        old_e=e_sil,
-        prev1=torch.where(tr, torch.minimum(state["prev1"], e_sil), e_sil),
-        prev2=torch.where(tr, state["prev2"], state["prev1"]),
+        old_e=e_sil, prev1=prev1, prev2=prev2,
         # the next frame's fold/noise seed is the final range, not the
         # evolved LCG state (celt_decoder.c:1602 st->rng = dec->rng)
         seed=out["rng"],

@@ -286,6 +286,18 @@ def rk_dec_uint(d: dict, buf, storage, ft, active=None):
     return torch.where(active, ret, 0), d2
 
 
+# the decoder state's fields, in the column order of ``pack_state``
+# (read in this order by kernel K1, csrc/celt_dec_frame.cu rd_load)
+KEYS = ("offs", "end_offs", "end_window", "nend_bits", "nbits_total", "rng",
+        "val", "ext", "rem", "error")
+
+
+def pack_state(d: dict):
+    """The state dict -> [B, 10] int64, one column per field of KEYS
+    (uint32 fields as their values; the caller narrows to int32 bits)."""
+    return torch.stack([d[k] for k in KEYS], dim=1)
+
+
 def rk_tell(d: dict):
     return d["nbits_total"] - ilog(d["rng"])
 

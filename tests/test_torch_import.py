@@ -21,6 +21,9 @@ names = ["opus_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+for name in ("opus_tpu_torch.models.hybrid_dec_fused",
+             "opus_tpu_torch.silk.resampler", "opus_tpu_torch.tools.kbench_ops"):
+    assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",
                                                           "opus_tpu.")))
@@ -101,3 +104,19 @@ def test_torch_table_copies_equal_jax_originals():
                 assert vars(getattr(pmod, k)) == vars(v), k
             else:
                 assert _same(getattr(pmod, k), v), k
+
+
+def test_torch_resampler_constants_equal_jax_originals():
+    """The upsampler's copies of the scalar Resampler's constants (the
+    decoder delay matrix, the rate ids and the step search) give the
+    scalar's input delay and step at every SILK rate."""
+    from opus_tpu.silk import resampler as jr
+    from opus_tpu_torch.silk import resampler as pr
+
+    assert pr._DELAY_DEC == jr._DELAY_DEC
+    for fs in (8000, 12000, 16000, 24000, 48000):
+        assert pr._rate_id(fs) == jr._rate_id(fs)
+    for fs_khz in (8, 12, 16):
+        rs = jr.Resampler(fs_khz * 1000, 48000)
+        assert pr.input_delay(fs_khz) == rs.input_delay
+        assert pr._inv_ratio_q16(fs_khz * 1000, 48000) == rs.inv_ratio_q16

@@ -2,7 +2,9 @@
 as host C++ and run one lane at a time on the CPU, against the plain torch
 symbol pass (decode_frame_plain) on the same inputs: real 20 ms fixture
 packets with random energy memory and seeds, truncated packets and random
-bytes.
+bytes; and at start = 17, continuing the range decoder that the SILK half
+leaves, on the CELT halves of the hybrid fixture's frames (the plain
+hybrid chain's inputs to K1, frame by frame) plus garbage lanes.
 
 A shim header defines the CUDA qualifiers away and gives __clz, __ldg and
 rsqrtf host meanings; the extern "C" launch section is left out and the
@@ -23,11 +25,13 @@ import pytest
 import torch
 
 from opus_tpu_torch.models.celt_dec_kernel import (INT_KEYS, dec_tabs,
-                                                   decode_frame_plain)
+                                                   decode_frame_plain,
+                                                   k1_table)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "opus_tpu_torch", "csrc", "celt_dec_frame.cu")
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_celt20ms_64k.npz")
+HYB_FIXTURE = os.path.join(REPO, "tests", "data", "torch_hybrid_fb20ms.npz")
 
 SHIM = r"""
 #pragma once
@@ -52,19 +56,25 @@ DRIVER = r"""
 }
 extern "C" void run_lanes(const void *buf, int P, const void *lens,
     const void *old_e, const void *prevmin, const void *seed,
-    const void *tab, void *X_t, void *energies, void *ints, void *pf_gain,
-    int B, int nx) {
+    const void *rc_in, const void *tab, void *X_t, void *energies,
+    void *ints, void *pf_gain, int B, int nx) {
   blockDim.x = 1;
   threadIdx.x = 0;
   for (int l = 0; l < B; l++) {
     blockIdx.x = l;
     celt_dec_frame_kernel((const uint8_t *)buf, P, (const int32_t *)lens,
         (const float *)old_e, (const float *)prevmin, (const int64_t *)seed,
-        (const int32_t *)tab, (float *)X_t, (float *)energies,
+        (const int32_t *)rc_in, (const int32_t *)tab, (float *)X_t,
+        (float *)energies,
         (int32_t *)ints, (float *)pf_gain, B, nx);
   }
 }
 """
+
+
+@pytest.fixture(scope="module")
+def k1_lib(tmp_path_factory):
+    return _build(str(tmp_path_factory.mktemp("k1host")))
 
 
 def _build(tmp):
@@ -105,13 +115,53 @@ def _lanes(rng):
     return buf, ln
 
 
-def test_torch_k1_source_on_host_matches_plain(tmp_path):
-    lib = _build(str(tmp_path))
+def _run_host(lib, tabs, buf, ln, old_e, prevmin, seed, rc_in=None,
+              tab=None):
+    """K1's source on the host over every lane -> (X [B, nx], energies,
+    ints [B, 9], pf_gain), numpy; tab: K1's table (default
+    tabs.kernel_table())."""
+    b, p = buf.shape
+    nb, nx = tabs.nb, tabs.nx
+    buf, old_e, prevmin, seed = (np.ascontiguousarray(a) for a in
+                                 (buf, old_e, prevmin, seed))
+    tab = tabs.kernel_table() if tab is None else np.ascontiguousarray(tab)
+    lens32 = np.clip(ln, 0, p).astype(np.int32)
+    x_t = np.zeros((nx, b), np.float32)
+    energies = np.zeros((b, nb), np.float32)
+    ints = np.zeros((b, 9), np.int32)
+    pf_gain = np.zeros(b, np.float32)
+    ptr = lambda a: None if a is None else a.ctypes.data_as(  # noqa: E731
+        ctypes.c_void_p)
+    lib.run_lanes(ptr(buf), p, ptr(lens32), ptr(old_e), ptr(prevmin),
+                  ptr(seed), ptr(rc_in), ptr(tab), ptr(x_t), ptr(energies),
+                  ptr(ints), ptr(pf_gain), b, nx)
+    return x_t.T, energies, ints, pf_gain
+
+
+def _check(tabs, got, ref):
+    x, energies, ints, pf_gain = got
+    for j, key in enumerate(INT_KEYS):
+        v = ints[:, j].astype(np.int64)
+        if key == "rng":
+            v &= 0xFFFFFFFF
+        assert v.tolist() == ref[key].tolist(), key
+    assert np.array_equal(pf_gain, ref["pf_gain"].numpy())
+    assert np.abs(energies - ref["energies"].numpy()).max() <= 1e-5
+    xr = ref["X"].numpy()
+    m, eb = tabs.M, tabs.eBands
+    for i in range(tabs.nb):
+        a, c = m * int(eb[i]), m * int(eb[i + 1])
+        scale = np.abs(xr[:, a:c]).max(axis=1)
+        err = np.abs(x[:, a:c] - xr[:, a:c]).max(axis=1)
+        assert (err <= 1e-5 * scale).all(), (i, err.max())
+
+
+def test_torch_k1_source_on_host_matches_plain(k1_lib):
     tabs = dec_tabs(48000, 960)
     rng = np.random.default_rng(7)
     buf, ln = _lanes(rng)
-    b, p = buf.shape
-    nb, nx = tabs.nb, tabs.nx
+    b = buf.shape[0]
+    nb = tabs.nb
     old_e = rng.normal(0, 4, (b, nb)).astype(np.float32)
     prevmin = rng.normal(0, 4, (b, nb)).astype(np.float32)
     seed = rng.integers(0, 2 ** 32, b).astype(np.int64)
@@ -119,27 +169,89 @@ def test_torch_k1_source_on_host_matches_plain(tmp_path):
                              torch.from_numpy(old_e),
                              torch.from_numpy(prevmin),
                              torch.from_numpy(seed), tabs)
-    tab = tabs.kernel_table()
-    lens32 = ln.astype(np.int32)
-    x_t = np.zeros((nx, b), np.float32)
-    energies = np.zeros((b, nb), np.float32)
-    ints = np.zeros((b, 9), np.int32)
-    pf_gain = np.zeros(b, np.float32)
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)   # noqa: E731
-    lib.run_lanes(ptr(buf), p, ptr(lens32), ptr(old_e), ptr(prevmin),
-                  ptr(seed), ptr(tab), ptr(x_t), ptr(energies), ptr(ints),
-                  ptr(pf_gain), b, nx)
-    for j, key in enumerate(INT_KEYS):
-        got = ints[:, j].astype(np.int64)
-        if key == "rng":
-            got &= 0xFFFFFFFF
-        assert got.tolist() == ref[key].tolist(), key
-    assert np.array_equal(pf_gain, ref["pf_gain"].numpy())
-    assert np.abs(energies - ref["energies"].numpy()).max() <= 1e-5
-    x, xr = x_t.T, ref["X"].numpy()
-    m, eb = tabs.M, tabs.eBands
-    for i in range(nb):
-        a, c = m * int(eb[i]), m * int(eb[i + 1])
-        scale = np.abs(xr[:, a:c]).max(axis=1)
-        err = np.abs(x[:, a:c] - xr[:, a:c]).max(axis=1)
-        assert (err <= 1e-5 * scale).all(), (i, err.max())
+    _check(tabs, _run_host(k1_lib, tabs, buf, ln, old_e, prevmin, seed),
+           ref)
+
+
+def _hybrid_lanes(rng):
+    """The hybrid fixture's 8 streams plus 4 truncated and 4 random-byte
+    lanes, per frame."""
+    fx = np.load(HYB_FIXTURE)
+    frames, lens = fx["frames"], fx["lens"]
+    ns, nf, p = frames.shape
+    out = []
+    for f in range(nf):
+        buf = np.zeros((ns + 8, p), np.uint8)
+        ln = np.zeros(ns + 8, np.int64)
+        buf[:ns], ln[:ns] = frames[:, f], lens[:, f]
+        for j in range(8):
+            cut = int(rng.integers(0, lens[j, f] if j < 4 else p + 1))
+            buf[ns + j, :cut] = (frames[j, f, :cut] if j < 4
+                                 else rng.integers(0, 256, cut))
+            ln[ns + j] = cut
+        out.append((buf, ln))
+    return out
+
+
+def _hybrid_k1_frames(tabs, nframes=None):
+    """Per frame of the plain hybrid chain (state carried): K1's inputs
+    (buf, lens, old_e, prevmin, seed, rc_in as numpy) and the plain
+    version's outputs."""
+    from opus_tpu_torch.models import hybrid_dec_fused as H
+    from opus_tpu_torch.ops.rc_kernel import pack_state
+
+    lanes = _hybrid_lanes(np.random.default_rng(11))[:nframes]
+    state = H.hybrid_init_state(lanes[0][0].shape[0], tabs)
+    for buf, ln in lanes:
+        seen = {}
+
+        def plain(buf_t, lens, old_e, prevmin, seed, tabs_, d0):
+            seen.update(args=(buf_t, lens, old_e, prevmin, seed, d0))
+            seen["ref"] = decode_frame_plain(buf_t, lens, old_e, prevmin,
+                                             seed, tabs_, d0)
+            return seen["ref"]
+
+        _pcm, state, _err = H.fused_hybrid_decode(
+            torch.from_numpy(buf), torch.from_numpy(ln), state, tabs, plain)
+        buf_t, lens, old_e, prevmin, seed, d0 = seen["args"]
+        rc = pack_state(d0).numpy()
+        rc_in = np.where(rc >= 1 << 31, rc - (1 << 32), rc).astype(np.int32)
+        yield ((buf_t.numpy(), lens.numpy(), old_e.numpy(), prevmin.numpy(),
+                seed.numpy(), rc_in), seen["ref"])
+
+
+def test_torch_k1_source_on_host_matches_plain_hybrid_start17(k1_lib):
+    """K1 at start = 17 with the SILK half's coder state on every frame of
+    the plain hybrid chain (state carried)."""
+    tabs = dec_tabs(48000, 960, 17, 21)
+    transient = 0
+    for args, ref in _hybrid_k1_frames(tabs):
+        got = _run_host(k1_lib, tabs, *args)
+        _check(tabs, got, ref)
+        assert not got[0][:, :tabs.M * int(tabs.eBands[17])].any()
+        transient += int(ref["is_transient"].sum())
+    assert transient > 0
+
+
+def test_torch_k1_table_cache_keeps_band_ranges_apart(k1_lib):
+    """A CELT-only (start 0) and a hybrid (start 17) decoder in one process:
+    the device-table cache gives each its own K1 table, and K1 run on the
+    cached tables decodes each one's packets as the plain version does."""
+    tabs0 = dec_tabs(48000, 960)
+    tabs17 = dec_tabs(48000, 960, 17, 21)
+    t0 = k1_table(tabs0, "cpu").numpy()
+    t17 = k1_table(tabs17, "cpu").numpy()
+    assert np.array_equal(t0, tabs0.kernel_table())
+    assert np.array_equal(t17, tabs17.kernel_table())
+    rng = np.random.default_rng(8)
+    buf, ln = _lanes(rng)
+    b, nb = buf.shape[0], tabs0.nb
+    old_e = rng.normal(0, 4, (b, nb)).astype(np.float32)
+    prevmin = rng.normal(0, 4, (b, nb)).astype(np.float32)
+    seed = rng.integers(0, 2 ** 32, b).astype(np.int64)
+    ref = decode_frame_plain(*(torch.from_numpy(a) for a in
+                               (buf, ln, old_e, prevmin, seed)), tabs0)
+    _check(tabs0, _run_host(k1_lib, tabs0, buf, ln, old_e, prevmin, seed,
+                            tab=t0), ref)
+    args, ref = next(_hybrid_k1_frames(tabs17, 1))
+    _check(tabs17, _run_host(k1_lib, tabs17, *args, tab=t17), ref)

@@ -1,5 +1,5 @@
-"""Where the port's 20 ms encode, decode, duplex or SILK decode step spends
-its time on the card.
+"""Where the port's 20 ms encode, decode, duplex, SILK or hybrid decode
+step spends its time on the card.
 
 Runs one path of opus_tpu_torch on CUDA over B streams tiled from the
 committed fixtures, under torch.profiler, and prints the device time by
@@ -16,7 +16,12 @@ share of the step's wall time:
 - ``silk``: FusedSilkDecoder (SILK wideband, 20 ms, 24 kb/s) on the SILK
   fixture's packets (tests/data/torch_silk16k_24k.npz), plus the wall
   time per step of its two stages (the symbol pass and decode_core with
-  kernel K4), each timed alone with the card synchronised around it.
+  kernel K4), each timed alone with the card synchronised around it;
+- ``hybrid``: FusedHybridDecoder (SILK-WB + CELT bands 17-20, fullband
+  20 ms) on the hybrid fixture's packets
+  (tests/data/torch_hybrid_fb20ms.npz), plus the wall time per step of its
+  SILK half, CELT half (redundancy parse, K1 at start 17, synthesis) and
+  upsampler, each timed alone with the card synchronised around it.
 
 Run from the repository root on a machine with a card:
     python3 tools/profile_torch.py [--path silk] [--batch 4096] [--steps 8]
@@ -38,6 +43,7 @@ sys.path.insert(0, REPO)
 from opus_tpu_torch.models import celt_enc_kernel as EK  # noqa: E402
 from opus_tpu_torch.models.celt_dec_kernel import KernelCeltDecoder  # noqa
 from opus_tpu_torch.models import fused_silk_dec as SD  # noqa: E402
+from opus_tpu_torch.models import hybrid_dec_fused as HD  # noqa: E402
 from opus_tpu_torch.models.batched_silk import silk_decode_step  # noqa
 
 
@@ -52,6 +58,11 @@ def _steps(args, dev):
         dec = SD.FusedSilkDecoder(args.batch, device=dev)
         return [lambda b=b: dec.decode_packed(*b)
                 for b in _silk_frames(args, dev)]
+    if args.path == "hybrid":
+        frames = _silk_frames(args, dev, "torch_hybrid_fb20ms.npz")
+        dec = HD.FusedHybridDecoder(args.batch, device=dev,
+                                    max_payload=frames[0][0].shape[1])
+        return [lambda b=b: dec.decode_packed(*b) for b in frames]
     if args.path == "decode":
         fx = _fixture("torch_celt20ms_64k.npz")
         ns, nf, p = fx["frames"].shape
@@ -74,10 +85,10 @@ def _steps(args, dev):
             for x in frames]
 
 
-def _silk_frames(args, dev):
-    """(buf, lens) on the card per step, the SILK fixture's streams tiled
-    over the batch."""
-    fx = _fixture("torch_silk16k_24k.npz")
+def _silk_frames(args, dev, name="torch_silk16k_24k.npz"):
+    """(buf, lens) on the card per step, a fixture's streams (the SILK
+    one's by default) tiled over the batch."""
+    fx = _fixture(name)
     ns, nf, _p = fx["frames"].shape
     lane = np.arange(args.batch)
     return [(torch.from_numpy(fx["frames"][lane % ns, f % nf]).to(dev),
@@ -103,6 +114,46 @@ def _silk_stages(args, dev) -> str:
         if f:                                          # step 0 warms up
             tot["symbols"] += t1 - t0
             tot["decode_core"] += t2 - t1
+    return ", ".join(f"{k} {v * 1e3 / args.steps:.3f}" for k, v in
+                     tot.items())
+
+
+def _hybrid_stages(args, dev) -> str:
+    """Wall ms per step of the hybrid decoder's SILK half, CELT half and
+    upsampler, each synchronised alone, averaged over the steps (the
+    composition of hybrid_dec_fused.fused_hybrid_decode)."""
+    from opus_tpu_torch.models.celt_dec_kernel import \
+        kernel_celt_decode_to_pcm
+    from opus_tpu_torch.ops import rc_kernel as K
+    from opus_tpu_torch.silk.resampler import upsample_to_48k
+
+    frames = _silk_frames(args, dev, "torch_hybrid_fb20ms.npz")
+    dec = HD.FusedHybridDecoder(args.batch, device=dev,
+                                max_payload=frames[0][0].shape[1])
+    st = dec.state
+    tot = dict(silk=0.0, celt=0.0, upsample=0.0)
+    for f, (buf, ln) in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xq, silk, _err, d = SD.fused_silk_decode(buf, ln, st["silk"],
+                                                 return_rc=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        can = K.rk_tell(d) + 37 <= 8 * ln
+        _red, d = K.rk_dec_bit_logp(d, buf, ln, 12, can)
+        _pcm, celt, _e = kernel_celt_decode_to_pcm(buf, ln, st["celt"],
+                                                   dec.tabs, d0=d)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        seq = torch.cat([st["smid"][:, 1:], xq[:, :-1]], dim=1)
+        _y, rs = upsample_to_48k(seq, st["rs"])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        st = dict(silk=silk, celt=celt, rs=rs, smid=xq[:, -2:])
+        if f:                                          # step 0 warms up
+            tot["silk"] += t1 - t0
+            tot["celt"] += t2 - t1
+            tot["upsample"] += t3 - t2
     return ", ".join(f"{k} {v * 1e3 / args.steps:.3f}" for k, v in
                      tot.items())
 
@@ -139,8 +190,8 @@ def _encode_stages(args, dev) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("decode", "encode", "duplex", "silk"),
-                    default="decode")
+    ap.add_argument("--path", choices=("decode", "encode", "duplex", "silk",
+                                       "hybrid"), default="decode")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args()
@@ -183,6 +234,9 @@ def main() -> int:
     if args.path == "silk":
         print(f"silk stages, wall ms/step (unprofiled): "
               f"{_silk_stages(args, dev)}")
+    if args.path == "hybrid":
+        print(f"hybrid stages, wall ms/step (unprofiled): "
+              f"{_hybrid_stages(args, dev)}")
     return 0
 
 
