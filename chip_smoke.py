@@ -16,12 +16,15 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    streams plus 32 hard ones (silence, full-scale noise, clipped input,
    a DC step, impulses, 1e-7 noise): kernel K3 (the encode symbol pass)
    against its plain torch version, frame by frame with state carried;
-5. the duplex chain: the encoder's packets go straight into the decoder
-   on the card, launch counters reset around it; final ranges, error
-   lanes and SNR against the JAX twin's, stored in
+   the encoder end to end with its launch counter reset;
+5. the duplex chain: the encoder's packets (equal to the encode run's) go
+   straight into the decoder on the card, launch counters reset around
+   it; final ranges, error lanes and SNR against the JAX twin's, stored in
    ``tests/data/torch_celt20ms_64k_enc.npz``;
-6. times K1, K2, K3, their plain versions, the encoder front end and the
-   encode, decode and duplex steps with CUDA events;
+6. times K1 (at B and at 4 x B streams), K2, K3, their plain versions,
+   the encoder front end and the encode, decode and duplex steps with
+   CUDA events, and prints K1's launch geometry (registers, shared memory
+   per block, resident warps per SM);
 7. SILK (``FusedSilkDecoder``, packets -> int16 PCM, wideband 20 ms,
    24 kb/s) over 4096 streams plus 32 garbage/truncated ones from
    ``tests/data/torch_silk16k_24k.npz``: the fixed-point helpers
@@ -389,9 +392,36 @@ def phase_k3_vs_plain(enc_lanes, dev):
     return f_err
 
 
-def phase_duplex(enc_lanes, efx, dev):
+def phase_encode(enc_lanes, dev):
+    """KernelCeltEncoder alone over the 8 frames, its launch counter reset
+    just before and read just after; no fixture lane flagged.  Returns
+    the counts and each frame's (payload, range, error) for the duplex
+    chain's encoder to equal."""
+    import torch
+    from opus_tpu_torch.models import celt_enc_kernel as EK
+
+    b = enc_lanes[0].shape[0]
+    pcm_in = [torch.from_numpy(p).to(dev) for p in enc_lanes]
+    enc = EK.KernelCeltEncoder(b, device=dev)
+    torch.cuda.synchronize()
+    EK.launches = 0
+    outs = [enc.encode_device(pcm) for pcm in pcm_in]
+    torch.cuda.synchronize()
+    counts = {"K3": EK.launches}
+    print(f"encode launch counters over {NFRAMES} frames: {counts}")
+    if counts != {"K3": NFRAMES}:
+        fail(f"expected one launch of K3 per frame, got {counts}")
+    for f, (_payload, _rng, err) in enumerate(outs):
+        if err[:B_MAIN].any():
+            fail(f"encode frame {f}: {int(err[:B_MAIN].sum())} fixture "
+                 "lanes flagged")
+    return counts, outs
+
+
+def phase_duplex(enc_lanes, efx, dev, enc_outs):
     """KernelCeltEncoder feeds KernelCeltDecoder on the card, counters
-    reset around the 8-frame run."""
+    reset around the 8-frame run; its encoder's outputs equal the encode
+    path's (enc_outs)."""
     import numpy as np
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
@@ -421,6 +451,10 @@ def phase_duplex(enc_lanes, efx, dev):
     same = 0
     dec_pcm = []
     for f, (payload, rng, err, out, derr, drng) in enumerate(outs):
+        if not all(torch.equal(a, e) for a, e in
+                   zip((payload, rng, err), enc_outs[f])):
+            fail(f"frame {f}: the duplex encoder's payload, range or error "
+                 "differs from the encode path's")
         err, derr = err.cpu().numpy(), derr.cpu().numpy()
         if err[:B_MAIN].any() or derr[:B_MAIN].any():
             fail(f"frame {f}: fixture lanes flagged (encoder "
@@ -504,6 +538,22 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
                          out["energies"], out["pf_gain"]) \
         + B_MAIN * 4 * (1 + 9)
     k1_bound = bound(k1_bytes, 20.0 * tabs.nx * B_MAIN)
+    # the same frame tiled to 4 x B_MAIN streams: a time that stays flat
+    # means the card had room at B_MAIN; a time per stream that stays flat
+    # means B_MAIN already filled it
+    big = 4 * B_MAIN
+    st4 = fused_celt_init_state(big, tabs, dev)
+    args4 = (buf.repeat(4, 1), ln.repeat(4), st4["old_e"],
+             torch.minimum(st4["prev1"], st4["prev2"]), st4["seed"], tabs)
+    k1_big = cuda_ms(lambda: CK.decode_frame(*args4), 20)
+    if not torch.equal(CK.decode_frame(*args4)["rng"][:B_MAIN], out["rng"]):
+        fail("K1 at 4 x B_MAIN: final ranges differ from B_MAIN's")
+    k1_big_bound = bound(4 * k1_bytes - 3 * nbytes_of(tab),
+                         20.0 * tabs.nx * big)
+    print(f"K1 at B={big}: {k1_big:.4f} ms/frame, bound "
+          f"{k1_big_bound[0]:.6f} ms ({k1_big_bound[1]}); per stream "
+          f"{k1 / B_MAIN * 1e6:.2f} ns at B={B_MAIN}, "
+          f"{k1_big / big * 1e6:.2f} ns at B={big}")
     x, mem = k2_in[0][:B_MAIN], k2_in[1][:B_MAIN]
     coef = float(tabs.mode.preemph[0])
     k2 = cuda_ms(lambda: iir.deemphasis(x, mem, coef), 50)
@@ -515,7 +565,8 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
     print(f"times at B={B_MAIN} [{smi}]: K1 {k1:.4f} ms/frame, plain "
           f"{k1p:.2f} ms; K2 {k2:.4f} ms, plain {k2p:.4f} ms; decode step "
           f"{step:.3f} ms/frame -> {streams:.0f} realtime 20 ms streams")
-    return dict(k1=k1, k1p=k1p, k1_bound=k1_bound, k2=k2, k2p=k2p,
+    return dict(k1=k1, k1p=k1p, k1_bound=k1_bound, k1_big=k1_big,
+                k1_big_bound=k1_big_bound, k2=k2, k2p=k2p,
                 k2_bound=k2_bound, dec_step=step)
 
 
@@ -1051,6 +1102,12 @@ def main() -> int:
     for line in cuda_build.ptxas_log.splitlines():
         if "Compiling" in line or "Used" in line or "stack frame" in line:
             print("ptxas:", line.strip())
+    g = CK.geometry(160)
+    print(f"ptxas: K1 celt_dec_frame_kernel at P=160: {g['registers']} "
+          f"registers, {g['local_bytes']} bytes local memory per thread; "
+          f"{g['smem_per_block']} bytes dynamic shared memory per block of "
+          f"{g['warps_per_block']} warps; {g['blocks_per_sm']} blocks = "
+          f"{g['warps_per_sm']} resident warps per SM")
 
     phase_s = {}
     tabs = CK.dec_tabs(48000, 960)
@@ -1067,7 +1124,8 @@ def main() -> int:
     efx = dict(np.load(ENC_FIXTURE))
     enc_lanes = make_enc_lanes(efx, np.random.default_rng(21))
     k3_err = phase_k3_vs_plain(enc_lanes, dev)
-    dcounts = phase_duplex(enc_lanes, efx, dev)
+    ecounts, enc_outs = phase_encode(enc_lanes, dev)
+    dcounts = phase_duplex(enc_lanes, efx, dev, enc_outs)
     phase_s["celt_encode_duplex"] = time.time() - t0
 
     t0 = time.time()
@@ -1107,7 +1165,8 @@ def main() -> int:
 
     # launches: each path's counters, reset just before it and read just
     # after, summed over the paths that run the kernel
-    per_path = {"celt decode": counts, "duplex": dcounts,
+    per_path = {"celt decode": counts, "celt encode": ecounts,
+                "duplex": dcounts,
                 "silk": {"K4": k4_count}, "hybrid": hcounts}
     print(f"launches per path over {NFRAMES} frames: {per_path}")
 
@@ -1135,7 +1194,8 @@ def main() -> int:
           f"{t['enc_step']:.4f} ms/frame; duplex step {t['duplex']:.4f} "
           f"ms/frame; SILK step {t['silk_step']:.4f} ms/frame (symbol pass "
           f"{t['silk_sym']:.4f}); hybrid step {t['hyb_step']:.4f} ms/frame "
-          f"(K1 at start 17 {t['k1h']:.4f}); PCM max err vs scalar "
+          f"(K1 at start 17 {t['k1h']:.4f}); K1 at {4 * B_MAIN} streams "
+          f"{t['k1_big']:.4f} ms; PCM max err vs scalar "
           f"{pcm_err:.3g} (CELT), {hpcm_err:.3g} (hybrid); K1 energies max "
           f"err {e_err:.3g}")
     print(json.dumps(kernels))

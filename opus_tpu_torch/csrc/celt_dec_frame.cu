@@ -1,31 +1,79 @@
-// Kernel K1: the mono CELT decode symbol pass for one 10/20 ms frame,
-// one thread per stream, over the coded bands [start, end): start 0 for a
-// CELT-only frame, 17 for the CELT half of a hybrid frame, which
-// continues the range decoder that SILK leaves behind (the optional
-// per-lane initial coder state; src/opus_decoder.c:432).
+// Kernel K1: the mono CELT decode symbol pass for one 10/20 ms frame, one
+// warp per stream, over the coded bands [start, end): start 0 for a
+// CELT-only frame, 17 for the CELT half of a hybrid frame, which continues
+// the range decoder that SILK leaves behind (the optional per-stream
+// initial coder state; src/opus_decoder.c:432).
 //
-// Replaces the Pallas TPU kernel opus_tpu/models/celt_dec_kernel.py
+// Replaces the Pallas TPU kernel opus_tpu/models/celt_dec_kernel.py:656
 // (_frame_kernel, launched by build_frame_fn).  What is kept is the
 // integer semantics of that kernel and of its [B]-lane twin
 // opus_tpu_torch/models/celt_dec_fused.py (the plain version this kernel
 // is checked against): range decoding, coarse/fine energy, tf, spread,
 // dynalloc, trim, allocation, the PVQ band tree (CWRS, theta,
 // exp_rotation, folding, haar/hadamard), anti-collapse and energy
-// finalise, error lanes included.  What is dropped is the TPU layout:
-// the [8,128] lane tiles, the preorder node program, the gather-free page
-// sweeps and the MXU wrapper matrices.  Each thread runs the pass as
-// straight-line C (the scalar tier's structure, celt/{bands,alloc,
-// energy,cwrs}.py), reads its packet bytes directly, and walks the band
-// split tree with an explicit bounded stack.
+// finalise, error lanes included.  What is dropped is the TPU layout: the
+// [8,128] lane tiles, the preorder node program, the gather-free page
+// sweeps and the MXU wrapper matrices.
 //
-// Bound on this card: serial integer work and local-memory traffic per
-// stream (X, the fold buffer and the band scratch live in per-thread
-// local memory), plus warp divergence between streams.  One thread per
-// stream is the bring-up design; warp-cooperative bands are later work.
+// Bound on this card: a stream moves ~3.5 KB (160 packet bytes, 2 x 21
+// energies in, 800 coefficients out), so the bytes bound is a few us at
+// B = 4096; the time goes to the serial chain of dependent operations
+// that range decoding and the band tree are, one chain per stream
+// (opus_tpu_torch/tools/k1_profile.py splits it by phase).  So the
+// design fills the card with chains, keeps their operands on chip and
+// takes off the chain what does not depend on the range decoder:
 //
-// The tables (eBands, logN, caps, alloc vectors, e_prob, the pulse
-// cache rows and the CWRS U table) come in as one read-only int32 device
-// tensor built by DecTabs.kernel_table(); this file holds no mode tables.
+// - One warp per stream, K1_WARPS (16) warps per block, one block per
+//   SM: up to 128 registers a thread, so no spills.  B = 4096 gives 4096
+//   warps, not the 128 warps of one thread per stream.
+// - Warp-uniform control flow: all K1_LANES lanes hold the same range
+//   decoder state and run the header, coarse energy, tf, spread, dynalloc,
+//   trim, allocation, fine energy, the band tree, the anti-collapse bit
+//   and finalise on the same values, so no branch diverges inside a warp.
+//   No step runs on lane 0 alone to be broadcast: every lane computes the
+//   same scalar, which costs the warp the same issue slots as one lane
+//   does and needs no shuffle.  Stores of such scalars into shared memory
+//   (the band-tree stack, the leaf records) are made by lane 0, between
+//   two __syncwarp()s.
+// - Per-band values (energies, tf, offsets, the allocation, fine bits,
+//   collapse masks) live in registers, band i in lane i (Band<> below):
+//   a read is one __shfl_sync, a write a select in the owning lane.  The allocation's trial sums run over the bands at once (a
+//   ballot for "a higher band reached its threshold", a butterfly sum).
+// - Per-warp shared memory instead of local memory: the packet bytes
+//   (coalesced 16-byte loads), X, the fold buffer, the hadamard scratch,
+//   the band-tree stack and the leaf records, 6016 bytes a warp at
+//   P = 160.  libopus's fold memory norm is not kept: it always equals
+//   sqrt(N) * X of the bands coded so far, so a fold reads X (see the
+//   band loop).  The block stages the small mode tables once (eBands,
+//   logN, caps, the alloc vectors, e_prob) with sqrt(N) and 1/sqrt(N) per
+//   band and the band of each position; the pulse-cache rows and the CWRS
+//   U table (stored column by column, so a search over k reads
+//   consecutive words) stay in device memory, read through __ldg.
+// - A band's split tree is decoded first and its leaves recorded; then
+//   the leaves' cwrsi run at once, one lane each (a band of one leaf runs
+//   it on the whole warp, whose downward k searches test K1_LANES
+//   candidates at once with __ballot_sync).  The range decoder never
+//   reads a pulse vector, so this changes no decision.
+// - Vector passes across the lanes (j = lane; j < n; j += K1_LANES): the
+//   zeroing and fold copies, the pulse-to-float scale, renormalise,
+//   haar and (de)interleave_hadamard, the noise and anti-collapse fills
+//   (the LCG jumped ahead per lane), the collapse mask, the cache-row
+//   search (ballot counts) and the output write.  Sums reduce with
+//   __shfl_xor_sync in a fixed butterfly, so every lane gets the same
+//   bits.  exp_rotation's recurrences are serial along each chain: its
+//   chains run on separate lanes, each carrying its running value in a
+//   register.  The energy path (coarse, fine, finalise) stays a serial
+//   f32 sum in the plain version's order.
+// - X is written [B, nx] row-major, each warp its own row, from shared
+//   memory.
+//
+// Neither tensor cores (wgmma) nor TMA have a role: the pass has no matrix
+// product, and a stream reads 160 bytes and 2 x 21 floats, which plain
+// coalesced loads move as fast as a TMA descriptor would.
+//
+// The host rehearsal (tests/test_torch_k1_host.py) compiles this file as
+// C++ with K1_LANES 1 (and with K1_LANES > 1 on host threads), so the
+// lane width is a macro and nothing else in the source assumes 32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false (no fast math), so fp32 results track the plain version.
@@ -33,7 +81,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef K1_LANES
+#define K1_LANES 32        // lanes per stream: one warp on the card
+#endif
+#ifndef K1_WARPS
+#define K1_WARPS 16        // streams (warps) per block
+#endif
+
+// dynamic shared memory: the staged tables, then one WarpMem per warp
+extern __shared__ __align__(16) unsigned char k1_smem[];
+
 namespace {
+
+constexpr int LANES = K1_LANES;
+constexpr int WARPS = K1_WARPS;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(LANES >= 1 && LANES <= 32 && (LANES & (LANES - 1)) == 0,
+              "K1_LANES: a power of two up to 32");
 
 constexpr int BITRES = 3;
 constexpr int MAX_FINE_BITS = 8;
@@ -45,6 +109,8 @@ constexpr int NB_MAX = 21;
 constexpr int NX_MAX = 800;     // M * eBands[nb] at 20 ms
 constexpr int NMAX = 176;       // widest band at 20 ms
 constexpr int MAX_K = 128;
+constexpr int QP_DEPTH = 6;     // band split tree: LM + 2 levels
+constexpr int TAB_WORDS = 384;  // eBands .. e_prob, staged per block
 constexpr uint32_t CODE_BOT = 1u << 23;
 constexpr uint32_t CODE_TOP = 1u << 31;
 
@@ -73,14 +139,148 @@ __constant__ float PRED_COEF[4] = {29440 / 32768.f, 26112 / 32768.f,
 __constant__ float BETA_COEF[4] = {30147 / 32768.f, 22282 / 32768.f,
                                    12124 / 32768.f, 6554 / 32768.f};
 
+// -------------------------------------------------------------- profiling
+// Built with -DK1_PROFILE (opus_tpu_torch/tools/k1_profile.py), lane 0 of
+// each warp adds the SM clock cycles of each phase into k1_prof; the
+// card's build and the host rehearsal compile none of it.
+#ifdef K1_PROFILE
+constexpr int K1_NPROF = 16;
+__device__ unsigned long long k1_prof[K1_NPROF];
+#define PROF_T(v) const long long v = clock64()
+#define PROF_ADD(slot, t0)                                                   \
+    do {                                                                     \
+        if (threadIdx.x % K1_LANES == 0)                                     \
+            atomicAdd(&k1_prof[slot], (unsigned long long)(clock64() - t0)); \
+    } while (0)
+#else
+#define PROF_T(v)
+#define PROF_ADD(slot, t0)
+#endif
+
+// ------------------------------------------------------------ warp helpers
+__device__ __forceinline__ int lane_id() { return threadIdx.x % LANES; }
+
+template <typename V>
+__device__ __forceinline__ V warp_sum(V v) {
+    for (int o = LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    return v;
+}
+
+__device__ __forceinline__ int warp_or(int v) {
+    for (int o = LANES / 2; o > 0; o >>= 1) v |= __shfl_xor_sync(FULL, v, o);
+    return v;
+}
+
+// per-band values in registers: band i in lane i % LANES, slot i / LANES
+constexpr int BSLOTS = (NB_MAX + LANES - 1) / LANES;
+
+template <typename V>
+struct Band {
+    V v[BSLOTS];
+};
+
+template <typename V>
+__device__ __forceinline__ V bget(const Band<V> &a, int i) {
+    if constexpr (BSLOTS == 1) return __shfl_sync(FULL, a.v[0], i);
+    else return __shfl_sync(FULL, a.v[i / LANES], i % LANES);
+}
+
+template <typename V>
+__device__ __forceinline__ void bset(Band<V> &a, int i, V x) {
+    if constexpr (BSLOTS == 1) {
+        a.v[0] = lane_id() == i ? x : a.v[0];
+    } else if (lane_id() == i % LANES) {
+        a.v[i / LANES] = x;
+    }
+}
+
+// the LCG (bands.c celt_lcg_rand) jumped ahead: this lane's lane + 1 steps
+// and K1_LANES steps, as s -> a * s + c
+struct Jump {
+    uint32_t a1, c1, aL, cL;
+};
+
+__device__ __forceinline__ uint32_t lcg(uint32_t s) {
+    return 1664525u * s + 1013904223u;
+}
+
+__device__ Jump lcg_jump(int lane) {
+    Jump J;
+    uint32_t a = 1, c = 0;
+    J.a1 = 1;
+    J.c1 = 0;
+    for (int t = 0; t < LANES; t++) {
+        a = 1664525u * a;
+        c = lcg(c);
+        if (t == lane) {
+            J.a1 = a;
+            J.c1 = c;
+        }
+    }
+    J.aL = a;
+    J.cL = c;
+    return J;
+}
+
+// n serial LCG steps from seed, step t (0-based) on lane t % LANES:
+// f(t, state after step t); returns the state after n steps on every lane
+template <typename F>
+__device__ __forceinline__ uint32_t lcg_fill(uint32_t seed, int n,
+                                             const Jump &J, F f) {
+    if (n <= 0) return seed;
+    uint32_t s = J.a1 * seed + J.c1, last = s;
+    for (int t = lane_id(); t < n; t += LANES) {
+        f(t, s);
+        last = s;
+        s = J.aL * s + J.cL;
+    }
+    return __shfl_sync(FULL, last, (n - 1) % LANES);
+}
+
+// Sums over the coded bands of one allocation trial (rate.c): band j's
+// bits v_j count in full (up to its cap) once some band j' >= j reached
+// its threshold, else the floor when v_j >= alloc_floor, else nothing.
+// Bands sit in lanes: a ballot gives the "some j' >= j" flags, a butterfly
+// the sum.  Integer, so the order of the sum does not matter.
+template <typename F>
+__device__ __forceinline__ int alloc_sum(int start, int end,
+                                         const int32_t *caps, F bits_of) {
+    const int lane = lane_id();
+    int psum = 0, done_hi = 0;
+    for (int s = BSLOTS - 1; s >= 0; s--) {
+        int j = s * LANES + lane;
+        int in = j >= start && j < end;
+        int thr = 0;
+        int v = in ? bits_of(s, j, thr) : 0;
+        unsigned m = __ballot_sync(FULL, in && v >= thr);
+        int done = done_hi || (m >> lane) != 0;
+        if (in) psum += done ? (v < caps[j] ? v : caps[j])
+                             : (v >= 1 << BITRES ? 1 << BITRES : 0);
+        done_hi |= m != 0;
+    }
+    return warp_sum(psum);
+}
+
 // ---------------------------------------------------------------- tables
+// a block's shared memory (each warp's WarpMem follows it): the staged
+// tables, and per band sqrt(N) and 1/sqrt(N), and the band of each of the
+// nx positions
+struct __align__(16) BlockMem {
+    int32_t tab[TAB_WORDS];
+    float nrm[NB_MAX + 1], isq[NB_MAX + 1];
+    uint8_t band_of[NX_MAX];
+};
+
 struct Tabs {
     int nb, lm, nv, urows, ucols, start, end;
-    const int32_t *eBands, *logN, *caps, *allocV, *eprob, *rowoff, *rows;
+    const int32_t *eBands, *logN, *caps, *allocV, *eprob;  // shared memory
+    const int32_t *rowoff, *rows;                          // device memory
     const uint32_t *u;
 };
 
-__device__ Tabs load_tabs(const int32_t *t) {
+// the header, and eBands .. e_prob (one span of the table) copied into
+// stage by the whole block; the caller synchronises the block
+__device__ Tabs load_tabs(const int32_t *t, int32_t *stage) {
     Tabs T;
     T.nb = t[0];
     T.lm = t[1];
@@ -89,25 +289,48 @@ __device__ Tabs load_tabs(const int32_t *t) {
     T.ucols = t[4];
     T.start = t[5];
     T.end = t[6];
-    T.eBands = t + t[7];
-    T.logN = t + t[8];
-    T.caps = t + t[9];
-    T.allocV = t + t[10];
-    T.eprob = t + t[11];
+    const int lo = t[7], hi = t[12];
+    if (hi - lo > TAB_WORDS) __trap();
+    for (int k = threadIdx.x; k < hi - lo; k += blockDim.x) stage[k] = t[lo + k];
+    T.eBands = stage;
+    T.logN = stage + (t[8] - lo);
+    T.caps = stage + (t[9] - lo);
+    T.allocV = stage + (t[10] - lo);
+    T.eprob = stage + (t[11] - lo);
     T.rowoff = t + t[12];
     T.rows = t + t[13];
     T.u = reinterpret_cast<const uint32_t *>(t + t[14]);
     return T;
 }
 
-__device__ __forceinline__ const int32_t *cache_row(const Tabs &T, int lmn,
-                                                    int band) {
-    return T.rows + T.rowoff[(lmn + 1) * T.nb + band];
+// BlockMem's per-band values, from the staged eBands (after a block sync)
+__device__ void band_tables(const Tabs &T, BlockMem &bm, int nx) {
+    const int M = 1 << T.lm;
+    for (int j = threadIdx.x; j < T.nb; j += blockDim.x) {
+        int n = M * (T.eBands[j + 1] - T.eBands[j]);
+        bm.nrm[j] = (float)sqrt((double)n);
+        bm.isq[j] = (float)(1.0 / sqrt((double)n));
+    }
+    for (int p = threadIdx.x; p < nx; p += blockDim.x) {
+        int lo = 0, hi = T.nb - 1;      // the last band starting at <= p
+        while (lo < hi) {
+            int mid = (lo + hi + 1) >> 1;
+            if (M * T.eBands[mid] <= p) lo = mid;
+            else hi = mid - 1;
+        }
+        bm.band_of[p] = (uint8_t)lo;
+    }
 }
 
-// U(k, n), saturated at 2^32-1
+__device__ __forceinline__ const int32_t *cache_row(const Tabs &T, int lmn,
+                                                    int band) {
+    return T.rows + __ldg(T.rowoff + (lmn + 1) * T.nb + band);
+}
+
+// U(k, n), saturated at 2^32-1; stored column by column, so consecutive
+// k are consecutive words
 __device__ __forceinline__ uint32_t U(const Tabs &T, int k, int n) {
-    return __ldg(T.u + k * T.ucols + n);
+    return __ldg(T.u + n * T.urows + k);
 }
 
 __device__ __forceinline__ int ilog(uint32_t v) {
@@ -121,7 +344,7 @@ __device__ __forceinline__ int floordiv(int a, int b) {   // b > 0
 
 // ----------------------------------------------------------- range decoder
 struct RD {
-    const uint8_t *buf;
+    const uint8_t *buf;     // the packet's bytes in shared memory
     int storage;
     int offs, end_offs, nend_bits, nbits_total, rem, error;
     uint32_t end_window, rng, val, ext;
@@ -341,21 +564,22 @@ __device__ int isqrt24(int x) {
     return s;
 }
 
-__device__ __forceinline__ uint32_t lcg(uint32_t s) {
-    return 1664525u * s + 1013904223u;
-}
+// ------------------------------------------------- vector passes (a warp)
+// Each ends with __syncwarp(), so the next pass may read any element.
 
-// ---------------------------------------------------------------- float ops
+// stride is a power of two (a block count)
 __device__ void haar1(float *x, int n0, int stride) {
     const float s = 0.70710678118654752440f;
-    for (int i = 0; i < stride; i++)
-        for (int j = 0; j < (n0 >> 1); j++) {
-            int i0 = stride * 2 * j + i;
-            float t1 = s * x[i0];
-            float t2 = s * x[i0 + stride];
-            x[i0] = t1 + t2;
-            x[i0 + stride] = t1 - t2;
-        }
+    const int ls = __ffs(stride) - 1;
+    for (int p = lane_id(); p < (stride * (n0 >> 1)); p += LANES) {
+        int i = p & (stride - 1), j = p >> ls;
+        int i0 = stride * 2 * j + i;
+        float t1 = s * x[i0];
+        float t2 = s * x[i0 + stride];
+        x[i0] = t1 + t2;
+        x[i0 + stride] = t1 - t2;
+    }
+    __syncwarp();
 }
 
 __device__ const int *ordery(int stride) {
@@ -365,33 +589,53 @@ __device__ const int *ordery(int stride) {
 __device__ void deinterleave_hadamard(float *x, float *tmp, int n0,
                                       int stride, int hadamard) {
     const int *ord = ordery(stride);
-    for (int i = 0; i < stride; i++)
-        for (int j = 0; j < n0; j++)
-            tmp[(hadamard ? ord[i] : i) * n0 + j] = x[j * stride + i];
-    for (int j = 0; j < n0 * stride; j++) x[j] = tmp[j];
+    const int ls = __ffs(stride) - 1;
+    for (int q = lane_id(); q < n0 * stride; q += LANES) {
+        int i = q & (stride - 1), j = q >> ls;
+        tmp[(hadamard ? ord[i] : i) * n0 + j] = x[q];
+    }
+    __syncwarp();
+    for (int q = lane_id(); q < n0 * stride; q += LANES) x[q] = tmp[q];
+    __syncwarp();
 }
 
 __device__ void interleave_hadamard(float *x, float *tmp, int n0, int stride,
                                     int hadamard) {
     const int *ord = ordery(stride);
-    for (int i = 0; i < stride; i++)
-        for (int j = 0; j < n0; j++)
-            tmp[j * stride + i] = x[(hadamard ? ord[i] : i) * n0 + j];
-    for (int j = 0; j < n0 * stride; j++) x[j] = tmp[j];
+    const int ls = __ffs(stride) - 1;
+    for (int q = lane_id(); q < n0 * stride; q += LANES) {
+        int i = q & (stride - 1), j = q >> ls;
+        tmp[q] = x[(hadamard ? ord[i] : i) * n0 + j];
+    }
+    __syncwarp();
+    for (int q = lane_id(); q < n0 * stride; q += LANES) x[q] = tmp[q];
+    __syncwarp();
 }
 
-__device__ void exp_rotation1(float *x, int len, int stride, float c,
-                              float s) {
-    for (int i = 0; i < len - stride; i++) {
-        float x1 = x[i], x2 = x[i + stride];
-        x[i + stride] = c * x2 + s * x1;
+// exp_rotation1 (vq.c) restricted to the chain of positions r, r + stride,
+// ...: its forward and backward recurrences touch no other chain.  The
+// value each step hands to the next stays in a register, so a step waits
+// on two float operations and not on a shared-memory round trip.
+__device__ void rotation_chain(float *x, int len, int stride, int r, float c,
+                               float s) {
+    int i = r;
+    float x1 = x[r];
+    for (; i < len - stride; i += stride) {
+        float x2 = x[i + stride];
         x[i] = c * x1 - s * x2;
+        x1 = c * x2 + s * x1;
     }
-    for (int i = len - 2 * stride - 1; i >= 0; i--) {
-        float x1 = x[i], x2 = x[i + stride];
-        x[i + stride] = c * x2 + s * x1;
-        x[i] = c * x1 - s * x2;
+    x[i] = x1;
+    int top = len - 2 * stride - 1;
+    if (top < r) return;
+    i = top - ((top - r) % stride);
+    float x2 = x[i + stride];
+    for (; i >= 0; i -= stride) {
+        float y1 = x[i];
+        x[i + stride] = c * x2 + s * y1;
+        x2 = c * y1 - s * x2;
     }
+    x[i + stride] = x2;
 }
 
 __device__ void exp_rotation_dec(float *x, int n, int stride, int k,
@@ -410,34 +654,83 @@ __device__ void exp_rotation_dec(float *x, int n, int stride, int k,
             stride2++;
     }
     int len = n / stride;
-    for (int i = 0; i < stride; i++) {
-        if (stride2) exp_rotation1(x + i * len, len, stride2, s, c);
-        exp_rotation1(x + i * len, len, 1, c, s);
+    // per block: the stride2 pass (its chains on separate lanes), then
+    // the stride-1 pass (one chain per block)
+    if (stride2) {
+        for (int p = lane_id(); p < stride * stride2; p += LANES)
+            rotation_chain(x + (p / stride2) * len, len, stride2,
+                           p % stride2, s, c);
+        __syncwarp();
     }
+    for (int blk = lane_id(); blk < stride; blk += LANES)
+        rotation_chain(x + blk * len, len, 1, 0, c, s);
+    __syncwarp();
 }
 
 __device__ void renormalise(float *x, int n, float gain) {
     float e = 0.f;
-    for (int i = 0; i < n; i++) e += x[i] * x[i];
+    for (int i = lane_id(); i < n; i += LANES) e += x[i] * x[i];
+    e = warp_sum(e);
     e += 1e-15f;
     float g = gain * rsqrtf(e);
-    for (int i = 0; i < n; i++) x[i] *= g;
+    for (int i = lane_id(); i < n; i += LANES) x[i] *= g;
+    __syncwarp();
 }
 
 // ---------------------------------------------------------------- band tree
+// The range decoder never reads a leaf's pulse vector: a band's split tree
+// is decoded first (theta, the leaves' pulse counts and codebook indices),
+// its leaves recorded, and then built: every leaf's cwrsi at once, one
+// lane each, then the float work leaf by leaf in the tree's order (the
+// noise fills draw the LCG in that order).
+
+// 20 words, 16-byte aligned: a frame moves as five 16-byte accesses
+struct __align__(16) QPFrame {
+    int n, lm, b, bb, fill, xo, phase, cs;
+    float gain;
+    int bb2, fill_s, itheta, mbits, sbits, swap, rb_before, bv0;
+    float mid, side;
+    int pad;
+};
+
+// a leaf: x offset and size, blocks, pulse count (0: folded or noise),
+// cache cap, fill mask, the shift of its collapse bits in the band's mask
+// and its codebook index
+struct __align__(16) Leaf {
+    int xo, n, bb, kq, kcap, fill, cs;
+    uint32_t idx;
+    float gain;
+    int pad[3];
+};
+
+constexpr int MAX_LEAVES = 1 << (QP_DEPTH - 2);   // LM 3: 4 splits
+
+// a warp's shared memory (the packet's bytes follow it)
+struct __align__(16) WarpMem {
+    float X[NX_MAX];
+    float lb[NMAX];
+    float tmp[NMAX];        // (de)interleave_hadamard scratch
+    QPFrame st[QP_DEPTH];
+    Leaf leaves[MAX_LEAVES];
+};
+
 struct Ctx {
     RD d;
     int rb;
     uint32_t seed;
     int spread;
-    int iy[NMAX];
-    float tmp[NMAX];
+    Jump J;
+    WarpMem *w;
 };
 
-// cwrsi (cwrs.c:467): codebook index -> pulse vector, with the downward
-// k searches over the U table
+// cwrsi (cwrs.c:467): codebook index -> pulse vector, stored as floats in
+// y.  whole_warp: every lane runs it on the same leaf (lane 0 stores) and
+// each downward k search tests LANES candidates at once; else each lane
+// decodes its own leaf with a serial search.
 __device__ void cwrsi(const Tabs &T, int n, int k, uint32_t i, int kcap,
-                      int *y) {
+                      float *y, bool whole_warp) {
+    const int lane = lane_id();
+    const bool store = !whole_warp || lane == 0;
     int idx = 0;
     for (; n > 2; n--) {
         int is_a = k >= n;
@@ -446,7 +739,8 @@ __device__ void cwrsi(const Tabs &T, int n, int k, uint32_t i, int kcap,
         int izero = !is_a && col_k <= i && i < col_k1;
         if (izero) {
             i -= col_k;
-            y[idx++] = 0;
+            if (store) y[idx] = 0.f;
+            idx++;
             continue;
         }
         if (s) i -= col_k1;
@@ -458,11 +752,31 @@ __device__ void cwrsi(const Tabs &T, int n, int k, uint32_t i, int kcap,
             upper = k - 1;
         }
         if (upper < 0) upper = 0;
+        // kn = the largest k' <= upper with k' == 0 or U(k', n) <= i
         int kn = upper;
-        while (kn > 0 && U(T, kn, n) > i) kn--;
-        i -= U(T, kn, n);
+        uint32_t ukn;
+        if (whole_warp) {
+            for (;;) {
+                int cand = kn - lane;
+                uint32_t uc = cand >= 0 ? U(T, cand, n) : 0u;
+                int past = cand > 0 && uc > i;
+                unsigned stop = __ballot_sync(FULL, !past);
+                if (stop) {
+                    int first = __ffs((int)stop) - 1;
+                    ukn = __shfl_sync(FULL, uc, first);
+                    kn -= first;
+                    break;
+                }
+                kn -= LANES;
+            }
+        } else {
+            ukn = U(T, kn, n);
+            while (kn > 0 && ukn > i) ukn = U(T, --kn, n);
+        }
+        i -= ukn;
         int val = k - kn;
-        y[idx++] = s ? -val : val;
+        if (store) y[idx] = (float)(s ? -val : val);
+        idx++;
         k = kn;
     }
     uint32_t p = 2u * (uint32_t)k + 1;
@@ -471,99 +785,101 @@ __device__ void cwrsi(const Tabs &T, int n, int k, uint32_t i, int kcap,
     int k2 = (int)((i + 1) >> 1);
     if (k2 > 0) i -= 2u * (uint32_t)k2 - 1;
     int val = k - k2;
-    y[idx++] = s ? -val : val;
-    y[idx] = i ? -k2 : k2;
+    if (store) {
+        y[idx] = (float)(s ? -val : val);
+        y[idx + 1] = (float)(i ? -k2 : k2);
+    }
 }
 
-__device__ int quant_leaf(const Tabs &T, Ctx &c, int band, float *x,
-                          const float *lb, int lb_has, int n, int b, int bb,
-                          float gain, int fill, const int32_t *row) {
-    int L = row[0];
-    int bm1 = b - 1;
+// a leaf's decoding (bands.c quant_partition's leaf, mono decode): its
+// pulse count from the cache row nearest b - 1 bits that fits in c.rb,
+// and the codebook index
+__device__ Leaf decode_leaf(const Tabs &T, Ctx &c, const QPFrame &f,
+                            const int32_t *row) {
+    // the row's L entries counted across the lanes
+    int L = __ldg(row);
+    int bm1 = f.b - 1;
     int lo = 0;
-    for (int j = 1; j <= L; j++) lo += bm1 > row[j];
-    int hi = lo + 1 < L ? lo + 1 : L;
-    int lo_val = lo == 0 ? -1 : row[lo];
-    int q = (bm1 - lo_val <= row[hi] - bm1) ? lo : hi;
     int c_fit = 0;
-    for (int j = 1; j <= L; j++) c_fit += c.rb >= row[j] + 1;
-    if (q > c_fit) q = c_fit;
-    if (q < 0) q = 0;
-    c.rb -= q > 0 ? row[q] + 1 : 0;
-    int kq = q < 8 ? q : (8 + (q & 7)) << ((q >> 3) - 1);
-    if (kq != 0) {
+    for (int j0 = 1; j0 <= L; j0 += LANES) {
+        int j = j0 + lane_id();
+        int rj = j <= L ? __ldg(row + j) : 0;
+        lo += __popc(__ballot_sync(FULL, j <= L && bm1 > rj));
+        c_fit += __popc(__ballot_sync(FULL, j <= L && c.rb >= rj + 1));
+    }
+    int hi = lo + 1 < L ? lo + 1 : L;
+    int lo_val = lo == 0 ? -1 : __ldg(row + lo);
+    int hi_val = __ldg(row + hi), fit_val = __ldg(row + c_fit);
+    int q = (bm1 - lo_val <= hi_val - bm1) ? lo : hi;
+    int q_val = q == lo ? lo_val : hi_val;
+    if (q > c_fit) {
+        q = c_fit;
+        q_val = fit_val;
+    }
+    c.rb -= q > 0 ? q_val + 1 : 0;
+    Leaf lf;
+    lf.xo = f.xo;
+    lf.n = f.n;
+    lf.bb = f.bb;
+    lf.kq = q < 8 ? q : (8 + (q & 7)) << ((q >> 3) - 1);
+    lf.kcap = 0;
+    lf.fill = f.fill;
+    lf.cs = f.cs;
+    lf.idx = 0;
+    lf.gain = f.gain;
+    if (lf.kq != 0) {
         int kcap = L < 8 ? L : (8 + (L & 7)) << ((L >> 3) - 1);
         if (kcap > MAX_K) kcap = MAX_K;
-        int kc = kq < kcap ? kq : kcap;
-        uint64_t v = (uint64_t)U(T, kc, n) + U(T, kc + 1, n);
+        int kc = lf.kq < kcap ? lf.kq : kcap;
+        uint64_t v = (uint64_t)U(T, kc, f.n) + U(T, kc + 1, f.n);
         uint32_t ft = v > 0xFFFFFFFFull ? 0xFFFFFFFFu : (uint32_t)v;
-        uint32_t idx = rd_uint(c.d, ft);
-        cwrsi(T, n, kq > 1 ? kq : 1, idx, kcap, c.iy);
-        float ryy = 0.f;
-        for (int j = 0; j < n; j++) ryy += (float)(c.iy[j] * c.iy[j]);
-        float g = gain * rsqrtf(ryy > 1e-30f ? ryy : 1e-30f);
-        for (int j = 0; j < n; j++) x[j] = (float)c.iy[j] * g;
-        exp_rotation_dec(x, n, bb, kq, c.spread);
-        if (bb <= 1) return 1;
-        int n0 = n / bb, cm = 0;
-        for (int ib = 0; ib < bb; ib++) {
-            int t = 0;
-            for (int j = 0; j < n0; j++) t |= c.iy[ib * n0 + j] != 0;
-            cm |= t << ib;
-        }
-        return cm;
+        lf.idx = rd_uint(c.d, ft);
+        lf.kcap = kcap;
     }
-    int cm_mask = (1 << bb) - 1;
-    int fillm = fill & cm_mask;
-    if (fillm == 0) {
-        for (int j = 0; j < n; j++) x[j] = 0.f;
-        return 0;
-    }
-    for (int j = 0; j < n; j++) {
-        c.seed = lcg(c.seed);
-        x[j] = lb_has ? lb[j] + ((c.seed & 0x8000) ? 1.0f / 256 : -1.0f / 256)
-                      : (float)((int32_t)c.seed >> 20);
-    }
-    renormalise(x, n, gain);
-    return lb_has ? fillm : cm_mask;
+    return lf;
 }
 
-struct QPFrame {
-    int n, lm, b, bb, fill, xo, lo, phase;
-    float gain;
-    int b0, bb2, fill_s, itheta, mbits, sbits, swap, rb_before, cm0, bv0;
-    float mid, side;
-};
-
-// quant_partition decode (bands.c:973) with an explicit stack: depth is
-// bounded by LM + 2 levels of the band split tree
-__device__ int quant_partition(const Tabs &T, Ctx &c, int band, float *x,
-                               const float *lb, int lb_has, int n, int lm,
-                               int b, int bb, int fill) {
-    QPFrame st[6];
-    int top = 0, ret = 0;
-    st[0].n = n;
-    st[0].lm = lm;
-    st[0].b = b;
-    st[0].bb = bb;
-    st[0].fill = fill;
-    st[0].gain = 1.0f;
-    st[0].xo = 0;
-    st[0].lo = 0;
-    st[0].phase = 0;
+// quant_partition decode (bands.c:973) with an explicit stack in shared
+// memory (every lane reads the top frame, lane 0 writes): decodes the
+// band's split tree and records its leaves in c.w->leaves; returns their
+// number.  A node's second child replaces it on the stack.
+__device__ int quant_partition(const Tabs &T, Ctx &c, int band, int n,
+                               int lm, int b, int bb, int fill) {
+    QPFrame *st = c.w->st;
+    Leaf *leaves = c.w->leaves;
+    const int lane = lane_id();
+    int top = 0, nl = 0;
+    __syncwarp();
+    if (lane == 0) {
+        st[0].n = n;
+        st[0].lm = lm;
+        st[0].b = b;
+        st[0].bb = bb;
+        st[0].fill = fill;
+        st[0].gain = 1.0f;
+        st[0].xo = 0;
+        st[0].cs = 0;
+        st[0].phase = 0;
+    }
+    __syncwarp();
     while (top >= 0) {
-        QPFrame &f = st[top];
+        QPFrame f = st[top];
+        QPFrame ch;
         if (f.phase == 0) {
             const int32_t *row = cache_row(T, f.lm, band);
-            int split = f.lm != -1 && f.n > 2 && f.b > row[row[0]] + 12;
+            int split = f.lm != -1 && f.n > 2
+                && f.b > __ldg(row + __ldg(row)) + 12;
             if (!split) {
-                ret = quant_leaf(T, c, band, x + f.xo, lb + f.lo, lb_has,
-                                 f.n, f.b, f.bb, f.gain, f.fill, row);
+                PROF_T(t_leaf);
+                Leaf lf = decode_leaf(T, c, f, row);
+                if (lane == 0) leaves[nl] = lf;
+                nl++;
+                PROF_ADD(10, t_leaf);
                 top--;
                 continue;
             }
+            PROF_T(t_th);
             int n2 = f.n >> 1, lm2 = f.lm - 1;
-            f.b0 = f.bb;
             f.fill_s = f.bb == 1 ? (f.fill & 1) | (f.fill << 1) : f.fill;
             f.bb2 = (f.bb + 1) >> 1;
             // ---- compute_theta, mono decode (bands.c:700)
@@ -574,7 +890,7 @@ __device__ int quant_partition(const Tabs &T, Ctx &c, int band, float *x,
             int itheta = 0;
             if (qn != 1) {
                 int th;
-                if (f.b0 > 1) {
+                if (f.bb > 1) {
                     th = (int)rd_uint(c.d, (uint32_t)(qn + 1));
                 } else {
                     int qh = qn >> 1;
@@ -620,7 +936,7 @@ __device__ int quant_partition(const Tabs &T, Ctx &c, int band, float *x,
             f.itheta = itheta;
             f.mid = (float)imid * (1.0f / 32768.0f);
             f.side = (float)iside * (1.0f / 32768.0f);
-            if (f.b0 > 1 && (itheta & 0x3fff)) {
+            if (f.bb > 1 && (itheta & 0x3fff)) {
                 if (itheta > 8192) {
                     delta -= delta >> (4 - lm2);
                 } else {
@@ -637,7 +953,8 @@ __device__ int quant_partition(const Tabs &T, Ctx &c, int band, float *x,
             f.rb_before = c.rb;
             f.bv0 = f.swap ? f.sbits : f.mbits;
             f.phase = 1;
-            QPFrame &ch = st[top + 1];
+            PROF_ADD(11, t_th);
+            // the first child: the side half if it has more bits
             ch.n = n2;
             ch.lm = lm2;
             ch.b = f.bv0;
@@ -645,18 +962,23 @@ __device__ int quant_partition(const Tabs &T, Ctx &c, int band, float *x,
             ch.fill = f.swap ? f.fill_s >> f.bb2 : f.fill_s;
             ch.gain = f.gain * (f.swap ? f.side : f.mid);
             ch.xo = f.xo + (f.swap ? n2 : 0);
-            ch.lo = f.lo + (f.swap ? n2 : 0);
+            ch.cs = f.cs + (f.swap ? f.bb >> 1 : 0);
             ch.phase = 0;
+            // push: every lane has read st[top] before lane 0 writes it
+            __syncwarp();
+            if (lane == 0) {
+                st[top] = f;
+                st[top + 1] = ch;
+            }
+            __syncwarp();
             top++;
-        } else if (f.phase == 1) {
-            f.cm0 = ret;
+        } else {
+            // the second child, with the bits the first left over
             int n2 = f.n >> 1;
             int rebalance = f.bv0 - (f.rb_before - c.rb);
             int anchor = f.swap ? 16384 : 0;
             int extra = (rebalance > (3 << BITRES) && f.itheta != anchor)
                 ? rebalance - (3 << BITRES) : 0;
-            f.phase = 2;
-            QPFrame &ch = st[top + 1];
             ch.n = n2;
             ch.lm = f.lm - 1;
             ch.b = (f.swap ? f.mbits : f.sbits) + extra;
@@ -664,17 +986,81 @@ __device__ int quant_partition(const Tabs &T, Ctx &c, int band, float *x,
             ch.fill = f.swap ? f.fill_s : f.fill_s >> f.bb2;
             ch.gain = f.gain * (f.swap ? f.mid : f.side);
             ch.xo = f.xo + (f.swap ? 0 : n2);
-            ch.lo = f.lo + (f.swap ? 0 : n2);
+            ch.cs = f.cs + (f.swap ? 0 : f.bb >> 1);
             ch.phase = 0;
-            top++;
-        } else {
-            int cm_x = f.swap ? ret : f.cm0;
-            int cm_y = f.swap ? f.cm0 : ret;
-            ret = cm_x | (cm_y << (f.b0 >> 1));
-            top--;
+            __syncwarp();
+            if (lane == 0) st[top] = ch;
+            __syncwarp();
         }
     }
-    return ret;
+    __syncwarp();       // the leaves lane 0 recorded
+    return nl;
+}
+
+// builds the nl recorded leaves of a band into x; returns the band's
+// collapse mask (each leaf's mask shifted to its blocks)
+__device__ int build_leaves(const Tabs &T, Ctx &c, float *x, const float *lb,
+                            int lb_has, int nl) {
+    const Leaf *leaves = c.w->leaves;
+    if (nl == 1) {
+        const Leaf &lf = leaves[0];
+        if (lf.kq != 0)
+            cwrsi(T, lf.n, lf.kq > 1 ? lf.kq : 1, lf.idx, lf.kcap, x, true);
+    } else {
+        for (int l = lane_id(); l < nl; l += LANES) {
+            Leaf lf = leaves[l];
+            if (lf.kq != 0)
+                cwrsi(T, lf.n, lf.kq > 1 ? lf.kq : 1, lf.idx, lf.kcap,
+                      x + lf.xo, false);
+        }
+    }
+    __syncwarp();
+    int cm = 0;
+    for (int l = 0; l < nl; l++) {
+        const Leaf lf = leaves[l];
+        float *xl = x + lf.xo;
+        const int n = lf.n, bb = lf.bb;
+        int cml;
+        if (lf.kq != 0) {
+            // xl holds the pulses: their squares sum exactly in any order
+            // (integers below 2^24); the collapse bits mark blocks with one
+            const int n0 = n / bb;
+            float ryy = 0.f;
+            int nz = 0;
+            for (int j = lane_id(); j < n; j += LANES) {
+                ryy += xl[j] * xl[j];
+                if (xl[j] != 0.f) nz |= 1 << (j / n0);
+            }
+            ryy = warp_sum(ryy);
+            float g = lf.gain * rsqrtf(ryy > 1e-30f ? ryy : 1e-30f);
+            for (int j = lane_id(); j < n; j += LANES) xl[j] = xl[j] * g;
+            __syncwarp();
+            PROF_T(t_rot);
+            exp_rotation_dec(xl, n, bb, lf.kq, c.spread);
+            PROF_ADD(9, t_rot);
+            cml = bb <= 1 ? 1 : warp_or(nz);
+        } else {
+            int cm_mask = (1 << bb) - 1;
+            int fillm = lf.fill & cm_mask;
+            if (fillm == 0) {
+                for (int j = lane_id(); j < n; j += LANES) xl[j] = 0.f;
+                __syncwarp();
+                cml = 0;
+            } else {
+                const float *ll = lb + lf.xo;
+                c.seed = lcg_fill(c.seed, n, c.J, [&](int j, uint32_t s) {
+                    xl[j] = lb_has
+                        ? ll[j] + ((s & 0x8000) ? 1.0f / 256 : -1.0f / 256)
+                        : (float)((int32_t)s >> 20);
+                });
+                __syncwarp();
+                renormalise(xl, n, lf.gain);
+                cml = lb_has ? fillm : cm_mask;
+            }
+        }
+        cm |= cml << lf.cs;
+    }
+    return cm;
 }
 
 // quant_band, mono decode (bands.c:1245): tf/hadamard wrappers around
@@ -682,13 +1068,15 @@ __device__ int quant_partition(const Tabs &T, Ctx &c, int band, float *x,
 __device__ int quant_band(const Tabs &T, Ctx &c, int band, float *x,
                           float *lb, int lb_has, int n, int b, int tr,
                           int tf_change, int fill) {
+    float *tmp = c.w->tmp;
     if (n == 1) {
         int sign = 0;
         if (c.rb >= 1 << BITRES) {
             sign = (int)rd_bits(c.d, 1);
             c.rb -= 1 << BITRES;
         }
-        x[0] = sign ? -1.0f : 1.0f;
+        if (lane_id() == 0) x[0] = sign ? -1.0f : 1.0f;
+        __syncwarp();
         return 1;
     }
     int lm = T.lm;
@@ -719,14 +1107,19 @@ __device__ int quant_band(const Tabs &T, Ctx &c, int band, float *x,
         n_b >>= 1;
     }
     if (b0f > 1)
-        deinterleave_hadamard(lb, c.tmp, n_b0 >> recombine, b0f << recombine,
+        deinterleave_hadamard(lb, tmp, n_b0 >> recombine, b0f << recombine,
                               longb);
-    int cm = quant_partition(T, c, band, x, lb, lb_has, n, lm, b, b0f, fill);
+    PROF_T(t_qp);
+    int nl = quant_partition(T, c, band, n, lm, b, b0f, fill);
+    PROF_T(t_build);
+    int cm = build_leaves(T, c, x, lb, lb_has, nl);
+    PROF_ADD(8, t_build);
+    PROF_ADD(12, t_qp);
     // resynth side: x + cm
     bb = b0f;
     n_b = n_b0;
     if (bb > 1)
-        interleave_hadamard(x, c.tmp, n_b >> recombine, bb << recombine,
+        interleave_hadamard(x, tmp, n_b >> recombine, bb << recombine,
                             longb);
     for (int t = 0; t < tdiv; t++) {
         bb >>= 1;
@@ -743,43 +1136,69 @@ __device__ int quant_band(const Tabs &T, Ctx &c, int band, float *x,
 }
 
 // ---------------------------------------------------------------- the frame
-__global__ void __launch_bounds__(64)
+// one resident block per SM asked of ptxas: up to 128 registers a thread
+__global__ void __launch_bounds__(WARPS * LANES, 1)
 celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                       const int32_t *__restrict__ lens,
                       const float *__restrict__ old_e,
                       const float *__restrict__ prevmin,
                       const int64_t *__restrict__ seed_in,
                       const int32_t *__restrict__ rc_in,
-                      const int32_t *__restrict__ tab, float *X_t,
+                      const int32_t *__restrict__ tab, float *X,
                       float *energies, int32_t *ints, float *pf_gain_out,
                       int B, int nx) {
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= B) return;
-    const Tabs T = load_tabs(tab);
+    PROF_T(t_start);
+    BlockMem &bm = *reinterpret_cast<BlockMem *>(k1_smem);
+    const Tabs T = load_tabs(tab, bm.tab);
+    __syncthreads();
+    band_tables(T, bm, nx);
+    __syncthreads();
+    const int lane = lane_id(), warp = threadIdx.x / LANES;
+    const int stream = blockIdx.x * WARPS + warp;
+    if (stream >= B) return;
     const int nb = T.nb, lm = T.lm, M = 1 << lm;
     const int start = T.start, end = T.end;
     const int32_t *eB = T.eBands;
-    Ctx c;
-    float X[NX_MAX];
-    float norm[NX_MAX];
-    float lb[NMAX];
-    float e[NB_MAX];
-    int tf_res[NB_MAX], offsets[NB_MAX], bits1[NB_MAX], bits2[NB_MAX];
-    int pulses[NB_MAX], ebits[NB_MAX], fine_priority[NB_MAX];
-    int thresh[NB_MAX], collapse[NB_MAX];
+    const size_t per_warp = sizeof(WarpMem) + ((P + 15) & ~15);
+    WarpMem *w = reinterpret_cast<WarpMem *>(
+        k1_smem + sizeof(BlockMem) + warp * per_warp);
+    uint8_t *pkt = reinterpret_cast<uint8_t *>(w + 1);
+    float *const Xs = w->X;
+    float *const lb = w->lb;
 
-    int len = lens[lane];
-    if (rc_in)
-        rd_load(c.d, buf + (size_t)lane * P, len, rc_in + lane * 10);
-    else
-        rd_init(c.d, buf + (size_t)lane * P, len);
-    for (int i = 0; i < nb; i++) {
-        e[i] = old_e[lane * nb + i];
-        tf_res[i] = offsets[i] = pulses[i] = ebits[i] = 0;
-        fine_priority[i] = collapse[i] = 0;
+    // ---- the packet's bytes into shared memory
+    int len = lens[stream];
+    const uint8_t *src = buf + (size_t)stream * P;
+    if ((P & 15) == 0 && (reinterpret_cast<uintptr_t>(buf) & 15) == 0) {
+        for (int k = lane; k < (len + 15) >> 4; k += LANES)
+            reinterpret_cast<uint4 *>(pkt)[k] =
+                reinterpret_cast<const uint4 *>(src)[k];
+    } else {
+        for (int k = lane; k < len; k += LANES) pkt[k] = src[k];
     }
-    for (int j = 0; j < nx; j++) X[j] = 0.f;     // uncoded bands stay 0
+    for (int j = lane; j < nx; j += LANES) Xs[j] = 0.f;  // uncoded bands: 0
+    __syncwarp();
 
+    Ctx c;
+    c.w = w;
+    c.J = lcg_jump(lane);
+    if (rc_in)
+        rd_load(c.d, pkt, len, rc_in + stream * 10);
+    else
+        rd_init(c.d, pkt, len);
+    Band<float> e;
+    Band<int> tf_res, offsets, bits1, bits2, pulses, ebits, fine_priority,
+        thresh, collapse, trim_off;
+    for (int s = 0; s < BSLOTS; s++) {
+        int j = s * LANES + lane;
+        e.v[s] = j < nb ? old_e[stream * nb + j] : 0.f;
+        tf_res.v[s] = offsets.v[s] = bits1.v[s] = bits2.v[s] = 0;
+        pulses.v[s] = ebits.v[s] = fine_priority.v[s] = thresh.v[s] = 0;
+        collapse.v[s] = trim_off.v[s] = 0;
+    }
+
+    PROF_ADD(0, t_start);
+    PROF_T(t_head);
     int total_bits = len * 8;
     int tell = rd_tell(c.d);
     int sil_bit = tell == 1 ? rd_bit_logp(c.d, 15) : 0;
@@ -828,11 +1247,14 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                     qi = -1;
                 }
                 float q = (float)qi;
-                float old = e[i] > -9.0f ? e[i] : -9.0f;
-                e[i] = coef * old + prev + q;
+                float ei = bget(e, i);
+                float old = ei > -9.0f ? ei : -9.0f;
+                bset(e, i, coef * old + prev + q);
                 prev = prev + q - beta * q;
             }
         }
+        PROF_ADD(1, t_head);
+        PROF_T(t_tf);
         // ---- tf_decode
         {
             int budget = total_bits;
@@ -849,14 +1271,17 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                     tell = rd_tell(c.d);
                 }
                 tf_changed |= curr;
-                tf_res[i] = curr;
+                bset(tf_res, i, curr);
             }
             const int *ts = TF_SELECT_TABLE[lm];
             int it4 = 4 * is_transient, tf_select = 0;
             if (tf_select_rsv && ts[it4 + tf_changed] != ts[it4 + 2 + tf_changed])
                 tf_select = rd_bit_logp(c.d, 1);
-            for (int i = start; i < end; i++)
-                tf_res[i] = ts[it4 + 2 * tf_select + tf_res[i]];
+            for (int s = 0; s < BSLOTS; s++) {
+                int j = s * LANES + lane;
+                if (j >= start && j < end)
+                    tf_res.v[s] = ts[it4 + 2 * tf_select + tf_res.v[s]];
+            }
         }
         // ---- spread
         int spread = 2;
@@ -883,12 +1308,14 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                     total_bits8 -= quanta;
                     loop_logp = 1;
                 }
-                offsets[i] = boost;
+                bset(offsets, i, boost);
                 if (boost > 0) dyn_logp = dyn_logp - 1 > 2 ? dyn_logp - 1 : 2;
             }
             trim = tellf + (6 << BITRES) <= total_bits8
                 ? rd_icdf(c.d, TRIM_ICDF, 11, 7) : 5;
         }
+        PROF_ADD(2, t_tf);
+        PROF_T(t_alloc);
         int bits_left = (len * 8 << BITRES) - rd_tell_frac(c.d) - 1;
         int ac_rsv = (is_transient && lm >= 2
                       && bits_left >= ((lm + 2) << BITRES)) ? 1 << BITRES : 0;
@@ -900,42 +1327,51 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             int total = bits_left > 0 ? bits_left : 0;
             int skip_rsv = total >= (1 << BITRES) ? 1 << BITRES : 0;
             total -= skip_rsv;
-            int trim_off[NB_MAX];
-            for (int j = 0; j < nb; j++) {
+            for (int s = 0; s < BSLOTS; s++) {
+                int j = s * LANES + lane;
+                if (j >= nb) continue;
                 int w = eB[j + 1] - eB[j];
                 int t = (3 * w << lm << BITRES) >> 4;
-                thresh[j] = t > (1 << BITRES) ? t : (1 << BITRES);
-                trim_off[j] = (w * (trim - 5 - lm) * (end - 1 - j)
-                               * (1 << (lm + BITRES))) >> 6;
-                if ((w << lm) == 1) trim_off[j] -= 1 << BITRES;
+                thresh.v[s] = t > (1 << BITRES) ? t : (1 << BITRES);
+                int to = (w * (trim - 5 - lm) * (end - 1 - j)
+                          * (1 << (lm + BITRES))) >> 6;
+                if ((w << lm) == 1) to -= 1 << BITRES;
+                trim_off.v[s] = to;
             }
             const int nv = T.nv;
             int lo = 1, hi = nv - 1;
             for (int it = 0; it < 6; it++) {
                 if (lo > hi) continue;
                 int mid = (lo + hi) >> 1;
-                int psum = 0, done = 0;
-                for (int j = end - 1; j >= start; j--) {
+                int psum = alloc_sum(start, end, T.caps,
+                                     [&](int s, int j, int &thr) {
                     int bj = ((eB[j + 1] - eB[j]) * T.allocV[mid * nb + j])
                         << lm >> 2;
                     if (bj > 0) {
-                        bj += trim_off[j];
+                        bj += trim_off.v[s];
                         if (bj < 0) bj = 0;
                     }
-                    bj += offsets[j];
-                    if (bj >= thresh[j] || done) {
-                        done = 1;
-                        psum += bj < T.caps[j] ? bj : T.caps[j];
-                    } else if (bj >= 1 << BITRES) {
-                        psum += 1 << BITRES;
-                    }
-                }
+                    thr = thresh.v[s];
+                    return bj + offsets.v[s];
+                });
                 if (psum > total) hi = mid - 1;
                 else lo = mid + 1;
             }
             int hi_f = lo, lo_f = lo - 1;
+            // skip_start: the highest coded band with a dynalloc boost
             int skip_start = start;
-            for (int j = start; j < end; j++) {
+            for (int s = BSLOTS - 1; s >= 0; s--) {
+                int j = s * LANES + lane;
+                unsigned m = __ballot_sync(
+                    FULL, j >= start && j < end && offsets.v[s] > 0);
+                if (m) {
+                    skip_start = s * LANES + 31 - __clz(m);
+                    break;
+                }
+            }
+            for (int s = 0; s < BSLOTS; s++) {
+                int j = s * LANES + lane;
+                if (j < start || j >= end) continue;
                 int w = eB[j + 1] - eB[j];
                 int lc = lo_f < 0 ? 0 : (lo_f > nv - 1 ? nv - 1 : lo_f);
                 int hc = hi_f < 0 ? 0 : (hi_f > nv - 1 ? nv - 1 : hi_f);
@@ -943,18 +1379,17 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int b2 = hi_f >= nv ? T.caps[j]
                     : (w * T.allocV[hc * nb + j]) << lm >> 2;
                 if (b1 > 0) {
-                    b1 += trim_off[j];
+                    b1 += trim_off.v[s];
                     if (b1 < 0) b1 = 0;
                 }
                 if (b2 > 0) {
-                    b2 += trim_off[j];
+                    b2 += trim_off.v[s];
                     if (b2 < 0) b2 = 0;
                 }
-                if (lo_f > 0) b1 += offsets[j];
-                b2 += offsets[j];
-                if (offsets[j] > 0) skip_start = j;
-                bits1[j] = b1;
-                bits2[j] = b2 - b1 > 0 ? b2 - b1 : 0;
+                if (lo_f > 0) b1 += offsets.v[s];
+                b2 += offsets.v[s];
+                bits1.v[s] = b1;
+                bits2.v[s] = b2 - b1 > 0 ? b2 - b1 : 0;
             }
             // ---- interp_bits2pulses (rate.c:249), mono decode
             const int alloc_floor = 1 << BITRES;
@@ -962,28 +1397,32 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             hi = 1 << ALLOC_STEPS;
             for (int it = 0; it < ALLOC_STEPS; it++) {
                 int mid = (lo + hi) >> 1;
-                int psum = 0, done = 0;
-                for (int j = end - 1; j >= start; j--) {
-                    int tmp = bits1[j] + ((mid * bits2[j]) >> ALLOC_STEPS);
-                    if (tmp >= thresh[j] || done) {
-                        done = 1;
-                        psum += tmp < T.caps[j] ? tmp : T.caps[j];
-                    } else if (tmp >= alloc_floor) {
-                        psum += alloc_floor;
-                    }
-                }
+                int psum = alloc_sum(start, end, T.caps,
+                                     [&](int s, int, int &thr) {
+                    thr = thresh.v[s];
+                    return bits1.v[s] + ((mid * bits2.v[s]) >> ALLOC_STEPS);
+                });
                 if (psum > total) hi = mid;
                 else lo = mid;
             }
-            int psum = 0, done = 0;
-            for (int j = end - 1; j >= start; j--) {
-                int tmp = bits1[j] + ((lo * bits2[j]) >> ALLOC_STEPS);
-                if (tmp < thresh[j] && !done) tmp = tmp >= alloc_floor ? alloc_floor : 0;
-                else done = 1;
-                if (tmp > T.caps[j]) tmp = T.caps[j];
-                pulses[j] = tmp;
-                psum += tmp;
+            // the chosen trial's bits per band, summed as alloc_sum does
+            int psum = 0, done_hi = 0;
+            for (int s = BSLOTS - 1; s >= 0; s--) {
+                int j = s * LANES + lane;
+                int in = j >= start && j < end;
+                int tmp = in ? bits1.v[s] + ((lo * bits2.v[s]) >> ALLOC_STEPS)
+                             : 0;
+                unsigned m = __ballot_sync(FULL, in && tmp >= thresh.v[s]);
+                int done = done_hi || (m >> lane) != 0;
+                if (!done) tmp = tmp >= alloc_floor ? alloc_floor : 0;
+                if (in) {
+                    if (tmp > T.caps[j]) tmp = T.caps[j];
+                    pulses.v[s] = tmp;
+                    psum += tmp;
+                }
+                done_hi |= m != 0;
             }
+            psum = warp_sum(psum);
             coded_bands = end;
             int forced_stop = 0;
             // down to j == start, where skipping always stops at
@@ -1000,17 +1439,18 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int leftr = left - den * percoeff;
                 int rem = leftr - (eB[j] - eB[start]);
                 if (rem < 0) rem = 0;
-                int band_bits = pulses[j] + percoeff * (eB[j + 1] - eB[j]) + rem;
-                int th = thresh[j] > alloc_floor + (1 << BITRES)
-                    ? thresh[j] : alloc_floor + (1 << BITRES);
+                int pj = bget(pulses, j);
+                int band_bits = pj + percoeff * (eB[j + 1] - eB[j]) + rem;
+                int th = bget(thresh, j) > alloc_floor + (1 << BITRES)
+                    ? bget(thresh, j) : alloc_floor + (1 << BITRES);
                 if (band_bits >= th) {
                     if (rd_bit_logp(c.d, 1)) break;
                     psum += 1 << BITRES;
                     band_bits -= 1 << BITRES;
                 }
                 int keep = band_bits >= alloc_floor ? alloc_floor : 0;
-                psum = psum - pulses[j] + keep;
-                pulses[j] = keep;
+                psum = psum - pj + keep;
+                bset(pulses, j, keep);
                 coded_bands--;
             }
             if (forced_stop) total += skip_rsv;
@@ -1020,13 +1460,16 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             if (den < 1) den = 1;
             int percoeff = floordiv(left, den);
             left -= den * percoeff;
-            for (int j = start; j < end; j++)
-                if (j < coded_bands) pulses[j] += percoeff * (eB[j + 1] - eB[j]);
+            for (int s = 0; s < BSLOTS; s++) {
+                int j = s * LANES + lane;
+                if (j >= start && j < end && j < coded_bands)
+                    pulses.v[s] += percoeff * (eB[j + 1] - eB[j]);
+            }
             for (int j = start; j < end; j++) {
                 if (j >= coded_bands) continue;
                 int w = eB[j + 1] - eB[j];
                 int take = left < w ? left : w;
-                pulses[j] += take;
+                bset(pulses, j, bget(pulses, j) + take);
                 left -= take;
             }
             balance = 0;
@@ -1034,7 +1477,8 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             for (int j = start; j < end; j++) {
                 int n = (eB[j + 1] - eB[j]) << lm;
                 int in_c = j < coded_bands;
-                int bitj = pulses[j] + balance;
+                int pj = bget(pulses, j);
+                int bitj = pj + balance;
                 int excess, bj, eb, fp;
                 if (n > 1) {
                     excess = bitj - T.caps[j] > 0 ? bitj - T.caps[j] : 0;
@@ -1068,30 +1512,38 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                     fp = extra_bits >= excess - balance;
                     excess2 = excess - extra_bits;
                 }
-                int unc_eb = pulses[j] >> BITRES;
-                ebits[j] = in_c ? eb2 : unc_eb;
-                fine_priority[j] = in_c ? fp : unc_eb < 1;
-                pulses[j] = in_c ? bj : 0;
+                int unc_eb = pj >> BITRES;
+                bset(ebits, j, in_c ? eb2 : unc_eb);
+                bset(fine_priority, j, in_c ? fp : (int)(unc_eb < 1));
+                bset(pulses, j, in_c ? bj : 0);
                 if (in_c) balance = excess2;
             }
         }
+        PROF_ADD(3, t_alloc);
+        PROF_T(t_fine);
         // ---- fine energy
         for (int i = start; i < end; i++) {
-            int fq = ebits[i];
+            int fq = bget(ebits, i);
             if (fq <= 0) continue;
             int q2 = (int)rd_bits(c.d, fq);
-            e[i] = e[i] + (((float)q2 + 0.5f) * ldexpf(1.0f, -fq) - 0.5f);
+            bset(e, i, bget(e, i)
+                 + (((float)q2 + 0.5f) * ldexpf(1.0f, -fq) - 0.5f));
         }
 
-        // ---- quant_all_bands (bands.c:1589), mono decode; norm holds
-        // absolute positions and nothing below norm_offset
+        PROF_ADD(4, t_fine);
+        PROF_T(t_bands);
+        // ---- quant_all_bands (bands.c:1589), mono decode.  Its fold
+        // memory norm is sqrt(N) * X of the bands coded so far (zero
+        // elsewhere), so folds read X; only band start+1 sees something
+        // else: the top of band start copied to the bottom of its own
+        // window (special_hybrid_folding, bands.c)
         {
             const int norm_offset = M * eB[start];
             const int norm_total = M * eB[nb - 1];
-            for (int j = 0; j < norm_total; j++) norm[j] = 0.f;
+            const int n1 = M * (eB[start + 1] - eB[start]);
             int tb8 = (len * 8 << BITRES) - ac_rsv;
             int B_l = is_transient ? M : 1;
-            c.seed = (uint32_t)seed_in[lane];
+            c.seed = (uint32_t)seed_in[stream];
             c.spread = spread;
             int lowband_offset = 0, update_lowband = 1;
             for (int i = start; i < end; i++) {
@@ -1101,29 +1553,22 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int remaining = tb8 - tl - 1;
                 c.rb = remaining;
                 int b = 0;
+                int pi = bget(pulses, i);
                 if (i <= coded_bands - 1) {
                     int den = coded_bands - i;
                     den = den < 1 ? 1 : (den > 3 ? 3 : den);
                     int curr_balance = balance / den;   // truncating
-                    b = remaining + 1 < pulses[i] + curr_balance
-                        ? remaining + 1 : pulses[i] + curr_balance;
+                    b = remaining + 1 < pi + curr_balance
+                        ? remaining + 1 : pi + curr_balance;
                     b = b < 0 ? 0 : (b > 16383 ? 16383 : b);
                 }
                 if (M * eB[i] - n >= norm_offset || i == start + 1)
                     if (update_lowband || lowband_offset == 0)
                         lowband_offset = i;
-                if (i == start + 1) {
-                    // special_hybrid_folding (bands.c): fill band
-                    // start+1's fold window from the top of band start
-                    int n1 = M * (eB[start + 1] - eB[start]);
-                    for (int j = n1; j < n; j++)
-                        norm[norm_offset + j] = norm[norm_offset + j - n + n1];
-                }
-                int tf_change = tf_res[i];
+                int tf_change = bget(tf_res, i);
                 int fold = lowband_offset != 0
                     && (spread != 3 || B_l > 1 || tf_change < 0);
                 int x_cm = fold ? 0 : (1 << B_l) - 1;
-                for (int j = 0; j < n; j++) lb[j] = 0.f;
                 if (fold) {
                     int lo = lowband_offset;
                     int eff = M * eB[lo] - n;
@@ -1138,35 +1583,45 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                     } while (fe_ < i && M * eB[fe_] < eff + n);
                     int cmv = 0, fi = fs_;
                     do {
-                        cmv |= collapse[fi];
+                        cmv |= bget(collapse, fi);
                     } while (++fi < fe_);
                     x_cm = cmv;
-                    for (int j = 0; j < n; j++)
-                        lb[j] = eff + j < norm_total ? norm[eff + j] : 0.f;
+                    // the copied span of special_hybrid_folding
+                    const int cp_lo = i == start + 1 ? norm_offset + n1 : 0;
+                    const int cp_hi = i == start + 1 ? norm_offset + n : 0;
+                    for (int j = lane; j < n; j += LANES) {
+                        int p = eff + j;
+                        if (p >= cp_lo && p < cp_hi) p -= n - n1;
+                        lb[j] = eff + j < norm_total
+                            ? bm.nrm[bm.band_of[p]] * Xs[p] : 0.f;
+                    }
+                } else {
+                    for (int j = lane; j < n; j += LANES) lb[j] = 0.f;
                 }
+                __syncwarp();
                 int base = M * eB[i];
-                int cm = quant_band(T, c, i, X + base, lb, fold, n, b,
+                int cm = quant_band(T, c, i, Xs + base, lb, fold, n, b,
                                     is_transient, tf_change, x_cm);
-                collapse[i] = cm & 0xFF;
-                if (i != end - 1) {
-                    float nrm = (float)sqrt((double)n);
-                    for (int j = 0; j < n; j++) norm[base + j] = nrm * X[base + j];
-                }
-                balance = balance + pulses[i] + tl;
+                bset(collapse, i, cm & 0xFF);
+                balance = balance + pi + tl;
                 update_lowband = b > (n << BITRES);
             }
         }
+        PROF_ADD(5, t_bands);
+        PROF_T(t_fin);
         // ---- anti-collapse bit + energy finalise
         if (ac_rsv > 0) ac_on = (int)rd_bits(c.d, 1);
         {
             int bl = len * 8 - rd_tell(c.d);
             for (int prio = 0; prio < 2; prio++)
                 for (int i = start; i < end; i++) {
-                    if (!(bl >= 1 && ebits[i] < MAX_FINE_BITS
-                          && fine_priority[i] == prio))
+                    int ebi = bget(ebits, i);
+                    if (!(bl >= 1 && ebi < MAX_FINE_BITS
+                          && bget(fine_priority, i) == prio))
                         continue;
                     int q2 = (int)rd_bits(c.d, 1);
-                    e[i] = e[i] + ((float)q2 - 0.5f) * ldexpf(1.0f, -(ebits[i] + 1));
+                    bset(e, i, bget(e, i)
+                         + ((float)q2 - 0.5f) * ldexpf(1.0f, -(ebi + 1)));
                     bl--;
                 }
         }
@@ -1175,64 +1630,132 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             int kk = 1 << lm;
             for (int i = start; i < end; i++) {
                 int n0 = eB[i + 1] - eB[i];
-                int depth = floordiv(1 + pulses[i], n0) >> lm;
+                int depth = floordiv(1 + bget(pulses, i), n0) >> lm;
                 float th = 0.5f * exp2f(-0.125f * (float)depth);
-                float sqrt_1 = (float)(1.0 / sqrt((double)(n0 << lm)));
-                float ediff = e[i] - prevmin[lane * nb + i];
+                float ediff = bget(e, i) - prevmin[stream * nb + i];
                 ediff = ediff > 0.f ? ediff : 0.f;
                 float r = 2.0f * exp2f(-ediff);
                 if (lm == 3) r = r * 1.41421356f;
-                r = (th < r ? th : r) * sqrt_1;
-                float *xs = X + (eB[i] << lm);
+                r = (th < r ? th : r) * bm.isq[i];
+                float *xs = Xs + (eB[i] << lm);
+                int coll = bget(collapse, i);
                 int any = 0;
                 for (int k = 0; k < kk; k++) {
-                    if ((collapse[i] >> k) & 1) continue;
-                    for (int j = 0; j < n0; j++) {
-                        c.seed = lcg(c.seed);
-                        xs[j * kk + k] = (c.seed & 0x8000) ? r : -r;
-                    }
+                    if ((coll >> k) & 1) continue;
+                    c.seed = lcg_fill(c.seed, n0, c.J, [&](int j, uint32_t s) {
+                        xs[j * kk + k] = (s & 0x8000) ? r : -r;
+                    });
                     any = 1;
                 }
+                __syncwarp();
                 if (any) renormalise(xs, n0 << lm, 1.0f);
             }
         }
+        PROF_ADD(6, t_fin);
     }
 
-    // ---- outputs
-    for (int j = 0; j < nx; j++) X_t[(size_t)j * B + lane] = X[j];
-    for (int i = 0; i < nb; i++) energies[lane * nb + i] = e[i];
-    int32_t *o = ints + lane * 9;
-    o[0] = silence;
-    o[1] = is_transient;
-    o[2] = intra;
-    o[3] = ac_on;
-    o[4] = pf_pitch;
-    o[5] = pf_tapset;
-    o[6] = c.d.error;
-    o[7] = rd_tell(c.d);
-    o[8] = (int32_t)c.d.rng;
-    pf_gain_out[lane] = pf_gain;
+    // ---- outputs: X row-major [B, nx], the stream's row from shared memory
+    PROF_T(t_out);
+    float *xo = X + (size_t)stream * nx;
+    if ((nx & 3) == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0) {
+        for (int k = lane; k < nx >> 2; k += LANES)
+            reinterpret_cast<float4 *>(xo)[k] =
+                reinterpret_cast<const float4 *>(Xs)[k];
+    } else {
+        for (int j = lane; j < nx; j += LANES) xo[j] = Xs[j];
+    }
+    for (int s = 0; s < BSLOTS; s++) {
+        int j = s * LANES + lane;
+        if (j < nb) energies[stream * nb + j] = e.v[s];
+    }
+    if (lane == 0) {
+        int32_t *o = ints + stream * 9;
+        o[0] = silence;
+        o[1] = is_transient;
+        o[2] = intra;
+        o[3] = ac_on;
+        o[4] = pf_pitch;
+        o[5] = pf_tapset;
+        o[6] = c.d.error;
+        o[7] = rd_tell(c.d);
+        o[8] = (int32_t)c.d.rng;
+        pf_gain_out[stream] = pf_gain;
+    }
+    PROF_ADD(7, t_out);
+    PROF_ADD(14, t_start);
 }
 
 }  // namespace
 
-// rc_in: NULL, or [B, 10] int32 initial coder states (see rd_load)
+namespace {
+
+// dynamic shared memory of a block: the staged tables and each warp's
+// WarpMem with its packet bytes; above 48 KB the kernel must opt in
+size_t block_smem(int P) {
+    return sizeof(BlockMem)
+        + WARPS * (sizeof(WarpMem) + ((P + 15) & ~15));
+}
+
+cudaError_t opt_in_smem(size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(celt_dec_frame_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+}
+
+}  // namespace
+
+// rc_in: NULL, or [B, 10] int32 initial coder states (see rd_load);
+// X: [B, nx] f32, row-major
 extern "C" int opus_celt_dec_frame_launch(
     const void *buf, int P, const void *lens, const void *old_e,
     const void *prevmin, const void *seed, const void *rc_in,
-    const void *tab, void *X_t, void *energies, void *ints, void *pf_gain,
+    const void *tab, void *X, void *energies, void *ints, void *pf_gain,
     int B, int nx, void *stream) {
     if (B <= 0) return 0;
-    if (nx > NX_MAX) return (int)cudaErrorInvalidValue;
-    const int threads = 64;
-    celt_dec_frame_kernel<<<(B + threads - 1) / threads, threads, 0,
+    if (nx > NX_MAX || P < 0) return (int)cudaErrorInvalidValue;
+    const int threads = WARPS * LANES;
+    const size_t smem = block_smem(P);
+    cudaError_t e = opt_in_smem(smem);
+    if (e != cudaSuccess) return (int)e;
+    celt_dec_frame_kernel<<<(B + WARPS - 1) / WARPS, threads, smem,
                             (cudaStream_t)stream>>>(
         (const uint8_t *)buf, P, (const int32_t *)lens,
         (const float *)old_e, (const float *)prevmin, (const int64_t *)seed,
-        (const int32_t *)rc_in, (const int32_t *)tab, (float *)X_t,
+        (const int32_t *)rc_in, (const int32_t *)tab, (float *)X,
         (float *)energies,
         (int32_t *)ints, (float *)pf_gain, B, nx);
     return (int)cudaGetLastError();
+}
+
+#ifdef K1_PROFILE
+// the cycle sums of k1_prof (K1_NPROF slots) into out, then zeroed
+extern "C" int opus_celt_dec_frame_profile(unsigned long long *out) {
+    static const unsigned long long zero[K1_NPROF] = {};
+    cudaError_t e = cudaMemcpyFromSymbol(out, k1_prof, sizeof zero);
+    if (e == cudaSuccess) e = cudaMemcpyToSymbol(k1_prof, zero, sizeof zero);
+    return (int)e;
+}
+#endif
+
+// K1's geometry at packet stride P, for reports: info = [shared memory
+// bytes per block, warps per block, resident blocks per SM, registers per
+// thread, local memory bytes per thread]
+extern "C" int opus_celt_dec_frame_occupancy(int P, int *info) {
+    const size_t smem = block_smem(P);
+    cudaError_t e = opt_in_smem(smem);
+    int blocks = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, celt_dec_frame_kernel, WARPS * LANES, smem);
+    cudaFuncAttributes a = {};
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, celt_dec_frame_kernel);
+    info[0] = (int)smem;
+    info[1] = WARPS;
+    info[2] = blocks;
+    info[3] = a.numRegs;
+    info[4] = (int)a.localSizeBytes;
+    return (int)e;
 }
 
 extern "C" const char *opus_cuda_error_string(int code) {

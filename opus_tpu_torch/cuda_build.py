@@ -85,15 +85,24 @@ def build() -> Path:
     return out
 
 
+def bind_celt_dec_frame(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of kernel K1's entry points on ``lib`` (this
+    library, or a build of ``celt_dec_frame.cu`` alone)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.opus_celt_dec_frame_launch.argtypes = [
+        vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.opus_celt_dec_frame_launch.restype = ci
+    lib.opus_celt_dec_frame_occupancy.argtypes = [ci, vp]
+    lib.opus_celt_dec_frame_occupancy.restype = ci
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The built library, with argument types set on its entry points."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = bind_celt_dec_frame(ctypes.CDLL(str(build())))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.opus_celt_dec_frame_launch.argtypes = [
-            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
-        lib.opus_celt_dec_frame_launch.restype = ci
         lib.opus_celt_enc_frame_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
         lib.opus_celt_enc_frame_launch.restype = ci

@@ -321,8 +321,10 @@ class DecTabs:
         """Flat int32 table for kernel K1: a header [nb, lm, nv, urows,
         ucols, start, end] and the offsets of eBands, logN, caps, allocV,
         e_prob, the cache row offsets, the cache rows and the CWRS U table
-        (read by load_tabs in csrc/celt_dec_frame.cu).  uint32 entries are
-        stored as their int32 bits."""
+        (read by load_tabs in csrc/celt_dec_frame.cu).  U is stored
+        column by column ([ucols][urows], U(k, n) at n * urows + k), so a
+        warp's search over consecutive k reads consecutive words.  uint32
+        entries are stored as their int32 bits."""
         nb, lm = self.nb, self.lm
         nv = self.allocV.shape[0]
         rows = []
@@ -344,7 +346,7 @@ class DecTabs:
             ("eprob", np.asarray(self.e_prob, np.int64).reshape(-1)),
             ("rowoff", np.asarray(row_off, np.int64)),
             ("rows", np.asarray(rows, np.int64)),
-            ("u", u.reshape(-1)),
+            ("u", u.T.reshape(-1)),
         ]
         header = [nb, lm, nv, _MAX_K + 2, ucols + 1, self.start,
                   self.end_band]

@@ -86,7 +86,9 @@ def decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs,
 
 
 def _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs,
-                       d0=None) -> dict:
+                       d0=None, lib=None) -> dict:
+    """K1's launch; lib: another build of its source (a profile build),
+    else the port's library."""
     from ..cuda_build import check_launch, library
 
     global launches
@@ -114,26 +116,41 @@ def _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs,
             raise ValueError("decode_frame: d0 lanes [B] on the same device")
     tab = k1_table(tabs, dev)
     nx = tabs.nx
-    x_t = torch.empty((nx, b), dtype=torch.float32, device=dev)
+    x = torch.empty((b, nx), dtype=torch.float32, device=dev)
     energies = torch.empty((b, nb), dtype=torch.float32, device=dev)
     ints = torch.empty((b, 9), dtype=torch.int32, device=dev)
     pf_gain = torch.empty((b,), dtype=torch.float32, device=dev)
-    lib = library()
+    lib = library() if lib is None else lib
     stream = torch.cuda.current_stream(dev).cuda_stream
     vp = ctypes.c_void_p
     rc = lib.opus_celt_dec_frame_launch(
         vp(buf_u8.data_ptr()), p, vp(lens32.data_ptr()),
         vp(old_e.data_ptr()), vp(prevmin.data_ptr()), vp(seed.data_ptr()),
         vp(None if rc_in is None else rc_in.data_ptr()),
-        vp(tab.data_ptr()), vp(x_t.data_ptr()), vp(energies.data_ptr()),
+        vp(tab.data_ptr()), vp(x.data_ptr()), vp(energies.data_ptr()),
         vp(ints.data_ptr()), vp(pf_gain.data_ptr()), b, nx, vp(stream))
     check_launch(rc, "celt_dec_frame")
     launches += 1
     ints = ints.to(torch.int64)
     res = {k: ints[:, j] for j, k in enumerate(INT_KEYS)}
     res["rng"] = res["rng"] & M32
-    res.update(X=x_t.t(), energies=energies, pf_gain=pf_gain)
+    res.update(X=x, energies=energies, pf_gain=pf_gain)
     return res
+
+
+def geometry(p: int) -> dict:
+    """K1's launch geometry on the current card at packet stride ``p``
+    (bytes): shared memory per block, warps per block, resident blocks and
+    warps per SM, registers and local memory per thread."""
+    from ..cuda_build import check_launch, library
+
+    info = (ctypes.c_int * 5)()
+    check_launch(library().opus_celt_dec_frame_occupancy(p, info),
+                 "celt_dec_frame occupancy")
+    smem, warps, blocks, regs, local = list(info)
+    return dict(smem_per_block=smem, warps_per_block=warps,
+                blocks_per_sm=blocks, warps_per_sm=blocks * warps,
+                registers=regs, local_bytes=local)
 
 
 def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
@@ -187,13 +204,19 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
         e_sil = torch.where(inside, e_sil, 0.0)
         prev1 = torch.where(inside, prev1, -28.0)
         prev2 = torch.where(inside, prev2, -28.0)
+    # the old postfilter phase: the new one for LM != 0 (celt_decoder.c:
+    # 1592-1596), the current one (period at least the minimum) for LM 0
+    if tabs.lm != 0:
+        pf_old = (pf_pitch, pf_gain, pf_tapset)
+    else:
+        pf_old = (periods[:, 1], state["pf_gain"], state["pf_tapset"])
     new_state = dict(
         old_e=e_sil, prev1=prev1, prev2=prev2,
         # the next frame's fold/noise seed is the final range, not the
         # evolved LCG state (celt_decoder.c:1602 st->rng = dec->rng)
         seed=out["rng"],
-        pf_period_old=pf_pitch, pf_gain_old=pf_gain,
-        pf_tapset_old=pf_tapset,
+        pf_period_old=pf_old[0], pf_gain_old=pf_old[1],
+        pf_tapset_old=pf_old[2],
         pf_period=pf_pitch, pf_gain=pf_gain, pf_tapset=pf_tapset,
         dsp=dsp)
     return pcm, new_state, err

@@ -1,22 +1,30 @@
 """Kernel K1's CUDA source (opus_tpu_torch/csrc/celt_dec_frame.cu) compiled
-as host C++ and run one lane at a time on the CPU, against the plain torch
-symbol pass (decode_frame_plain) on the same inputs: real 20 ms fixture
-packets with random energy memory and seeds, truncated packets and random
-bytes; and at start = 17, continuing the range decoder that the SILK half
-leaves, on the CELT halves of the hybrid fixture's frames (the plain
-hybrid chain's inputs to K1, frame by frame) plus garbage lanes.
+as host C++ and run on the CPU, against the plain torch symbol pass
+(decode_frame_plain) on the same inputs: real 20 ms fixture packets with
+random energy memory and seeds, truncated packets and random bytes; and at
+start = 17, continuing the range decoder that the SILK half leaves, on the
+CELT halves of the hybrid fixture's frames (the plain hybrid chain's inputs
+to K1, frame by frame) plus garbage lanes.
 
-A shim header defines the CUDA qualifiers away and gives __clz, __ldg and
-rsqrtf host meanings; the extern "C" launch section is left out and the
-kernel body is called once per lane.  -ffp-contract=off mirrors nvcc's
--fmad=false.  The card runs the same source in chip_smoke.py; this test
-catches logic errors in it where there is no card.  Integer outputs must
-be identical; X within 1e-5 of each band's maximum and energies within
-1e-5 (f32 sums in another order and libm vs torch cos/exp2, a few ULPs).
+K1 runs one warp per stream; its lane width is the macro K1_LANES (32 on
+the card).  The main build sets it to 1 (one warp of one lane per block,
+the kernel called once per stream): a shim header defines the CUDA
+qualifiers away, gives __clz, __ldg, __ffs and rsqrtf host meanings and
+makes the warp primitives (__shfl_sync, __shfl_xor_sync, __ballot_sync,
+__syncwarp) those of a one-lane warp.  A second build runs K1_LANES host
+threads per stream, whose warp primitives exchange values through a
+barrier, so the cross-lane passes (strided loops, butterfly sums, the
+ballot search, the jumped-ahead LCG) run on the CPU too.  The extern "C"
+launch section is left out.  -ffp-contract=off mirrors nvcc's
+-fmad=false.  The card runs the same source in chip_smoke.py; these tests
+catch logic errors in it where there is no card.  Integer outputs must be
+identical; X within 1e-5 of each band's maximum and energies within 1e-5
+(f32 sums in another order and libm vs torch cos/exp2, a few ULPs).
 """
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -37,36 +45,111 @@ SHIM = r"""
 #pragma once
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __constant__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
+#define __shared__
+#define __align__(n) __attribute__((aligned(n)))
 struct Dim3 { int x; };
-static Dim3 blockIdx, blockDim, threadIdx;
+struct uint4 { uint32_t x, y, z, w; };
+struct float4 { float x, y, z, w; };
+static inline int __ldg(const int *p) { return *p; }
 static inline uint32_t __ldg(const uint32_t *p) { return *p; }
 static inline int __clz(uint32_t v) { return v ? __builtin_clz(v) : 32; }
+static inline int __ffs(int v) { return __builtin_ffs(v); }
+static inline int __popc(unsigned v) { return __builtin_popcount(v); }
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+static inline void __trap() { abort(); }
+static Dim3 blockIdx, blockDim;
+#if K1_LANES == 1
+static Dim3 threadIdx;
+static inline void __syncwarp(unsigned = 0xffffffffu) {}
+static inline void __syncthreads() {}
+template <class T> static inline T __shfl_sync(unsigned, T v, int) {
+  return v;
+}
+template <class T> static inline T __shfl_xor_sync(unsigned, T v, int) {
+  return v;
+}
+static inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+#else
+// K1_LANES host threads are one warp: each primitive is a barrier
+#include <atomic>
+#include <thread>
+static thread_local Dim3 threadIdx;
+static std::atomic<int> k1_arrived{0}, k1_gen{0};
+static inline void k1_barrier() {
+  int g = k1_gen.load();
+  if (k1_arrived.fetch_add(1) == K1_LANES - 1) {
+    k1_arrived.store(0);
+    k1_gen.fetch_add(1);
+  } else {
+    while (k1_gen.load() == g) std::this_thread::yield();
+  }
+}
+static uint64_t k1_slot[K1_LANES];
+template <class T> static inline T k1_xchg(T v, int src) {
+  uint64_t b = 0;
+  memcpy(&b, &v, sizeof v);
+  k1_slot[threadIdx.x] = b;
+  k1_barrier();
+  uint64_t r = k1_slot[src];
+  k1_barrier();
+  T out;
+  memcpy(&out, &r, sizeof out);
+  return out;
+}
+static inline void __syncwarp(unsigned = 0xffffffffu) { k1_barrier(); }
+static inline void __syncthreads() { k1_barrier(); }
+template <class T> static inline T __shfl_sync(unsigned, T v, int src) {
+  return k1_xchg(v, src % K1_LANES);
+}
+template <class T> static inline T __shfl_xor_sync(unsigned, T v, int o) {
+  return k1_xchg(v, threadIdx.x ^ o);
+}
+static inline unsigned __ballot_sync(unsigned, int p) {
+  k1_slot[threadIdx.x] = p != 0;
+  k1_barrier();
+  unsigned m = 0;
+  for (int l = 0; l < K1_LANES; l++) m |= (unsigned)k1_slot[l] << l;
+  k1_barrier();
+  return m;
+}
+#endif
 """
 
 DRIVER = r"""
 #include "cuda_runtime.h"
 #include "body.inc"
 }
+__attribute__((aligned(16))) unsigned char k1_smem[1 << 16];
 extern "C" void run_lanes(const void *buf, int P, const void *lens,
     const void *old_e, const void *prevmin, const void *seed,
-    const void *rc_in, const void *tab, void *X_t, void *energies,
+    const void *rc_in, const void *tab, void *X, void *energies,
     void *ints, void *pf_gain, int B, int nx) {
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (int l = 0; l < B; l++) {
-    blockIdx.x = l;
+  auto run = [=] {
     celt_dec_frame_kernel((const uint8_t *)buf, P, (const int32_t *)lens,
         (const float *)old_e, (const float *)prevmin, (const int64_t *)seed,
-        (const int32_t *)rc_in, (const int32_t *)tab, (float *)X_t,
-        (float *)energies,
-        (int32_t *)ints, (float *)pf_gain, B, nx);
+        (const int32_t *)rc_in, (const int32_t *)tab, (float *)X,
+        (float *)energies, (int32_t *)ints, (float *)pf_gain, B, nx);
+  };
+  blockDim.x = K1_LANES;
+  for (int l = 0; l < B; l++) {
+    blockIdx.x = l;
+#if K1_LANES == 1
+    threadIdx.x = 0;
+    run();
+#else
+    std::thread lanes[K1_LANES];
+    for (int t = 0; t < K1_LANES; t++)
+      lanes[t] = std::thread([=] { threadIdx.x = t; run(); });
+    for (auto &th : lanes) th.join();
+#endif
   }
 }
 """
@@ -77,7 +160,9 @@ def k1_lib(tmp_path_factory):
     return _build(str(tmp_path_factory.mktemp("k1host")))
 
 
-def _build(tmp):
+def _build(tmp, lanes=1):
+    """K1's source as a host library at lane width ``lanes`` (1: the
+    kernel once per stream; more: that many threads per stream)."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler (g++) to compile the CUDA source")
@@ -90,6 +175,7 @@ def _build(tmp):
     lib = os.path.join(tmp, "libk1host.so")
     proc = subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         "-pthread", f"-DK1_LANES={lanes}", "-DK1_WARPS=1",
          "-I", str(tmp), "-o", lib, os.path.join(tmp, "driver.cpp")],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -126,16 +212,16 @@ def _run_host(lib, tabs, buf, ln, old_e, prevmin, seed, rc_in=None,
                                  (buf, old_e, prevmin, seed))
     tab = tabs.kernel_table() if tab is None else np.ascontiguousarray(tab)
     lens32 = np.clip(ln, 0, p).astype(np.int32)
-    x_t = np.zeros((nx, b), np.float32)
+    x = np.zeros((b, nx), np.float32)
     energies = np.zeros((b, nb), np.float32)
     ints = np.zeros((b, 9), np.int32)
     pf_gain = np.zeros(b, np.float32)
     ptr = lambda a: None if a is None else a.ctypes.data_as(  # noqa: E731
         ctypes.c_void_p)
     lib.run_lanes(ptr(buf), p, ptr(lens32), ptr(old_e), ptr(prevmin),
-                  ptr(seed), ptr(rc_in), ptr(tab), ptr(x_t), ptr(energies),
+                  ptr(seed), ptr(rc_in), ptr(tab), ptr(x), ptr(energies),
                   ptr(ints), ptr(pf_gain), b, nx)
-    return x_t.T, energies, ints, pf_gain
+    return x, energies, ints, pf_gain
 
 
 def _check(tabs, got, ref):
@@ -255,3 +341,44 @@ def test_torch_k1_table_cache_keeps_band_ranges_apart(k1_lib):
                             tab=t0), ref)
     args, ref = next(_hybrid_k1_frames(tabs17, 1))
     _check(tabs17, _run_host(k1_lib, tabs17, *args, tab=t17), ref)
+
+
+def test_torch_k1_lane_width_is_one_macro_the_shim_sets():
+    """The lane width is the one macro K1_LANES, defaulting to a warp (32)
+    and guarded so that a build can set it; the launcher's block size and
+    the grid follow it, and no literal lane count or full-warp mask is
+    written anywhere else."""
+    src = open(SRC).read()
+    assert src.count("#define K1_LANES") == 1
+    assert "#ifndef K1_LANES\n#define K1_LANES 32" in src
+    assert "constexpr int LANES = K1_LANES;" in src
+    assert "const int threads = WARPS * LANES;" in src
+    assert "(B + WARPS - 1) / WARPS" in src
+    assert "__launch_bounds__(WARPS * LANES, 1)" in src
+    body = src.replace("#define K1_LANES 32", "")
+    lane_math = re.findall(r"(?:[%/&]|\+=)\s*(?:32|31|64)\b", body)
+    assert not lane_math, lane_math
+    assert body.count("0xffffffffu") == 1     # FULL, defined once
+
+
+@pytest.mark.parametrize("lanes", [4, 32])
+def test_torch_k1_source_on_host_threads_matches_plain(tmp_path, lanes):
+    """K1 at lane width 4 and at the card's 32, each lane a host thread:
+    the strided passes, butterfly sums, ballot searches and jumped-ahead
+    LCG fills give the plain version's outputs at start 0 (fixture,
+    truncated and random-byte lanes) and start 17 (two hybrid frames)."""
+    lib = _build(str(tmp_path), lanes)
+    tabs = dec_tabs(48000, 960)
+    rng = np.random.default_rng(7)
+    buf, ln = _lanes(rng)
+    b, nb = buf.shape[0], tabs.nb
+    old_e = rng.normal(0, 4, (b, nb)).astype(np.float32)
+    prevmin = rng.normal(0, 4, (b, nb)).astype(np.float32)
+    seed = rng.integers(0, 2 ** 32, b).astype(np.int64)
+    ref = decode_frame_plain(*(torch.from_numpy(a) for a in
+                               (buf, ln, old_e, prevmin, seed)), tabs)
+    assert int(ref["anti_collapse_on"].sum()) > 0
+    _check(tabs, _run_host(lib, tabs, buf, ln, old_e, prevmin, seed), ref)
+    tabs17 = dec_tabs(48000, 960, 17, 21)
+    for args, ref in _hybrid_k1_frames(tabs17, 2):
+        _check(tabs17, _run_host(lib, tabs17, *args), ref)
