@@ -16,15 +16,18 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    streams plus 32 hard ones (silence, full-scale noise, clipped input,
    a DC step, impulses, 1e-7 noise): kernel K3 (the encode symbol pass)
    against its plain torch version, frame by frame with state carried;
-   the encoder end to end with its launch counter reset;
+   the encoder end to end with its launch counter reset; then the encoder
+   at 320 bytes a frame (128 kb/s) over the same lanes, K3 against its
+   plain version on every frame, its packets decoded on the card to the
+   encoder's final range;
 5. the duplex chain: the encoder's packets (equal to the encode run's) go
    straight into the decoder on the card, launch counters reset around
    it; final ranges, error lanes and SNR against the JAX twin's, stored in
    ``tests/data/torch_celt20ms_64k_enc.npz``;
-6. times K1 (at B and at 4 x B streams), K2, K3, their plain versions,
-   the encoder front end and the encode, decode and duplex steps with
-   CUDA events, and prints K1's launch geometry (registers, shared memory
-   per block, resident warps per SM);
+6. times K1 and K3 (at B and at 4 x B streams; K3 also at 320 bytes), K2,
+   their plain versions, the encoder front end and the encode, decode and
+   duplex steps with CUDA events, and prints K1's and K3's launch
+   geometry (registers, shared memory per block, resident warps per SM);
 7. SILK (``FusedSilkDecoder``, packets -> int16 PCM, wideband 20 ms,
    24 kb/s) over 4096 streams plus 32 garbage/truncated ones from
    ``tests/data/torch_silk16k_24k.npz``: the fixed-point helpers
@@ -488,6 +491,58 @@ def phase_duplex(enc_lanes, efx, dev, enc_outs):
     return counts
 
 
+def phase_encode_rate(enc_lanes, dev, nbytes: int):
+    """KernelCeltEncoder at ``nbytes`` a frame over the 8 frames, state
+    carried: on every frame K3 (spied on at its wrapper) equals the plain
+    symbol pass on the same inputs, no fixture lane is flagged, and
+    KernelCeltDecoder on the card reaches the encoder's final range on
+    every lane-frame the encoder did not flag.  Returns K3's float
+    error."""
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models import celt_enc_kernel as EK
+
+    b = enc_lanes[0].shape[0]
+    enc = EK.KernelCeltEncoder(b, nbytes=nbytes, device=dev)
+    dec = CK.KernelCeltDecoder(b, device=dev, max_payload=nbytes)
+    lens = torch.full((b,), nbytes, dtype=torch.int64, device=dev)
+    orig = EK.encode_frame
+    f_err = 0.0
+
+    def spy(X, ins, tabs, nb_):
+        nonlocal f_err
+        got = orig(X, ins, tabs, nb_)
+        f_err = max(f_err, compare_k3(got, EK.encode_frame_plain(
+            X, ins, tabs, nb_)))
+        return got
+
+    EK.encode_frame = spy
+    try:
+        for f, pcm in enumerate(enc_lanes):
+            payload, rng, err = enc.encode_device(torch.from_numpy(pcm).to(
+                dev))
+            _pcm, derr = dec.decode_packed(payload, lens)
+            torch.cuda.synchronize()
+            if err[:B_MAIN].any():
+                fail(f"{nbytes}-byte encode frame {f}: "
+                     f"{int(err[:B_MAIN].sum())} fixture lanes flagged")
+            ok = err == 0
+            if not torch.equal(rng[ok], dec.state["seed"][ok]):
+                fail(f"{nbytes}-byte frame {f}: decoder final range != "
+                     "encoder range")
+            if derr[ok].any():
+                fail(f"{nbytes}-byte frame {f}: decoder flagged lanes")
+            print(f"{nbytes} bytes, frame {f}: K3 == plain (payload, rng, "
+                  f"error, ints exact); decoder range == encoder range on "
+                  f"{int(ok.sum())} lanes; hard lanes flagged by the "
+                  f"encoder: {int(err[B_MAIN:].sum())}")
+    finally:
+        EK.encode_frame = orig
+    print(f"{nbytes}-byte encode: K3 float err {f_err:.3g} (bound "
+          f"{K3_F_TOL})")
+    return f_err
+
+
 def nbytes_of(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -577,7 +632,6 @@ def phase_enc_times(enc_lanes, dev, smi, t):
     from opus_tpu_torch.models import celt_dec_kernel as CK
     from opus_tpu_torch.models import celt_enc_kernel as EK
     from opus_tpu_torch.models.celt_enc_fused import fused_celt_enc_init
-    from opus_tpu_torch.ops.device_cache import const
 
     tabs = EK.enc_tabs()
     pcm = torch.from_numpy(enc_lanes[0][:B_MAIN]).to(dev)
@@ -587,19 +641,41 @@ def phase_enc_times(enc_lanes, dev, smi, t):
     k3p = cuda_ms(lambda: EK.encode_frame_plain(X, ins, tabs, 160), 1)
     fe = cuda_ms(lambda: EK._front_end(pcm, state, tabs, 160), 10)
     out = EK.encode_frame(X, ins, tabs, 160)
-    itab = const(("k3_itab", int(tabs.mode.Fs), tabs.lm),
-                 lambda: tabs.kernel_tables()[0], dev)
-    ftab = const(("k3_ftab", int(tabs.mode.Fs), tabs.lm),
-                 lambda: tabs.kernel_tables()[1], dev)
-    # bytes: X, the 2nb+1 float and 7+2nb int inputs, the tables; the
-    # payload, 2nb+1 float and 8 int outputs.  Operations: this run's
-    # pulse-search score evaluations (6 f32 operations each) and the wrap
-    # taps (2 per tap, 8 taps per coefficient)
+    itab, ftab = EK.k3_tables(tabs, dev)
     nb = tabs.nb
-    k3_bytes = nbytes_of(X, itab, ftab, out["payload"]) \
-        + B_MAIN * 4 * ((2 * nb + 1) * 2 + (7 + 2 * nb) + 8)
-    evals = float(out["search_evals"].sum().item())
-    k3_bound = bound(k3_bytes, 6.0 * evals + 16.0 * tabs.nx_rows * B_MAIN)
+
+    def k3_bound(X_, out_):
+        # bytes: X, the 2nb+1 float and 7+2nb int inputs, the tables; the
+        # payload, 2nb+1 float and 8 int outputs.  Operations: this run's
+        # pulse-search score evaluations (6 f32 operations each) and the
+        # wrap taps (2 per tap, 8 taps per coefficient)
+        b_ = X_.shape[0]
+        nbytes_ = nbytes_of(X_, itab, ftab, out_["payload"]) \
+            + b_ * 4 * ((2 * nb + 1) * 2 + (7 + 2 * nb) + 8)
+        evals_ = float(out_["search_evals"].sum().item())
+        return bound(nbytes_, 6.0 * evals_ + 16.0 * tabs.nx_rows * b_), \
+            evals_
+    k3_bnd, evals = k3_bound(X, out)
+    # the same frame tiled to 4 x B_MAIN streams, as K1 is timed
+    big = 4 * B_MAIN
+    X4 = X.repeat(4, 1)
+    ins4 = {k: v.repeat(4, *([1] * (v.dim() - 1))) for k, v in ins.items()}
+    k3_big = cuda_ms(lambda: EK.encode_frame(X4, ins4, tabs, 160), 20)
+    out4 = EK.encode_frame(X4, ins4, tabs, 160)
+    if not torch.equal(out4["payload"][:B_MAIN], out["payload"]):
+        fail("K3 at 4 x B_MAIN: payloads differ from B_MAIN's")
+    k3_big_bnd, _ = k3_bound(X4, out4)
+    # 320 bytes a frame (128 kb/s), the front end's inputs at that rate
+    ins3, X3, _f3 = EK._front_end(pcm, state, tabs, 320)
+    k3_320 = cuda_ms(lambda: EK.encode_frame(X3, ins3, tabs, 320), 20)
+    k3p_320 = cuda_ms(lambda: EK.encode_frame_plain(X3, ins3, tabs, 320), 1)
+    k3_320_bnd, _ = k3_bound(X3, EK.encode_frame(X3, ins3, tabs, 320))
+    print(f"K3 at B={big}: {k3_big:.4f} ms/frame, bound "
+          f"{k3_big_bnd[0]:.6f} ms ({k3_big_bnd[1]}); per stream "
+          f"{k3 / B_MAIN * 1e6:.2f} ns at B={B_MAIN}, "
+          f"{k3_big / big * 1e6:.2f} ns at B={big}; K3 at 320 bytes, "
+          f"B={B_MAIN}: {k3_320:.4f} ms/frame, plain {k3p_320:.2f} ms, bound "
+          f"{k3_320_bnd[0]:.6f} ms ({k3_320_bnd[1]}) [{smi}]")
     enc = EK.KernelCeltEncoder(B_MAIN, device=dev)
     enc_step = cuda_ms(lambda: enc.encode_device(pcm), 10)
     dec = CK.KernelCeltDecoder(B_MAIN, device=dev, max_payload=160)
@@ -612,7 +688,9 @@ def phase_enc_times(enc_lanes, dev, smi, t):
           f"realtime encode streams; duplex step {duplex:.3f} ms/frame -> "
           f"{B_MAIN * 20.0 / duplex:.0f} realtime duplex streams; K3 pulse "
           f"search {evals / B_MAIN:.0f} score evaluations per stream")
-    t.update(k3=k3, k3p=k3p, k3_bound=k3_bound, front=fe, enc_step=enc_step,
+    t.update(k3=k3, k3p=k3p, k3_bound=k3_bnd, k3_big=k3_big,
+             k3_big_bound=k3_big_bnd, k3_320=k3_320, k3p_320=k3p_320,
+             k3_320_bound=k3_320_bnd, front=fe, enc_step=enc_step,
              duplex=duplex)
     return t
 
@@ -1090,6 +1168,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from opus_tpu_torch import cuda_build
     from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models import celt_enc_kernel as EK
 
     smi = smi_line()
     print(f"card: {smi}")
@@ -1109,6 +1188,15 @@ def main() -> int:
           f"{g['warps_per_block']} warps; {g['blocks_per_sm']} blocks = "
           f"{g['warps_per_sm']} resident warps per SM")
 
+    for nbytes in (160, 320):
+        g = EK.geometry(nbytes)
+        print(f"ptxas: K3 celt_enc_frame_kernel at nbytes={nbytes}: "
+              f"{g['registers']} registers, {g['local_bytes']} bytes local "
+              f"memory per thread; {g['smem_per_block']} bytes dynamic "
+              f"shared memory per block of {g['warps_per_block']} warps; "
+              f"{g['blocks_per_sm']} blocks = {g['warps_per_sm']} resident "
+              f"warps per SM")
+
     phase_s = {}
     tabs = CK.dec_tabs(48000, 960)
     fx = dict(np.load(FIXTURE))
@@ -1126,6 +1214,7 @@ def main() -> int:
     k3_err = phase_k3_vs_plain(enc_lanes, dev)
     ecounts, enc_outs = phase_encode(enc_lanes, dev)
     dcounts = phase_duplex(enc_lanes, efx, dev, enc_outs)
+    k3_err = max(k3_err, phase_encode_rate(enc_lanes, dev, 320))
     phase_s["celt_encode_duplex"] = time.time() - t0
 
     t0 = time.time()
@@ -1195,7 +1284,9 @@ def main() -> int:
           f"ms/frame; SILK step {t['silk_step']:.4f} ms/frame (symbol pass "
           f"{t['silk_sym']:.4f}); hybrid step {t['hyb_step']:.4f} ms/frame "
           f"(K1 at start 17 {t['k1h']:.4f}); K1 at {4 * B_MAIN} streams "
-          f"{t['k1_big']:.4f} ms; PCM max err vs scalar "
+          f"{t['k1_big']:.4f} ms; K3 at {4 * B_MAIN} streams "
+          f"{t['k3_big']:.4f} ms, at 320 bytes {t['k3_320']:.4f} ms; PCM "
+          f"max err vs scalar "
           f"{pcm_err:.3g} (CELT), {hpcm_err:.3g} (hybrid); K1 energies max "
           f"err {e_err:.3g}")
     print(json.dumps(kernels))

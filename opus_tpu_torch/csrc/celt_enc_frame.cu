@@ -1,7 +1,7 @@
-// Kernel K3: the mono CBR CELT encode symbol pass for one 20 ms frame,
-// one thread per stream, from ec_enc_init to the packet bytes.
+// Kernel K3: the mono CBR CELT encode symbol pass for one 20 ms frame, one
+// warp per stream, from ec_enc_init to the packet bytes.
 //
-// Replaces the Pallas TPU kernel opus_tpu/models/celt_enc_kernel.py
+// Replaces the Pallas TPU kernel opus_tpu/models/celt_enc_kernel.py:798
 // (_enc_frame_kernel, launched by build_enc_frame_fn).  It computes the
 // same function as its [B]-lane plain version encode_frame_plain
 // (opus_tpu_torch/models/celt_enc_kernel.py), operation for operation on
@@ -10,36 +10,107 @@
 // encode, spread, the dynalloc boosts, trim, the allocation with
 // encode-side skip decisions, fine energy, the PVQ band trees (theta,
 // exp_rotation, the greedy pulse search, the CWRS index, ec_enc_uint),
-// the anti-collapse bit, energy finalise and ec_enc_done.  Unlike the TPU
-// kernel it also owns the carry resolution: digits and end-window bytes go
-// to per-thread buffers and are resolved (last digit to first) and
-// assembled into the stream's bytes at the end, so no torch range-encoder
-// op runs on the card's main path.
+// the anti-collapse bit, energy finalise, ec_enc_done, and the carry
+// resolution and byte assembly (rc_enc_kernel.finalize), so no torch
+// range-encoder op runs on the card's main path.  What is dropped is the
+// TPU layout: [8,128] lane tiles, the preorder node program (an explicit
+// stack here; encode needs no pop events), the gather-free page sweeps
+// and the MXU wrap matmul (a per-output fmaf chain over the nonzero taps
+// in index order, the JAX twin's BLAS order).
 //
-// What is dropped is the TPU layout: [8,128] lane tiles, the preorder node
-// program (an explicit stack of at most LM + 2 pending nodes here; encode
-// needs no pop events), the gather-free page sweeps and the MXU wrap
-// matmul (a per-output fmaf chain over the nonzero taps in index order,
-// the JAX twin's BLAS order).
+// Bound on this card: a stream moves ~4 KB (800 coefficients and 43
+// floats in, nbytes payload bytes out), so the bytes bound is a few us at
+// B = 4096; the time goes to the serial chain of dependent operations
+// that range coding and the band trees are, one chain per stream
+// (opus_tpu_torch/tools/k1_profile.py --kernel k3 splits it by phase: on
+// an H100 SXM, ~0.7 M SM cycles per stream and frame at 160 bytes, 84%
+// of them in the band loop, which the pulse search, the theta nodes and
+// the CWRS index lead).  At 16 resident warps per SM, B = 4096 streams
+// are two waves of chains.  The design is K1's (csrc/celt_dec_frame.cu):
+// fill the card with chains,
+// keep their operands on chip, and take off the chain what does not feed
+// the range coder:
 //
-// Bound on this card: serial integer and float work per stream in
-// registers and per-thread local memory (the band window, the PVQ
-// scratch, 164 digits and 161 end bytes), plus warp divergence between
-// streams; the greedy pulse search is O(n * k) per leaf.  One thread per
-// stream is the bring-up design; warp-cooperative bands are later work.
+// - One warp per stream, K3_WARPS (16) warps per block, one block per SM:
+//   up to 128 registers a thread, so no spills.  B = 4096 gives 4096
+//   warps, not the 128 warps of one thread per stream.
+// - Warp-uniform control flow: all K3_LANES lanes hold the same range
+//   encoder state and run the header, coarse energy (with its dry
+//   trials), tf, spread, dynalloc, trim, the allocation, fine energy, the
+//   theta nodes, the pulse-count search, ec_enc_uint, the anti-collapse
+//   bit, finalise and ec_enc_done on the same values, so no branch
+//   diverges inside a warp.  Shared-memory stores of such scalars (the
+//   band-tree stack, the digits, the end bytes) are made by lane 0,
+//   between two __syncwarp()s where another lane could read them.
+// - Per-band values (energies, errors, tf, offsets, the allocation, fine
+//   bits and priorities) live in registers, band i in lane i (Band<>): a
+//   read is one __shfl_sync, a write a select in the owning lane.  The
+//   allocation's trial sums run over the bands at once (a ballot for "a
+//   higher band reached its threshold", a butterfly sum; integer sums are
+//   order-free), and so does the spread of the leftover bits.
+// - Off the chain, across the lanes (j = lane, lane + K3_LANES, ...): the
+//   wrap taps (one output per lane, each fmaf chain in its own order), the
+//   swap of halves, the PVQ search (the projection as a vector pass; each
+//   greedy pulse scores its positions on their lanes and a warp argmax
+//   keeps the first index of the maximum, as the serial `score > best`
+//   does: the scores are the same f32 expressions, so the pulse is the
+//   same), the CWRS index (a suffix scan of |iy| and U-table lookups,
+//   summed mod 2^32), exp_rotation (its recurrences are serial along each
+//   chain, so each chain runs on a lane with its running value in a
+//   register), and the carry resolution (each lane's chunk of digits as a
+//   map of its incoming carry, composed by a warp scan) with the byte
+//   assembly.  The f32 sums keep _tree_sum's pairing ((0,1), (2,3), ...,
+//   an odd last element carried), level by level, the lanes adding a
+//   level's pairs (in shared memory while a level is wider than the warp,
+//   then by shuffles), so every sum has the plain version's bits.  A leaf
+//   no wider than the warp keeps its pulse search in registers and
+//   reduces over the next power of two above its width; a leaf without
+//   the projection (k <= n / 2) skips the sums, whose values are +0.
+// - Per-warp shared memory instead of local memory: the stream's X row
+//   (coalesced 16-byte loads), the band window and the PVQ scratch, the
+//   band-tree stack, and the digit and end-byte buffers, nbytes + 4 and
+//   nbytes + 1 long, in dynamic shared memory: any nbytes up to 1275
+//   launches (7488 bytes a warp at nbytes = 160, 10816 at 1275).
+//   NMAX and MAX_K bound n and k at any nbytes: n is a band's width
+//   (at most 176 at 20 ms), and a leaf's pulse count comes from the pulse
+//   cache, whose top row is 40 (128 pulses): a node with more bits splits
+//   (b > row[L] + 12), whatever the rate
+//   (test_torch_k3_band_bounds_hold_at_any_rate).
+// - Inputs and outputs are [B, rows] row-major, each warp its own row:
+//   X [B, nx], fin [B, 2nb+1], iin [B, 7+2nb], fout [B, 2nb+1],
+//   iout [B, 8] and the payload [B, nbytes].
 //
 // The tables (mode, pulse cache, CWRS U/V, Laplace chains, band variants
 // and wrap taps, rotation cos/sin) come in as one int32 and one float32
 // device tensor built by ETabs.kernel_tables(); this file holds no mode
-// tables.  Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
-// -O3 -fmad=false (no fast math), so float results equal the plain
-// version's.
+// tables.  The host rehearsal (tests/test_torch_k3_host.py) compiles this
+// file as C++ at K3_LANES 1, 4 and 32, so the lane width is a macro and
+// nothing else in the source assumes 32.  Build: nvcc -gencode
+// arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false (no fast
+// math), so float results equal the plain version's.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#ifndef K3_LANES
+#define K3_LANES 32        // lanes per stream: one warp on the card
+#endif
+#ifndef K3_WARPS
+#define K3_WARPS 16        // streams (warps) per block
+#endif
+
+// dynamic shared memory: the staged table offsets, then per warp its
+// WarpMem, digits and end bytes
+extern __shared__ __align__(16) unsigned char k3_smem[];
+
 namespace {
+
+constexpr int LANES = K3_LANES;
+constexpr int WARPS = K3_WARPS;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(LANES >= 1 && LANES <= 32 && (LANES & (LANES - 1)) == 0,
+              "K3_LANES: a power of two up to 32");
 
 constexpr int BITRES = 3;
 constexpr int MAX_FINE_BITS = 8;
@@ -47,12 +118,11 @@ constexpr int FINE_OFFSET = 21;
 constexpr int QTHETA_OFFSET = 4;
 constexpr int ALLOC_STEPS = 6;
 constexpr int NB_MAX = 21;
-constexpr int NMAX = 176;
+constexpr int NX_MAX = 800;     // M * eBands[nb] at 20 ms
+constexpr int NMAX = 176;       // widest band at 20 ms
+constexpr int HALF = NMAX / 2;  // a split node's half: at most 88
 constexpr int MAX_K = 128;
-constexpr int MAX_BYTES = 160;
-constexpr int DCAP = MAX_BYTES + 4;
-constexpr int ECAP = MAX_BYTES + 1;
-constexpr int EW_SLOTS = 8;
+constexpr int EW_SLOTS = 8;       // two 16-byte vectors of taps
 constexpr int NVAR = 8;
 constexpr int STACK = 8;
 constexpr uint32_t CODE_BOT = 1u << 23;
@@ -75,19 +145,104 @@ __constant__ float BETA_COEF[4] = {30147 / 32768.f, 22282 / 32768.f,
                                    12124 / 32768.f, 6554 / 32768.f};
 __constant__ float BETA_INTRA = 4915 / 32768.f;
 
+// -------------------------------------------------------------- profiling
+// Built with -DK3_PROFILE (opus_tpu_torch/tools/k1_profile.py --kernel
+// k3), lane 0 of each warp adds the SM clock cycles of each phase into
+// k3_prof; the card's build and the host rehearsal compile none of it.
+#ifdef K3_PROFILE
+constexpr int K3_NPROF = 16;
+__device__ unsigned long long k3_prof[K3_NPROF];
+#define PROF_T(v) const long long v = clock64()
+#define PROF_ADD(slot, t0)                                                   \
+    do {                                                                     \
+        if (threadIdx.x % K3_LANES == 0)                                     \
+            atomicAdd(&k3_prof[slot], (unsigned long long)(clock64() - t0)); \
+    } while (0)
+#else
+#define PROF_T(v)
+#define PROF_ADD(slot, t0)
+#endif
+
+// ------------------------------------------------------------ warp helpers
+__device__ __forceinline__ int lane_id() { return threadIdx.x % LANES; }
+
+template <typename V>
+__device__ __forceinline__ V warp_sum(V v) {
+    for (int o = LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    return v;
+}
+
+// per-band values in registers: band i in lane i % LANES, slot i / LANES
+constexpr int BSLOTS = (NB_MAX + LANES - 1) / LANES;
+
+template <typename V>
+struct Band {
+    V v[BSLOTS] = {};       // lanes past the last band hold 0
+};
+
+template <typename V>
+__device__ __forceinline__ V bget(const Band<V> &a, int i) {
+    if constexpr (BSLOTS == 1) return __shfl_sync(FULL, a.v[0], i);
+    else return __shfl_sync(FULL, a.v[i / LANES], i % LANES);
+}
+
+template <typename V>
+__device__ __forceinline__ void bset(Band<V> &a, int i, V x) {
+    if constexpr (BSLOTS == 1) {
+        a.v[0] = lane_id() == i ? x : a.v[0];
+    } else if (lane_id() == i % LANES) {
+        a.v[i / LANES] = x;
+    }
+}
+
+// Sums over the bands of one allocation trial (rate.c): band j's bits v_j
+// count in full (up to its cap) once some band j' >= j reached its
+// threshold, else the floor when v_j >= 8, else nothing.  Bands sit in
+// lanes: a ballot gives the "some j' >= j" flags, a butterfly the sum.
+template <typename F>
+__device__ __forceinline__ int alloc_sum(int nb, const int32_t *caps,
+                                         F bits_of) {
+    const int lane = lane_id();
+    int psum = 0, done_hi = 0;
+    for (int s = BSLOTS - 1; s >= 0; s--) {
+        int j = s * LANES + lane;
+        int in = j < nb;
+        int thr = 0;
+        int v = in ? bits_of(s, j, thr) : 0;
+        unsigned m = __ballot_sync(FULL, in && v >= thr);
+        int done = done_hi || (m >> lane) != 0;
+        if (in) psum += done ? (v < caps[j] ? v : caps[j])
+                             : (v >= 1 << BITRES ? 1 << BITRES : 0);
+        done_hi |= m != 0;
+    }
+    return warp_sum(psum);
+}
+
 // ---------------------------------------------------------------- tables
 enum { S_EBANDS, S_LOGN, S_CAPS, S_ALLOCV, S_EPROB, S_ROWOFF, S_ROWS, S_U,
        S_V, S_LAPOFF, S_LAP, S_DEPTH, S_KCAP, S_VAR, S_EWIDX, S_ROTOFF,
        S_COUNT };
 constexpr int HDR = 6;
 
-struct Tabs {
-    int nb, lm, nv, nx, urows, ucols;
-    const int32_t *s[S_COUNT];
-    const float *f;
+// a block's shared memory (each warp's WarpMem follows it): the int
+// table's section offsets
+struct __align__(16) BlockMem {
+    int32_t off[S_COUNT];
 };
 
-__device__ Tabs load_tabs(const int32_t *t, const float *f) {
+struct Tabs {
+    int nb, lm, nv, nx, urows, ucols;
+    const int32_t *t;       // the int table (device memory)
+    const int32_t *off;     // its section offsets (shared memory)
+    const float *f;
+    __device__ __forceinline__ const int32_t *s(int k) const {
+        return t + off[k];
+    }
+};
+
+// the header, and the section offsets staged by the whole block; the
+// caller synchronises the block
+__device__ Tabs load_tabs(const int32_t *t, const float *f, int32_t *off) {
     Tabs T;
     T.nb = t[0];
     T.lm = t[1];
@@ -95,22 +250,24 @@ __device__ Tabs load_tabs(const int32_t *t, const float *f) {
     T.nx = t[3];
     T.urows = t[4];
     T.ucols = t[5];
-    for (int i = 0; i < S_COUNT; i++) T.s[i] = t + t[HDR + i];
+    for (int k = threadIdx.x; k < S_COUNT; k += blockDim.x) off[k] = t[HDR + k];
+    T.t = t;
+    T.off = off;
     T.f = f;
     return T;
 }
 
 __device__ __forceinline__ const int32_t *cache_row(const Tabs &T, int lmn,
                                                     int band) {
-    return T.s[S_ROWS] + T.s[S_ROWOFF][(lmn + 1) * T.nb + band];
+    return T.s(S_ROWS) + T.s(S_ROWOFF)[(lmn + 1) * T.nb + band];
 }
 
 __device__ __forceinline__ uint32_t Utab(const Tabs &T, int k, int n) {
-    return (uint32_t)T.s[S_U][k * T.ucols + n];
+    return (uint32_t)T.s(S_U)[k * T.ucols + n];
 }
 
 __device__ __forceinline__ uint32_t Vtab(const Tabs &T, int k, int n) {
-    return (uint32_t)T.s[S_V][k * T.ucols + n];
+    return (uint32_t)T.s(S_V)[k * T.ucols + n];
 }
 
 __device__ __forceinline__ int ilog(uint32_t v) {
@@ -129,49 +286,122 @@ __device__ __forceinline__ float pow2neg(int e) {      // 2^-e, exact
     return ldexpf(1.0f, -e);
 }
 
-// _tree_sum order (pairs (0,1), (2,3), ...; an odd last one carried)
-__device__ float tree_sum(float *v, int n) {
+// --------------------------------------------------------- warp memory
+// a warp's shared memory (its digits and end bytes follow it)
+struct __align__(16) WarpMem {
+    float X[NX_MAX];            // the stream's row of X
+    float xw[NMAX];             // a wrapped band's window
+    float xa[NMAX];             // |x| in the pulse search
+    float sa[NMAX], sb[NMAX];   // tree-sum levels (ping-pong)
+    int iy[NMAX];               // the pulse vector
+    int st[5][STACK];           // per depth: swap, mbits, sbits, itheta, rb0
+    int node[3][STACK];         // the band-tree stack: depth, offset, isv1
+};
+
+// _tree_sum's order (pairs (0,1), (2,3), ...; an odd last one carried)
+// over x_j on lane j, n <= K3_LANES: each level takes its pairs from the
+// lanes by shuffles; returns the sum on every lane
+__device__ float tree_sum_lanes(float x, int n) {
+    const int lane = lane_id();
     while (n > 1) {
-        int m = n >> 1;
-        for (int i = 0; i < m; i++) v[i] = v[2 * i] + v[2 * i + 1];
-        if (n & 1) {
-            v[m] = v[n - 1];
-            n = m + 1;
-        } else {
-            n = m;
-        }
+        const int m = n >> 1;
+        const float a = __shfl_sync(FULL, x, 2 * lane);
+        const float b = __shfl_sync(FULL, x, 2 * lane + 1);
+        const float c = __shfl_sync(FULL, x, n - 1);
+        x = lane < m ? a + b : c;       // lane m: the odd one carried
+        n = m + (n & 1);
     }
-    return v[0];
+    return __shfl_sync(FULL, x, 0);
+}
+
+// _tree_sum's order over v[0..n) and v[HALF..HALF+n) at once (two n, one
+// pass; n <= HALF), in shared memory synced by the caller: the levels
+// wider than the warp by the lanes in shared memory (ping-ponging between
+// v and w, lane 0 carrying an odd last pair), then tree_sum_lanes.  v and
+// w are clobbered; returns both sums on every lane.
+__device__ void tree_sum2(float *v, float *w, int n, float &s1, float &s2) {
+    const int lane = lane_id();
+    while (n > LANES) {
+        const int m = n >> 1;
+        for (int q = lane; q < 2 * m; q += LANES) {
+            const int h = q >= m ? HALF : 0;
+            const int i = q >= m ? q - m : q;
+            w[h + i] = v[h + 2 * i] + v[h + 2 * i + 1];
+        }
+        if ((n & 1) && lane == 0) {
+            w[m] = v[n - 1];
+            w[HALF + m] = v[HALF + n - 1];
+        }
+        __syncwarp();
+        n = m + (n & 1);
+        float *t = v;
+        v = w;
+        w = t;
+    }
+    const float x1 = lane < n ? v[lane] : 0.f;
+    const float x2 = lane < n ? v[HALF + lane] : 0.f;
+    __syncwarp();       // every lane has read v before it is reused
+    s1 = tree_sum_lanes(x1, n);
+    s2 = tree_sum_lanes(x2, n);
+}
+
+// _tree_sum's order over v[0..n), n <= NMAX (see tree_sum2)
+__device__ float tree_sum(float *v, float *w, int n) {
+    const int lane = lane_id();
+    while (n > LANES) {
+        const int m = n >> 1;
+        for (int i = lane; i < m; i += LANES) w[i] = v[2 * i] + v[2 * i + 1];
+        if ((n & 1) && lane == 0) w[m] = v[n - 1];
+        __syncwarp();
+        n = m + (n & 1);
+        float *t = v;
+        v = w;
+        w = t;
+    }
+    const float x = lane < n ? v[lane] : 0.f;
+    __syncwarp();
+    return tree_sum_lanes(x, n);
 }
 
 // ----------------------------------------------------------- range encoder
 // The deferred-carry encoder of ops/rc_enc_kernel.py: 9-bit digits and
-// end-window bytes into per-thread buffers; appends past a buffer's end
-// are dropped (the lane is then flagged at the end).  A dry encoder only
-// tracks rng and nbits_total (the exact tell) and writes nothing.
+// end-window bytes into the warp's buffers (lane 0 stores); appends past a
+// buffer's end are dropped (the lane is then flagged at the end).  A dry
+// encoder only tracks rng and nbits_total (the exact tell) and writes
+// nothing.  Every lane holds the same state.
 struct Enc {
     uint32_t rng, val, end_window;
     int ndigits, nend, nend_bits, nbits_total;
+    int dcap, ecap;
     bool dry;
     uint16_t *dig;
     uint8_t *endb;
 };
 
-__device__ void enc_init(Enc &e, uint16_t *dig, uint8_t *endb) {
+__device__ void enc_init(Enc &e, uint16_t *dig, uint8_t *endb, int nbytes) {
     e.rng = CODE_TOP;
     e.val = 0;
     e.end_window = 0;
     e.ndigits = e.nend = e.nend_bits = 0;
     e.nbits_total = 33;
+    e.dcap = nbytes + 4;
+    e.ecap = nbytes + 1;
     e.dry = false;
     e.dig = dig;
     e.endb = endb;
 }
 
+// The loops that store digits stay rolled (#pragma unroll 1): unrolled,
+// the card's build (nvcc 12, ptxas -O2 and above) lost an occasional
+// digit store on a few percent of the streams (the range coder's state
+// and every other output were right); ptxas -O1, a rolled loop or an
+// out-of-line call all store every digit, at the same speed.
 __device__ void enc_normalize(Enc &e) {
+#pragma unroll 1
     for (int t = 0; t < 3 && e.rng <= CODE_BOT; t++) {
         if (!e.dry) {
-            if (e.ndigits < DCAP) e.dig[e.ndigits] = (uint16_t)(e.val >> 23);
+            if (e.ndigits < e.dcap && lane_id() == 0)
+                e.dig[e.ndigits] = (uint16_t)(e.val >> 23);
             e.ndigits++;
             e.val = (e.val << 8) & (CODE_TOP - 1);
         }
@@ -239,7 +469,8 @@ __device__ void enc_bits(Enc &e, uint32_t fl, int bits) {
     if (e.nend_bits + bits > 32) {
         for (int t = 0; t < 4; t++) {
             if (e.nend_bits >= 8) {
-                if (e.nend < ECAP) e.endb[e.nend] = (uint8_t)(e.end_window & 255u);
+                if (e.nend < e.ecap && lane_id() == 0)
+                    e.endb[e.nend] = (uint8_t)(e.end_window & 255u);
                 e.nend++;
                 e.end_window >>= 8;
                 e.nend_bits -= 8;
@@ -282,9 +513,11 @@ __device__ void enc_done(Enc &e) {
         msk >>= 1;
         end = (e.val + msk) & ~msk;
     }
+#pragma unroll 1
     for (int t = 0; t < 2; t++) {
         if (l > 0) {
-            if (e.ndigits < DCAP) e.dig[e.ndigits] = (uint16_t)(end >> 23);
+            if (e.ndigits < e.dcap && lane_id() == 0)
+                e.dig[e.ndigits] = (uint16_t)(end >> 23);
             e.ndigits++;
             end = (end << 8) & (CODE_TOP - 1);
         }
@@ -295,31 +528,61 @@ __device__ void enc_done(Enc &e) {
 // Carry resolution + byte assembly (rc_enc_kernel.finalize): whole bytes
 // left in the end window go to the end buffer; digits resolve last to
 // first; the stream is the resolved digits from the front, the end bytes
-// from the back and the window's leftover bits before them.  Returns the
-// error flag (digits and end bytes do not fit).
+// from the back and the window's leftover bits before them.  The carry
+// runs across the lanes: lane l owns a chunk of C digits, whose effect on
+// a carry is a map {0, 1} -> {0, 1}; a warp scan composes the chunks'
+// maps from the top, each lane then resolves its chunk from its incoming
+// carry.  The bytes are written to out coalesced.  Returns the error
+// flag (digits and end bytes do not fit).
 __device__ int enc_finalize(Enc &e, uint8_t *out, int nbytes) {
+    const int lane = lane_id();
     uint32_t window = e.end_window;
     int used = e.nend_bits, nend = e.nend;
     for (int t = 0; t < 4; t++) {
         if (used >= 8) {
-            if (nend < ECAP) e.endb[nend] = (uint8_t)(window & 255u);
+            if (nend < e.ecap && lane == 0)
+                e.endb[nend] = (uint8_t)(window & 255u);
             nend++;
             window >>= 8;
             used -= 8;
         }
     }
-    int nd = imin(e.ndigits, DCAP);
-    int carry = 0;
-    for (int j = nd - 1; j >= 0; j--) {
-        int v = (int)e.dig[j] + carry;
-        e.dig[j] = (uint16_t)(v & 255);
+    __syncwarp();       // the digits and end bytes lane 0 stored
+    uint16_t *dig = e.dig;
+    const int nd = imin(e.ndigits, e.dcap);
+    const int chunk = (nd + LANES - 1) / LANES;
+    const int lo = lane * chunk, hi = imin(lo + chunk, nd);
+    int g0 = 0, g1 = 1;         // the carry out of the chunk for 0 and 1 in
+    for (int j = hi - 1; j >= lo; j--) {
+        int d = dig[j];
+        g0 = ((d + g0) >> 8) & 1;
+        g1 = ((d + g1) >> 8) & 1;
+    }
+    // compose with the chunks above: g maps the carry into chunk
+    // lane + span - 1 to the carry out of chunk lane
+    for (int o = 1; o < LANES; o <<= 1) {
+        int h0 = __shfl_down_sync(FULL, g0, o);
+        int h1 = __shfl_down_sync(FULL, g1, o);
+        if (lane + o < LANES) {
+            int n0 = h0 ? g1 : g0;
+            int n1 = h1 ? g1 : g0;
+            g0 = n0;
+            g1 = n1;
+        }
+    }
+    int carry = __shfl_down_sync(FULL, g0, 1);
+    if (lane == LANES - 1) carry = 0;
+    for (int j = hi - 1; j >= lo; j--) {
+        int v = (int)dig[j] + carry;
+        dig[j] = (uint16_t)(v & 255);
         carry = (v >> 8) & 1;
     }
-    int lpos = nbytes - nend - 1;
-    for (int pos = 0; pos < nbytes; pos++) {
-        int byte = pos < e.ndigits ? (int)e.dig[pos] : 0;
+    __syncwarp();
+    const int lpos = nbytes - nend - 1;
+    for (int pos = lane; pos < nbytes; pos += LANES) {
+        int byte = pos < e.ndigits ? (int)dig[pos] : 0;
         int ti = nbytes - 1 - pos;
-        if (ti < nend && ti < ECAP) byte |= e.endb[ti];
+        if (ti < nend && ti < e.ecap) byte |= e.endb[ti];
         if (used > 0 && pos == lpos) byte |= (int)(window & 255u);
         out[pos] = (uint8_t)byte;
     }
@@ -338,8 +601,9 @@ __device__ int laplace_encode(Enc &e, const Tabs &T, int chain, int qi,
         fs = fs0;
         value = 0;
     } else {
-        const int32_t *lap = T.s[S_LAP] + T.s[S_LAPOFF][2 * chain];
-        int big_l = T.s[S_LAPOFF][2 * chain + 1];
+        const int32_t *lapoff = T.s(S_LAPOFF);
+        const int32_t *lap = T.s(S_LAP) + lapoff[2 * chain];
+        int big_l = lapoff[2 * chain + 1];
         int s = qi < 0 ? -1 : 0;
         int aval = qi < 0 ? -qi : qi;
         int i_stop = imin(aval, big_l);
@@ -360,25 +624,27 @@ __device__ int laplace_encode(Enc &e, const Tabs &T, int chain, int qi,
     return value;
 }
 
-// _quant_coarse_impl (quant_bands.c:156), mono, one active lane.  Returns
-// the badness; writes the new energy memory and the error.
-__device__ int coarse_impl(Enc &e, const Tabs &T, const float *x,
-                           const float *old_e, float *new_old, float *err,
-                           int budget, int tell0, int intra, float max_decay) {
+// _quant_coarse_impl (quant_bands.c:156), mono.  Returns the badness;
+// writes the new energy memory and the error (band i in lane i).
+__device__ int coarse_impl(Enc &e, const Tabs &T, const Band<float> &x,
+                           const Band<float> &old_e, Band<float> &new_old,
+                           Band<float> &err, int budget, int tell0,
+                           int intra, float max_decay) {
     const int nb = T.nb, lm = T.lm;
     const float coef = intra ? 0.0f : PRED_COEF[lm];
     const float beta = intra ? BETA_INTRA : BETA_COEF[lm];
-    const int32_t *pm = T.s[S_EPROB] + intra * 42;
+    const int32_t *pm = T.s(S_EPROB) + intra * 42;
     if (tell0 + 3 <= budget) enc_bit_logp(e, intra, 3);
     float prev = 0.0f;
     int badness = 0;
     for (int i = 0; i < nb; i++) {
-        float old = fmaxf(-9.0f, old_e[i]);
-        float f = x[i] - coef * old - prev;
+        const float xi = bget(x, i), oi = bget(old_e, i);
+        float old = fmaxf(-9.0f, oi);
+        float f = xi - coef * old - prev;
         int qi = (int)floorf(0.5f + f);
-        float decay_bound = fmaxf(-28.0f, old_e[i]) - max_decay;
-        if (qi < 0 && x[i] < decay_bound)
-            qi = imin(qi + (int)(decay_bound - x[i]), 0);
+        float decay_bound = fmaxf(-28.0f, oi) - max_decay;
+        if (qi < 0 && xi < decay_bound)
+            qi = imin(qi + (int)(decay_bound - xi), 0);
         int qi0 = qi;
         int tell = enc_tell(e);
         int bits_left = budget - tell - 3 * (nb - i);
@@ -398,10 +664,10 @@ __device__ int coarse_impl(Enc &e, const Tabs &T, const float *x,
         } else {
             qi = -1;
         }
-        err[i] = f - (float)qi;
+        bset(err, i, f - (float)qi);
         badness += qi0 > qi ? qi0 - qi : qi - qi0;
         float q = (float)qi;
-        new_old[i] = coef * old + prev + q;
+        bset(new_old, i, coef * old + prev + q);
         prev = prev + q - beta * q;
     }
     return badness;
@@ -409,26 +675,31 @@ __device__ int coarse_impl(Enc &e, const Tabs &T, const float *x,
 
 // quant_coarse_energy (quant_bands.c:260): dry intra and inter trials,
 // then the picked pass for real.  Returns pick_intra.
-__device__ int coarse_energy(Enc &e, const Tabs &T, const float *x,
-                             const float *old_in, float *old_e, float *err,
+__device__ int coarse_energy(Enc &e, const Tabs &T, WarpMem *w,
+                             const Band<float> &x, const Band<float> &old_in,
+                             Band<float> &old_e, Band<float> &err,
                              int budget, int nbytes, float &delayed_intra) {
-    const int nb = T.nb, lm = T.lm;
-    float tmp[NB_MAX], tmp_err[NB_MAX];
-    for (int i = 0; i < nb; i++) {
-        float d = (x[i] - old_in[i]) * (x[i] - old_in[i]);
-        tmp[i] = fminf(d, 200.0f);
+    const int nb = T.nb, lm = T.lm, lane = lane_id();
+    for (int s = 0; s < BSLOTS; s++) {
+        int j = s * LANES + lane;
+        if (j < nb) {
+            float d = (x.v[s] - old_in.v[s]) * (x.v[s] - old_in.v[s]);
+            w->sa[j] = fminf(d, 200.0f);
+        }
     }
-    float new_distortion = fminf(tree_sum(tmp, nb), 200.0f);
+    __syncwarp();
+    float new_distortion = fminf(tree_sum(w->sa, w->sb, nb), 200.0f);
     int tell0 = enc_tell(e);
     int two_pass = tell0 + 3 <= budget;
     float max_decay = fminf(16.0f, (float)(0.125 * nbytes));
-    int bad1 = 0, tf1 = 0;
+    Band<float> tmp, tmp_err;
+    int bad1 = 0;
     Enc d1 = e;
     d1.dry = true;
     if (two_pass)
         bad1 = coarse_impl(d1, T, x, old_in, tmp, tmp_err, budget, tell0, 1,
                            max_decay);
-    tf1 = enc_tell_frac(d1);
+    int tf1 = enc_tell_frac(d1);
     Enc d2 = e;
     d2.dry = true;
     int bad2 = coarse_impl(d2, T, x, old_in, tmp, tmp_err, budget, tell0, 0,
@@ -444,23 +715,25 @@ __device__ int coarse_energy(Enc &e, const Tabs &T, const float *x,
 }
 
 // tf_encode (celt_encoder.c:824); tf_vals gets the TF_SELECT_TABLE values.
-__device__ void tf_encode(Enc &e, const Tabs &T, const int *tf_res,
-                          int tf_select, int tr, int budget, int *tf_vals) {
+__device__ void tf_encode(Enc &e, const Tabs &T, const Band<int> &tf_res,
+                          int tf_select, int tr, int budget,
+                          Band<int> &tf_vals) {
     const int nb = T.nb, lm = T.lm;
     int tell = enc_tell(e);
     int logp0 = tr ? 2 : 4;
     int rsv = lm > 0 && tell + logp0 + 1 <= budget;
     budget -= rsv;
     int curr = 0, changed = 0;
-    int out[NB_MAX];
+    Band<int> out;
     for (int i = 0; i < nb; i++) {
         int logp = i == 0 ? logp0 : (tr ? 4 : 5);
         if (tell + logp <= budget) {
-            enc_bit_logp(e, tf_res[i] ^ curr, logp);
+            int ti = bget(tf_res, i);
+            enc_bit_logp(e, ti ^ curr, logp);
             tell = enc_tell(e);
-            curr = tf_res[i];
+            curr = ti;
         }
-        out[i] = curr;
+        bset(out, i, curr);
         changed |= curr;
     }
     const int *tab = TF_SELECT_TABLE[lm];
@@ -469,71 +742,83 @@ __device__ void tf_encode(Enc &e, const Tabs &T, const int *tf_res,
         enc_bit_logp(e, tf_select, 1);
     else
         tf_select = 0;
-    for (int i = 0; i < nb; i++) tf_vals[i] = tab[t4 + 2 * tf_select + out[i]];
+    for (int s = 0; s < BSLOTS; s++)
+        tf_vals.v[s] = s * LANES + lane_id() < nb
+            ? tab[t4 + 2 * tf_select + out.v[s]] : 0;
 }
 
 __device__ __forceinline__ int alloc_col(const Tabs &T, int j, int v) {
-    const int32_t *eB = T.s[S_EBANDS];
+    const int32_t *eB = T.s(S_EBANDS);
     int w = eB[j + 1] - eB[j];
-    return (w * T.s[S_ALLOCV][v * T.nb + j]) << T.lm >> 2;
+    return (w * T.s(S_ALLOCV)[v * T.nb + j]) << T.lm >> 2;
 }
 
 // compute_allocation + interp_bits2pulses, mono encode (rate.c:535/249),
-// as celt_enc_fused._compute_allocation_enc.  Returns coded_bands.
-__device__ int compute_allocation(Enc &e, const Tabs &T, const int *offsets,
-                                  int trim, int total, int prev_cb,
-                                  int &balance_out, int *bits, int *ebits,
-                                  int *fine_priority) {
-    const int nb = T.nb, lm = T.lm, nv = T.nv;
-    const int32_t *eB = T.s[S_EBANDS];
-    const int32_t *caps = T.s[S_CAPS];
-    const int32_t *logN = T.s[S_LOGN];
+// as celt_enc_fused._compute_allocation_enc, the bands in lanes.  Returns
+// coded_bands.
+__device__ int compute_allocation(Enc &e, const Tabs &T,
+                                  const Band<int> &offsets, int trim,
+                                  int total, int prev_cb, int &balance_out,
+                                  Band<int> &bits, Band<int> &ebits,
+                                  Band<int> &fine_priority) {
+    const int nb = T.nb, lm = T.lm, nv = T.nv, lane = lane_id();
+    const int32_t *eB = T.s(S_EBANDS);
+    const int32_t *caps = T.s(S_CAPS);
+    const int32_t *logN = T.s(S_LOGN);
     const int alloc_floor = 1 << BITRES;
-    int thresh[NB_MAX], trim_off[NB_MAX], bits1[NB_MAX], bits2[NB_MAX];
+    Band<int> thresh, trim_off, bits1, bits2;
     total = imax(total, 0);
     int skip_rsv = total >= (1 << BITRES) ? 1 << BITRES : 0;
     total -= skip_rsv;
-    for (int j = 0; j < nb; j++) {
+    for (int s = 0; s < BSLOTS; s++) {
+        int j = s * LANES + lane;
+        thresh.v[s] = trim_off.v[s] = bits1.v[s] = bits2.v[s] = 0;
+        bits.v[s] = ebits.v[s] = fine_priority.v[s] = 0;
+        if (j >= nb) continue;
         int w = eB[j + 1] - eB[j];
-        thresh[j] = imax((3 * w << lm << BITRES) >> 4, 1 << BITRES);
+        thresh.v[s] = imax((3 * w << lm << BITRES) >> 4, 1 << BITRES);
         int t = (w * (trim - 5 - lm) * (nb - 1 - j) * (1 << (lm + BITRES)))
             >> 6;
         if ((w << lm) == 1) t -= 1 << BITRES;
-        trim_off[j] = t;
+        trim_off.v[s] = t;
     }
     int lo = 1, hi = nv - 1;
     for (int it = 0; it < 6; it++) {
-        int go = lo <= hi;
+        if (lo > hi) continue;
         int mid = (lo + hi) >> 1;
-        int psum = 0, done = 0;
-        int midc = mid < 0 ? 0 : (mid > nv - 1 ? nv - 1 : mid);
-        for (int j = nb - 1; j >= 0; j--) {
-            int bj = alloc_col(T, j, midc);
-            if (bj > 0) bj = imax(bj + trim_off[j], 0);
-            bj += offsets[j];
-            int use = bj >= thresh[j] || done;
-            psum += use ? imin(bj, caps[j])
-                        : (bj >= (1 << BITRES) ? 1 << BITRES : 0);
-            done |= use;
-        }
-        int over = psum > total;
-        if (go && over) hi = mid - 1;
-        if (go && !over) lo = mid + 1;
+        int psum = alloc_sum(nb, caps, [&](int s, int j, int &thr) {
+            int bj = alloc_col(T, j, mid);
+            if (bj > 0) bj = imax(bj + trim_off.v[s], 0);
+            thr = thresh.v[s];
+            return bj + offsets.v[s];
+        });
+        if (psum > total) hi = mid - 1;
+        else lo = mid + 1;
     }
     int hi_f = lo, lo_f = lo - 1;
+    // skip_start: the highest band with a dynalloc boost, else 0
     int skip_start = 0;
-    int loc = lo_f < 0 ? 0 : (lo_f > nv - 1 ? nv - 1 : lo_f);
-    int hic = hi_f < 0 ? 0 : (hi_f > nv - 1 ? nv - 1 : hi_f);
-    for (int j = 0; j < nb; j++) {
+    for (int s = BSLOTS - 1; s >= 0; s--) {
+        int j = s * LANES + lane;
+        unsigned m = __ballot_sync(FULL, j < nb && offsets.v[s] > 0);
+        if (m) {
+            skip_start = s * LANES + 31 - __clz(m);
+            break;
+        }
+    }
+    const int loc = lo_f < 0 ? 0 : (lo_f > nv - 1 ? nv - 1 : lo_f);
+    const int hic = hi_f < 0 ? 0 : (hi_f > nv - 1 ? nv - 1 : hi_f);
+    for (int s = 0; s < BSLOTS; s++) {
+        int j = s * LANES + lane;
+        if (j >= nb) continue;
         int b1 = alloc_col(T, j, loc);
         int b2 = hi_f >= nv ? caps[j] : alloc_col(T, j, hic);
-        if (b1 > 0) b1 = imax(b1 + trim_off[j], 0);
-        if (b2 > 0) b2 = imax(b2 + trim_off[j], 0);
-        if (lo_f > 0) b1 += offsets[j];
-        b2 += offsets[j];
-        if (offsets[j] > 0) skip_start = j;
-        bits1[j] = b1;
-        bits2[j] = imax(b2 - b1, 0);
+        if (b1 > 0) b1 = imax(b1 + trim_off.v[s], 0);
+        if (b2 > 0) b2 = imax(b2 + trim_off.v[s], 0);
+        if (lo_f > 0) b1 += offsets.v[s];
+        b2 += offsets.v[s];
+        bits1.v[s] = b1;
+        bits2.v[s] = imax(b2 - b1, 0);
     }
 
     // ---- interp_bits2pulses ----
@@ -541,26 +826,30 @@ __device__ int compute_allocation(Enc &e, const Tabs &T, const int *offsets,
     hi = 1 << ALLOC_STEPS;
     for (int it = 0; it < ALLOC_STEPS; it++) {
         int mid = (lo + hi) >> 1;
-        int psum = 0, done = 0;
-        for (int j = nb - 1; j >= 0; j--) {
-            int tmp = bits1[j] + ((mid * bits2[j]) >> ALLOC_STEPS);
-            int use = tmp >= thresh[j] || done;
-            psum += use ? imin(tmp, caps[j])
-                        : (tmp >= alloc_floor ? alloc_floor : 0);
-            done |= use;
-        }
+        int psum = alloc_sum(nb, caps, [&](int s, int, int &thr) {
+            thr = thresh.v[s];
+            return bits1.v[s] + ((mid * bits2.v[s]) >> ALLOC_STEPS);
+        });
         if (psum > total) hi = mid;
         else lo = mid;
     }
-    int psum = 0, done = 0;
-    for (int j = nb - 1; j >= 0; j--) {
-        int tmp = bits1[j] + ((lo * bits2[j]) >> ALLOC_STEPS);
-        int low = tmp < thresh[j] && !done;
-        int tmp2 = low ? (tmp >= alloc_floor ? alloc_floor : 0) : tmp;
-        done |= !low;
-        bits[j] = imin(tmp2, caps[j]);
-        psum += bits[j];
+    // the chosen trial's bits per band, summed as alloc_sum does
+    int psum = 0, done_hi = 0;
+    for (int s = BSLOTS - 1; s >= 0; s--) {
+        int j = s * LANES + lane;
+        int in = j < nb;
+        int tmp = in ? bits1.v[s] + ((lo * bits2.v[s]) >> ALLOC_STEPS) : 0;
+        unsigned m = __ballot_sync(FULL, in && tmp >= thresh.v[s]);
+        int done = done_hi || (m >> lane) != 0;
+        if (!done) tmp = tmp >= alloc_floor ? alloc_floor : 0;
+        if (in) {
+            tmp = imin(tmp, caps[j]);
+            bits.v[s] = tmp;
+            psum += tmp;
+        }
+        done_hi |= m != 0;
     }
+    psum = warp_sum(psum);
     int coded = nb;
     int forced_stop = 0;
     for (int j = nb - 1; j > 0; j--) {
@@ -575,8 +864,9 @@ __device__ int compute_allocation(Enc &e, const Tabs &T, const int *offsets,
         int leftr = left - den * percoeff;
         int rem = imax(leftr - (eB[j] - eB[0]), 0);
         int band_width = eB[j + 1] - eB[j];
-        int band_bits = bits[j] + percoeff * band_width + rem;
-        int th = imax(thresh[j], alloc_floor + (1 << BITRES));
+        int bj = bget(bits, j);
+        int band_bits = bj + percoeff * band_width + rem;
+        int th = imax(bget(thresh, j), alloc_floor + (1 << BITRES));
         int stop = 0;
         if (band_bits >= th) {
             int depth_threshold = coded > 17 ? (j < prev_cb ? 7 : 9) : 0;
@@ -590,28 +880,33 @@ __device__ int compute_allocation(Enc &e, const Tabs &T, const int *offsets,
             band_bits -= 1 << BITRES;
         }
         int keep = band_bits >= alloc_floor ? alloc_floor : 0;
-        psum = psum - bits[j] + keep;
-        bits[j] = keep;
+        psum = psum - bj + keep;
+        bset(bits, j, keep);
         coded--;
     }
     if (forced_stop) total += skip_rsv;
 
+    // the leftover bits: percoeff per coefficient of the coded bands, then
+    // the remainder from the lowest band up, each at most its width (the
+    // serial take loop in closed form: the remainder is below the coded
+    // width)
     int left = total - psum;
     int den = imax(eB[coded] - eB[0], 1);
     int percoeff = floordiv(left, den);
     left -= den * percoeff;
-    for (int j = 0; j < coded; j++) bits[j] += percoeff * (eB[j + 1] - eB[j]);
-    for (int j = 0; j < coded; j++) {
-        int take = imin(left, eB[j + 1] - eB[j]);
-        bits[j] += take;
-        left -= take;
+    for (int s = 0; s < BSLOTS; s++) {
+        int j = s * LANES + lane;
+        if (j >= coded) continue;
+        int wj = eB[j + 1] - eB[j];
+        bits.v[s] += percoeff * wj + imin(imax(left - (eB[j] - eB[0]), 0), wj);
     }
     int balance = 0;
     const int log_m = lm << BITRES;
     for (int j = 0; j < nb; j++) {
         int n = (eB[j + 1] - eB[j]) << lm;
         int in_c = j < coded;
-        int bitj = bits[j] + balance;
+        int bitsj = bget(bits, j);
+        int bitj = bitsj + balance;
         int excess, bj, eb, fp;
         if (n > 1) {
             excess = imax(bitj - caps[j], 0);
@@ -642,10 +937,10 @@ __device__ int compute_allocation(Enc &e, const Tabs &T, const int *offsets,
             fp = (extra_fine << BITRES) >= excess - balance;
             excess2 = excess - (extra_fine << BITRES);
         }
-        int unc_eb = bits[j] >> BITRES;
-        ebits[j] = in_c ? eb2 : unc_eb;
-        fine_priority[j] = in_c ? fp : unc_eb < 1;
-        bits[j] = in_c ? bj : 0;
+        int unc_eb = bitsj >> BITRES;
+        bset(ebits, j, in_c ? eb2 : unc_eb);
+        bset(fine_priority, j, in_c ? fp : (int)(unc_eb < 1));
+        bset(bits, j, in_c ? bj : 0);
         if (in_c) balance = excess2;
     }
     balance_out = balance;
@@ -710,7 +1005,7 @@ __device__ void theta_encode(Enc &e, const Tabs &T, int band, int n2, int &b,
                              int b0, int lm2, float emid, float eside,
                              int avoid, int &rb, int &itheta_q14,
                              int &delta) {
-    int pulse_cap = T.s[S_LOGN][band] + lm2 * (1 << BITRES);
+    int pulse_cap = T.s(S_LOGN)[band] + lm2 * (1 << BITRES);
     int offset = (pulse_cap >> 1) - QTHETA_OFFSET;
     int qn = compute_qn(n2, b, offset, pulse_cap);
     int tell0 = enc_tell_frac(e);
@@ -757,134 +1052,264 @@ __device__ void theta_encode(Enc &e, const Tabs &T, int band, int n2, int &b,
     }
 }
 
-__device__ void exp_rotation1(float *x, int len, int stride, float c,
-                              float s) {
-    for (int i = 0; i < len - stride; i++) {
-        float x1 = x[i], x2 = x[i + stride];
-        x[i + stride] = c * x2 + s * x1;
+// exp_rotation1 (vq.c) restricted to the chain of positions r, r + stride,
+// ...: its forward and backward recurrences touch no other chain.  The
+// value each step hands to the next stays in a register.
+__device__ void rotation_chain(float *x, int len, int stride, int r, float c,
+                               float s) {
+    int i = r;
+    float x1 = x[r];
+    for (; i < len - stride; i += stride) {
+        float x2 = x[i + stride];
         x[i] = c * x1 - s * x2;
+        x1 = c * x2 + s * x1;
     }
-    for (int i = len - 2 * stride - 1; i >= 0; i--) {
-        float x1 = x[i], x2 = x[i + stride];
-        x[i + stride] = c * x2 + s * x1;
-        x[i] = c * x1 - s * x2;
+    x[i] = x1;
+    int top = len - 2 * stride - 1;
+    if (top < r) return;
+    i = top - ((top - r) % stride);
+    float x2 = x[i + stride];
+    for (; i >= 0; i -= stride) {
+        float y1 = x[i];
+        x[i + stride] = c * x2 + s * y1;
+        x2 = c * y1 - s * x2;
     }
+    x[i + stride] = x2;
 }
 
-// exp_rotation direction=+1 (vq.c:104): the stride-1 pass with (c, -s),
-// then the stride2 pass with (s, -c); cos/sin from the table.
+// exp_rotation direction=+1 (vq.c:104) on x (shared memory, synced): per
+// segment the stride-1 pass with (c, -s), then the stride2 pass with
+// (s, -c); cos/sin from the table.  The segments' stride-1 chains run on
+// separate lanes, then their stride2 chains.
 __device__ void exp_rotation_enc(const Tabs &T, float *x, int n, int sv,
                                  int k, int spread) {
     if (spread == 0 || 2 * k >= n || n < sv) return;
-    const float *cs = T.f + T.s[S_ROTOFF][n] + (spread * (MAX_K + 1) + k) * 2;
-    float c = cs[0], s = cs[1];
+    const float *cs = T.f + T.s(S_ROTOFF)[n] + (spread * (MAX_K + 1) + k) * 2;
+    const float c = cs[0], s = cs[1];
     int stride2 = 0;
     if (n >= 8 * sv) {
         stride2 = 1;
         while ((stride2 * stride2 + stride2) * sv + (sv >> 2) < n) stride2++;
     }
-    int len = n / sv;
-    for (int seg = 0; seg < sv; seg++) {
-        exp_rotation1(x + seg * len, len, 1, c, -s);
-        if (stride2) exp_rotation1(x + seg * len, len, stride2, s, -c);
+    const int len = n / sv;
+    for (int seg = lane_id(); seg < sv; seg += LANES)
+        rotation_chain(x + seg * len, len, 1, 0, c, -s);
+    __syncwarp();
+    if (stride2) {
+        for (int p = lane_id(); p < sv * stride2; p += LANES)
+            rotation_chain(x + (p / stride2) * len, len, stride2, p % stride2,
+                           s, -c);
+        __syncwarp();
     }
 }
 
-// op_pvq_search (vq.c:205): projection, then one pulse at a time (first
-// index of the maximum).  iy gets the signed pulses.
-__device__ void pvq_search(const float *x, int n, int k, int kcap, int *iy,
-                           float *xa, float *scratch, int &evals) {
-    for (int j = 0; j < n; j++) {
-        xa[j] = fabsf(x[j]);
-        scratch[j] = xa[j];
+// the warp argmax of a greedy pulse step over groups of `width` lanes (a
+// power of two): the larger score, the lower index on a tie (the serial
+// first maximum); the winner's |x| and pulse count travel with it
+__device__ __forceinline__ void pulse_argmax(int width, float &s, int &j,
+                                             float &a, int &y) {
+    for (int o = width >> 1; o > 0; o >>= 1) {
+        const float s2 = __shfl_xor_sync(FULL, s, o);
+        const int j2 = __shfl_xor_sync(FULL, j, o);
+        const float a2 = __shfl_xor_sync(FULL, a, o);
+        const int y2 = __shfl_xor_sync(FULL, y, o);
+        if (j2 >= 0 && (j < 0 || s2 > s || (s2 == s && j2 < j))) {
+            s = s2;
+            j = j2;
+            a = a2;
+            y = y2;
+        }
     }
-    float sum = tree_sum(scratch, n);
-    int proj = k > (n >> 1);
-    if (proj && !(sum > 1e-15f && sum < 64.0f)) {
-        for (int j = 0; j < n; j++) xa[j] = j == 0 ? 1.0f : 0.0f;
-        sum = 1.0f;
-    }
+}
+
+// op_pvq_search (vq.c:205) across the warp on x (shared memory, synced):
+// the projection, then one pulse at a time.  Position j is always handled
+// by lane j % K3_LANES, so a lane reads and writes only its own xa[j] and
+// iy[j] after the sums: the greedy steps need no __syncwarp.  Each step's
+// scores are the serial f32 expressions; pulse_argmax picks the serial
+// first maximum.  A leaf no wider than the warp keeps its position's |x|
+// and pulse count in registers and reduces over the next power of two
+// above n lanes (the lanes above hold no position and their copies of
+// xy and yy, which nothing reads after the search, go stale).  iy gets
+// the signed pulses.
+__device__ void pvq_search(WarpMem *w, const float *x, int n, int k,
+                           int kcap, int &evals) {
+    const int lane = lane_id();
+    const bool narrow = n <= LANES;
+    float *xa = w->xa;
+    int *iy = w->iy;
+    // without the projection (k <= n / 2) the pulses start at 0, so yy and
+    // xy are sums of zeros, +0 in any order, and the sum of |x| is unused
+    const int proj = k > (n >> 1);
+    float sum = 0.0f, yy = 0.0f, xy = 0.0f;
     int isum = 0;
-    if (proj) {
-        float rcp = ((float)k + 0.8f) / sum;
-        for (int j = 0; j < n; j++) {
-            iy[j] = (int)floorf(rcp * xa[j]);
-            isum += iy[j];
+    if (narrow) {
+        const float a = lane < n ? fabsf(x[lane]) : 0.f;
+        xa[lane] = a;
+        iy[lane] = 0;
+        if (proj) {
+            sum = tree_sum_lanes(a, n);
+            const bool bad = !(sum > 1e-15f && sum < 64.0f);
+            const float a1 = bad ? (lane == 0 ? 1.0f : 0.0f) : a;
+            if (bad) sum = 1.0f;
+            xa[lane] = a1;
+            const float rcp = ((float)k + 0.8f) / sum;
+            const int v = lane < n ? (int)floorf(rcp * a1) : 0;
+            iy[lane] = v;
+            isum = warp_sum(v);
+            yy = tree_sum_lanes((float)(v * v), n);
+            xy = tree_sum_lanes(a1 * (float)v, n);
         }
     } else {
-        for (int j = 0; j < n; j++) iy[j] = 0;
+        for (int j = lane; j < n; j += LANES) {
+            float a = fabsf(x[j]);
+            xa[j] = a;
+            iy[j] = 0;
+            w->sa[j] = a;
+        }
+        if (proj) {
+            __syncwarp();
+            sum = tree_sum(w->sa, w->sb, n);
+            if (!(sum > 1e-15f && sum < 64.0f)) {
+                for (int j = lane; j < n; j += LANES)
+                    xa[j] = j == 0 ? 1.0f : 0.0f;
+                sum = 1.0f;
+            }
+            const float rcp = ((float)k + 0.8f) / sum;
+            for (int j = lane; j < n; j += LANES) {
+                int v = (int)floorf(rcp * xa[j]);
+                iy[j] = v;
+                isum += v;
+                w->sa[j] = (float)(v * v);
+            }
+            isum = warp_sum(isum);
+            __syncwarp();
+            yy = tree_sum(w->sa, w->sb, n);
+            for (int j = lane; j < n; j += LANES)
+                w->sa[j] = xa[j] * (float)iy[j];
+            __syncwarp();
+            xy = tree_sum(w->sa, w->sb, n);
+        }
     }
-    for (int j = 0; j < n; j++) scratch[j] = (float)(iy[j] * iy[j]);
-    float yy = tree_sum(scratch, n);
-    for (int j = 0; j < n; j++) scratch[j] = xa[j] * (float)iy[j];
-    float xy = tree_sum(scratch, n);
     int pulses_left = proj ? k - isum : k;
     if (pulses_left > n + 3) {
+        __syncwarp();       // lane 0's iy[0] (a shuffle is no fence)
         float tmpf = (float)pulses_left;
         yy = yy + tmpf * tmpf + tmpf * 2.0f * (float)iy[0];
-        iy[0] += pulses_left;
+        __syncwarp();       // every lane has read iy[0]
+        if (lane == 0) iy[0] += pulses_left;
+        __syncwarp();
         pulses_left = 0;
     }
-    int cap = imin(kcap, n + 3);
-    for (int t = 0; t < cap && t < pulses_left; t++) {
-        float yy1 = yy + 1.0f;
-        evals += n;
-        int best = 0;
-        float best_s = 0.0f;
-        for (int j = 0; j < n; j++) {
-            float rxy = xy + xa[j];
-            float score = (rxy * rxy) / (yy1 + 2.0f * (float)iy[j]);
-            if (j == 0 || score > best_s) {
-                best_s = score;
-                best = j;
-            }
+    const int cap = imin(kcap, n + 3);
+    const int steps = imin(cap, pulses_left);
+    evals += steps > 0 ? steps * n : 0;
+    if (narrow) {
+        int width = 1;
+        while (width < n) width <<= 1;
+        const float a = xa[lane];
+        int y = iy[lane];
+        for (int t = 0; t < steps; t++) {
+            const float yy1 = yy + 1.0f;
+            const float rxy = xy + a;
+            float best_s = (rxy * rxy) / (yy1 + 2.0f * (float)y);
+            int best = lane < n ? lane : -1;
+            float best_xa = a;
+            int best_iy = y;
+            pulse_argmax(width, best_s, best, best_xa, best_iy);
+            xy = xy + best_xa;
+            yy = yy1 + 2.0f * (float)best_iy;
+            y += lane == best;
         }
-        xy = xy + xa[best];
-        yy = yy1 + 2.0f * (float)iy[best];
-        iy[best]++;
+        if (lane < n) iy[lane] = x[lane] < 0 ? -y : y;
+    } else {
+        for (int t = 0; t < steps; t++) {
+            const float yy1 = yy + 1.0f;
+            int best = -1, best_iy = 0;
+            float best_s = 0.0f, best_xa = 0.0f;
+            for (int j = lane; j < n; j += LANES) {
+                const float a = xa[j];
+                const int y = iy[j];
+                const float rxy = xy + a;
+                const float score = (rxy * rxy) / (yy1 + 2.0f * (float)y);
+                if (best < 0 || score > best_s) {
+                    best_s = score;
+                    best = j;
+                    best_xa = a;
+                    best_iy = y;
+                }
+            }
+            pulse_argmax(LANES, best_s, best, best_xa, best_iy);
+            xy = xy + best_xa;
+            yy = yy1 + 2.0f * (float)best_iy;
+            if (lane == best % LANES) iy[best] = best_iy + 1;
+        }
+        for (int j = lane; j < n; j += LANES)
+            if (x[j] < 0) iy[j] = -iy[j];
     }
-    for (int j = 0; j < n; j++)
-        if (x[j] < 0) iy[j] = -iy[j];
+    __syncwarp();
 }
 
-// icwrs (cwrs.c:444) + ec_enc_uint(idx, V(n, k))
+// icwrs (cwrs.c:444) + ec_enc_uint(idx, V(n, k)).  The suffix sums of |iy|
+// run row by row (K3_LANES positions, top row first) as a lane scan plus
+// the rows above; each lane adds its positions' U terms and the lanes'
+// sum (mod 2^32) goes to every lane.  A leaf no wider than the warp scans
+// and sums over the next power of two above n lanes only.
 __device__ void encode_pulses(Enc &e, const Tabs &T, const int *iy, int n,
                               int k, int kcap) {
-    int kc = imin(kcap + 2, T.urows - 1);
-    uint32_t idx = iy[n - 1] < 0;
-    int t_incl = iy[n - 1] < 0 ? -iy[n - 1] : iy[n - 1];
-    for (int j = n - 2; j >= 0; j--) {
-        int s_excl = t_incl;
-        t_incl += iy[j] < 0 ? -iy[j] : iy[j];
-        int nj = n - j;
-        idx += Utab(T, imin(s_excl, kc), nj);
-        if (iy[j] < 0) idx += Utab(T, imin(t_incl + 1, kc), nj);
+    const int lane = lane_id();
+    const int kc = imin(kcap + 2, T.urows - 1);
+    int width = 1;
+    while (width < n && width < LANES) width <<= 1;
+    uint32_t idx = 0;
+    int above = 0;          // sum of |iy| over the rows above
+    for (int r = (n - 1) / LANES; r >= 0; r--) {
+        const int j = r * LANES + lane;
+        const int y = j < n ? iy[j] : 0;
+        const int a = y < 0 ? -y : y;
+        int s = a;          // sum over this row's lanes >= lane
+        for (int o = 1; o < width; o <<= 1) {
+            int v = __shfl_down_sync(FULL, s, o);
+            if (lane + o < LANES) s += v;
+        }
+        const int t_incl = s + above;
+        const int s_excl = t_incl - a;
+        if (j < n - 1) {
+            const int nj = n - j;
+            idx += Utab(T, imin(s_excl, kc), nj);
+            if (y < 0) idx += Utab(T, imin(t_incl + 1, kc), nj);
+        } else if (j == n - 1) {
+            idx += y < 0;
+        }
+        above += __shfl_sync(FULL, s, 0);
     }
+    for (int o = width >> 1; o > 0; o >>= 1)
+        idx += __shfl_xor_sync(FULL, idx, o);
+    if (width < LANES) idx = __shfl_sync(FULL, idx, 0);
     enc_uint(e, idx, Vtab(T, imin(k, kcap), n));
 }
 
 // ------------------------------------------------------------ band tree
 // quant_partition encode over one band's static split tree, preorder,
-// with an explicit stack: only nodes this stream reaches are visited (a
-// child exists where its parent split).  xw is the band's window; split
-// nodes swap its halves in place when the side is coded first.
-struct Node {
-    int dd, off, isv1;
-};
-
-__device__ void band_tree(Enc &e, const Tabs &T, int band, int n_root,
-                          float *xw, int &rb, int spread, int bb_root,
-                          int b_band, int avoid, float *xs, float *xa,
-                          float *scratch, int *iy, int &evals) {
-    const int lm = T.lm;
-    int st_swap[STACK], st_mbits[STACK], st_sbits[STACK], st_itheta[STACK],
-        st_rb0[STACK];
-    Node stack[STACK];
+// with an explicit stack in shared memory (every lane reads it, lane 0
+// writes): only nodes this stream reaches are visited (a child exists
+// where its parent split).  xw is the band's window; split nodes swap its
+// halves in place when the side is coded first, and a leaf rotates its
+// own part in place (no later node reads it).
+__device__ void band_tree(Enc &e, const Tabs &T, WarpMem *w, int band,
+                          int n_root, float *xw, int &rb, int spread,
+                          int bb_root, int b_band, int avoid, int &evals) {
+    const int lm = T.lm, lane = lane_id();
+    int (*st)[STACK] = w->st;
+    int (*node)[STACK] = w->node;
     int top = 0;
-    stack[top++] = Node{0, 0, 0};
-    while (top > 0) {
-        Node nd_ = stack[--top];
-        const int dd = nd_.dd, off = nd_.off;
+    __syncwarp();
+    if (lane == 0) node[0][0] = node[1][0] = node[2][0] = 0;
+    __syncwarp();
+    while (top >= 0) {
+        const int dd = node[0][top], off = node[1][top],
+                  isv1 = node[2][top];
+        top--;
         const int nd = n_root >> dd;
         const int lmd = lm - dd;
         int bb = bb_root;
@@ -894,15 +1319,14 @@ __device__ void band_tree(Enc &e, const Tabs &T, int band, int n_root,
             b = b_band;
         } else {
             const int p = dd - 1;
-            const int swap = st_swap[p];
-            const int b_v0 = swap ? st_sbits[p] : st_mbits[p];
-            if (nd_.isv1) {
-                int rebalance = b_v0 - (st_rb0[p] - rb);
+            const int swap = st[0][p];
+            const int b_v0 = swap ? st[2][p] : st[1][p];
+            if (isv1) {
+                int rebalance = b_v0 - (st[4][p] - rb);
                 int anchor = swap ? 16384 : 0;
-                int extra = (rebalance > (3 << BITRES)
-                             && st_itheta[p] != anchor)
+                int extra = (rebalance > (3 << BITRES) && st[3][p] != anchor)
                     ? rebalance - (3 << BITRES) : 0;
-                b = (swap ? st_mbits[p] : st_sbits[p]) + extra;
+                b = (swap ? st[1][p] : st[2][p]) + extra;
             } else {
                 b = b_v0;
             }
@@ -910,12 +1334,18 @@ __device__ void band_tree(Enc &e, const Tabs &T, int band, int n_root,
         const int32_t *row = cache_row(T, lmd, band);
         const int L = row[0];
         if (lmd != -1 && nd > 2 && b > row[L] + 12) {
+            PROF_T(t_th);
             const int n2 = nd >> 1;
-            for (int j = 0; j < n2; j++) scratch[j] = xw[off + j] * xw[off + j];
-            float emid = tree_sum(scratch, n2) + 1e-15f;
-            for (int j = 0; j < n2; j++)
-                scratch[j] = xw[off + n2 + j] * xw[off + n2 + j];
-            float eside = tree_sum(scratch, n2) + 1e-15f;
+            for (int j = lane; j < n2; j += LANES) {
+                float m = xw[off + j], sd = xw[off + n2 + j];
+                w->sa[j] = m * m;
+                w->sa[HALF + j] = sd * sd;
+            }
+            __syncwarp();
+            float emid, eside;
+            tree_sum2(w->sa, w->sb, n2, emid, eside);
+            emid += 1e-15f;
+            eside += 1e-15f;
             int itheta, delta;
             const int lm2 = lmd - 1;
             theta_encode(e, T, band, n2, b, bb, lm2, emid, eside, avoid, rb,
@@ -927,28 +1357,41 @@ __device__ void band_tree(Enc &e, const Tabs &T, int band, int n_root,
             int mbits = imax(0, imin(b, floordiv(b - delta, 2)));
             int sbits = b - mbits;
             int swap = mbits < sbits;
-            st_swap[dd] = swap;
-            st_mbits[dd] = mbits;
-            st_sbits[dd] = sbits;
-            st_itheta[dd] = itheta;
-            st_rb0[dd] = rb;
+            // push the two children; every lane has read the popped frame
+            // and its parent's record (the tree sums synced since)
+            if (lane == 0) {
+                st[0][dd] = swap;
+                st[1][dd] = mbits;
+                st[2][dd] = sbits;
+                st[3][dd] = itheta;
+                st[4][dd] = rb;
+                node[0][top + 1] = dd + 1;
+                node[1][top + 1] = off + n2;
+                node[2][top + 1] = 1;
+                node[0][top + 2] = dd + 1;
+                node[1][top + 2] = off;
+                node[2][top + 2] = 0;
+            }
             if (swap) {
-                for (int j = 0; j < n2; j++) {
+                for (int j = lane; j < n2; j += LANES) {
                     float t = xw[off + j];
                     xw[off + j] = xw[off + n2 + j];
                     xw[off + n2 + j] = t;
                 }
             }
-            stack[top++] = Node{dd + 1, off + n2, 1};
-            stack[top++] = Node{dd + 1, off, 0};
+            __syncwarp();
+            top += 2;
+            PROF_ADD(8, t_th);
             continue;
         }
         // ---- leaf: bits -> pulses -> rotate / search / index ----
         const int bm1 = b - 1;
         int lo = 0, c_fit = 0;
-        for (int r = 1; r <= L; r++) {
-            lo += bm1 > row[r];
-            c_fit += rb >= row[r] + 1;
+        for (int j0 = 1; j0 <= L; j0 += LANES) {
+            const int j = j0 + lane;
+            const int rj = j <= L ? row[j] : 0;
+            lo += __popc(__ballot_sync(FULL, j <= L && bm1 > rj));
+            c_fit += __popc(__ballot_sync(FULL, j <= L && rb >= rj + 1));
         }
         const int hi = imin(lo + 1, L);
         const int lo_val = lo == 0 ? -1 : row[lo];
@@ -957,69 +1400,110 @@ __device__ void band_tree(Enc &e, const Tabs &T, int band, int n_root,
         if (q > 0) rb -= row[q] + 1;
         const int kq = q < 8 ? q : (8 + (q & 7)) << imax((q >> 3) - 1, 0);
         if (kq != 0) {
-            const int kcap = T.s[S_KCAP][band * (lm + 2) + dd];
-            for (int j = 0; j < nd; j++) xs[j] = xw[off + j];
+            const int kcap = T.s(S_KCAP)[band * (lm + 2) + dd];
+            float *xs = xw + off;
+            PROF_T(t_rot);
             exp_rotation_enc(T, xs, nd, bb, kq, spread);
-            pvq_search(xs, nd, kq, kcap, iy, xa, scratch, evals);
-            encode_pulses(e, T, iy, nd, kq, kcap);
+            PROF_ADD(9, t_rot);
+            PROF_T(t_pvq);
+            pvq_search(w, xs, nd, kq, kcap, evals);
+            PROF_ADD(10, t_pvq);
+            PROF_T(t_cw);
+            encode_pulses(e, T, w->iy, nd, kq, kcap);
+            PROF_ADD(11, t_cw);
         }
     }
 }
 
 // ------------------------------------------------------------ the kernel
-__global__ void __launch_bounds__(32)
-celt_enc_frame_kernel(const float *__restrict__ X_t,
+// bytes of a warp's digit and end-byte buffers, each a multiple of 16
+__device__ __host__ __forceinline__ int dig_bytes(int nbytes) {
+    return ((nbytes + 4) * 2 + 15) & ~15;
+}
+
+__device__ __host__ __forceinline__ int warp_bytes(int nbytes) {
+    return (int)sizeof(WarpMem) + dig_bytes(nbytes) + ((nbytes + 1 + 15) & ~15);
+}
+
+// one resident block per SM asked of ptxas: up to 128 registers a thread
+__global__ void __launch_bounds__(WARPS * LANES, 1)
+celt_enc_frame_kernel(const float *__restrict__ X,
                       const float *__restrict__ fin,
                       const int32_t *__restrict__ iin,
                       const int32_t *__restrict__ itab,
                       const float *__restrict__ ftab, uint8_t *payload,
                       float *fout, int32_t *iout, int B, int nbytes) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= B) return;
-    const Tabs T = load_tabs(itab, ftab);
-    const int nb = T.nb, lm = T.lm;
+    PROF_T(t_start);
+    BlockMem &bm = *reinterpret_cast<BlockMem *>(k3_smem);
+    const Tabs T = load_tabs(itab, ftab, bm.off);
+    __syncthreads();
+    const int lane = lane_id(), warp = threadIdx.x / LANES;
+    const int stream = blockIdx.x * WARPS + warp;
+    if (stream >= B) return;
+    const int nb = T.nb, lm = T.lm, nx = T.nx;
     const int M = 1 << lm;
-    const int32_t *eB = T.s[S_EBANDS];
+    const int32_t *eB = T.s(S_EBANDS);
+    WarpMem *w = reinterpret_cast<WarpMem *>(
+        k3_smem + sizeof(BlockMem) + (size_t)warp * warp_bytes(nbytes));
+    uint16_t *dig = reinterpret_cast<uint16_t *>(w + 1);
+    uint8_t *endb = reinterpret_cast<uint8_t *>(w + 1) + dig_bytes(nbytes);
 
-    // ---- inputs: fin [2nb+1, B] f32, iin [7 + 2nb, B] i32 ----
-    float ble_b[NB_MAX], old_in[NB_MAX], old_e[NB_MAX], err[NB_MAX];
-    int tf_res[NB_MAX], offsets_cnt[NB_MAX];
-    for (int i = 0; i < nb; i++) {
-        ble_b[i] = fin[i * B + lane];
-        old_in[i] = fin[(nb + i) * B + lane];
-    }
-    float delayed_intra = fin[2 * nb * B + lane];
-    const int silence = iin[0 * B + lane] != 0;
-    const int tr = iin[1 * B + lane] != 0;
-    const int tf_select_in = iin[2 * B + lane];
-    const int spread_calc = iin[3 * B + lane];
-    const int trim_calc = iin[4 * B + lane];
-    const int prev_cb = iin[5 * B + lane];
-    const int consec_transient = iin[6 * B + lane];
-    for (int i = 0; i < nb; i++) {
-        tf_res[i] = iin[(7 + i) * B + lane];
-        offsets_cnt[i] = iin[(7 + nb + i) * B + lane];
+    // ---- the stream's X row into shared memory, coalesced
+    const float *xr = X + (size_t)stream * nx;
+    if ((nx & 3) == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0) {
+        for (int k = lane; k < nx >> 2; k += LANES)
+            reinterpret_cast<float4 *>(w->X)[k] =
+                reinterpret_cast<const float4 *>(xr)[k];
+    } else {
+        for (int j = lane; j < nx; j += LANES) w->X[j] = xr[j];
     }
 
-    uint16_t dig[DCAP];
-    uint8_t endb[ECAP];
+    // ---- inputs: fin [B, 2nb+1] f32, iin [B, 7 + 2nb] i32, band i in
+    // lane i
+    const float *fr = fin + (size_t)stream * (2 * nb + 1);
+    const int32_t *ir = iin + (size_t)stream * (7 + 2 * nb);
+    Band<float> ble_b, old_in, old_e, err;
+    Band<int> tf_res, offsets_cnt;
+    for (int s = 0; s < BSLOTS; s++) {
+        const int j = s * LANES + lane;
+        const bool in = j < nb;
+        ble_b.v[s] = in ? fr[j] : 0.f;
+        old_in.v[s] = in ? fr[nb + j] : 0.f;
+        old_e.v[s] = err.v[s] = 0.f;
+        tf_res.v[s] = in ? ir[7 + j] : 0;
+        offsets_cnt.v[s] = in ? ir[7 + nb + j] : 0;
+    }
+    float delayed_intra = fr[2 * nb];
+    const int silence = ir[0] != 0;
+    const int tr = ir[1] != 0;
+    const int tf_select_in = ir[2];
+    const int spread_calc = ir[3];
+    const int trim_calc = ir[4];
+    const int prev_cb = ir[5];
+    const int consec_transient = ir[6];
+    __syncwarp();       // the X row
+
     Enc e;
-    enc_init(e, dig, endb);
+    enc_init(e, dig, endb, nbytes);
     const int total_bits = nbytes * 8;
     const int budget = total_bits;
+    PROF_ADD(0, t_start);
 
     // ---- header: silence, postfilter off, transient ----
+    PROF_T(t_head);
     enc_bit_logp(e, silence, 15);
     if (silence) e.nbits_total += total_bits - enc_tell(e);
     if (enc_tell(e) + 16 <= total_bits) enc_bit_logp(e, 0, 1);
     if (lm > 0 && enc_tell(e) + 3 <= total_bits) enc_bit_logp(e, tr, 3);
 
     // ---- coarse energy ----
-    const int pick_intra = coarse_energy(e, T, ble_b, old_in, old_e, err,
+    const int pick_intra = coarse_energy(e, T, w, ble_b, old_in, old_e, err,
                                          budget, nbytes, delayed_intra);
+    PROF_ADD(1, t_head);
 
     // ---- tf ----
-    int tf_vals[NB_MAX];
+    PROF_T(t_tf);
+    Band<int> tf_vals;
     tf_encode(e, T, tf_res, tf_select_in, tr, budget, tf_vals);
 
     // ---- spread ----
@@ -1029,7 +1513,7 @@ celt_enc_frame_kernel(const float *__restrict__ X_t,
     if (can_sp) enc_icdf(e, spread, SPREAD_ICDF, 4, 5);
 
     // ---- dynalloc boosts ----
-    int offsets[NB_MAX];
+    Band<int> offsets;
     int dyn_logp = 6;
     const int total_bits8 = total_bits << BITRES;
     int total_boost = 0;
@@ -1037,13 +1521,14 @@ celt_enc_frame_kernel(const float *__restrict__ X_t,
     for (int i = 0; i < nb; i++) {
         int width = (eB[i + 1] - eB[i]) << lm;
         int quanta = imin(width << BITRES, imax(6 << BITRES, width));
-        int cap_i = T.s[S_CAPS][i];
+        int cap_i = T.s(S_CAPS)[i];
+        int cnt = bget(offsets_cnt, i);
         int dlp = dyn_logp, boost = 0, coded_any = 0;
         for (int j = 0; j <= cap_i / quanta; j++) {
             if (!(tell_frac + (dlp << BITRES) < total_bits8 - total_boost
                   && boost < cap_i))
                 break;
-            int flag = j < offsets_cnt[i];
+            int flag = j < cnt;
             enc_bit_logp(e, flag, dlp);
             tell_frac = enc_tell_frac(e);
             if (!flag) break;
@@ -1053,7 +1538,7 @@ celt_enc_frame_kernel(const float *__restrict__ X_t,
             coded_any = 1;
         }
         if (coded_any) dyn_logp = imax(2, dyn_logp - 1);
-        offsets[i] = boost;
+        bset(offsets, i, boost);
     }
 
     // ---- trim ----
@@ -1063,36 +1548,45 @@ celt_enc_frame_kernel(const float *__restrict__ X_t,
         enc_icdf(e, trim, TRIM_ICDF, 11, 7);
     }
     tell_frac = enc_tell_frac(e);
+    PROF_ADD(2, t_tf);
 
-    // ---- allocation + fine energy ----
+    // ---- allocation ----
+    PROF_T(t_alloc);
     int bits = total_bits8 - tell_frac - 1;
     const int anti_rsv = (tr && lm >= 2 && bits >= ((lm + 2) << BITRES))
         ? 1 << BITRES : 0;
     bits -= anti_rsv;
-    int pulses[NB_MAX], ebits[NB_MAX], fine_priority[NB_MAX];
+    Band<int> pulses, ebits, fine_priority;
     int balance;
     const int coded_bands = compute_allocation(e, T, offsets, trim, bits,
                                                prev_cb, balance, pulses,
                                                ebits, fine_priority);
+    PROF_ADD(3, t_alloc);
+
+    // ---- fine energy ----
+    PROF_T(t_fine);
     for (int i = 0; i < nb; i++) {
-        if (!(ebits[i] > 0 && enc_tell(e) + ebits[i] <= total_bits)) continue;
-        int ex = 1 << imin(imax(ebits[i], 0), MAX_FINE_BITS);
+        const int ebi = bget(ebits, i);
+        if (!(ebi > 0 && enc_tell(e) + ebi <= total_bits)) continue;
+        int ex = 1 << imin(imax(ebi, 0), MAX_FINE_BITS);
         float extra = (float)ex;
-        int q2 = (int)floorf((err[i] + 0.5f) * extra);
+        const float erri = bget(err, i);
+        int q2 = (int)floorf((erri + 0.5f) * extra);
         q2 = imin(imax(q2, 0), ex - 1);
-        enc_bits(e, (uint32_t)q2, ebits[i]);
-        float offs = ((float)q2 + 0.5f) * pow2neg(ebits[i]) - 0.5f;
-        old_e[i] = old_e[i] + offs;
-        err[i] = err[i] - offs;
+        enc_bits(e, (uint32_t)q2, ebi);
+        float offs = ((float)q2 + 0.5f) * pow2neg(ebi) - 0.5f;
+        bset(old_e, i, bget(old_e, i) + offs);
+        bset(err, i, erri - offs);
     }
+    PROF_ADD(4, t_fine);
 
     // ---- PVQ bands ----
-    float xin[NMAX], xw[NMAX], xs[NMAX], xa[NMAX], scratch[NMAX];
-    int iy[NMAX];
+    PROF_T(t_bands);
     const int total_bits8b = nbytes * (8 << BITRES) - anti_rsv;
     int evals = 0;
-    const int32_t *ewidx = T.s[S_EWIDX];
+    const int32_t *ewidx = T.s(S_EWIDX);
     for (int i = 0; i < nb; i++) {
+        PROF_T(t_setup);
         const int n = M * (eB[i + 1] - eB[i]);
         const int base = M * eB[i];
         const int tell = enc_tell_frac(e);
@@ -1100,88 +1594,171 @@ celt_enc_frame_kernel(const float *__restrict__ X_t,
         const int remaining = total_bits8b - tell - 1;
         const int den = imin(imax(coded_bands - i, 1), 3);
         const int curr_balance = balance / den;        // C truncation
+        const int pi = bget(pulses, i);
         int b = 0;
         if (i <= coded_bands - 1) {
-            b = imin(remaining + 1, pulses[i] + curr_balance);
+            b = imin(remaining + 1, pi + curr_balance);
             b = b < 0 ? 0 : (b > 16383 ? 16383 : b);
         }
-        for (int j = 0; j < n; j++) xin[j] = X_t[(size_t)(base + j) * B + lane];
-        const int32_t *var = T.s[S_VAR] + i * NVAR * 4;
+        const int32_t *var = T.s(S_VAR) + i * NVAR * 4;
+        const int tfv = bget(tf_vals, i);
         int bb_root = 0, ewoff = -1;
         for (int v = 0; v < NVAR && var[4 * v] >= 0; v++) {
-            if (var[4 * v] == tr && var[4 * v + 1] == tf_vals[i]) {
+            if (var[4 * v] == tr && var[4 * v + 1] == tfv) {
                 bb_root = var[4 * v + 2];
                 ewoff = var[4 * v + 3];
             }
         }
-        if (ewoff < 0) {
-            for (int j = 0; j < n; j++) xw[j] = xin[j];
-        } else {
-            for (int c = 0; c < n; c++) {
-                const int32_t *ix = ewidx + (size_t)(ewoff + c) * EW_SLOTS;
-                const float *cf = T.f + (size_t)(ewoff + c) * EW_SLOTS;
+        // the band's window: the X row itself, or its wrap (the taps of
+        // output c in index order, one output per lane)
+        const float *xin = w->X + base;
+        float *xw = w->X + base;
+        if (ewoff >= 0) {
+            xw = w->xw;
+            for (int c = lane; c < n; c += LANES) {
+                const int4 *ix = reinterpret_cast<const int4 *>(
+                    ewidx + (size_t)(ewoff + c) * EW_SLOTS);
+                const float4 *cf = reinterpret_cast<const float4 *>(
+                    T.f + (size_t)(ewoff + c) * EW_SLOTS);
+                const int4 i0 = ix[0], i1 = ix[1];
+                const float4 c0 = cf[0], c1 = cf[1];
                 float acc = 0.0f;
-                for (int s = 0; s < EW_SLOTS; s++)
-                    acc = fmaf(xin[ix[s]], cf[s], acc);
+                acc = fmaf(xin[i0.x], c0.x, acc);
+                acc = fmaf(xin[i0.y], c0.y, acc);
+                acc = fmaf(xin[i0.z], c0.z, acc);
+                acc = fmaf(xin[i0.w], c0.w, acc);
+                acc = fmaf(xin[i1.x], c1.x, acc);
+                acc = fmaf(xin[i1.y], c1.y, acc);
+                acc = fmaf(xin[i1.z], c1.z, acc);
+                acc = fmaf(xin[i1.w], c1.w, acc);
                 xw[c] = acc;
             }
+            __syncwarp();
         }
+        PROF_ADD(12, t_setup);
         int rb = remaining;
-        band_tree(e, T, i, n, xw, rb, spread, bb_root, b,
-                  i == 0 ? tr : 0, xs, xa, scratch, iy, evals);
-        balance += pulses[i] + tell;
+        band_tree(e, T, w, i, n, xw, rb, spread, bb_root, b,
+                  i == 0 ? tr : 0, evals);
+        balance += pi + tell;
     }
+    PROF_ADD(5, t_bands);
 
     // ---- anti-collapse flag ----
+    PROF_T(t_fin);
     if (anti_rsv > 0) enc_bits(e, consec_transient < 2, 1);
 
     // ---- energy finalise + done ----
     int bits_left = total_bits - enc_tell(e);
     for (int prio = 0; prio < 2; prio++) {
         for (int i = 0; i < nb; i++) {
-            if (!(bits_left >= 1 && ebits[i] < MAX_FINE_BITS
-                  && fine_priority[i] == prio))
+            const int ebi = bget(ebits, i);
+            if (!(bits_left >= 1 && ebi < MAX_FINE_BITS
+                  && bget(fine_priority, i) == prio))
                 continue;
-            int q2 = err[i] >= 0;
+            const float erri = bget(err, i);
+            int q2 = erri >= 0;
             enc_bits(e, (uint32_t)q2, 1);
-            err[i] = err[i] - ((float)q2 - 0.5f) * pow2neg(ebits[i] + 1);
+            bset(err, i, erri - ((float)q2 - 0.5f) * pow2neg(ebi + 1));
             bits_left--;
         }
     }
     enc_done(e);
-    const int error = enc_finalize(e, payload + (size_t)lane * nbytes,
+    const int error = enc_finalize(e, payload + (size_t)stream * nbytes,
                                    nbytes);
+    PROF_ADD(6, t_fin);
 
-    // ---- outputs: fout [2nb+1, B], iout [8, B]: INT_OUT, rng, error and
+    // ---- outputs: fout [B, 2nb+1], iout [B, 8]: INT_OUT, rng, error and
     // the count of pulse-search score evaluations (for the op bound) ----
-    for (int i = 0; i < nb; i++) {
-        fout[i * B + lane] = old_e[i];
-        fout[(nb + i) * B + lane] = err[i];
+    PROF_T(t_out);
+    float *fo = fout + (size_t)stream * (2 * nb + 1);
+    for (int s = 0; s < BSLOTS; s++) {
+        const int j = s * LANES + lane;
+        if (j < nb) {
+            fo[j] = old_e.v[s];
+            fo[nb + j] = err.v[s];
+        }
     }
-    fout[2 * nb * B + lane] = delayed_intra;
-    iout[0 * B + lane] = pick_intra;
-    iout[1 * B + lane] = coded_bands;
-    iout[2 * B + lane] = spread;
-    iout[3 * B + lane] = can_sp;
-    iout[4 * B + lane] = use_calc;
-    iout[5 * B + lane] = (int32_t)e.rng;
-    iout[6 * B + lane] = error;
-    iout[7 * B + lane] = evals;
+    if (lane == 0) {
+        fo[2 * nb] = delayed_intra;
+        int32_t *io = iout + (size_t)stream * 8;
+        io[0] = pick_intra;
+        io[1] = coded_bands;
+        io[2] = spread;
+        io[3] = can_sp;
+        io[4] = use_calc;
+        io[5] = (int32_t)e.rng;
+        io[6] = error;
+        io[7] = evals;
+    }
+    PROF_ADD(7, t_out);
+    PROF_ADD(14, t_start);
 }
 
 }  // namespace
 
+namespace {
+
+// dynamic shared memory of a block: the staged offsets and each warp's
+// WarpMem with its digit and end-byte buffers; above 48 KB the kernel
+// must opt in, and a request the card cannot hold fails there
+size_t block_smem(int nbytes) {
+    return sizeof(BlockMem) + (size_t)WARPS * warp_bytes(nbytes);
+}
+
+cudaError_t opt_in_smem(size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(celt_enc_frame_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+}
+
+}  // namespace
+
+// X [B, nx], fin [B, 2nb+1], iin [B, 7+2nb]; payload [B, nbytes], fout
+// [B, 2nb+1], iout [B, 8]; all row-major
 extern "C" int opus_celt_enc_frame_launch(
-    const void *X_t, const void *fin, const void *iin, const void *itab,
+    const void *X, const void *fin, const void *iin, const void *itab,
     const void *ftab, void *payload, void *fout, void *iout, int B,
     int nbytes, void *stream) {
     if (B <= 0) return 0;
-    if (nbytes <= 0 || nbytes > MAX_BYTES) return (int)cudaErrorInvalidValue;
-    const int threads = 32;
-    celt_enc_frame_kernel<<<(B + threads - 1) / threads, threads, 0,
+    if (nbytes <= 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = block_smem(nbytes);
+    cudaError_t e = opt_in_smem(smem);
+    if (e != cudaSuccess) return (int)e;
+    celt_enc_frame_kernel<<<(B + WARPS - 1) / WARPS, WARPS * LANES, smem,
                             (cudaStream_t)stream>>>(
-        (const float *)X_t, (const float *)fin, (const int32_t *)iin,
+        (const float *)X, (const float *)fin, (const int32_t *)iin,
         (const int32_t *)itab, (const float *)ftab, (uint8_t *)payload,
         (float *)fout, (int32_t *)iout, B, nbytes);
     return (int)cudaGetLastError();
+}
+
+#ifdef K3_PROFILE
+// the cycle sums of k3_prof (K3_NPROF slots) into out, then zeroed
+extern "C" int opus_celt_enc_frame_profile(unsigned long long *out) {
+    static const unsigned long long zero[K3_NPROF] = {};
+    cudaError_t e = cudaMemcpyFromSymbol(out, k3_prof, sizeof zero);
+    if (e == cudaSuccess) e = cudaMemcpyToSymbol(k3_prof, zero, sizeof zero);
+    return (int)e;
+}
+#endif
+
+// K3's geometry at nbytes, for reports: info = [shared memory bytes per
+// block, warps per block, resident blocks per SM, registers per thread,
+// local memory bytes per thread]
+extern "C" int opus_celt_enc_frame_occupancy(int nbytes, int *info) {
+    const size_t smem = block_smem(nbytes);
+    cudaError_t e = opt_in_smem(smem);
+    int blocks = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, celt_enc_frame_kernel, WARPS * LANES, smem);
+    cudaFuncAttributes a = {};
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, celt_enc_frame_kernel);
+    info[0] = (int)smem;
+    info[1] = WARPS;
+    info[2] = blocks;
+    info[3] = a.numRegs;
+    info[4] = (int)a.localSizeBytes;
+    return (int)e;
 }

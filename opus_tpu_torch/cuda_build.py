@@ -97,15 +97,25 @@ def bind_celt_dec_frame(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_celt_enc_frame(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of kernel K3's entry points on ``lib`` (this
+    library, or a build of ``celt_enc_frame.cu`` alone)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.opus_celt_enc_frame_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.opus_celt_enc_frame_launch.restype = ci
+    lib.opus_celt_enc_frame_occupancy.argtypes = [ci, vp]
+    lib.opus_celt_enc_frame_occupancy.restype = ci
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The built library, with argument types set on its entry points."""
     global _lib
     if _lib is None:
-        lib = bind_celt_dec_frame(ctypes.CDLL(str(build())))
+        lib = bind_celt_enc_frame(bind_celt_dec_frame(
+            ctypes.CDLL(str(build()))))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.opus_celt_enc_frame_launch.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
-        lib.opus_celt_enc_frame_launch.restype = ci
         lib.opus_deemphasis_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ctypes.c_float, vp]
         lib.opus_deemphasis_launch.restype = ci
@@ -118,6 +128,19 @@ def library() -> ctypes.CDLL:
         lib.opus_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def geometry(entry: str, arg: int) -> dict:
+    """A symbol-pass kernel's launch geometry on the current card, from its
+    ``opus_*_occupancy(arg, info)`` entry point: shared memory per block,
+    warps per block, resident blocks and warps per SM, registers and local
+    memory per thread."""
+    info = (ctypes.c_int * 5)()
+    check_launch(getattr(library(), entry)(arg, info), entry)
+    smem, warps, blocks, regs, local = list(info)
+    return dict(smem_per_block=smem, warps_per_block=warps,
+                blocks_per_sm=blocks, warps_per_sm=blocks * warps,
+                registers=regs, local_bytes=local)
 
 
 def check_launch(rc: int, name: str) -> None:

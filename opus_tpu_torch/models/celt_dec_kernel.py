@@ -21,7 +21,7 @@ import torch
 
 from ..celt.tables import COMB_GAINS, COMBFILTER_MINPERIOD
 from ..ops.device_cache import const
-from ..ops.rc_kernel import M32, ilog, pack_state
+from ..ops.rc_kernel import M32, ilog, pack_payloads, pack_state
 from .celt_dec_fused import DecTabs, fused_celt_decode_frame, \
     fused_celt_init_state
 from .batched_decode import decode_step
@@ -140,17 +140,10 @@ def _decode_frame_cuda(buf_u8, lens, old_e, prevmin, seed, tabs,
 
 def geometry(p: int) -> dict:
     """K1's launch geometry on the current card at packet stride ``p``
-    (bytes): shared memory per block, warps per block, resident blocks and
-    warps per SM, registers and local memory per thread."""
-    from ..cuda_build import check_launch, library
+    (bytes); see ``cuda_build.geometry``."""
+    from ..cuda_build import geometry as geo
 
-    info = (ctypes.c_int * 5)()
-    check_launch(library().opus_celt_dec_frame_occupancy(p, info),
-                 "celt_dec_frame occupancy")
-    smem, warps, blocks, regs, local = list(info)
-    return dict(smem_per_block=smem, warps_per_block=warps,
-                blocks_per_sm=blocks, warps_per_sm=blocks * warps,
-                registers=regs, local_bytes=local)
+    return geo("opus_celt_dec_frame_occupancy", p)
 
 
 def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
@@ -240,15 +233,8 @@ class KernelCeltDecoder:
 
     def pack(self, payloads):
         """list of B byte strings -> (buf [B, P] uint8, lens [B]) on the
-        decoder's device."""
-        buf = np.zeros((self.batch, self.P), np.uint8)
-        lens = np.zeros(self.batch, np.int64)
-        for i, p in enumerate(payloads):
-            a = np.frombuffer(p, np.uint8)[:self.P]
-            buf[i, :len(a)] = a
-            lens[i] = len(a)
-        return (torch.from_numpy(buf).to(self.device),
-                torch.from_numpy(lens).to(self.device))
+        decoder's device; raises ValueError on a payload longer than P."""
+        return pack_payloads(payloads, self.batch, self.P, self.device)
 
     def decode_packed(self, buf_u8, lens):
         """buf [B, P] uint8, lens [B] on the device -> (pcm [B, 1, N] f32,

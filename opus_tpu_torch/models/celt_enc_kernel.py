@@ -186,7 +186,8 @@ class ETabs(EncTabs):
     def kernel_tables(self) -> tuple:
         """(int32 table, float32 table) for kernel K3.  The int table is a
         header [nb, lm, nv, nx, urows, ucols] followed by one offset per
-        KSECTIONS entry; uint32 entries are stored as their int32 bits.
+        KSECTIONS entry, each section 16-byte aligned; uint32 entries are
+        stored as their int32 bits.
         u/v: U(n, k) and V(n, k) at [k * ucols + n] (saturated); lap: per
         (intra, band) Laplace chain as (fl, fs) pairs, lapoff holding
         (offset, length L); kcap: [band * (lm + 2) + depth]; var: per band
@@ -250,11 +251,18 @@ class ETabs(EncTabs):
                  var.reshape(-1), np.asarray(ewidx, np.int64).reshape(-1),
                  rotoff]
         header = [nb, lm, nv, self.nx_rows, urows, ucols]
-        offs, pos = [], len(header) + len(parts)
+        # every section starts at a multiple of 4 words (K3 reads the wrap
+        # taps' columns as 16-byte vectors)
+        pad = lambda k: (-k) % 4                             # noqa: E731
+        pos = len(header) + len(parts)
+        chunks = [np.zeros(pad(pos), np.int64)]
+        offs = []
+        pos += pad(pos)
         for a in parts:
             offs.append(pos)
-            pos += a.size
-        itab = np.concatenate([np.asarray(header + offs, np.int64)] + parts)
+            chunks += [a, np.zeros(pad(a.size), np.int64)]
+            pos += a.size + pad(a.size)
+        itab = np.concatenate([np.asarray(header + offs, np.int64)] + chunks)
         ftab = np.concatenate([np.asarray(ewcoef, np.float32).reshape(-1),
                                np.asarray(rot, np.float32)])
         return itab.astype(np.uint32).view(np.int32), ftab
@@ -919,7 +927,9 @@ def encode_frame(X, ins: dict, tabs: ETabs = None, nbytes: int = 160) \
     return _encode_frame_cuda(X, ins, tabs, nbytes)
 
 
-def _encode_frame_cuda(X, ins, tabs, nbytes) -> dict:
+def _encode_frame_cuda(X, ins, tabs, nbytes, lib=None) -> dict:
+    """Kernel K3 on the card; ``lib``: the built library (default) or
+    another build of ``celt_enc_frame.cu`` with the same entry point."""
     from ..cuda_build import check_launch, library
 
     global launches
@@ -930,34 +940,48 @@ def _encode_frame_cuda(X, ins, tabs, nbytes) -> dict:
     nb = tabs.nb
     if nx != tabs.nx_rows or X.dtype != f32:
         raise ValueError("encode_frame: X [B, nx] f32")
-    x_t = X.t().contiguous()
+    X = X.contiguous()
     fin = torch.cat([ins[k].reshape(b, -1).to(f32) for k in FIN_KEYS],
-                    dim=1).t().contiguous()                 # [2nb+1, B]
+                    dim=1).contiguous()                     # [B, 2nb+1]
     iin = torch.cat([ins[k].reshape(b, -1).to(torch.int32)
-                     for k in IIN_KEYS], dim=1).t().contiguous()
-    itab = const(("k3_itab", int(tabs.mode.Fs), tabs.lm),
-                 lambda: tabs.kernel_tables()[0], dev)
-    ftab = const(("k3_ftab", int(tabs.mode.Fs), tabs.lm),
-                 lambda: tabs.kernel_tables()[1], dev)
+                     for k in IIN_KEYS], dim=1).contiguous()  # [B, 7+2nb]
+    itab, ftab = k3_tables(tabs, dev)
     payload = torch.empty((b, nbytes), dtype=torch.uint8, device=dev)
-    fout = torch.empty((2 * nb + 1, b), dtype=f32, device=dev)
-    iout = torch.empty((len(INT_OUT) + 3, b), dtype=torch.int32, device=dev)
-    lib = library()
+    fout = torch.empty((b, 2 * nb + 1), dtype=f32, device=dev)
+    iout = torch.empty((b, len(INT_OUT) + 3), dtype=torch.int32, device=dev)
+    lib = library() if lib is None else lib
     vp = ctypes.c_void_p
     rc = lib.opus_celt_enc_frame_launch(
-        vp(x_t.data_ptr()), vp(fin.data_ptr()), vp(iin.data_ptr()),
+        vp(X.data_ptr()), vp(fin.data_ptr()), vp(iin.data_ptr()),
         vp(itab.data_ptr()), vp(ftab.data_ptr()), vp(payload.data_ptr()),
         vp(fout.data_ptr()), vp(iout.data_ptr()), b, nbytes,
         vp(torch.cuda.current_stream(dev).cuda_stream))
     check_launch(rc, "celt_enc_frame")
     launches += 1
     iout = iout.to(i64)
-    res = {k: iout[j] for j, k in enumerate(INT_OUT)}
-    res.update(payload=payload, rng=iout[len(INT_OUT)] & M32,
-               err=iout[len(INT_OUT) + 1],
-               search_evals=iout[len(INT_OUT) + 2], old_e=fout[:nb].t(),
-               error=fout[nb:2 * nb].t(), delayed_intra=fout[2 * nb])
+    res = {k: iout[:, j] for j, k in enumerate(INT_OUT)}
+    res.update(payload=payload, rng=iout[:, len(INT_OUT)] & M32,
+               err=iout[:, len(INT_OUT) + 1],
+               search_evals=iout[:, len(INT_OUT) + 2], old_e=fout[:, :nb],
+               error=fout[:, nb:2 * nb], delayed_intra=fout[:, 2 * nb])
     return res
+
+
+def k3_tables(tabs: ETabs, device) -> tuple:
+    """K3's (int32, float32) tables on ``device``, uploaded once."""
+    key = (int(tabs.mode.Fs), tabs.lm)
+    return (const(("k3_itab",) + key, lambda: tabs.kernel_tables()[0],
+                  device),
+            const(("k3_ftab",) + key, lambda: tabs.kernel_tables()[1],
+                  device))
+
+
+def geometry(nbytes: int) -> dict:
+    """K3's launch geometry on the current card at ``nbytes`` a frame; see
+    ``cuda_build.geometry``."""
+    from ..cuda_build import geometry as geo
+
+    return geo("opus_celt_enc_frame_occupancy", nbytes)
 
 
 @lru_cache(maxsize=None)

@@ -44,7 +44,8 @@ import torch
 
 from ..ops import silk_fixed as F
 from ..ops.device_cache import const
-from ..ops.rc_kernel import M32, rk_dec_bit_logp, rk_dec_icdf, rk_init
+from ..ops.rc_kernel import (M32, pack_payloads, rk_dec_bit_logp,
+                              rk_dec_icdf, rk_init)
 from ..ops.silk_fixed import w32
 from ..silk import tables as T
 from ..silk import tables_data as TD
@@ -802,15 +803,8 @@ class FusedSilkDecoder:
 
     def pack(self, payloads):
         """list of B byte strings -> (buf [B, P] uint8, lens [B]) on the
-        decoder's device."""
-        buf = np.zeros((self.batch, self.P), np.uint8)
-        lens = np.zeros(self.batch, np.int64)
-        for i, p in enumerate(payloads):
-            a = np.frombuffer(p, np.uint8)[:self.P]
-            buf[i, :len(a)] = a
-            lens[i] = len(a)
-        return (torch.from_numpy(buf).to(self.device),
-                torch.from_numpy(lens).to(self.device))
+        decoder's device; raises ValueError on a payload longer than P."""
+        return pack_payloads(payloads, self.batch, self.P, self.device)
 
     def decode_packed(self, buf_u8, lens):
         """buf [B, P] uint8, lens [B] on the device -> (xq [B, L] int16,

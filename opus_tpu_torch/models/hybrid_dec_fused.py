@@ -29,7 +29,6 @@ out-of-envelope lanes set ``error``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops import rc_kernel as K
@@ -117,15 +116,8 @@ class FusedHybridDecoder:
 
     def pack(self, payloads):
         """list of B byte strings -> (buf [B, P] uint8, lens [B]) on the
-        decoder's device."""
-        buf = np.zeros((self.batch, self.P), np.uint8)
-        lens = np.zeros(self.batch, np.int64)
-        for i, p in enumerate(payloads):
-            a = np.frombuffer(p, np.uint8)[:self.P]
-            buf[i, :len(a)] = a
-            lens[i] = len(a)
-        return (torch.from_numpy(buf).to(self.device),
-                torch.from_numpy(lens).to(self.device))
+        decoder's device; raises ValueError on a payload longer than P."""
+        return K.pack_payloads(payloads, self.batch, self.P, self.device)
 
     def decode_packed(self, buf_u8, lens):
         """buf [B, P] uint8, lens [B] on the device -> (pcm [B, 960] f32,

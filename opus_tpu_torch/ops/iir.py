@@ -3,8 +3,9 @@ plain torch version.
 
 ``deemphasis`` is the wrapper: a CPU tensor runs ``deemphasis_plain``,
 a CUDA tensor runs the hand-written CUDA kernel
-(``opus_tpu_torch/csrc/deemphasis.cu``, one thread per stream, the carry
-in a register) or raises.  It replaces the Pallas kernel
+(``opus_tpu_torch/csrc/deemphasis.cu``, one warp per stream: chunks of
+the row with a zero carry, then a warp scan of the chunks' carries) or
+raises.  It replaces the Pallas kernel
 ``opus_tpu/ops/iir_pallas.py:_kernel`` / ``deemphasis``.
 
 The plain version is the JAX kernel's block form (iir_pallas.py:33-66):

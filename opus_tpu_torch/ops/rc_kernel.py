@@ -37,6 +37,26 @@ def ilog(v):
     return torch.frexp(v.to(torch.float64)).exponent.to(torch.int64)
 
 
+def pack_payloads(payloads, batch: int, max_payload: int, device):
+    """list of at most ``batch`` byte strings -> (buf [batch, max_payload]
+    uint8, lens [batch] int64) on ``device``, missing lanes empty.  A
+    payload longer than ``max_payload`` raises ValueError naming its lane
+    and length, as the reference's pack does (numpy refuses to broadcast
+    it into the row): a cut packet would decode wrongly and mostly
+    unflagged."""
+    buf = np.zeros((batch, max_payload), np.uint8)
+    lens = np.zeros(batch, np.int64)
+    for i, p in enumerate(payloads):
+        a = np.frombuffer(p, np.uint8)
+        if len(a) > max_payload:
+            raise ValueError(f"lane {i}: payload of {len(a)} bytes exceeds "
+                             f"max_payload={max_payload}")
+        buf[i, :len(a)] = a
+        lens[i] = len(a)
+    return torch.from_numpy(buf).to(device), torch.from_numpy(lens).to(device)
+
+
+
 def pack_words(buf_bytes: np.ndarray, nbytes_cap: int) -> np.ndarray:
     """[B, S] uint8 -> [W, B] int32 little-endian words (W = ceil(cap/4)):
     the JAX package's packet layout, kept for handing packets across."""

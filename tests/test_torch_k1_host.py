@@ -49,6 +49,7 @@ SHIM = r"""
 #include <string.h>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __constant__ static
 #define __launch_bounds__(...)
@@ -57,6 +58,7 @@ SHIM = r"""
 #define __align__(n) __attribute__((aligned(n)))
 struct Dim3 { int x; };
 struct uint4 { uint32_t x, y, z, w; };
+struct int4 { int x, y, z, w; };
 struct float4 { float x, y, z, w; };
 static inline int __ldg(const int *p) { return *p; }
 static inline uint32_t __ldg(const uint32_t *p) { return *p; }
@@ -66,7 +68,7 @@ static inline int __popc(unsigned v) { return __builtin_popcount(v); }
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 static inline void __trap() { abort(); }
 static Dim3 blockIdx, blockDim;
-#if K1_LANES == 1
+#if WARP_LANES == 1
 static Dim3 threadIdx;
 static inline void __syncwarp(unsigned = 0xffffffffu) {}
 static inline void __syncthreads() {}
@@ -76,48 +78,62 @@ template <class T> static inline T __shfl_sync(unsigned, T v, int) {
 template <class T> static inline T __shfl_xor_sync(unsigned, T v, int) {
   return v;
 }
+template <class T> static inline T __shfl_down_sync(unsigned, T v, int) {
+  return v;
+}
+template <class T> static inline T __shfl_up_sync(unsigned, T v, int) {
+  return v;
+}
 static inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
 #else
-// K1_LANES host threads are one warp: each primitive is a barrier
+// WARP_LANES host threads are one warp: each primitive is a barrier
 #include <atomic>
 #include <thread>
 static thread_local Dim3 threadIdx;
-static std::atomic<int> k1_arrived{0}, k1_gen{0};
-static inline void k1_barrier() {
-  int g = k1_gen.load();
-  if (k1_arrived.fetch_add(1) == K1_LANES - 1) {
-    k1_arrived.store(0);
-    k1_gen.fetch_add(1);
+static std::atomic<int> host_arrived{0}, host_gen{0};
+static inline void host_barrier() {
+  int g = host_gen.load();
+  if (host_arrived.fetch_add(1) == WARP_LANES - 1) {
+    host_arrived.store(0);
+    host_gen.fetch_add(1);
   } else {
-    while (k1_gen.load() == g) std::this_thread::yield();
+    while (host_gen.load() == g) std::this_thread::yield();
   }
 }
-static uint64_t k1_slot[K1_LANES];
-template <class T> static inline T k1_xchg(T v, int src) {
+static uint64_t host_slot[WARP_LANES];
+template <class T> static inline T host_xchg(T v, int src) {
   uint64_t b = 0;
   memcpy(&b, &v, sizeof v);
-  k1_slot[threadIdx.x] = b;
-  k1_barrier();
-  uint64_t r = k1_slot[src];
-  k1_barrier();
+  host_slot[threadIdx.x % WARP_LANES] = b;
+  host_barrier();
+  uint64_t r = host_slot[src];
+  host_barrier();
   T out;
   memcpy(&out, &r, sizeof out);
   return out;
 }
-static inline void __syncwarp(unsigned = 0xffffffffu) { k1_barrier(); }
-static inline void __syncthreads() { k1_barrier(); }
+static inline void __syncwarp(unsigned = 0xffffffffu) { host_barrier(); }
+static inline void __syncthreads() { host_barrier(); }
 template <class T> static inline T __shfl_sync(unsigned, T v, int src) {
-  return k1_xchg(v, src % K1_LANES);
+  return host_xchg(v, src % WARP_LANES);
 }
 template <class T> static inline T __shfl_xor_sync(unsigned, T v, int o) {
-  return k1_xchg(v, threadIdx.x ^ o);
+  return host_xchg(v, (threadIdx.x % WARP_LANES) ^ o);
+}
+template <class T> static inline T __shfl_down_sync(unsigned, T v, int o) {
+  int l = threadIdx.x % WARP_LANES;
+  return host_xchg(v, l + o < WARP_LANES ? l + o : l);
+}
+template <class T> static inline T __shfl_up_sync(unsigned, T v, int o) {
+  int l = threadIdx.x % WARP_LANES;
+  return host_xchg(v, l >= o ? l - o : l);
 }
 static inline unsigned __ballot_sync(unsigned, int p) {
-  k1_slot[threadIdx.x] = p != 0;
-  k1_barrier();
+  host_slot[threadIdx.x % WARP_LANES] = p != 0;
+  host_barrier();
   unsigned m = 0;
-  for (int l = 0; l < K1_LANES; l++) m |= (unsigned)k1_slot[l] << l;
-  k1_barrier();
+  for (int l = 0; l < WARP_LANES; l++) m |= (unsigned)host_slot[l] << l;
+  host_barrier();
   return m;
 }
 #endif
@@ -175,7 +191,8 @@ def _build(tmp, lanes=1):
     lib = os.path.join(tmp, "libk1host.so")
     proc = subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-pthread", f"-DK1_LANES={lanes}", "-DK1_WARPS=1",
+         "-pthread", f"-DWARP_LANES={lanes}", f"-DK1_LANES={lanes}",
+         "-DK1_WARPS=1",
          "-I", str(tmp), "-o", lib, os.path.join(tmp, "driver.cpp")],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
