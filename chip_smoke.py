@@ -26,8 +26,11 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    ``tests/data/torch_celt20ms_64k_enc.npz``;
 6. times K1 and K3 (at B and at 4 x B streams; K3 also at 320 bytes), K2,
    their plain versions, the encoder front end and the encode, decode and
-   duplex steps with CUDA events, and prints K1's and K3's launch
-   geometry (registers, shared memory per block, resident warps per SM);
+   duplex steps with CUDA events, K2 also by its device time alone
+   (``opus_tpu_torch/tools/device_time.py``), and prints K1's, K3's and
+   K4's launch geometry (registers, local memory, shared memory per
+   block, resident warps per SM; K4 with ptxas's stack and spills, which
+   must be 0);
 7. SILK (``FusedSilkDecoder``, packets -> int16 PCM, wideband 20 ms,
    24 kb/s) over 4096 streams plus 32 garbage/truncated ones from
    ``tests/data/torch_silk16k_24k.npz``: the fixed-point helpers
@@ -35,7 +38,9 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    LPC synthesis) against its plain version on every subframe of the plain
    chain and on extreme inputs at sf 40/60/80; the decoder end to end with
    the launch counter reset, against the scalar decoder's PCM and final
-   ranges; CUDA event times of K4, the SILK step and its symbol pass;
+   ranges; K4's device time alone at B and 4 x B streams (sf 80) and at
+   sf 40 and 60 (each result held to the plain version), its time a call,
+   and CUDA event times of the SILK step and its symbol pass;
 8. hybrid (``FusedHybridDecoder``, packets -> 48 kHz PCM, SILK-WB plus
    CELT bands 17-20, fullband 20 ms) over 4096 streams plus 32
    garbage/truncated ones from ``tests/data/torch_hybrid_fb20ms.npz``:
@@ -561,6 +566,14 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def k4_bound(b: int, sf: int) -> tuple:
+    """K4's bound at B = b and subframe length sf.  Bytes: res, a_rev and
+    slpc read, v and the new slpc written (int32).  Operations per sample:
+    16 products, 16 shifts, 16 adds and ~6 for the saturating shift and
+    add, at the int32 rate."""
+    return bound(b * (2 * sf + 3 * 16) * 4, b * sf * 54.0, PEAK_I32_S)
+
+
 def bound(nbytes: int, flops: float, peak_ops: float = PEAK_F32_S) -> tuple:
     """(bound_ms, bound_by): the least time the card could take, the larger
     of the bytes over the memory rate and the operations over their peak
@@ -574,6 +587,7 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
     from opus_tpu_torch.models import celt_dec_kernel as CK
     from opus_tpu_torch.models.celt_dec_fused import fused_celt_init_state
     from opus_tpu_torch.ops import iir
+    from opus_tpu_torch.tools.device_time import device_ms
 
     buf = torch.from_numpy(lanes[0][0][:B_MAIN]).to(dev)
     ln = torch.from_numpy(lanes[0][1][:B_MAIN]).to(dev)
@@ -611,9 +625,13 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
           f"{k1_big / big * 1e6:.2f} ns at B={big}")
     x, mem = k2_in[0][:B_MAIN], k2_in[1][:B_MAIN]
     coef = float(tabs.mode.preemph[0])
-    k2 = cuda_ms(lambda: iir.deemphasis(x, mem, coef), 50)
+    k2_call = cuda_ms(lambda: iir.deemphasis(x, mem, coef), 50)
+    k2 = device_ms(lambda: iir.deemphasis(x, mem, coef), "deemphasis_kernel")
     k2p = cuda_ms(lambda: iir.deemphasis_plain(x, mem, coef), 50)
     k2_bound = bound(2 * nbytes_of(x, mem), 2.0 * x.numel())
+    print(f"K2 at B={B_MAIN}: device time {k2:.5f} ms a launch (profiler "
+          f"records), {k2_call:.5f} ms a call (events around 50 calls); "
+          f"bound {k2_bound[0]:.6f} ms ({k2_bound[1]}) [{smi}]")
     dec = CK.KernelCeltDecoder(B_MAIN, device=dev, max_payload=160)
     step = cuda_ms(lambda: dec.decode_packed(buf, ln), 10)
     streams = B_MAIN * 20.0 / step
@@ -904,36 +922,60 @@ def phase_silk_end_to_end(lanes, stream, sfx, dev, plain_outs):
 
 
 def phase_silk_times(lanes, dev, smi, k4_in, t):
-    """K4 and its plain version on a main-path subframe, the SILK step and
-    the symbol pass alone, at B_MAIN with CUDA events."""
+    """K4 and its plain version on a main-path subframe, K4's device time
+    alone at B_MAIN and 4 x B_MAIN (sf 80) and at sf 40 and 60, the SILK
+    step and the symbol pass alone, at B_MAIN."""
+    import numpy as np
     import torch
     from opus_tpu_torch.models import fused_silk_dec as PF
     from opus_tpu_torch.ops import lpc
+    from opus_tpu_torch.tools.device_time import device_ms
 
     slpc, res, a_rev = (x[:B_MAIN].to(torch.int32).contiguous()
                         for x in k4_in[0][:3])
     oh = k4_in[0][3]
-    k4 = cuda_ms(lambda: lpc.lpc_subframe(slpc, res, a_rev, oh), 50)
-    k4p = cuda_ms(lambda: lpc.lpc_subframe_plain(slpc, res, a_rev, oh), 3)
     sf = res.shape[1]
-    # bytes: res, a_rev and slpc read, v and the new slpc written (int32);
-    # operations per sample: 16 products, 16 shifts, 16 adds, and ~6 for
-    # the saturating shift and add, at the int32 rate
-    k4_bound = bound(B_MAIN * (2 * sf + 3 * 16) * 4, B_MAIN * sf * 54.0,
-                     PEAK_I32_S)
+    k4_call = cuda_ms(lambda: lpc.lpc_subframe(slpc, res, a_rev, oh), 50)
+    k4p = cuda_ms(lambda: lpc.lpc_subframe_plain(slpc, res, a_rev, oh), 3)
+    # the main-path subframe, the same tiled to 4 x B_MAIN streams, and
+    # seeded inputs of the main path's magnitudes at the other subframe
+    # lengths (12 and 8 kHz); each result is held to the plain version's
+    rng = np.random.default_rng(32)
+    cases = {(B_MAIN, sf): (slpc, res, a_rev),
+             (4 * B_MAIN, sf): (slpc.repeat(4, 1), res.repeat(4, 1),
+                                a_rev.repeat(4, 1))}
+    for sf_ in (40, 60):
+        cases[(B_MAIN, sf_)] = tuple(torch.from_numpy(x).to(dev) for x in (
+            rng.integers(-1 << 27, 1 << 27, (B_MAIN, 16), np.int32),
+            rng.integers(-1 << 20, 1 << 20, (B_MAIN, sf_), np.int32),
+            rng.integers(-16384, 16384, (B_MAIN, 16), np.int32)))
+    dev_ms = {}
+    for (b, sf_), (s_, r_, a_) in cases.items():
+        v, s = lpc.lpc_subframe(s_, r_, a_, oh)
+        vp, sp = lpc.lpc_subframe_plain(s_, r_, a_, oh)
+        if not (torch.equal(v, vp) and torch.equal(s, sp)):
+            fail(f"K4 vs plain at B={b}, sf {sf_}: differ")
+        ms = device_ms(lambda: lpc.lpc_subframe(s_, r_, a_, oh),
+                       "silk_lpc_kernel")
+        bnd = k4_bound(b, sf_)
+        dev_ms[(b, sf_)] = ms
+        print(f"K4 device time at B={b}, sf {sf_}: {ms:.5f} ms a launch "
+              f"(profiler records), bound {bnd[0]:.6f} ms ({bnd[1]}), "
+              f"{100 * bnd[0] / ms:.1f}% of it [{smi}]")
+    k4 = dev_ms[(B_MAIN, sf)]
+    k4_bnd = k4_bound(B_MAIN, sf)
     buf = torch.from_numpy(lanes[0][0][:B_MAIN]).to(dev)
     ln = torch.from_numpy(lanes[0][1][:B_MAIN]).to(dev)
     dec = PF.FusedSilkDecoder(B_MAIN, device=dev, max_payload=buf.shape[1])
     step = cuda_ms(lambda: dec.decode_packed(buf, ln), 3)
     st = PF.fused_init_state(B_MAIN, 16, dev)
     sym = cuda_ms(lambda: PF.silk_symbols(buf, ln, st), 3)
-    print(f"SILK times at B={B_MAIN} [{smi}]: K4 {k4:.5f} ms/launch (sf "
-          f"{sf}), plain {k4p:.3f} ms, bound {k4_bound[0]:.6f} ms "
-          f"({k4_bound[1]}); SILK step {step:.3f} ms/frame -> "
-          f"{B_MAIN * 20.0 / step:.0f} realtime SILK streams; symbol pass "
-          f"alone {sym:.3f} ms")
-    t.update(k4=k4, k4p=k4p, k4_bound=k4_bound, silk_step=step,
-             silk_sym=sym)
+    print(f"SILK times at B={B_MAIN} [{smi}]: K4 {k4:.5f} ms device time, "
+          f"{k4_call:.5f} ms a call (events around 50 calls; sf {sf}), "
+          f"plain {k4p:.3f} ms, bound {k4_bnd[0]:.6f} ms ({k4_bnd[1]}); "
+          f"SILK step {step:.3f} ms/frame -> {B_MAIN * 20.0 / step:.0f} "
+          f"realtime SILK streams; symbol pass alone {sym:.3f} ms")
+    t.update(k4=k4, k4p=k4p, k4_bound=k4_bnd, silk_step=step, silk_sym=sym)
     return t
 
 
@@ -1148,6 +1190,37 @@ def phase_k5(dev, smi):
                 bound=bound(nbytes, ops, PEAK_I32_S))
 
 
+def k4_geometry() -> None:
+    """K4's registers, local memory, shared memory and occupancy for each
+    subframe length, and ptxas's stack and spill line of each
+    instantiation: the design keeps everything in registers, so any stack
+    or spill fails."""
+    from opus_tpu_torch import cuda_build
+    from opus_tpu_torch.ops import lpc
+
+    for sf in (40, 60, 80):
+        g = lpc.geometry(sf)
+        print(f"ptxas: K4 silk_lpc_kernel<{sf}>: {g['registers']} registers, "
+              f"{g['local_bytes']} bytes local memory per thread; "
+              f"{g['smem_per_block']} bytes dynamic shared memory per block "
+              f"of {g['warps_per_block']} warps; {g['blocks_per_sm']} blocks "
+              f"= {g['warps_per_sm']} resident warps per SM")
+        if g["local_bytes"]:
+            fail(f"K4 at sf {sf} uses local memory")
+    entry, seen = "", 0
+    for line in cuda_build.ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif "stack frame" in line and "silk_lpc_kernel" in entry:
+            seen += 1
+            print(f"ptxas: K4 {entry.split(chr(39))[1]}: {line.strip()}")
+            if line.strip() != ("0 bytes stack frame, 0 bytes spill stores, "
+                                "0 bytes spill loads"):
+                fail("K4 has a stack frame or spills")
+    if cuda_build.ptxas_log and seen != 3:
+        fail(f"ptxas reported {seen} K4 instantiations, expected 3")
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1196,6 +1269,8 @@ def main() -> int:
               f"shared memory per block of {g['warps_per_block']} warps; "
               f"{g['blocks_per_sm']} blocks = {g['warps_per_sm']} resident "
               f"warps per SM")
+
+    k4_geometry()
 
     phase_s = {}
     tabs = CK.dec_tabs(48000, 960)

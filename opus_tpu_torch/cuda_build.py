@@ -109,19 +109,27 @@ def bind_celt_enc_frame(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_silk_lpc(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of kernel K4's launch on ``lib`` (this library, or a
+    build of a ``silk_lpc.cu`` alone)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.opus_silk_lpc_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.opus_silk_lpc_launch.restype = ci
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The built library, with argument types set on its entry points."""
     global _lib
     if _lib is None:
-        lib = bind_celt_enc_frame(bind_celt_dec_frame(
-            ctypes.CDLL(str(build()))))
+        lib = bind_silk_lpc(bind_celt_enc_frame(bind_celt_dec_frame(
+            ctypes.CDLL(str(build())))))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.opus_deemphasis_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ctypes.c_float, vp]
         lib.opus_deemphasis_launch.restype = ci
-        lib.opus_silk_lpc_launch.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        lib.opus_silk_lpc_launch.restype = ci
+        lib.opus_silk_lpc_occupancy.argtypes = [ci, vp]
+        lib.opus_silk_lpc_occupancy.restype = ci
         lib.opus_kbench_launch.argtypes = [ci, vp, vp, vp, ci, ci, vp]
         lib.opus_kbench_launch.restype = ci
         lib.opus_cuda_error_string.argtypes = [ci]
@@ -131,7 +139,7 @@ def library() -> ctypes.CDLL:
 
 
 def geometry(entry: str, arg: int) -> dict:
-    """A symbol-pass kernel's launch geometry on the current card, from its
+    """A kernel's launch geometry on the current card, from its
     ``opus_*_occupancy(arg, info)`` entry point: shared memory per block,
     warps per block, resident blocks and warps per SM, registers and local
     memory per thread."""

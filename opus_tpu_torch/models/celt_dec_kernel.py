@@ -32,6 +32,10 @@ INT_KEYS = ("silence", "is_transient", "intra", "anti_collapse_on",
 # launches of kernel K1 (counted where the kernel is launched, only there)
 launches = 0
 
+# K1 is held to its plain version at 10 and 20 ms only, as the reference
+# kernel path (opus_tpu/models/celt_dec_kernel.py KTabs) is
+_LM_MSG = "kernel K1 decodes 10/20 ms frames (LM >= 2) only"
+
 
 @lru_cache(maxsize=None)
 def dec_tabs(fs: int = 48000, frame_size: int = 960, start: int = 0,
@@ -61,6 +65,8 @@ def decode_frame(buf_u8, lens, old_e, prevmin, seed, tabs=None,
     pf_gain [B] (f32), and the int64 [B] lanes silence, is_transient,
     intra, anti_collapse_on, pf_pitch, pf_tapset, error, tell and rng."""
     tabs = dec_tabs() if tabs is None else tabs
+    if tabs.lm < 2:
+        raise ValueError(_LM_MSG)
     if buf_u8.device.type == "cpu":
         return decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs,
                                   d0)
@@ -218,16 +224,20 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
 class KernelCeltDecoder:
     """Packets-in -> PCM-out mono CELT decoder at 10/20 ms: kernel K1 for
     the symbol pass and K2 for de-emphasis on the card (the default
-    device), their plain torch versions when ``device="cpu"``."""
+    device), their plain torch versions when ``device="cpu"``.  A 2.5 or
+    5 ms ``frame_size`` raises ValueError on either device, as the
+    reference's kernel decoder refuses it."""
 
     def __init__(self, batch: int, fs: int = 48000, frame_size: int = 960,
                  max_payload: int = 384, device="cuda"):
+        self.tabs = dec_tabs(fs, frame_size)
+        if self.tabs.lm < 2:
+            raise ValueError(f"KernelCeltDecoder: {_LM_MSG}")
         self.batch = batch
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("KernelCeltDecoder: no CUDA device (pass "
                                "device='cpu' for the plain versions)")
-        self.tabs = dec_tabs(fs, frame_size)
         self.P = max_payload
         self.state = fused_celt_init_state(batch, self.tabs, self.device)
 

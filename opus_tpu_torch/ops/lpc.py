@@ -4,9 +4,10 @@ torch version.
 ``lpc_subframe`` is the wrapper, with the signature of
 ``opus_tpu/ops/lpc_pallas.py:lpc_subframe``: a CPU tensor runs
 ``lpc_subframe_plain``, a CUDA tensor runs the hand-written CUDA kernel
-(``opus_tpu_torch/csrc/silk_lpc.cu``, one thread per stream, the 16 taps
-in registers) or raises.  It replaces the Pallas kernel
-``opus_tpu/ops/lpc_pallas.py:_kernel``.
+(``opus_tpu_torch/csrc/silk_lpc.cu``: one thread per stream, the block's
+streams staged through shared memory, one tap on the per-sample chain)
+or raises.  The kernel takes the SILK subframe lengths, sf 40, 60 and
+80.  It replaces the Pallas kernel ``opus_tpu/ops/lpc_pallas.py:_kernel``.
 
 The plain version is the ``lax.scan`` branch of
 ``opus_tpu/models/batched_silk.py:_lpc_subframe`` (decode_core.c:195-216)
@@ -50,7 +51,24 @@ def lpc_subframe(slpc, res, a_rev, order_half: int):
     return _lpc_subframe_cuda(slpc, res, a_rev, order_half)
 
 
-def _lpc_subframe_cuda(slpc, res, a_rev, order_half: int):
+def geometry(sf: int = 80) -> dict:
+    """K4's launch geometry on the current card at subframe length ``sf``;
+    see ``cuda_build.geometry``."""
+    from ..cuda_build import geometry as geo
+
+    return geo("opus_silk_lpc_occupancy", sf)
+
+
+def _int32_aligned(x):
+    """x as a contiguous int32 tensor whose data is 16-byte aligned (the
+    kernel's vector loads); a view at another offset is copied."""
+    x = x.to(torch.int32).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _lpc_subframe_cuda(slpc, res, a_rev, order_half: int, lib=None):
+    """K4's launch; lib: another build of its source (a profile build),
+    else the port's library."""
     import ctypes
 
     from ..cuda_build import check_launch, library
@@ -62,13 +80,13 @@ def _lpc_subframe_cuda(slpc, res, a_rev, order_half: int):
     b, sf = res.shape
     if slpc.shape != (b, ORDER) or a_rev.shape != (b, ORDER):
         raise ValueError("lpc_subframe: res [B, sf], slpc/a_rev [B, 16]")
-    res = res.to(torch.int32).contiguous()
-    a_rev = a_rev.to(torch.int32).contiguous()
-    slpc = slpc.to(torch.int32).contiguous()
+    if sf not in (40, 60, 80):
+        raise ValueError("lpc_subframe: the kernel takes sf 40, 60 or 80")
+    res, a_rev, slpc = (_int32_aligned(x) for x in (res, a_rev, slpc))
     v = torch.empty_like(res)
     slpc_out = torch.empty_like(slpc)
     vp = ctypes.c_void_p
-    rc = library().opus_silk_lpc_launch(
+    rc = (lib or library()).opus_silk_lpc_launch(
         vp(res.data_ptr()), vp(a_rev.data_ptr()), vp(slpc.data_ptr()),
         vp(v.data_ptr()), vp(slpc_out.data_ptr()), b, sf, int(order_half),
         vp(torch.cuda.current_stream(dev).cuda_stream))

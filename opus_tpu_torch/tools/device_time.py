@@ -1,0 +1,39 @@
+"""A kernel's device time alone, from ``torch.profiler``'s CUDA records.
+
+CUDA events around back-to-back Python calls time the calls: for a kernel
+of a few microseconds the wrapper's host work (checks, allocations, the
+ctypes call) is most of that.  The profiler's kernel records hold each
+launch's own start and end on the card, so their mean is the kernel's
+device time, whatever the host does between launches.
+"""
+
+from __future__ import annotations
+
+
+def device_ms(fn, kernel: str, reps: int = 50) -> float:
+    """Mean device time (ms) of one launch of the kernel whose name
+    contains ``kernel``, over ``reps`` calls of ``fn`` after one warm-up
+    call.  The profiler may drop a record now and then; raises if it
+    kept fewer than half of them, or more than one per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or kernel not in e.key:
+            continue
+        dt = getattr(e, "device_time_total", None)
+        total_us += e.cuda_time_total if dt is None else dt
+        count += e.count
+    if not reps // 2 <= count <= reps:
+        raise RuntimeError(f"device_ms: {count} records of a kernel named "
+                           f"'{kernel}' in {reps} calls")
+    return total_us / count / 1e3

@@ -8,10 +8,14 @@ versions of kernels K1 and K2) over chained 20 ms frames, against
   1e-4 absolute on PCM in [-1, 1] (an 800-term f32 IMDCT dot product
   is ~800 u = 5e-5 of its term sum at worst; the comb filter and
   de-emphasis add a few u);
-- a state handoff mid-stream (convert.state_from_jax / state_to_numpy).
+- a state handoff mid-stream (convert.state_from_jax / state_to_numpy);
+
+and refusing 2.5/5 ms frames as the reference's kernel decoder does.
 """
 
 import numpy as np
+import pytest
+import torch
 
 from tests import np_shim
 from tests.test_celt_dec_fused import _encode_frames
@@ -124,3 +128,38 @@ def test_torch_decoder_chain():
     _check_matches_scalar(chain)
     _check_continues_from_jax_state(chain)
     _check_state_roundtrip_bit_identical(chain)
+
+
+@pytest.mark.parametrize("frame_size", [120, 240])
+def test_torch_kernel_decoder_refuses_lm_0_and_1(frame_size):
+    """2.5 and 5 ms frames (LM 0/1): the reference's KernelCeltDecoder
+    refuses them (KTabs asserts LM >= 2) and so do the port's decoder and
+    its K1 launcher, with ValueError on any device; the plain symbol pass
+    and the tables stay available."""
+    from opus_tpu.models.celt_dec_kernel import \
+        KernelCeltDecoder as JaxKernelCeltDecoder
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+
+    with pytest.raises(AssertionError):
+        JaxKernelCeltDecoder(1024, frame_size=frame_size)
+    with pytest.raises(ValueError):
+        KernelCeltDecoder(2, frame_size=frame_size, device="cpu")
+    with pytest.raises(ValueError):
+        KernelCeltDecoder(2, frame_size=frame_size)
+    tabs = CK.dec_tabs(48000, frame_size)
+    assert tabs.lm == {120: 0, 240: 1}[frame_size]
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="LM >= 2"):
+            CK.decode_frame(torch.zeros((2, 8), dtype=torch.uint8,
+                                        device=dev),
+                            torch.zeros(2, dtype=torch.int64, device=dev),
+                            torch.zeros((2, tabs.nb), device=dev),
+                            torch.zeros((2, tabs.nb), device=dev),
+                            torch.zeros(2, dtype=torch.int64, device=dev),
+                            tabs)
+
+
+@pytest.mark.parametrize("frame_size", [480, 960])
+def test_torch_kernel_decoder_builds_at_lm_2_and_3(frame_size):
+    dec = KernelCeltDecoder(2, frame_size=frame_size, device="cpu")
+    assert dec.tabs.lm == {480: 2, 960: 3}[frame_size]
