@@ -49,7 +49,23 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    launch counters reset (K1, K2 and K4), against the scalar decoder's
    final ranges and PCM; CUDA event times of the hybrid step and of its
    SILK, CELT and resampler parts;
-9. kernel K5, the op-cost microbenchmarks
+9. superwideband hybrid (``FusedHybridDecoder(end=19)``, CELT bands
+   17-18) over 4096 streams plus 32 garbage/truncated ones from
+   ``tests/data/torch_hybrid_swb20ms.npz``: K1 at start 17 / end 19
+   against its plain version frame by frame, then the decoder end to end
+   with the launch counters reset (K1, K2 and K4), against the scalar
+   decoder's final ranges and PCM;
+10. DRED loss recovery (``BatchedDREDRecovery``, tracked config 5,
+   bench.py:378-410) over 1024 streams: the DRED fixture's packets
+   (``tests/data/torch_dred_recovery.npz``) parsed on the host exactly as
+   the JAX package parsed them, tiled, plus random latents as bench.py
+   builds them; the recovery with the K2 counter reset, its PCM against
+   the port's CPU run on every lane and the JAX package's stored output
+   on the fixture lanes, the FARGAN pitch periods equal on the card and
+   the CPU, K2 against its plain version at FARGAN's shape; CUDA event
+   times of ``fargan_batch_step`` and ``recover`` with their device
+   operations and busy share;
+11. kernel K5, the op-cost microbenchmarks
    (``opus_tpu_torch.tools.kbench_ops``): all 13 cases at the TPU's tile
    (1024 lanes in one block) and the main path's geometry (4096 lanes in
    64-thread blocks), each exactly equal to its plain version, the ns/op
@@ -74,6 +90,8 @@ ENC_FIXTURE = os.path.join(REPO, "tests", "data",
                            "torch_celt20ms_64k_enc.npz")
 SILK_FIXTURE = os.path.join(REPO, "tests", "data", "torch_silk16k_24k.npz")
 HYB_FIXTURE = os.path.join(REPO, "tests", "data", "torch_hybrid_fb20ms.npz")
+SWB_FIXTURE = os.path.join(REPO, "tests", "data", "torch_hybrid_swb20ms.npz")
+DRED_FIXTURE = os.path.join(REPO, "tests", "data", "torch_dred_recovery.npz")
 B_MAIN = 4096            # fixture streams tiled over the main batch
 N_BAD = 32               # garbage and truncated lanes appended
 NFRAMES = 8
@@ -110,6 +128,20 @@ PEAK_F32_S = 67e12
 PEAK_I32_S = PEAK_F32_S / 2
 # SILK is integer end to end: K4, the plain chain and the scalar decoder
 # must agree exactly (no tolerance).
+# DRED recovery (tracked config 5, bench.py:378-410): B_DNN streams, the
+# DRED fixture's 9 tiled DRED_TILE times and the rest random latents as in
+# bench.py (DRED_T chunks, dred_offset 8, loss offsets 2-4), N_CONCEAL
+# concealed 10 ms frames.  The card's PCM against the port's CPU run (every
+# lane) and the JAX package's stored output (fixture lanes): the JAX
+# suite's own batched-vs-scalar bound, rtol 2e-4 / atol 2e-5
+# (tests/test_dnn_recovery.py).  The card and the CPU differ only in the
+# order of the f32 matmul sums (TF32 off), fed back through FARGAN's GRUs
+# and exp(gain) over 28 subframes; the CPU tests measure 3.6e-7 against JAX.
+B_DNN = 1024
+DRED_TILE = 8
+DRED_T = 4
+N_CONCEAL = 6
+DNN_RTOL, DNN_ATOL = 2e-4, 2e-5
 
 
 def fail(msg: str) -> None:
@@ -994,7 +1026,7 @@ def phase_hybrid_k1_vs_plain(lanes, dev, tabs):
     state = PH.hybrid_init_state(b, tabs, dev)
     first_in = []
     x_err = [0.0]
-    cov = dict(transient=0, anti_collapse=0, bands18_20_no_bits=0, voiced=0)
+    cov = dict(transient=0, anti_collapse=0, bands18_up_no_bits=0, voiced=0)
     seen = {}
 
     def plain_and_k1(*args):
@@ -1026,23 +1058,23 @@ def phase_hybrid_k1_vs_plain(lanes, dev, tabs):
             main = slice(0, B_MAIN)
             cov["transient"] += int(ref["is_transient"][main].sum())
             cov["anti_collapse"] += int(ref["anti_collapse_on"][main].sum())
-            cov["bands18_20_no_bits"] += int(
-                (ref["pulses"][main, 18:21] == 0).sum())
+            cov["bands18_up_no_bits"] += int(
+                (ref["pulses"][main, 18:tabs.end_band] == 0).sum())
             cov["voiced"] += int(seen["voiced"][main].sum())
             outs.append(dict(pcm=pcm, err=err, rng=state["celt"]["seed"]))
-            print(f"hybrid frame {f}: K1 (start 17) == plain (ints exact, X "
-                  f"err within bound); plain chain flags {int(err.sum())} "
-                  f"lanes")
+            print(f"hybrid frame {f}: K1 (start 17, end {tabs.end_band}) == "
+                  f"plain (ints exact, X err within bound); plain chain "
+                  f"flags {int(err.sum())} lanes")
     finally:
         PF._frame_symbols = orig_sym
     return outs, first_in[0], cov, x_err[0]
 
 
-def phase_hybrid_end_to_end(lanes, stream, hfx, dev, plain_outs):
-    """FusedHybridDecoder as a user drives it, the K1, K2 and K4 counters
-    reset around the run: final range and PCM against the scalar decoder on
-    the fixture lanes, flags and ranges against the plain chain on every
-    lane."""
+def phase_hybrid_end_to_end(lanes, stream, hfx, dev, plain_outs, end=21):
+    """FusedHybridDecoder(end=end) as a user drives it, the K1, K2 and K4
+    counters reset around the run: final range and PCM against the scalar
+    decoder on the fixture lanes, flags and ranges against the plain chain
+    on every lane."""
     import numpy as np
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
@@ -1052,7 +1084,7 @@ def phase_hybrid_end_to_end(lanes, stream, hfx, dev, plain_outs):
     b, p = lanes[0][0].shape
     bufs = [(torch.from_numpy(bu).to(dev), torch.from_numpy(ln).to(dev))
             for bu, ln in lanes]
-    dec = PH.FusedHybridDecoder(b, max_payload=p, device=dev)
+    dec = PH.FusedHybridDecoder(b, end=end, max_payload=p, device=dev)
     outs = []
     torch.cuda.synchronize()
     CK.launches = iir.launches = lpc.launches = 0
@@ -1061,7 +1093,8 @@ def phase_hybrid_end_to_end(lanes, stream, hfx, dev, plain_outs):
         outs.append((pcm, err, dec.final_range))
     torch.cuda.synchronize()
     counts = {"K1": CK.launches, "K2": iir.launches, "K4": lpc.launches}
-    print(f"hybrid launch counters over {NFRAMES} frames: {counts}")
+    print(f"hybrid (end {end}) launch counters over {NFRAMES} frames: "
+          f"{counts}")
     if counts != {"K1": NFRAMES, "K2": NFRAMES, "K4": 4 * NFRAMES}:
         fail(f"expected K1 = K2 = {NFRAMES} and K4 = {4 * NFRAMES}, got "
              f"{counts}")
@@ -1092,7 +1125,8 @@ def phase_hybrid_end_to_end(lanes, stream, hfx, dev, plain_outs):
         if not np.isfinite(pcm).all() or not e <= PCM_ABS_TOL:
             fail(f"hybrid frame {f}: PCM err {e} vs scalar decoder")
         pcm_err = max(pcm_err, e)
-    print(f"hybrid: all {B_MAIN} x {NFRAMES} fixture lane-frames at the "
+    print(f"hybrid (end {end}): all {B_MAIN} x {NFRAMES} fixture "
+          f"lane-frames at the "
           f"scalar decoder's final range, PCM max err {pcm_err:.3g} (bound "
           f"{PCM_ABS_TOL}); no fixture lane flagged; garbage lanes == the "
           f"plain chain (flags, range; PCM within the bound; "
@@ -1143,6 +1177,222 @@ def phase_hybrid_times(lanes, dev, smi, tabs, k1_in, t):
     t.update(k1h=k1, k1hp=k1p, k1h_bound=k1_bound, hyb_step=step,
              hyb_silk=silk, hyb_celt=celt, hyb_rs=rs)
     return t
+
+
+def dred_batch(dfx, stats):
+    """The DRED phase's B_DNN-lane batch: the fixture's packets parsed here
+    (``parse_batch`` and ``playback_rows`` held exactly to the JAX
+    package's outputs stored in the fixture) and tiled DRED_TILE times,
+    then random lanes as bench.py:388-397 builds them (DRED_T chunks,
+    dred_offset 8, loss offsets 2-4).  Returns (ParsedBatch, pcm0 [B, 320],
+    loss offsets [B], the number of fixture lanes)."""
+    import numpy as np
+    from opus_tpu_torch.models import dnn_recovery as PRec
+
+    lens = dfx["lens"]
+    packets = [bytes(dfx["packets"][i, :lens[i]]) for i in range(len(lens))]
+    fxp = PRec.parse_batch(stats, packets, 16000, 16000)
+    for f in PRec.ParsedBatch._fields:
+        if not np.array_equal(getattr(fxp, f), dfx[f]):
+            fail(f"DRED parse_batch: {f} differs from the JAX package's")
+    if int(dfx["n_frames"]) != N_CONCEAL:
+        fail(f"DRED fixture: {int(dfx['n_frames'])} concealed frames")
+    cont, play = PRec.playback_rows(fxp, dfx["loss_offset"], N_CONCEAL)
+    if not (np.array_equal(cont, dfx["cont_idx"])
+            and np.array_equal(play, dfx["play_idx"])):
+        fail("DRED playback_rows differ from the JAX package's")
+    n_fx = len(packets) * DRED_TILE
+    nr = B_DNN - n_fx
+    rng = np.random.RandomState(1)
+    r_state0 = rng.randn(nr, 24).astype(np.float32) * 0.3
+    r_lat = rng.randn(DRED_T, nr, 81).astype(np.float32) * 0.3
+    r_pcm0 = np.clip(0.2 * rng.randn(nr, 320), -1, 1).astype(np.float32)
+    t_fx = fxp.latents.shape[0]
+    lat = np.zeros((max(t_fx, DRED_T), B_DNN, 81), np.float32)
+    lat[:t_fx, :n_fx] = np.tile(fxp.latents, (1, DRED_TILE, 1))
+    lat[:DRED_T, n_fx:] = r_lat
+
+    def tile(a, rest):
+        return np.concatenate([np.tile(a, (DRED_TILE,) + (1,) * (a.ndim - 1)),
+                               rest.astype(a.dtype)])
+    parsed = PRec.ParsedBatch(
+        tile(fxp.state0, r_state0), lat,
+        tile(fxp.nb_latents, np.full(nr, DRED_T)),
+        tile(fxp.dred_offset, np.full(nr, 8)),
+        tile(fxp.has_dred, np.ones(nr, bool)))
+    pcm0 = tile(dfx["pcm0"], r_pcm0)
+    loss = tile(dfx["loss_offset"], 2 + np.arange(nr) % 3)
+    print(f"DRED batch: {B_DNN} streams, {n_fx} from the fixture's "
+          f"{len(packets)} packets (parse and playback rows == the JAX "
+          f"package's; nb_latents {fxp.nb_latents.tolist()}), {nr} random "
+          f"(bench.py's: {DRED_T} chunks, dred_offset 8); latent chunks "
+          f"padded to T = {lat.shape[0]}; {N_CONCEAL} concealed frames")
+    return parsed, pcm0, loss, n_fx
+
+
+def dnn_close(got, ref, what):
+    """Max abs error; fails outside rtol DNN_RTOL / atol DNN_ATOL."""
+    import numpy as np
+    bad = np.abs(got - ref) > DNN_ATOL + DNN_RTOL * np.abs(ref)
+    if not np.isfinite(got).all() or bad.any():
+        lanes = np.nonzero(bad.any(axis=tuple(range(1, bad.ndim))))[0]
+        fail(f"{what}: outside rtol {DNN_RTOL} / atol {DNN_ATOL} on lanes "
+             f"{lanes[:8].tolist()} (max err "
+             f"{float(np.abs(got - ref).max())})")
+    return float(np.abs(got - ref).max())
+
+
+def phase_dred(dev, dfx):
+    """BatchedDREDRecovery as a user drives it on B_DNN streams, the K2
+    counter reset around the run: the PCM against the port's CPU run on
+    every lane and the JAX package's stored output on the fixture lanes;
+    the RDOVAE features against the fixture's, and the FARGAN pitch period
+    of every feature row read equal on the card and the CPU; then K2
+    against its plain version on FARGAN's de-emphasis inputs of a second
+    run.  Returns the batch and the numbers of the kernels line."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import dred as PD
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.dnn import rdovae as PV
+    from opus_tpu_torch.models import batched_dnn as PB
+    from opus_tpu_torch.models import dnn_recovery as PRec
+    from opus_tpu_torch.ops import iir
+
+    stats = PD.random_stats(43)
+    dec = PV.random_dec_model(42, device="cpu")
+    fgm = PF.random_model(46, device="cpu")
+    parsed, pcm0, loss, n_fx = dred_batch(dfx, stats)
+    rec = PRec.BatchedDREDRecovery(dec, stats, fgm, device=dev)
+    torch.cuda.synchronize()
+    iir.launches = 0
+    out = rec.recover(parsed, pcm0, loss, N_CONCEAL)
+    torch.cuda.synchronize()
+    k2 = iir.launches
+    want = PF.FARGAN_NB_SUBFRAMES * (1 + N_CONCEAL)
+    print(f"DRED launch counters (one recover): K2 {k2}")
+    if k2 != want:
+        fail(f"DRED recover: K2 launched {k2} times, expected {want}")
+    out = out.cpu().numpy()
+    if out.shape != (B_DNN, N_CONCEAL * 160):
+        fail(f"DRED recover: output shape {out.shape}")
+    t0 = time.time()
+    ref = PRec.BatchedDREDRecovery(dec, stats, fgm, device="cpu").recover(
+        parsed, pcm0, loss, N_CONCEAL).numpy()
+    cpu_s = time.time() - t0
+    e_cpu = dnn_close(out, ref, "DRED PCM, card vs the port's CPU run")
+    e_jax = dnn_close(out[:n_fx], np.tile(dfx["pcm"], (DRED_TILE, 1)),
+                      "DRED PCM, card vs the JAX package (fixture lanes)")
+
+    cont, play = PRec.playback_rows(parsed, loss, N_CONCEAL)
+    rows = np.concatenate([cont, play], axis=1)
+
+    def features(model, device):
+        _, q = PB.rdovae_decode_frames(
+            model, torch.as_tensor(parsed.state0, device=device),
+            torch.as_tensor(parsed.latents, device=device))
+        feats = q.transpose(0, 1).reshape(B_DNN, -1, 20)
+        idx = torch.as_tensor(np.maximum(rows, 0), device=device).long()
+        f = torch.gather(feats, 1, idx[..., None].expand(-1, -1, 20))
+        return q.cpu().numpy(), PF.period_from_feature(f).cpu().numpy()
+
+    q_card, per_card = features(rec.dec_model, dev)
+    q_cpu, per_cpu = features(dec, "cpu")
+    t_fx = dfx["qframes"].shape[0]
+    # lanes first, as dnn_close reports them
+    e_q = max(dnn_close(q_card.transpose(1, 0, 2), q_cpu.transpose(1, 0, 2),
+                        "RDOVAE features, card vs CPU"),
+              dnn_close(q_card[:t_fx, :n_fx].transpose(1, 0, 2),
+                        np.tile(dfx["qframes"], (1, DRED_TILE, 1))
+                        .transpose(1, 0, 2),
+                        "RDOVAE features, card vs the JAX package"))
+    used = rows >= 0
+    if not np.array_equal(per_card[used], per_cpu[used]):
+        lane, r = np.argwhere((per_card != per_cpu) & used)[0]
+        fail(f"DRED: FARGAN period of lane {lane} row {rows[lane, r]} is "
+             f"{per_card[lane, r]} on the card, {per_cpu[lane, r]} on the "
+             f"CPU (a .5 rounding boundary)")
+
+    k2_err = [0.0]
+    orig = PF.deemphasis
+
+    def both(x, mem, coef):
+        y, m = orig(x, mem, coef)
+        yp, mp = iir.deemphasis_plain(x, mem, coef)
+        # K2's bound (K2_REL_TOL) with the carry's share: |y| is at most
+        # max|x| / (1 - c) + |mem|
+        tol = K2_REL_TOL * (x.abs().amax(dim=1) / (1.0 - coef) + mem.abs())
+        d = (y - yp).abs().amax(dim=1)
+        if not bool((d <= tol).all()) or not bool(
+                ((m - mp).abs() <= tol).all()):
+            fail(f"K2 vs plain on FARGAN's de-emphasis: err "
+                 f"{d.max().item()}")
+        k2_err[0] = max(k2_err[0], d.max().item())
+        return y, m
+
+    PF.deemphasis = both
+    try:
+        again = rec.recover(parsed, pcm0, loss, N_CONCEAL)
+        torch.cuda.synchronize()
+    finally:
+        PF.deemphasis = orig
+    dnn_close(again.cpu().numpy(), ref, "DRED PCM (second run) vs CPU")
+    print(f"DRED recover at B={B_DNN}: PCM max err {e_cpu:.3g} vs the port's "
+          f"CPU run (all lanes), {e_jax:.3g} vs the JAX package ({n_fx} "
+          f"fixture lanes); RDOVAE features {e_q:.3g}; FARGAN periods of all "
+          f"{int(used.sum())} rows read equal on the card and the CPU; K2 "
+          f"== plain on {K2_REL_TOL}-relative bound ({k2} launches at "
+          f"[{B_DNN}, 40], max err {k2_err[0]:.3g}); the CPU run took "
+          f"{cpu_s:.1f} s (host)")
+    return dict(parsed=parsed, pcm0=pcm0, loss=loss, rec=rec, k2=k2,
+                k2_err=k2_err[0], e_cpu=e_cpu, e_jax=e_jax)
+
+
+def phase_dnn_times(dev, smi, d):
+    """fargan_batch_step (B_DNN streams, one 10 ms frame) and recover (the
+    DRED batch, N_CONCEAL frames) with CUDA events around back-to-back
+    calls, their device operations and device time a call from the
+    profiler, K2's device time at FARGAN's shape; realtime streams as
+    bench.py defines them (B x 10 ms / step, B x 60 ms / recover)."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.models import batched_dnn as PB
+    from opus_tpu_torch.ops import iir
+    from opus_tpu_torch.tools.device_time import device_ms, device_profile
+
+    step = PB.fargan_batch_step(d["rec"].fargan)
+    state = PF.init_state(B_DNN, device=dev)
+    f = torch.as_tensor(np.random.RandomState(0).randn(B_DNN, 20)
+                        .astype(np.float32) * 0.3, device=dev)
+    iir.launches = 0
+    step(state, f)
+    k2_step = iir.launches
+    ms_step = cuda_ms(lambda: step(state, f), 10)
+    ops_step, dev_step = device_profile(lambda: step(state, f))
+    args = (d["parsed"], d["pcm0"], d["loss"], N_CONCEAL)
+    ms_rec = cuda_ms(lambda: d["rec"].recover(*args), 5)
+    ops_rec, dev_rec = device_profile(lambda: d["rec"].recover(*args))
+    x = torch.as_tensor(np.random.RandomState(2).randn(B_DNN, 40)
+                        .astype(np.float32) * 0.1, device=dev)
+    mem = torch.zeros(B_DNN, device=dev)
+    k2 = device_ms(lambda: iir.deemphasis(x, mem, PF.FARGAN_DEEMPHASIS),
+                   "deemphasis_kernel")
+    k2_bound = bound(2 * nbytes_of(x, mem), 2.0 * x.numel())
+    print(f"DNN times [{smi}]: fargan_batch_step at B={B_DNN}: "
+          f"{ms_step:.3f} ms a 10 ms frame -> "
+          f"{B_DNN * 10.0 / ms_step:.0f} realtime streams; {ops_step:.0f} "
+          f"device operations and {dev_step:.3f} ms device time a call "
+          f"(device busy {100 * dev_step / ms_step:.1f}%); K2 launches a "
+          f"call {k2_step}")
+    print(f"DNN times [{smi}]: recover at B={B_DNN}, {N_CONCEAL} frames: "
+          f"{ms_rec:.3f} ms -> {B_DNN * 10.0 * N_CONCEAL / ms_rec:.0f} "
+          f"realtime streams; {ops_rec:.0f} device operations and "
+          f"{dev_rec:.3f} ms device time a call (device busy "
+          f"{100 * dev_rec / ms_rec:.1f}%); K2 launches a call {d['k2']}; "
+          f"K2 at [{B_DNN}, 40]: {k2:.5f} ms device time, bound "
+          f"{k2_bound[0]:.6f} ms ({k2_bound[1]})")
+    return dict(fargan_step=ms_step, recover=ms_rec, k2_dnn=k2)
 
 
 def phase_k5(dev, smi):
@@ -1234,7 +1484,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE):
+    for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE,
+                 SWB_FIXTURE, DRED_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -1315,10 +1566,27 @@ def main() -> int:
     phase_s["hybrid"] = time.time() - t0
 
     t0 = time.time()
+    stabs = CK.dec_tabs(48000, 960, 17, 19)
+    swfx = dict(np.load(SWB_FIXTURE))
+    swlanes, swstream = make_lanes(swfx, np.random.default_rng(24))
+    swplain, _k1s_in, swcov, k1s_err = phase_hybrid_k1_vs_plain(
+        swlanes, dev, stabs)
+    print(f"SWB hybrid coverage (lane-frames of {B_MAIN * NFRAMES}): "
+          f"{swcov}")
+    swpcm_err, swcounts = phase_hybrid_end_to_end(
+        swlanes, swstream, swfx, dev, swplain, end=19)
+    phase_s["hybrid_swb"] = time.time() - t0
+
+    t0 = time.time()
+    dred = phase_dred(dev, dict(np.load(DRED_FIXTURE)))
+    phase_s["dred"] = time.time() - t0
+
+    t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
     t = phase_enc_times(enc_lanes, dev, smi, t)
     t = phase_silk_times(slanes, dev, smi, k4_in, t)
     t = phase_hybrid_times(hlanes, dev, smi, htabs, k1h_in, t)
+    t.update(phase_dnn_times(dev, smi, dred))
     phase_s["times"] = time.time() - t0
 
     t0 = time.time()
@@ -1331,7 +1599,8 @@ def main() -> int:
     # after, summed over the paths that run the kernel
     per_path = {"celt decode": counts, "celt encode": ecounts,
                 "duplex": dcounts,
-                "silk": {"K4": k4_count}, "hybrid": hcounts}
+                "silk": {"K4": k4_count}, "hybrid": hcounts,
+                "hybrid swb": swcounts, "dred": {"K2": dred["k2"]}}
     print(f"launches per path over {NFRAMES} frames: {per_path}")
 
     def total(k):
@@ -1340,10 +1609,12 @@ def main() -> int:
     kernels = {"kernels": [
         kernel_line("celt_dec_frame", "opus_tpu_torch/csrc/celt_dec_frame.cu",
                     "opus_tpu/models/celt_dec_kernel.py:656", total("K1"),
-                    max(x_err, k1h_err), t["k1"], t["k1p"], t["k1_bound"]),
+                    max(x_err, k1h_err, k1s_err), t["k1"], t["k1p"],
+                    t["k1_bound"]),
         kernel_line("deemphasis", "opus_tpu_torch/csrc/deemphasis.cu",
-                    "opus_tpu/ops/iir_pallas.py:47", total("K2"), k2_err,
-                    t["k2"], t["k2p"], t["k2_bound"]),
+                    "opus_tpu/ops/iir_pallas.py:47", total("K2"),
+                    max(k2_err, dred["k2_err"]), t["k2"], t["k2p"],
+                    t["k2_bound"]),
         kernel_line("celt_enc_frame", "opus_tpu_torch/csrc/celt_enc_frame.cu",
                     "opus_tpu/models/celt_enc_kernel.py:798", total("K3"),
                     k3_err, t["k3"], t["k3p"], t["k3_bound"]),
@@ -1362,8 +1633,11 @@ def main() -> int:
           f"{t['k1_big']:.4f} ms; K3 at {4 * B_MAIN} streams "
           f"{t['k3_big']:.4f} ms, at 320 bytes {t['k3_320']:.4f} ms; PCM "
           f"max err vs scalar "
-          f"{pcm_err:.3g} (CELT), {hpcm_err:.3g} (hybrid); K1 energies max "
-          f"err {e_err:.3g}")
+          f"{pcm_err:.3g} (CELT), {hpcm_err:.3g} (hybrid), {swpcm_err:.3g} "
+          f"(SWB hybrid); K1 energies max err {e_err:.3g}; "
+          f"fargan_batch_step {t['fargan_step']:.4f} ms, DRED recover "
+          f"{t['recover']:.4f} ms at B={B_DNN} (PCM max err {dred['e_cpu']:.3g} "
+          f"vs the CPU run, {dred['e_jax']:.3g} vs JAX)")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,13 @@ Layout mirrors ``opus_tpu`` so each counterpart is easy to find:
   twin of kernel K1 + its CUDA wrapper), the synthesis ``decode_step``,
   the encoder's analysis front end and encode symbol pass (plain torch
   twin of kernel K3 + its CUDA wrapper), the SILK decoder (symbol pass,
-  NLSF -> LPC and decode_core).
+  NLSF -> LPC and decode_core), the hybrid decoder.
+- ``opus_tpu_torch.dnn``     — the neural layer runtime, weight blobs, the
+  DRED RDOVAE networks, the FARGAN vocoder and the DRED payload decode;
+  ``models.batched_dnn`` and ``models.dnn_recovery`` run them over a
+  stream batch (DRED loss recovery).
+- ``opus_tpu_torch.bitstream`` — the host-side range decoder, Laplace
+  decoder, packet and extension parsers that the DRED parse reaches.
 - ``opus_tpu_torch.csrc``    — the hand-written CUDA sources for sm_90a,
   built at first use by ``opus_tpu_torch.cuda_build``.
 - ``opus_tpu_torch.convert`` — carries encoder and decoder state and tables
@@ -27,7 +33,8 @@ the JAX package ``opus_tpu``.
 import torch
 
 # the JAX package runs its float32 matmuls at Precision.HIGHEST; keep TF32
-# off so the port's IMDCT/de-emphasis matmuls stay full float32 on the card
+# off so the port's IMDCT, de-emphasis and DNN matmuls stay full float32 on
+# the card
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -1,0 +1,216 @@
+"""Copy of the extension reader of ``opus_tpu/bitstream/extensions.py``
+(``ExtensionIterator``, ``ExtensionData``) for the PyTorch port, which
+imports nothing of the JAX package (reference: src/extensions.c:120-311).
+
+Extensions are (id, frame, payload) triples carried inside Opus padding;
+DRED uses id 126.  The format has short (id < 32, 0/1-byte payload) and
+long extensions, frame separators (id 1) and repeats (id 2).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from .packet import OPUS_INVALID_PACKET
+
+
+@dataclass
+class ExtensionData:
+    id: int
+    frame: int
+    data: bytes
+
+    @property
+    def len(self) -> int:
+        return len(self.data)
+
+
+def _skip_extension_payload(data: bytes, pos: int, length: int, id_byte: int,
+                            trailing_short_len: int):
+    """Advance past one extension payload.
+    Returns (pos, remaining_len, header_size) with remaining_len<0 on error."""
+    header_size = 0
+    ext_id = id_byte >> 1
+    L = id_byte & 1
+    if (ext_id == 0 and L == 1) or ext_id == 2:
+        pass
+    elif 0 < ext_id < 32:
+        if length < L:
+            return pos, -1, header_size
+        pos += L
+        length -= L
+    else:
+        if L == 0:
+            if length < trailing_short_len:
+                return pos, -1, header_size
+            pos += length - trailing_short_len
+            length = trailing_short_len
+        else:
+            nbytes = 0
+            while True:
+                if length < 1:
+                    return pos, -1, header_size
+                lacing = data[pos]
+                pos += 1
+                nbytes += lacing
+                header_size += 1
+                length -= lacing + 1
+                if lacing != 255:
+                    break
+            if length < 0:
+                return pos, -1, header_size
+            pos += nbytes
+    return pos, length, header_size
+
+
+def _skip_extension(data: bytes, pos: int, length: int):
+    """Advance past one whole extension (id byte + payload).
+    Returns (pos, remaining_len, header_size)."""
+    if length == 0:
+        return pos, 0, 0
+    if length < 1:
+        return pos, -1, 0
+    id_byte = data[pos]
+    pos += 1
+    length -= 1
+    pos, length, header_size = _skip_extension_payload(data, pos, length,
+                                                       id_byte, 0)
+    if length >= 0:
+        header_size += 1
+    return pos, length, header_size
+
+
+class ExtensionIterator:
+    """Iterates (id, frame, payload) extensions in bitstream order
+    (reference: opus_extension_iterator_* in src/extensions.c:120-311)."""
+
+    def __init__(self, data: bytes, nb_frames: int):
+        assert 0 <= nb_frames <= 48
+        self.data = data
+        self.len = len(data)
+        self.curr_pos = 0
+        self.curr_len = self.len
+        self.repeat_pos = 0
+        self.repeat_len = 0
+        self.src_pos = 0
+        self.src_len = 0
+        self.last_long = -1          # position marker, -1 = none
+        self.trailing_short_len = 0
+        self.nb_frames = nb_frames
+        self.frame_max = nb_frames
+        self.curr_frame = 0
+        self.repeat_frame = 0
+        self.repeat_l = 0
+
+    def reset(self):
+        self.repeat_pos = self.curr_pos = 0
+        self.last_long = -1
+        self.curr_len = self.len
+        self.repeat_frame = self.curr_frame = 0
+        self.trailing_short_len = 0
+
+    def set_frame_max(self, frame_max: int):
+        self.frame_max = frame_max
+
+    def _next_repeat(self):
+        assert self.repeat_frame > 0
+        d = self.data
+        while self.repeat_frame < self.nb_frames:
+            while self.src_len > 0:
+                repeat_id_byte = d[self.src_pos]
+                self.src_pos, self.src_len, _ = _skip_extension(
+                    d, self.src_pos, self.src_len)
+                assert self.src_len >= 0
+                if repeat_id_byte <= 3:
+                    continue
+                if (self.repeat_l == 0
+                        and self.repeat_frame + 1 >= self.nb_frames
+                        and self.src_pos == self.last_long):
+                    repeat_id_byte &= ~1
+                curr_pos0 = self.curr_pos
+                self.curr_pos, self.curr_len, header_size = \
+                    _skip_extension_payload(d, self.curr_pos, self.curr_len,
+                                            repeat_id_byte,
+                                            self.trailing_short_len)
+                if self.curr_len < 0:
+                    return OPUS_INVALID_PACKET
+                if self.repeat_frame >= self.frame_max:
+                    continue
+                return ExtensionData(
+                    id=repeat_id_byte >> 1,
+                    frame=self.repeat_frame,
+                    data=bytes(d[curr_pos0 + header_size:self.curr_pos]))
+            self.src_pos = self.repeat_pos
+            self.src_len = self.repeat_len
+            self.repeat_frame += 1
+        self.repeat_pos = self.curr_pos
+        self.last_long = -1
+        if self.repeat_l == 0:
+            self.curr_frame += 1
+            if self.curr_frame >= self.nb_frames:
+                self.curr_len = 0
+        self.repeat_frame = 0
+        return 0
+
+    def next(self):
+        """Returns ExtensionData, 0 when exhausted, or negative error code."""
+        d = self.data
+        if self.curr_len < 0:
+            return OPUS_INVALID_PACKET
+        if self.repeat_frame > 0:
+            ret = self._next_repeat()
+            if ret != 0:
+                return ret
+        if self.curr_frame >= self.frame_max:
+            return 0
+        while self.curr_len > 0:
+            curr_pos0 = self.curr_pos
+            id_byte = d[curr_pos0]
+            ext_id = id_byte >> 1
+            L = id_byte & 1
+            self.curr_pos, self.curr_len, header_size = _skip_extension(
+                d, self.curr_pos, self.curr_len)
+            if self.curr_len < 0:
+                return OPUS_INVALID_PACKET
+            if ext_id == 1:
+                if L == 0:
+                    self.curr_frame += 1
+                else:
+                    if not d[curr_pos0 + 1]:
+                        continue
+                    self.curr_frame += d[curr_pos0 + 1]
+                if self.curr_frame >= self.nb_frames:
+                    self.curr_len = -1
+                    return OPUS_INVALID_PACKET
+                if self.curr_frame >= self.frame_max:
+                    self.curr_len = 0
+                self.repeat_pos = self.curr_pos
+                self.last_long = -1
+                self.trailing_short_len = 0
+            elif ext_id == 2:
+                self.repeat_l = L
+                self.repeat_frame = self.curr_frame + 1
+                self.repeat_len = curr_pos0 - self.repeat_pos
+                self.src_pos = self.repeat_pos
+                self.src_len = self.repeat_len
+                ret = self._next_repeat()
+                if ret != 0:
+                    return ret
+            elif ext_id > 2:
+                if ext_id >= 32:
+                    self.last_long = self.curr_pos
+                    self.trailing_short_len = 0
+                else:
+                    self.trailing_short_len += L
+                return ExtensionData(
+                    id=ext_id, frame=self.curr_frame,
+                    data=bytes(d[curr_pos0 + header_size:self.curr_pos]))
+        return 0
+
+    def find(self, ext_id: int):
+        while True:
+            ret = self.next()
+            if not isinstance(ret, ExtensionData):
+                return ret
+            if ret.id == ext_id:
+                return ret

@@ -25,6 +25,11 @@ state.
   and the upsampler's ``rs``) to and from the port's dict, which also
   holds ``smid``, SILK's mono 2-sample output buffer that the JAX layout
   lacks (zeros when coming from JAX, an extra key going back).
+- ``fargan_from_jax``, ``rdovae_enc_from_jax``, ``rdovae_dec_from_jax``:
+  a JAX DNN model (its NamedTuple, leaves as numpy arrays or anything
+  ``np.asarray`` reads) -> the port's model of float32 tensors on a
+  device, field for field; ``dred_stats_from_jax``: the DRED coding
+  statistics, which stay numpy (the payload parse runs on the host).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dnn import dred, fargan, nnet, rdovae
 from .models.celt_dec_fused import DecTabs
 
 _BAND_KEYS = ("old_e", "prev1", "prev2")
@@ -242,3 +248,47 @@ def hybrid_state_to_numpy(state: dict) -> dict:
                 celt=state_to_numpy(state["celt"]),
                 rs={k: n(state["rs"][k]) for k in _RS_KEYS},
                 smid=n(state["smid"]))
+
+
+# ---- DNN models ----
+def _dnn_tree(jax_tree, port_cls, device):
+    """A JAX model NamedTuple -> ``port_cls`` with the same fields: Linear
+    and Conv2d layers (NamedTuples of arrays, None leaves kept), tuples of
+    layers and bare arrays become float32 tensors on ``device``."""
+    def leaf(v):
+        return None if v is None else torch.as_tensor(
+            np.array(v, np.float32), device=device)
+
+    def layer(v):
+        cls = nnet.Conv2d if type(v).__name__ == "Conv2d" else nnet.Linear
+        return cls(*(leaf(a) for a in v))
+
+    def field(v):
+        if hasattr(v, "_fields"):
+            return layer(v)
+        if isinstance(v, tuple):
+            return tuple(layer(x) for x in v)
+        return leaf(v)
+
+    return port_cls(*(field(getattr(jax_tree, f)) for f in port_cls._fields))
+
+
+def fargan_from_jax(model, device="cpu"):
+    """A JAX ``FARGANModel`` -> the port's, on ``device``."""
+    return _dnn_tree(model, fargan.FARGANModel, device)
+
+
+def rdovae_enc_from_jax(model, device="cpu"):
+    """A JAX ``RDOVAEEnc`` -> the port's, on ``device``."""
+    return _dnn_tree(model, rdovae.RDOVAEEnc, device)
+
+
+def rdovae_dec_from_jax(model, device="cpu"):
+    """A JAX ``RDOVAEDec`` -> the port's, on ``device``."""
+    return _dnn_tree(model, rdovae.RDOVAEDec, device)
+
+
+def dred_stats_from_jax(stats):
+    """The JAX ``DREDStats`` -> the port's (uint8 numpy tables)."""
+    return dred.DREDStats(*(np.asarray(getattr(stats, f), np.uint8)
+                            for f in dred.DREDStats._fields))

@@ -37,3 +37,28 @@ def device_ms(fn, kernel: str, reps: int = 50) -> float:
         raise RuntimeError(f"device_ms: {count} records of a kernel named "
                            f"'{kernel}' in {reps} calls")
     return total_us / count / 1e3
+
+
+def device_profile(fn, reps: int = 3) -> tuple:
+    """(kernel launches per call, device ms per call) of ``fn`` over
+    ``reps`` calls after one warm-up call: the count and summed device
+    time of every CUDA kernel record the profiler kept.  Beside the
+    call's wall time it gives the card's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = getattr(e, "device_time_total", None)
+        total_us += e.cuda_time_total if dt is None else dt
+        count += e.count
+    return count / reps, total_us / reps / 1e3

@@ -22,7 +22,16 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 for name in ("opus_tpu_torch.models.hybrid_dec_fused",
-             "opus_tpu_torch.silk.resampler", "opus_tpu_torch.tools.kbench_ops"):
+             "opus_tpu_torch.silk.resampler", "opus_tpu_torch.tools.kbench_ops",
+             "opus_tpu_torch.dnn.nnet", "opus_tpu_torch.dnn.weights",
+             "opus_tpu_torch.dnn.rdovae", "opus_tpu_torch.dnn.fargan",
+             "opus_tpu_torch.dnn.dred", "opus_tpu_torch.dnn.dred_dec",
+             "opus_tpu_torch.bitstream.range_coder",
+             "opus_tpu_torch.bitstream.laplace",
+             "opus_tpu_torch.bitstream.packet",
+             "opus_tpu_torch.bitstream.extensions",
+             "opus_tpu_torch.models.batched_dnn",
+             "opus_tpu_torch.models.dnn_recovery"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",
@@ -120,3 +129,47 @@ def test_torch_resampler_constants_equal_jax_originals():
         rs = jr.Resampler(fs_khz * 1000, 48000)
         assert pr.input_delay(fs_khz) == rs.input_delay
         assert pr._inv_ratio_q16(fs_khz * 1000, 48000) == rs.inv_ratio_q16
+
+
+def test_torch_dnn_and_bitstream_copies_equal_jax_originals():
+    """The port's copies of the DRED constants and quantizer ladder, the
+    range decoder's constants and tell table, the Laplace p0 tables, the
+    packet error codes and the DNN layer constants equal the originals."""
+    import opus_tpu.bitstream.laplace as jl
+    import opus_tpu.bitstream.packet as jp
+    import opus_tpu.bitstream.range_coder as jr
+    import opus_tpu.dnn.dred as jd
+    import opus_tpu.dnn.dred_dec as jdd
+    import opus_tpu.dnn.fargan as jf
+    import opus_tpu.dnn.nnet as jn
+    import opus_tpu.dnn.rdovae as jv
+    import opus_tpu.dnn.weights as jw
+    import opus_tpu_torch.bitstream.laplace as pl
+    import opus_tpu_torch.bitstream.packet as pp
+    import opus_tpu_torch.bitstream.range_coder as pr
+    import opus_tpu_torch.dnn.dred as pd
+    import opus_tpu_torch.dnn.dred_dec as pdd
+    import opus_tpu_torch.dnn.fargan as pf
+    import opus_tpu_torch.dnn.nnet as pn
+    import opus_tpu_torch.dnn.rdovae as pv
+    import opus_tpu_torch.dnn.weights as pw
+
+    for jmod, pmod in ((jr, pr), (jp, pp), (jd, pd), (jdd, pdd), (jf, pf),
+                       (jn, pn), (jv, pv), (jw, pw), (jl, pl)):
+        names = [k for k, v in vars(pmod).items()
+                 if k.lstrip("_").isupper() and k in vars(jmod)
+                 and isinstance(v, (int, float, tuple))]
+        assert names or pmod is pl, pmod.__name__
+        for k in names:
+            assert _same(getattr(pmod, k), getattr(jmod, k)), (pmod, k)
+    assert pr._TELL_CORRECTION == jr._TELL_CORRECTION
+    assert pd._DQ_TABLE == jd._DQ_TABLE
+    for q0 in range(16):
+        for dq in range(8):
+            for i in range(30):
+                assert pd.compute_quantizer(q0, dq, 15, i) \
+                    == jd.compute_quantizer(q0, dq, 15, i)
+    for decay in range(0, 32768, 97):
+        assert pl._p0_icdf(decay) == jl._p0_icdf(decay)
+    assert pw._HEAD.format == jw._HEAD.format
+    assert pw._DTYPES == jw._DTYPES
