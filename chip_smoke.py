@@ -65,7 +65,22 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    the CPU, K2 against its plain version at FARGAN's shape; CUDA event
    times of ``fargan_batch_step`` and ``recover`` with their device
    operations and busy share;
-11. kernel K5, the op-cost microbenchmarks
+11. deep PLC (``BatchedDeepPLC``, tracked config 5's concealment half)
+   over the same 1024 streams: the fixture lanes' packets through
+   ``OpusDREDDecoder.parse`` and every lane's DRED through
+   ``process_batch`` on the card, 16 + 2 frames of seeded speech-like
+   history per lane, the sequence of ``tests/data/torch_deep_plc.npz``
+   (``dred_decode`` of 60 ms at 48 kHz with the catch-up analysis, 2 good
+   frames, 2 concealed frames on prediction alone, ``dred_decode`` of
+   20 ms at 16 kHz) with the K2 counter reset around it; every pitch
+   period, FARGAN period, FEC read position and loss count equal to the
+   port's CPU run (every lane) and to the JAX package's stored output
+   (fixture lanes), PCM within 1 LSB at 16 kHz and 4 at 48 kHz, the
+   features within 2e-3; K2 against its plain version on every
+   de-emphasis call of a second run; CUDA event times of ``dred_decode``,
+   of one ``conceal`` and of each stage of ``dred_decode``, with their
+   device operations and busy share;
+12. kernel K5, the op-cost microbenchmarks
    (``opus_tpu_torch.tools.kbench_ops``): all 13 cases at the TPU's tile
    (1024 lanes in one block) and the main path's geometry (4096 lanes in
    64-thread blocks), each exactly equal to its plain version, the ns/op
@@ -1313,39 +1328,18 @@ def phase_dred(dev, dfx):
              f"{per_card[lane, r]} on the card, {per_cpu[lane, r]} on the "
              f"CPU (a .5 rounding boundary)")
 
-    k2_err = [0.0]
-    orig = PF.deemphasis
-
-    def both(x, mem, coef):
-        y, m = orig(x, mem, coef)
-        yp, mp = iir.deemphasis_plain(x, mem, coef)
-        # K2's bound (K2_REL_TOL) with the carry's share: |y| is at most
-        # max|x| / (1 - c) + |mem|
-        tol = K2_REL_TOL * (x.abs().amax(dim=1) / (1.0 - coef) + mem.abs())
-        d = (y - yp).abs().amax(dim=1)
-        if not bool((d <= tol).all()) or not bool(
-                ((m - mp).abs() <= tol).all()):
-            fail(f"K2 vs plain on FARGAN's de-emphasis: err "
-                 f"{d.max().item()}")
-        k2_err[0] = max(k2_err[0], d.max().item())
-        return y, m
-
-    PF.deemphasis = both
-    try:
-        again = rec.recover(parsed, pcm0, loss, N_CONCEAL)
-        torch.cuda.synchronize()
-    finally:
-        PF.deemphasis = orig
+    again, k2_err = k2_spy(lambda: rec.recover(parsed, pcm0, loss, N_CONCEAL))
+    torch.cuda.synchronize()
     dnn_close(again.cpu().numpy(), ref, "DRED PCM (second run) vs CPU")
     print(f"DRED recover at B={B_DNN}: PCM max err {e_cpu:.3g} vs the port's "
           f"CPU run (all lanes), {e_jax:.3g} vs the JAX package ({n_fx} "
           f"fixture lanes); RDOVAE features {e_q:.3g}; FARGAN periods of all "
           f"{int(used.sum())} rows read equal on the card and the CPU; K2 "
           f"== plain on {K2_REL_TOL}-relative bound ({k2} launches at "
-          f"[{B_DNN}, 40], max err {k2_err[0]:.3g}); the CPU run took "
+          f"[{B_DNN}, 40], max err {k2_err:.3g}); the CPU run took "
           f"{cpu_s:.1f} s (host)")
     return dict(parsed=parsed, pcm0=pcm0, loss=loss, rec=rec, k2=k2,
-                k2_err=k2_err[0], e_cpu=e_cpu, e_jax=e_jax)
+                k2_err=k2_err, e_cpu=e_cpu, e_jax=e_jax)
 
 
 def phase_dnn_times(dev, smi, d):
@@ -1393,6 +1387,392 @@ def phase_dnn_times(dev, smi, d):
           f"K2 at [{B_DNN}, 40]: {k2:.5f} ms device time, bound "
           f"{k2_bound[0]:.6f} ms ({k2_bound[1]})")
     return dict(fargan_step=ms_step, recover=ms_rec, k2_dnn=k2)
+
+
+# Deep PLC (tracked config 5's concealment half, ``BatchedDeepPLC``): B_DNN
+# streams, the deep-PLC fixture's 9 (the DRED fixture's packets) tiled
+# DRED_TILE times and the DRED phase's random-latent lanes, each with 16 + 2
+# frames of seeded speech-like history, driven through the fixture tool's
+# sequence: 16 updates, dred_decode of 60 ms at 48 kHz, 2 updates,
+# fec_clear and 2 conceals, dred_decode of 20 ms at 16 kHz.  Bounds, card
+# against the port's CPU run (every lane) and the JAX package's stored
+# output (fixture lanes):
+# - every analysed frame's pitch period, every FARGAN period, FEC read
+#   position and loss count equal (integer decisions: one flip moves a
+#   stream onto another trajectory);
+# - the 16 kHz PCM within 1 LSB: FARGAN's f32 output differs by the order
+#   of the GEMM sums and K2's scan (~1e-7 of full scale, 0.003 LSB), which
+#   moves a rounding now and then;
+# - the 48 kHz PCM within 4 LSB: the upsampler's image of those 16 kHz
+#   samples, and a 1-LSB input step moves its output by at most the
+#   largest per-phase sum of |h| (3.02: tests/test_torch_deep_plc.py
+#   measures it on the impulse response)
+#   plus its own rounding;
+# - the features within PLC_FEAT_TOL absolute: the concealed PCM's 1-LSB
+#   differences re-enter the analysis of step 3 (the cepstra of frames
+#   ~-40 dB down move by ~1e-4 for a 1-LSB sample), and the PLC network
+#   and RDOVAE feed f32 GEMM-order noise back through their GRUs.
+PLC_FIXTURE = os.path.join(REPO, "tests", "data", "torch_deep_plc.npz")
+PLC_LSB_16K, PLC_LSB_48K = 1, 4
+PLC_FEAT_TOL = 2e-3
+# K2 a FARGAN subframe: the 4-subframe priming at each blend == 0 conceal
+# (steps 2 and 3) plus 4 per concealed frame (6 + 2 + 2)
+PLC_K2_LAUNCHES = 4 * 2 + 4 * 10
+PLC_INT_KEYS = ("apitch", "period", "fec_read", "loss")
+
+
+def speech_history(n_streams: int, seed: int, n_frames: int = 18):
+    """Seeded speech-like int16 [n, n_frames, 160] at 16 kHz: two harmonics
+    of a vibrato f0 in 90-240 Hz plus 1% noise, at 25-75% of full scale."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n = 160 * n_frames
+    t = np.arange(n) / 16000.0
+    f0 = 90 + 150 * rng.rand(n_streams, 1)
+    ph = np.cumsum(f0 * (1 + 0.1 * np.sin(2 * np.pi * 3 * t)), 1) / 16000.0
+    x = np.clip(0.25 * (np.sin(2 * np.pi * ph) + 0.5 * np.sin(4 * np.pi * ph))
+                + 0.01 * rng.randn(n_streams, n), -1, 1)
+    level = 0.25 + 0.5 * rng.rand(n_streams, 1)
+    return np.round(x * level * 65534).clip(-32768, 32767) \
+        .astype(np.int16).reshape(n_streams, n_frames, 160)
+
+
+def plc_models(device):
+    """The deep-PLC models from the fixture tool's seeds."""
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.dnn import pitchdnn as PP
+    from opus_tpu_torch.dnn import plc as PL
+    return (PL.random_model(44, device=device),
+            PP.random_model(45, device=device),
+            PF.random_model(46, device=device))
+
+
+def deep_plc_sequence(models, dreds, hist, off48, off16, dev):
+    """PLC_SEQUENCE through ``BatchedDeepPLC`` on dev (a 48 kHz and a
+    16 kHz instance sharing one ``LPCNetPLC``, as the fixture tool shares
+    it between two JAX decoders).  dreds: a ``DREDBatch`` on dev; hist
+    int16 [B, 18, 160]; off48 / off16 [B] samples.  Returns the fixture's
+    keys as numpy: the PCM, the features, FEC read position and loss count
+    after each of the 10 concealed frames, every analysed frame's features
+    and the pitch periods, all computed on dev."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.dnn import features as PFe
+    from opus_tpu_torch.models.deep_plc import BatchedDeepPLC
+
+    b = hist.shape[0]
+    plc48 = BatchedDeepPLC(*models, b, fs=48000, device=dev)
+    plc16 = BatchedDeepPLC(*models, b, fs=16000, device=dev)
+    lp = plc16.lpcnet = plc48.lpcnet
+    log, analysed = [], []
+    orig_cff, orig_conceal = PFe.compute_frame_features, lp.conceal
+
+    def cff(st, pcm, model):
+        st, f = orig_cff(st, pcm, model)
+        analysed.append(f)
+        return st, f
+
+    def conceal():
+        out = orig_conceal()
+        log.append((out, lp.features, lp.fec_read_pos, lp.loss_count))
+        return out
+
+    PFe.compute_frame_features, lp.conceal = cff, conceal
+    try:
+        h = torch.as_tensor(np.asarray(hist), device=dev)
+        for k in range(16):
+            lp.update(h[:, k])
+        pcm48 = plc48.dred_decode(dreds, off48, 2880)
+        for k in (16, 17):
+            lp.update(h[:, k])
+        lp.fec_clear()
+        pred = torch.cat([lp.conceal(), lp.conceal()], dim=1)
+        pcm16 = plc16.dred_decode(dreds, off16, 320)
+    finally:
+        PFe.compute_frame_features = orig_cff
+        del lp.conceal
+    feats = torch.stack([e[1] for e in log], dim=1)
+    afeats = torch.stack(analysed, dim=1)
+    out = dict(pcm48=pcm48, pcm48_16k=torch.cat([e[0] for e in log[:6]], 1),
+               pcm_pred=pred, pcm16=pcm16, feats=feats, afeats=afeats,
+               fec_read=torch.stack([e[2] for e in log], dim=1),
+               loss=torch.stack([e[3] for e in log], dim=1),
+               apitch=PFe.pitch_period(afeats[..., 18].reshape(-1))
+               .reshape(b, -1),
+               period=PF.period_from_feature(feats))
+    return {k: v.cpu().numpy() for k, v in out.items()}, plc48
+
+
+def compare_plc(got, ref, what):
+    """The deep-PLC bounds (above) on every lane; returns the max errors."""
+    import numpy as np
+    for k in PLC_INT_KEYS:
+        bad = (got[k] != ref[k]).reshape(len(ref[k]), -1).any(axis=1)
+        if bad.any():
+            fail(f"deep PLC {what}: {k} differs on lanes "
+                 f"{np.nonzero(bad)[0][:8].tolist()}")
+    err = {}
+    for k, tol in (("pcm48_16k", PLC_LSB_16K), ("pcm_pred", PLC_LSB_16K),
+                   ("pcm16", PLC_LSB_16K), ("pcm48", PLC_LSB_48K),
+                   ("feats", PLC_FEAT_TOL), ("afeats", PLC_FEAT_TOL)):
+        d = np.abs(got[k].astype(np.float64) - ref[k].astype(np.float64))
+        bad = (d > tol).reshape(len(d), -1).any(axis=1)
+        if not np.isfinite(d).all() or bad.any():
+            fail(f"deep PLC {what}: {k} outside {tol} on lanes "
+                 f"{np.nonzero(bad)[0][:8].tolist()} (max {d.max()})")
+        err[k] = float(d.max())
+    return err
+
+
+def plc_lanes(pfx, dfx, parser, parsed):
+    """The phase's B_DNN lanes: (OpusDRED list, hist, off48, off16, the
+    number of fixture lanes).  ``parsed`` is the DRED phase's batch
+    (``dred_batch``).  The fixture lanes' packets go through
+    ``OpusDREDDecoder.parse`` (checked equal to the DRED phase's parse,
+    itself held to the JAX package's); the
+    random lanes take the DRED phase's random latents (4 chunks,
+    dred_offset 8), a seeded speech-like history and offsets up to 20
+    frames, past their 16-row window on some lanes."""
+    import numpy as np
+    from opus_tpu_torch.dnn import dred_dec as PDD
+
+    lens = dfx["lens"]
+    n_fx = len(lens) * DRED_TILE
+    dreds = []
+    for i in range(B_DNN):
+        d = None
+        if i < n_fx:
+            j = i % len(lens)
+            d, _ = parser.parse(bytes(dfx["packets"][j, :lens[j]]), 16000,
+                                16000)
+        elif parsed.has_dred[i]:
+            nb = int(parsed.nb_latents[i])
+            d = PDD.OpusDRED(1, int(parsed.dred_offset[i]), nb,
+                             parsed.state0[i], parsed.latents[:nb, i], None)
+        same = (d is None) == (not parsed.has_dred[i]) and (d is None or (
+            d.dred_offset == parsed.dred_offset[i]
+            and np.array_equal(d.state, parsed.state0[i])
+            and np.array_equal(d.latents,
+                               parsed.latents[:d.nb_latents, i])))
+        if not same:
+            fail(f"deep PLC: OpusDREDDecoder.parse differs on lane {i}")
+        dreds.append(d)
+    nr = B_DNN - n_fx
+    rng = np.random.RandomState(5)
+    hist = np.concatenate([np.tile(pfx["hist"], (DRED_TILE, 1, 1)),
+                           speech_history(nr, 5)])
+    off48 = np.concatenate([np.tile(pfx["off48"], DRED_TILE),
+                            rng.randint(0, 21 * 480, nr)])
+    off16 = np.concatenate([np.tile(pfx["off16"], DRED_TILE),
+                            rng.randint(0, 21 * 160, nr)])
+    return dreds, hist, off48, off16, n_fx
+
+
+def k2_spy(run):
+    """Runs ``run()`` with every FARGAN de-emphasis call computed by K2 and
+    by its plain version, which must agree within K2's bound (K2_REL_TOL
+    plus the carry's share: |y| is at most max|x| / (1 - c) + |mem|).
+    Returns (run's result, max error)."""
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.ops import iir
+
+    err = [0.0]
+    orig = PF.deemphasis
+
+    def both(x, mem, coef):
+        y, m = orig(x, mem, coef)
+        yp, mp = iir.deemphasis_plain(x, mem, coef)
+        tol = K2_REL_TOL * (x.abs().amax(dim=1) / (1.0 - coef) + mem.abs())
+        d = (y - yp).abs().amax(dim=1)
+        if not bool((d <= tol).all()) or not bool(
+                ((m - mp).abs() <= tol).all()):
+            fail(f"K2 vs plain on FARGAN's de-emphasis: err "
+                 f"{d.max().item()}")
+        err[0] = max(err[0], d.max().item())
+        return y, m
+
+    PF.deemphasis = both
+    try:
+        out = run()
+    finally:
+        PF.deemphasis = orig
+    return out, err[0]
+
+
+def phase_deep_plc(dev, dfx, pfx, dred):
+    """The deep-PLC sequence as a user drives it on B_DNN streams, the K2
+    counter reset just before it and read just after; its outputs held to
+    the port's CPU run on every lane and to the JAX package's stored ones
+    on the fixture lanes; then K2 against its plain version on every
+    de-emphasis call of a second card run.  Returns the numbers of the
+    kernels line and what the timing phase needs."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import dred as PD
+    from opus_tpu_torch.dnn import dred_dec as PDD
+    from opus_tpu_torch.dnn import rdovae as PV
+    from opus_tpu_torch.ops import iir
+
+    stats = PD.random_stats(43)
+    dec = PV.random_dec_model(42, device="cpu")
+    dreds, hist, off48, off16, n_fx = plc_lanes(
+        pfx, dfx, PDD.OpusDREDDecoder(dec, stats, device="cpu"),
+        dred["parsed"])
+    card_dreds = PDD.OpusDREDDecoder(dec, stats, device=dev) \
+        .process_batch(dreds)
+    models = plc_models(dev)
+    torch.cuda.synchronize()
+    iir.launches = 0
+    card, plc48 = deep_plc_sequence(models, card_dreds, hist, off48, off16,
+                                    dev)
+    torch.cuda.synchronize()
+    k2 = iir.launches
+    print(f"deep PLC launch counters (the sequence): K2 {k2}")
+    if k2 != PLC_K2_LAUNCHES:
+        fail(f"deep PLC: K2 launched {k2} times, expected {PLC_K2_LAUNCHES}")
+    t0 = time.time()
+    cpu_dreds = PDD.OpusDREDDecoder(dec, stats, device="cpu") \
+        .process_batch(dreds)
+    cpu, _ = deep_plc_sequence(plc_models("cpu"), cpu_dreds, hist, off48,
+                               off16, "cpu")
+    cpu_s = time.time() - t0
+    e_cpu = compare_plc(card, cpu, "card vs the port's CPU run")
+    tiled = {k: np.tile(pfx[k], (DRED_TILE,) + (1,) * (pfx[k].ndim - 1))
+             for k in PLC_INT_KEYS + ("pcm48", "pcm48_16k", "pcm_pred",
+                                      "pcm16", "feats", "afeats")}
+    e_jax = compare_plc({k: v[:n_fx] for k, v in card.items()}, tiled,
+                        "card vs the JAX package (fixture lanes)")
+    n_dec = sum(card[k].size for k in PLC_INT_KEYS)
+    _, k2_err = k2_spy(lambda: deep_plc_sequence(
+        models, card_dreds, hist, off48, off16, dev))
+    print(f"deep PLC at B={B_DNN}: {n_dec} integer decisions (pitch "
+          f"periods of {card['apitch'].shape[1]} analysed and "
+          f"{card['period'].shape[1]} concealed frames, FEC reads, loss "
+          f"counts) equal on the card, the CPU and (fixture lanes) JAX; max "
+          f"err vs the CPU run: 16 kHz PCM {e_cpu['pcm16']:.0f}/"
+          f"{e_cpu['pcm_pred']:.0f}/{e_cpu['pcm48_16k']:.0f} LSB, 48 kHz "
+          f"{e_cpu['pcm48']:.0f} LSB, features {e_cpu['feats']:.3g}, "
+          f"analysis features {e_cpu['afeats']:.3g}; vs JAX ({n_fx} fixture "
+          f"lanes): 16 kHz {e_jax['pcm16']:.0f}/{e_jax['pcm_pred']:.0f}/"
+          f"{e_jax['pcm48_16k']:.0f}, 48 kHz {e_jax['pcm48']:.0f} LSB, "
+          f"features {e_jax['feats']:.3g}/{e_jax['afeats']:.3g}; K2 == "
+          f"plain on {K2_REL_TOL}-relative bound ({k2} launches at "
+          f"[{B_DNN}, 40], max err {k2_err:.3g}); the CPU run took "
+          f"{cpu_s:.1f} s (host)")
+    return dict(k2=k2, k2_err=k2_err, models=models, dreds=card_dreds,
+                hist=hist, off48=off48, e_cpu=e_cpu, e_jax=e_jax)
+
+
+def phase_plc_times(dev, smi, d):
+    """CUDA event times of the two calls a server makes on a lost tick:
+    ``dred_decode`` of 60 ms at 48 kHz from the state after the 16 good
+    frames (the blend == 0 catch-up analysis of 15 frames, FARGAN's
+    priming, 6 concealed frames, the upsampler) and one ``conceal`` in a
+    loss already under way; each call's device operations and device time
+    (``device_time.device_profile``).  The state is restored before each
+    call: it is tensors that are replaced, never written, so a shallow copy
+    of the LPCNetPLC is a snapshot."""
+    import copy
+    import torch
+    from opus_tpu_torch.models.deep_plc import BatchedDeepPLC
+    from opus_tpu_torch.tools.device_time import device_profile
+
+    plc = BatchedDeepPLC(*d["models"], B_DNN, fs=48000, device=dev)
+    h = torch.as_tensor(d["hist"], device=dev)
+    for k in range(16):
+        plc.lpcnet.update(h[:, k])
+    lp0, rs0 = copy.copy(plc.lpcnet), plc.rs
+
+    def dred_call():
+        plc.lpcnet, plc.rs = copy.copy(lp0), rs0
+        return plc.dred_decode(d["dreds"], d["off48"], 2880)
+
+    def timed(fn, reps):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return min(ts)
+
+    ms_dred = timed(dred_call, 3)
+    ops_dred, dev_dred = device_profile(dred_call, reps=2)
+    dred_call()
+    lp1 = copy.copy(plc.lpcnet)
+
+    def conceal_call():
+        plc.lpcnet = copy.copy(lp1)
+        return plc.lpcnet.conceal()
+
+    ms_conc = timed(conceal_call, 5)
+    ops_conc, dev_conc = device_profile(conceal_call, reps=3)
+    parts = plc_parts(lp0, plc.rs, timed)
+    print(f"deep PLC times [{smi}]: dred_decode 60 ms at 48 kHz, B={B_DNN} "
+          f"(catch-up of 15 frames, priming, 6 frames, upsampler): "
+          f"{ms_dred:.3f} ms, {ops_dred:.0f} device operations and "
+          f"{dev_dred:.3f} ms device time a call (device busy "
+          f"{100 * dev_dred / ms_dred:.1f}%)")
+    print(f"deep PLC times [{smi}]: one conceal (blend 1) at B={B_DNN}: "
+          f"{ms_conc:.3f} ms -> {B_DNN * 10.0 / ms_conc:.0f} concealed "
+          f"streams per card; {ops_conc:.0f} device operations and "
+          f"{dev_conc:.3f} ms device time a call (device busy "
+          f"{100 * dev_conc / ms_conc:.1f}%)")
+    print(f"deep PLC times [{smi}]: dred_decode's parts at B={B_DNN}, ms a "
+          f"call (device operations): " + "; ".join(
+              f"{k} {v[0]:.3f} ({v[1]:.0f})" for k, v in parts.items()))
+    n_a = parts["analysis frame"]
+    est = 15 * n_a[0] + parts["Burg, 14 frames"][0] \
+        + 16 * parts["PLC net"][0] + parts["FARGAN priming"][0] \
+        + 6 * (parts["FARGAN frame"][0] + parts["upsampler 10 ms"][0])
+    print(f"deep PLC times [{smi}]: 15 analysis frames + Burg + 16 PLC net "
+          f"+ priming + 6 x (FARGAN frame + upsampler) = {est:.3f} ms of "
+          f"the {ms_dred:.3f} ms dred_decode")
+    return dict(plc_dred=ms_dred, plc_conceal=ms_conc)
+
+
+def plc_parts(lp, rs, timed):
+    """CUDA event times and device operations of the stages of a catch-up
+    dred_decode, each alone on the state ``lp`` (an LPCNetPLC after the 16
+    good frames): one frame of feature analysis, the Burg cepstra of the
+    14 frames that feed the PLC network in one batch, one PLC network
+    step, FARGAN's priming, one FARGAN frame and one 10 ms piece of the
+    upsampler."""
+    import torch
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.dnn import features as PFe
+    from opus_tpu_torch.dnn import plc as PL
+    from opus_tpu_torch.silk.resampler import upsample_to_48k
+    from opus_tpu_torch.tools.device_time import device_profile
+
+    b = lp.batch
+    x = 32768.0 * lp.pcm[:, :160]
+    frames = torch.cat([32768.0 * lp.pcm[:, p:p + 160]
+                        for p in range(160, 2400, 160)], dim=0)
+    plc_in = torch.zeros(b, PL.PLC_INPUT, device=lp.device)
+    cont = lp.cont_features.reshape(b, PL.CONT_VECTORS, PL.NB_FEATURES)
+    feats = lp.features[:, :PL.NB_FEATURES]
+    pcm16 = (x[:, :160] / 8).to(torch.int16)
+    calls = {
+        "analysis frame": lambda: PFe.compute_frame_features(
+            lp.enc, x, lp.pitch_model),
+        "Burg, 14 frames": lambda: PFe.burg_cepstral_analysis(frames),
+        "PLC net": lambda: PL.compute_plc_pred(lp.model, lp.plc_net, plc_in),
+        "FARGAN priming": lambda: PF.cont(
+            lp.fargan_model, lp.fargan, lp.pcm[:, -PF.FARGAN_CONT_SAMPLES:],
+            cont),
+        "FARGAN frame": lambda: PF.synthesize_frame(lp.fargan_model,
+                                                    lp.fargan, feats),
+        "upsampler 10 ms": lambda: upsample_to_48k(pcm16, rs, 16,
+                                                   frame_ms=10),
+    }
+    return {k: (timed(fn, 3), device_profile(fn, reps=2)[0])
+            for k, fn in calls.items()}
 
 
 def phase_k5(dev, smi):
@@ -1485,7 +1865,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE,
-                 SWB_FIXTURE, DRED_FIXTURE):
+                 SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -1582,11 +1962,17 @@ def main() -> int:
     phase_s["dred"] = time.time() - t0
 
     t0 = time.time()
+    plc = phase_deep_plc(dev, dict(np.load(DRED_FIXTURE)),
+                         dict(np.load(PLC_FIXTURE)), dred)
+    phase_s["deep_plc"] = time.time() - t0
+
+    t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
     t = phase_enc_times(enc_lanes, dev, smi, t)
     t = phase_silk_times(slanes, dev, smi, k4_in, t)
     t = phase_hybrid_times(hlanes, dev, smi, htabs, k1h_in, t)
     t.update(phase_dnn_times(dev, smi, dred))
+    t.update(phase_plc_times(dev, smi, plc))
     phase_s["times"] = time.time() - t0
 
     t0 = time.time()
@@ -1600,7 +1986,8 @@ def main() -> int:
     per_path = {"celt decode": counts, "celt encode": ecounts,
                 "duplex": dcounts,
                 "silk": {"K4": k4_count}, "hybrid": hcounts,
-                "hybrid swb": swcounts, "dred": {"K2": dred["k2"]}}
+                "hybrid swb": swcounts, "dred": {"K2": dred["k2"]},
+                "deep plc": {"K2": plc["k2"]}}
     print(f"launches per path over {NFRAMES} frames: {per_path}")
 
     def total(k):
@@ -1613,7 +2000,8 @@ def main() -> int:
                     t["k1_bound"]),
         kernel_line("deemphasis", "opus_tpu_torch/csrc/deemphasis.cu",
                     "opus_tpu/ops/iir_pallas.py:47", total("K2"),
-                    max(k2_err, dred["k2_err"]), t["k2"], t["k2p"],
+                    max(k2_err, dred["k2_err"], plc["k2_err"]), t["k2"],
+                    t["k2p"],
                     t["k2_bound"]),
         kernel_line("celt_enc_frame", "opus_tpu_torch/csrc/celt_enc_frame.cu",
                     "opus_tpu/models/celt_enc_kernel.py:798", total("K3"),
@@ -1637,7 +2025,11 @@ def main() -> int:
           f"(SWB hybrid); K1 energies max err {e_err:.3g}; "
           f"fargan_batch_step {t['fargan_step']:.4f} ms, DRED recover "
           f"{t['recover']:.4f} ms at B={B_DNN} (PCM max err {dred['e_cpu']:.3g} "
-          f"vs the CPU run, {dred['e_jax']:.3g} vs JAX)")
+          f"vs the CPU run, {dred['e_jax']:.3g} vs JAX); deep PLC "
+          f"dred_decode {t['plc_dred']:.4f} ms, conceal "
+          f"{t['plc_conceal']:.4f} ms at B={B_DNN} (16 kHz PCM within "
+          f"{plc['e_cpu']['pcm16']:.0f} LSB of the CPU run, "
+          f"{plc['e_jax']['pcm16']:.0f} of JAX)")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,11 @@ Layout mirrors ``opus_tpu`` so each counterpart is easy to find:
   twin of kernel K3 + its CUDA wrapper), the SILK decoder (symbol pass,
   NLSF -> LPC and decode_core), the hybrid decoder.
 - ``opus_tpu_torch.dnn``     — the neural layer runtime, weight blobs, the
-  DRED RDOVAE networks, the FARGAN vocoder and the DRED payload decode;
-  ``models.batched_dnn`` and ``models.dnn_recovery`` run them over a
-  stream batch (DRED loss recovery).
+  DRED RDOVAE networks, the FARGAN vocoder, the DRED payload decode and
+  decoder objects, the LPCNet feature analysis, the pitch DNN and the
+  deep-PLC state machine; ``models.batched_dnn`` and
+  ``models.dnn_recovery`` run them over a stream batch (DRED loss
+  recovery), ``models.deep_plc`` conceals with DRED as FEC (deep PLC).
 - ``opus_tpu_torch.bitstream`` — the host-side range decoder, Laplace
   decoder, packet and extension parsers that the DRED parse reaches.
 - ``opus_tpu_torch.csrc``    — the hand-written CUDA sources for sm_90a,

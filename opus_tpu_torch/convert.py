@@ -30,6 +30,13 @@ state.
   ``np.asarray`` reads) -> the port's model of float32 tensors on a
   device, field for field; ``dred_stats_from_jax``: the DRED coding
   statistics, which stay numpy (the payload parse runs on the host).
+- ``pitchdnn_from_jax``, ``plc_from_jax``: the pitch DNN (its Conv2d layers
+  included) and the PLC network, the same way.
+- ``lpcnet_state_from_jax``: B JAX ``LPCNetPLC`` instances (one stream
+  each, at the same point of the same call sequence) -> one B-lane
+  ``LPCNetPLC`` of the port holding their stacked state (feature analysis,
+  pitch DNN, FARGAN, PLC GRU and its backups, FEC queue, PCM buffer), so
+  that both can start mid-stream.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .dnn import dred, fargan, nnet, rdovae
+from .dnn import dred, fargan, features, nnet, pitchdnn, plc, rdovae
 from .models.celt_dec_fused import DecTabs
 
 _BAND_KEYS = ("old_e", "prev1", "prev2")
@@ -292,3 +299,77 @@ def dred_stats_from_jax(stats):
     """The JAX ``DREDStats`` -> the port's (uint8 numpy tables)."""
     return dred.DREDStats(*(np.asarray(getattr(stats, f), np.uint8)
                             for f in dred.DREDStats._fields))
+
+
+def pitchdnn_from_jax(model, device="cpu"):
+    """A JAX ``PitchDNNModel`` -> the port's, on ``device``."""
+    return _dnn_tree(model, pitchdnn.PitchDNNModel, device)
+
+
+def plc_from_jax(model, device="cpu"):
+    """A JAX ``PLCModel`` -> the port's, on ``device``."""
+    return _dnn_tree(model, plc.PLCModel, device)
+
+
+def _stack(leaves, device, dtype=torch.float32):
+    return torch.as_tensor(np.stack([np.asarray(v) for v in leaves]),
+                           device=device).to(dtype)
+
+
+def _stack_tuple(cls, items, device, dtypes=None):
+    """B NamedTuples of arrays (or tuples of arrays) -> one ``cls`` of [B]
+    tensors."""
+    out = []
+    for k, f in enumerate(cls._fields):
+        vals = [getattr(it, f) for it in items]
+        dt = (dtypes or {}).get(f, torch.float32)
+        if isinstance(vals[0], tuple):
+            out.append(tuple(_stack([v[j] for v in vals], device, dt)
+                             for j in range(len(vals[0]))))
+        else:
+            out.append(_stack(vals, device, dt))
+    return cls(*out)
+
+
+_HOST_COUNTERS = ("analysis_gap", "analysis_pos", "predict_pos", "blend")
+_LANE_COUNTERS = ("fec_read_pos", "fec_fill_pos", "fec_skip", "loss_count")
+
+
+def lpcnet_state_from_jax(jax_plcs, device="cpu"):
+    """B JAX ``LPCNetPLC`` -> a B-lane ``plc.LPCNetPLC`` on ``device`` with
+    the first instance's models and every lane's state.  The host counters
+    must agree across the instances (the port keeps one of each)."""
+    first = jax_plcs[0]
+    for name in _HOST_COUNTERS:
+        if len({int(getattr(j, name)) for j in jax_plcs}) != 1:
+            raise ValueError(f"lpcnet_state_from_jax: {name} differs "
+                             f"between the instances")
+    out = plc.LPCNetPLC(plc_from_jax(first.model, device),
+                        pitchdnn_from_jax(first.pitch_model, device),
+                        fargan_from_jax(first.fargan_model, device),
+                        len(jax_plcs), device=device)
+    encs = [j.enc for j in jax_plcs]
+    dnn = _stack_tuple(pitchdnn.PitchDNNState, [e.dnn for e in encs], device)
+    out.enc = features.FeatureState(
+        *(_stack([getattr(e, f) for e in encs], device,
+                 {"prev_if": torch.complex128,
+                  "lp_mem": torch.float64}.get(f, torch.float32))
+          for f in features.FeatureState._fields[:-1]), dnn)
+    out.fargan = _stack_tuple(fargan.FARGANState,
+                              [j.fargan for j in jax_plcs], device,
+                              {"last_period": torch.int32})
+    for name in ("fec", "pcm", "features", "cont_features"):
+        setattr(out, name, _stack([getattr(j, name) for j in jax_plcs],
+                                  device))
+    for name in _LANE_COUNTERS:
+        setattr(out, name, _stack([getattr(j, name) for j in jax_plcs],
+                                  device, torch.int64))
+    for name in _HOST_COUNTERS:
+        setattr(out, name, int(getattr(first, name)))
+
+    def net(nets):
+        return tuple(_stack([n[k] for n in nets], device) for k in range(2))
+
+    out.plc_net = net([j.plc_net for j in jax_plcs])
+    out.plc_bak = [net([j.plc_bak[k] for j in jax_plcs]) for k in range(2)]
+    return out

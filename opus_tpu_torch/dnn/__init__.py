@@ -1,4 +1,6 @@
 """The neural stacks of the port: the layer runtime (``nnet``), weight
 blobs (``weights``), the DRED RDOVAE networks (``rdovae``), the FARGAN
-vocoder (``fargan``) and the host-side DRED payload decode (``dred``,
-``dred_dec``), ports of ``opus_tpu/dnn``'s modules of the same names."""
+vocoder (``fargan``), the host-side DRED payload decode and the DRED
+decoder objects (``dred``, ``dred_dec``), the LPCNet feature analysis
+(``features``), the neural pitch estimator (``pitchdnn``) and deep PLC
+(``plc``), ports of ``opus_tpu/dnn``'s modules of the same names."""

@@ -31,7 +31,9 @@ for name in ("opus_tpu_torch.models.hybrid_dec_fused",
              "opus_tpu_torch.bitstream.packet",
              "opus_tpu_torch.bitstream.extensions",
              "opus_tpu_torch.models.batched_dnn",
-             "opus_tpu_torch.models.dnn_recovery"):
+             "opus_tpu_torch.models.dnn_recovery",
+             "opus_tpu_torch.dnn.pitchdnn", "opus_tpu_torch.dnn.features",
+             "opus_tpu_torch.dnn.plc", "opus_tpu_torch.models.deep_plc"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",
