@@ -80,7 +80,18 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    de-emphasis call of a second run; CUDA event times of ``dred_decode``,
    of one ``conceal`` and of each stage of ``dred_decode``, with their
    device operations and busy share;
-12. kernel K5, the op-cost microbenchmarks
+12. OSCE (LACE and NoLACE, ``FusedSilkDecoder.set_osce``) over 1024
+   streams of the SILK fixture plus 32 garbage/truncated ones: the lanes
+   decoded once on the card (unenhanced PCM and num_bits equal to the
+   scalar decoder's), enhanced by ``OSCEEnhancer`` with each method (K2
+   against its plain version on every de-emphasis; periods and numbits
+   exact, the first frame unenhanced, the enhanced int16 within
+   ``osce_pcm_bound`` of ``tests/data/torch_osce_wb20ms.npz`` and of the
+   port's CPU run), then the decoder end to end with OSCE on, once per
+   method, with the K2 and K4 counters reset around it; CUDA event times
+   of the decode without OSCE, with LACE and with NoLACE and of one
+   enhancer frame alone, with their device operations and busy share;
+13. kernel K5, the op-cost microbenchmarks
    (``opus_tpu_torch.tools.kbench_ops``): all 13 cases at the TPU's tile
    (1024 lanes in one block) and the main path's geometry (4096 lanes in
    64-thread blocks), each exactly equal to its plain version, the ns/op
@@ -173,23 +184,23 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_lanes(fx, rng):
+def make_lanes(fx, rng, b_main=B_MAIN):
     """[NFRAMES] of (buf [B, 160] uint8, lens [B]) numpy, plus the fixture
-    stream index of each main lane.  Lanes >= B_MAIN: 16 truncated
+    stream index of each main lane.  Lanes >= b_main: 16 truncated
     fixture packets, then 16 of random bytes."""
     import numpy as np
     frames, lens = fx["frames"], fx["lens"]
     ns, nf, p = frames.shape
-    b = B_MAIN + N_BAD
-    stream = np.arange(B_MAIN) % ns
+    b = b_main + N_BAD
+    stream = np.arange(b_main) % ns
     out = []
     for f in range(NFRAMES):
         buf = np.zeros((b, p), np.uint8)
         ln = np.zeros(b, np.int64)
-        buf[:B_MAIN] = frames[stream, f]
-        ln[:B_MAIN] = lens[stream, f]
+        buf[:b_main] = frames[stream, f]
+        ln[:b_main] = lens[stream, f]
         for j in range(N_BAD):
-            lane = B_MAIN + j
+            lane = b_main + j
             if j < N_BAD // 2:
                 src = j % ns
                 cut = int(rng.integers(0, lens[src, f]))
@@ -1569,13 +1580,16 @@ def plc_lanes(pfx, dfx, parser, parsed):
     return dreds, hist, off48, off16, n_fx
 
 
-def k2_spy(run):
-    """Runs ``run()`` with every FARGAN de-emphasis call computed by K2 and
-    by its plain version, which must agree within K2's bound (K2_REL_TOL
-    plus the carry's share: |y| is at most max|x| / (1 - c) + |mem|).
-    Returns (run's result, max error)."""
-    from opus_tpu_torch.dnn import fargan as PF
+def k2_spy(run, mod=None):
+    """Runs ``run()`` with every de-emphasis call of the module ``mod``
+    (FARGAN's by default) computed by K2 and by its plain version, which
+    must agree within K2's bound (K2_REL_TOL plus the carry's share: |y| is
+    at most max|x| / (1 - c) + |mem|).  Returns (run's result, max
+    error)."""
+    from opus_tpu_torch.dnn import fargan
     from opus_tpu_torch.ops import iir
+
+    PF = fargan if mod is None else mod
 
     err = [0.0]
     orig = PF.deemphasis
@@ -1587,7 +1601,7 @@ def k2_spy(run):
         d = (y - yp).abs().amax(dim=1)
         if not bool((d <= tol).all()) or not bool(
                 ((m - mp).abs() <= tol).all()):
-            fail(f"K2 vs plain on FARGAN's de-emphasis: err "
+            fail(f"K2 vs plain on {PF.__name__}'s de-emphasis: err "
                  f"{d.max().item()}")
         err[0] = max(err[0], d.max().item())
         return y, m
@@ -1775,6 +1789,252 @@ def plc_parts(lp, rs, timed):
             for k, fn in calls.items()}
 
 
+# OSCE (LACE and NoLACE on the SILK-WB 20 ms decode path, the enhancer of
+# tracked config 5, BASELINE.md:30): B_DNN lanes of the SILK fixture's 8
+# streams tiled, plus N_BAD garbage/truncated ones, 8 frames; models
+# random_lace_model(50) and random_nolace_model(60) at the published
+# widths.  Held to tests/data/torch_osce_wb20ms.npz (the scalar decoder
+# with OSCEEnhancer, tools/make_torch_osce_fixture.py) and to the port's
+# CPU run of the 8 source streams: num_bits, the post-processed periods,
+# numbits and the unenhanced PCM exactly; the enhanced int16 within
+# osce_pcm_bound.  The float output differs by the order of the GEMM sums
+# (up to 768 terms a product, ~sqrt(768) u = 1.7e-6 relative typical) in
+# each of NoLACE's ~14 stages and by K2's scan against numpy's serial
+# de-emphasis; each difference is relative to the magnitude it comes from,
+# and the random-weight stages drive those far past full scale (peaks of
+# 3-26 after the first frame, 700-3000 on NoLACE's first; 41-47% of the
+# enhanced samples clip).  Bound: 1 LSB of rounding plus OSCE_RTOL (~500
+# u: 14 stages of ~sqrt(768) u) of the larger peak |output| of the frame
+# and the one before, in LSB (32768 a full scale).  The CPU tests measure
+# at most 1 LSB (LACE) and 2 (NoLACE) against JAX.
+OSCE_FIXTURE = os.path.join(REPO, "tests", "data", "torch_osce_wb20ms.npz")
+OSCE_LSB = 1
+OSCE_RTOL = 3e-5
+OSCE_SEEDS = {1: 50, 2: 60}              # LACE, NoLACE
+
+
+def osce_pcm_bound(env):
+    """The enhanced int16 PCM's bound (LSB) against another computation of
+    it, for a frame whose float output and the previous frame's peak at
+    ``env`` (full scale 1)."""
+    return OSCE_LSB + 32768.0 * OSCE_RTOL * env
+
+
+def osce_models(device):
+    from opus_tpu_torch.dnn import osce as PO
+    return {1: PO.random_lace_model(OSCE_SEEDS[1], device=device),
+            2: PO.random_nolace_model(OSCE_SEEDS[2], device=device)}
+
+
+def osce_env(ofx, m: int):
+    """[8, NFRAMES] the peak |float output| of each fixture lane-frame and
+    the frame before (method m); the first frame passes through: 0."""
+    import numpy as np
+    peak = ofx["peak"][m - 1]
+    env = np.maximum(peak, np.concatenate([peak[:, :1], peak[:, :-1]], 1))
+    env[:, 0] = 0.0
+    return env
+
+
+def osce_compare(got, ref, env, what):
+    """got, ref [8 or more lanes tiled from the 8 streams, NFRAMES, 320]
+    int16: fails where |got - ref| > osce_pcm_bound(env of the lane's
+    stream).  Returns (max LSB, max of the error over its bound)."""
+    import numpy as np
+    d = np.abs(got.astype(np.int64) - ref.astype(np.int64)).max(axis=2)
+    bnd = osce_pcm_bound(env[np.arange(d.shape[0]) % env.shape[0]])
+    if (d > bnd).any():
+        lane, f = np.argwhere(d > bnd)[0]
+        fail(f"OSCE {what}: lane {lane} frame {f} differs by {d[lane, f]} "
+             f"LSB, bound {bnd[lane, f]:.2f}")
+    return int(d.max()), float((d / bnd).max())
+
+
+def phase_osce(dev, sfx, ofx):
+    """The osce phase: decode the SILK lanes once on the card with state
+    carried (keeping the unenhanced PCM and the OSCE inputs), enhance them
+    with LACE and with NoLACE (OSCEEnhancer, state carried; K2 against its
+    plain version on every de-emphasis), then FusedSilkDecoder.set_osce
+    end to end once per method with the K2 and K4 counters reset around
+    it.  Returns the kernels line's numbers and what the timing needs."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import osce as PO
+    from opus_tpu_torch.models import fused_silk_dec as PF
+    from opus_tpu_torch.ops import iir, lpc
+
+    lanes, stream = make_lanes(sfx, np.random.default_rng(25), B_DNN)
+    b, p = lanes[0][0].shape
+    bufs = [(torch.from_numpy(bu).to(dev), torch.from_numpy(ln).to(dev))
+            for bu, ln in lanes]
+    dec = PF.FusedSilkDecoder(b, device=dev, max_payload=p)
+    plain, inputs, errs = [], [], []
+    for buf, ln in bufs:
+        xq, err = dec.decode_packed(buf, ln)
+        plain.append(xq.to(torch.int64))
+        inputs.append(dec.osce_in)
+        errs.append(err)
+    xq_all = torch.stack(plain, 1).cpu().numpy()
+    if not np.array_equal(xq_all[:B_DNN], sfx["xq"][stream]):
+        fail("OSCE: the unenhanced PCM differs from the scalar decoder's")
+    nbits = torch.stack([x["num_bits"] for x in inputs], 1).cpu().numpy()
+    fx_lanes = torch.stack(errs, 1)[:B_DNN].any(1).logical_not() \
+        .cpu().numpy()
+    if not fx_lanes.all():
+        fail("OSCE: fixture lanes flagged by the decoder")
+    models = osce_models(dev)
+    cpu_models = osce_models("cpu")
+    out = {"k2_err": 0.0, "counts": {}, "plain": plain, "inputs": inputs,
+           "models": models}
+    for m, name in ((1, "LACE"), (2, "NoLACE")):
+        if not np.array_equal(nbits[:B_DNN], ofx["num_bits"][m - 1][stream]):
+            fail(f"OSCE {name}: num_bits differ from the scalar decoder's")
+        enh = PO.OSCEEnhancer(m, models[m], b, device=dev)
+
+        def run():
+            res = []
+            for f in range(NFRAMES):
+                y = enh.enhance_frame(plain[f], **inputs[f])
+                _feats, numbits, periods = enh.frame_features
+                res.append((y, numbits, periods))
+            return res
+
+        res, k2_err = k2_spy(run, PO)
+        out["k2_err"] = max(out["k2_err"], k2_err)
+        enh_pcm = torch.stack([r[0] for r in res], 1).cpu().numpy()
+        periods = torch.stack([r[2] for r in res], 1).cpu().numpy()
+        numbits = torch.stack([r[1] for r in res], 1).cpu().numpy()
+        if not np.array_equal(periods[:B_DNN], ofx["periods"][m - 1][stream]):
+            fail(f"OSCE {name}: periods differ from the scalar decoder's")
+        if not np.array_equal(numbits[:B_DNN],
+                              ofx["numbits"][m - 1][stream]):
+            fail(f"OSCE {name}: numbits differ from the scalar decoder's")
+        # (clipped to +-32767, which only a garbage lane's -32768 meets)
+        if not np.array_equal(enh_pcm[:, 0], xq_all[:, 0].clip(-32767)):
+            fail(f"OSCE {name}: the first frame is not the unenhanced one")
+        finite = all(bool(torch.isfinite(t).all()) for t in
+                     torch.utils._pytree.tree_leaves(enh.state)
+                     if t.is_floating_point())
+        if not finite:
+            fail(f"OSCE {name}: a lane's state is not finite")
+        env = osce_env(ofx, m)
+        e_fx = osce_compare(enh_pcm[:B_DNN], ofx["xq"][m - 1][stream], env,
+                            f"{name} card vs the scalar decoder")
+        # the port's CPU run of the 8 source streams, from their inputs
+        cpu = PO.OSCEEnhancer(m, cpu_models[m], 8, device="cpu")
+        cpu_pcm = np.stack([cpu.enhance_frame(
+            plain[f][:8].cpu(), **{k: (v[:8].cpu() if torch.is_tensor(v)
+                                       else v)
+                                   for k, v in inputs[f].items()}).numpy()
+            for f in range(NFRAMES)], 1)
+        e_cpu = osce_compare(enh_pcm[:B_DNN], cpu_pcm[stream], env,
+                             f"{name} card vs the port's CPU run")
+        osce_compare(cpu_pcm, ofx["xq"][m - 1], env,
+                     f"{name} CPU run vs the scalar decoder")
+
+        # end to end, as a user drives it
+        e2e = PF.FusedSilkDecoder(b, device=dev, max_payload=p)
+        e2e.set_osce(m, models[m])
+        torch.cuda.synchronize()
+        iir.launches = lpc.launches = 0
+        got = [e2e.decode_packed(buf, ln)[0] for buf, ln in bufs]
+        torch.cuda.synchronize()
+        counts = {"K2": iir.launches, "K4": lpc.launches}
+        if counts != {"K2": NFRAMES, "K4": 4 * NFRAMES}:
+            fail(f"OSCE {name} end to end: launches {counts}, expected K2 "
+                 f"{NFRAMES} and K4 {4 * NFRAMES}")
+        got = torch.stack(got, 1).to(torch.int64).cpu().numpy()
+        e_e2e = osce_compare(got[:B_DNN], ofx["xq"][m - 1][stream], env,
+                             f"{name} end to end vs the scalar decoder")
+        same = int((got == enh_pcm).all(axis=2).sum())
+        clip = float(np.mean(np.abs(got[:B_DNN, 1:]) >= 32767))
+        out["counts"][name] = counts
+        out[name] = dict(e_fx=e_fx, e_cpu=e_cpu, e_e2e=e_e2e)
+        print(f"OSCE {name} at B={b} ({B_DNN} fixture lanes, {N_BAD} "
+              f"garbage): num_bits, periods, numbits and the unenhanced PCM "
+              f"== the scalar decoder's on every fixture lane-frame; first "
+              f"frame == unenhanced; enhanced int16 max diff {e_fx[0]} LSB "
+              f"vs the scalar decoder ({e_fx[1]:.2f} of the bound), "
+              f"{e_cpu[0]} vs the port's CPU run ({e_cpu[1]:.2f}); end to "
+              f"end {e_e2e[0]} LSB ({e_e2e[1]:.2f}), {same}/{b * NFRAMES} "
+              f"lane-frames identical to the enhancer alone; launches "
+              f"{counts}; K2 == plain within {K2_REL_TOL}-relative (max err "
+              f"{k2_err:.3g}); {100 * clip:.1f}% of enhanced samples clip; "
+              f"garbage lanes finite, "
+              f"{int(torch.stack(errs, 1)[B_DNN:, -1].sum())} flagged")
+    out["bufs"] = bufs
+    return out
+
+
+def phase_osce_times(dev, smi, d):
+    """CUDA event times at B_DNN streams, host included, of decode_packed
+    without OSCE, with LACE and with NoLACE (the second frame's packets,
+    state carried; the three in turns, twice, the least kept) and of one
+    OSCEEnhancer frame alone per method; realtime streams = B x 20 ms /
+    step.  Device operations and device time (device_profile, after every
+    timing): of the decode without OSCE and of each enhancer alone, whose
+    sum is the decode with OSCE (the enhancer runs after the decode, on
+    the same stream; profiling the whole decode again would add ~40 s of
+    the profiler's own host time per method).  K2's device time at
+    [B_DNN, 320]."""
+    import torch
+    from opus_tpu_torch.dnn import osce as PO
+    from opus_tpu_torch.models import fused_silk_dec as PF
+    from opus_tpu_torch.ops import iir
+    from opus_tpu_torch.tools.device_time import device_ms, device_profile
+
+    buf, ln = (x[:B_DNN] for x in d["bufs"][1])
+    xq = d["plain"][1][:B_DNN]
+    inp = {k: (v[:B_DNN] if torch.is_tensor(v) else v)
+           for k, v in d["inputs"][1].items()}
+    names = {0: "none", 1: "LACE", 2: "NoLACE"}
+    decs, enhs, ms = {}, {}, {}
+    for m in names:
+        decs[m] = PF.FusedSilkDecoder(B_DNN, device=dev,
+                                      max_payload=buf.shape[1])
+        if m:
+            decs[m].set_osce(m, d["models"][m])
+            enhs[m] = PO.OSCEEnhancer(m, d["models"][m], B_DNN, device=dev)
+            for _ in range(2):            # past the reset's pass-through
+                enhs[m].enhance_frame(xq, **inp)
+    for m in (0, 1, 2, 2, 1, 0):
+        t = cuda_ms(lambda: decs[m].decode_packed(buf, ln), 1)
+        ms[m] = min(ms.get(m, t), t)
+    ms_e = {m: cuda_ms(lambda: enhs[m].enhance_frame(xq, **inp), 5)
+            for m in (1, 2)}
+    ops0, dev0 = device_profile(lambda: decs[0].decode_packed(buf, ln), 1)
+    prof_e = {m: device_profile(lambda: enhs[m].enhance_frame(xq, **inp), 2)
+              for m in (1, 2)}
+    res = {}
+    for m, name in names.items():
+        ops, dms = ops0, dev0
+        if m:
+            ops, dms = ops0 + prof_e[m][0], dev0 + prof_e[m][1]
+        res[name] = ms[m]
+        print(f"OSCE times [{smi}]: decode_packed at B={B_DNN}, OSCE "
+              f"{name}: {ms[m]:.3f} ms a 20 ms frame -> "
+              f"{B_DNN * 20.0 / ms[m]:.0f} realtime streams; {ops:.0f} "
+              f"device operations and {dms:.3f} ms device time a call"
+              f"{' (the decode and the enhancer profiled apart)' if m else ''}"
+              f" (device busy {100 * dms / ms[m]:.1f}%)")
+    for m in (1, 2):
+        ops_e, dev_e = prof_e[m]
+        res[names[m] + " enhancer"] = ms_e[m]
+        print(f"OSCE times [{smi}]: one OSCEEnhancer frame alone, "
+              f"{names[m]}, B={B_DNN}: {ms_e[m]:.3f} ms -> "
+              f"{B_DNN * 20.0 / ms_e[m]:.0f} realtime streams; {ops_e:.0f} "
+              f"device operations and {dev_e:.3f} ms device time a call "
+              f"(device busy {100 * dev_e / ms_e[m]:.1f}%)")
+    x = torch.randn(B_DNN, 320, device=dev) * 0.1
+    mem = torch.zeros(B_DNN, device=dev)
+    k2 = device_ms(lambda: iir.deemphasis(x, mem, PO.PREEMPH),
+                   "deemphasis_kernel")
+    k2_bound = bound(2 * nbytes_of(x, mem), 2.0 * x.numel())
+    print(f"OSCE times [{smi}]: K2 at [{B_DNN}, 320]: {k2:.5f} ms device "
+          f"time, bound {k2_bound[0]:.6f} ms ({k2_bound[1]})")
+    return {"osce_" + k: v for k, v in res.items()}
+
+
 def phase_k5(dev, smi):
     """Kernel K5's table through its entry point, the counter reset around
     it: every case at both geometries == its plain version; the SASS holds
@@ -1865,7 +2125,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE,
-                 SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE):
+                 SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -1967,6 +2227,10 @@ def main() -> int:
     phase_s["deep_plc"] = time.time() - t0
 
     t0 = time.time()
+    osce = phase_osce(dev, sfx, dict(np.load(OSCE_FIXTURE)))
+    phase_s["osce"] = time.time() - t0
+
+    t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
     t = phase_enc_times(enc_lanes, dev, smi, t)
     t = phase_silk_times(slanes, dev, smi, k4_in, t)
@@ -1974,6 +2238,9 @@ def main() -> int:
     t.update(phase_dnn_times(dev, smi, dred))
     t.update(phase_plc_times(dev, smi, plc))
     phase_s["times"] = time.time() - t0
+    t0 = time.time()
+    t.update(phase_osce_times(dev, smi, osce))
+    phase_s["osce_times"] = time.time() - t0
 
     t0 = time.time()
     k5 = phase_k5(dev, smi)
@@ -1987,7 +2254,9 @@ def main() -> int:
                 "duplex": dcounts,
                 "silk": {"K4": k4_count}, "hybrid": hcounts,
                 "hybrid swb": swcounts, "dred": {"K2": dred["k2"]},
-                "deep plc": {"K2": plc["k2"]}}
+                "deep plc": {"K2": plc["k2"]},
+                "osce lace": osce["counts"]["LACE"],
+                "osce nolace": osce["counts"]["NoLACE"]}
     print(f"launches per path over {NFRAMES} frames: {per_path}")
 
     def total(k):
@@ -2000,7 +2269,8 @@ def main() -> int:
                     t["k1_bound"]),
         kernel_line("deemphasis", "opus_tpu_torch/csrc/deemphasis.cu",
                     "opus_tpu/ops/iir_pallas.py:47", total("K2"),
-                    max(k2_err, dred["k2_err"], plc["k2_err"]), t["k2"],
+                    max(k2_err, dred["k2_err"], plc["k2_err"],
+                        osce["k2_err"]), t["k2"],
                     t["k2p"],
                     t["k2_bound"]),
         kernel_line("celt_enc_frame", "opus_tpu_torch/csrc/celt_enc_frame.cu",
@@ -2029,7 +2299,13 @@ def main() -> int:
           f"dred_decode {t['plc_dred']:.4f} ms, conceal "
           f"{t['plc_conceal']:.4f} ms at B={B_DNN} (16 kHz PCM within "
           f"{plc['e_cpu']['pcm16']:.0f} LSB of the CPU run, "
-          f"{plc['e_jax']['pcm16']:.0f} of JAX)")
+          f"{plc['e_jax']['pcm16']:.0f} of JAX); SILK decode at B={B_DNN} "
+          f"{t['osce_none']:.4f} ms, with LACE {t['osce_LACE']:.4f} ms, "
+          f"with NoLACE {t['osce_NoLACE']:.4f} ms (enhancer alone "
+          f"{t['osce_LACE enhancer']:.4f} / "
+          f"{t['osce_NoLACE enhancer']:.4f} ms; enhanced PCM within "
+          f"{osce['LACE']['e_fx'][0]}/{osce['NoLACE']['e_fx'][0]} LSB of "
+          f"the scalar decoder)")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

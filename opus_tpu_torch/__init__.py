@@ -14,11 +14,13 @@ Layout mirrors ``opus_tpu`` so each counterpart is easy to find:
   twin of kernel K1 + its CUDA wrapper), the synthesis ``decode_step``,
   the encoder's analysis front end and encode symbol pass (plain torch
   twin of kernel K3 + its CUDA wrapper), the SILK decoder (symbol pass,
-  NLSF -> LPC and decode_core), the hybrid decoder.
+  NLSF -> LPC and decode_core; OSCE enhancement by ``set_osce``), the
+  hybrid decoder.
 - ``opus_tpu_torch.dnn``     — the neural layer runtime, weight blobs, the
   DRED RDOVAE networks, the FARGAN vocoder, the DRED payload decode and
-  decoder objects, the LPCNet feature analysis, the pitch DNN and the
-  deep-PLC state machine; ``models.batched_dnn`` and
+  decoder objects, the LPCNet feature analysis, the pitch DNN, the
+  deep-PLC state machine and OSCE (its adaptive filters, features, LACE
+  and NoLACE); ``models.batched_dnn`` and
   ``models.dnn_recovery`` run them over a stream batch (DRED loss
   recovery), ``models.deep_plc`` conceals with DRED as FEC (deep PLC).
 - ``opus_tpu_torch.bitstream`` — the host-side range decoder, Laplace

@@ -32,6 +32,9 @@ state.
   statistics, which stay numpy (the payload parse runs on the host).
 - ``pitchdnn_from_jax``, ``plc_from_jax``: the pitch DNN (its Conv2d layers
   included) and the PLC network, the same way.
+- ``lace_from_jax``, ``nolace_from_jax``: the OSCE models (nested
+  NamedTuples of layers: the feature net, the comb, conv and shape
+  layers), the same way.
 - ``lpcnet_state_from_jax``: B JAX ``LPCNetPLC`` instances (one stream
   each, at the same point of the same call sequence) -> one B-lane
   ``LPCNetPLC`` of the port holding their stacked state (feature analysis,
@@ -41,10 +44,12 @@ state.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
-from .dnn import dred, fargan, features, nnet, pitchdnn, plc, rdovae
+from .dnn import dred, fargan, features, nnet, osce, pitchdnn, plc, rdovae
 from .models.celt_dec_fused import DecTabs
 
 _BAND_KEYS = ("old_e", "prev1", "prev2")
@@ -261,7 +266,8 @@ def hybrid_state_to_numpy(state: dict) -> dict:
 def _dnn_tree(jax_tree, port_cls, device):
     """A JAX model NamedTuple -> ``port_cls`` with the same fields: Linear
     and Conv2d layers (NamedTuples of arrays, None leaves kept), tuples of
-    layers and bare arrays become float32 tensors on ``device``."""
+    layers and bare arrays become float32 tensors on ``device``; any other
+    NamedTuple becomes the class of its name in ``port_cls``'s module."""
     def leaf(v):
         return None if v is None else torch.as_tensor(
             np.array(v, np.float32), device=device)
@@ -271,6 +277,10 @@ def _dnn_tree(jax_tree, port_cls, device):
         return cls(*(leaf(a) for a in v))
 
     def field(v):
+        name = type(v).__name__
+        if hasattr(v, "_fields") and name not in ("Linear", "Conv2d"):
+            return _dnn_tree(v, getattr(sys.modules[port_cls.__module__],
+                                        name), device)
         if hasattr(v, "_fields"):
             return layer(v)
         if isinstance(v, tuple):
@@ -309,6 +319,16 @@ def pitchdnn_from_jax(model, device="cpu"):
 def plc_from_jax(model, device="cpu"):
     """A JAX ``PLCModel`` -> the port's, on ``device``."""
     return _dnn_tree(model, plc.PLCModel, device)
+
+
+def lace_from_jax(model, device="cpu"):
+    """A JAX ``LACEModel`` -> the port's, on ``device``."""
+    return _dnn_tree(model, osce.LACEModel, device)
+
+
+def nolace_from_jax(model, device="cpu"):
+    """A JAX ``NoLACEModel`` -> the port's, on ``device``."""
+    return _dnn_tree(model, osce.NoLACEModel, device)
 
 
 def _stack(leaves, device, dtype=torch.float32):

@@ -42,10 +42,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..dnn.osce import OSCEEnhancer
 from ..ops import silk_fixed as F
 from ..ops.device_cache import const
 from ..ops.rc_kernel import (M32, pack_payloads, rk_dec_bit_logp,
-                              rk_dec_icdf, rk_init)
+                              rk_dec_icdf, rk_init, rk_tell)
 from ..ops.silk_fixed import w32
 from ..silk import tables as T
 from ..silk import tables_data as TD
@@ -636,11 +637,18 @@ def _lcg_signs(pulses, seed):
 
 
 def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
-                 nb_subfr: int = 4):
+                 nb_subfr: int = 4, osce: bool = False):
     """The symbol pass of one frame: range decoding and decode_parameters.
     Returns (the ``silk_decode_step`` inputs as a dict, the carried state
     fields prev_nlsf / last_gain_index / prev_gain_q16, error [B] bool,
-    the final range-decoder dict)."""
+    the final range-decoder dict); with osce=True appends the frame's OSCE
+    inputs, the keyword arguments of ``OSCEEnhancer.enhance_frame`` but
+    xq (decode_frame.c:113, ``silk/decoder.py``'s enhance_frame call):
+    num_bits [B], the bits of the regular frame's indices and pulses
+    (tell after them less tell before them, the LBRR parse-through
+    excluded), pred_coef_q12 [B, 2, order], pitch_lags [B, nb_subfr],
+    ltp_coef_q14 [B, 5 * nb_subfr], gains_q16 [B, nb_subfr],
+    signal_type [B], and lpc_order, fs_khz and nb_subfr as ints."""
     tabs = silk_tabs(fs_khz, nb_subfr)
     b = buf.shape[0]
     dev = buf.device
@@ -664,6 +672,7 @@ def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
                                         fs_khz)
 
     # --- decode_indices (decode_indices.c), CODE_INDEPENDENTLY ---
+    ec_start = rk_tell(d) if osce else None
     t_vad, d = ctx.dec(d, "type_vad", active & (vad != 0))
     t_nv, d = ctx.dec(d, "type_novad", active & (vad == 0))
     type_ix = torch.where(vad != 0, t_vad + 2, t_nv)
@@ -760,33 +769,50 @@ def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
                    rewhiten2=voiced & do_interp)
     carry = dict(prev_nlsf=new_prev_nlsf, last_gain_index=prev_ind,
                  prev_gain_q16=gains_q16[:, -1])
-    return step_in, carry, error | (d["error"] != 0), d
+    error = error | (d["error"] != 0)
+    if not osce:
+        return step_in, carry, error, d
+    osce_in = dict(num_bits=rk_tell(d) - ec_start,
+                   pred_coef_q12=step_in["a_q12"], pitch_lags=pitch,
+                   ltp_coef_q14=b_q14.reshape(b, -1), gains_q16=gains_q16,
+                   signal_type=signal_type, lpc_order=order, fs_khz=fs_khz,
+                   nb_subfr=nb_subfr)
+    return step_in, carry, error, d, osce_in
 
 
 def fused_silk_decode(buf, lens, state: dict, *, fs_khz: int = 16,
-                      nb_subfr: int = 4, return_rc: bool = False):
+                      nb_subfr: int = 4, return_rc: bool = False,
+                      return_osce: bool = False):
     """One SILK frame per stream, all on the tensors' device.
 
     buf: [B, P] uint8 payload bytes; lens: [B] byte lengths.  Returns
     (xq int16-valued [B, L] int64, new state, error [B] bool); with
     return_rc=True appends the final range-decoder dict so a hybrid caller
     can continue decoding the CELT half from the same coder
-    (src/opus_decoder.c:432 shares one ec_dec across both)."""
-    step_in, carry, error, d = silk_symbols(buf, lens, state, fs_khz=fs_khz,
-                                            nb_subfr=nb_subfr)
+    (src/opus_decoder.c:432 shares one ec_dec across both); with
+    return_osce=True then appends the frame's OSCE inputs
+    (``silk_symbols``)."""
+    step_in, carry, error, d, *osce_in = silk_symbols(
+        buf, lens, state, fs_khz=fs_khz, nb_subfr=nb_subfr,
+        osce=return_osce)
     xq, synth = silk_decode_step(**step_in, state=state["synth"],
                                  fs_khz=fs_khz, nb_subfr=nb_subfr)
     new_state = dict(carry, first_frame=torch.zeros_like(error),
                      synth=synth)
-    if return_rc:
-        return xq, new_state, error, d
-    return xq, new_state, error
+    return (xq, new_state, error) + ((d,) if return_rc else ()) \
+        + tuple(osce_in)
 
 
 class FusedSilkDecoder:
     """Packets-in -> PCM-out mono SILK decoder with everything on the card
     (the default device; kernel K4 for the LPC synthesis), the plain torch
-    versions when ``device="cpu"``."""
+    versions when ``device="cpu"``.
+
+    ``set_osce(method, model)`` switches LACE or NoLACE enhancement on
+    (``OpusDecoder.set_osce``): ``decode_packed`` then returns the
+    enhanced PCM of 16 kHz 20 ms frames (other frames pass through and
+    reset the enhancer).  The synthesis state never sees the enhancement:
+    as in the scalar decoder, it keeps the unenhanced history."""
 
     def __init__(self, batch: int, fs_khz: int = 16, nb_subfr: int = 4,
                  max_payload: int = 512, device="cuda"):
@@ -800,6 +826,15 @@ class FusedSilkDecoder:
         self.P = max_payload
         self.state = fused_init_state(batch, fs_khz, self.device)
         self.final_range = None      # [B] the range decoder's, last frame
+        self.osce_in = None          # the last frame's OSCE inputs
+        self.osce = None             # the OSCEEnhancer, if switched on
+
+    def set_osce(self, method: int, model) -> None:
+        """Enhance with ``model`` by ``method`` (1 LACE, 2 NoLACE; the
+        port's ``dnn.osce`` models on the decoder's device); 0 switches the
+        enhancement off (src/opus_decoder.c:443-455)."""
+        self.osce = OSCEEnhancer(method, model, self.batch,
+                                 device=self.device) if method else None
 
     def pack(self, payloads):
         """list of B byte strings -> (buf [B, P] uint8, lens [B]) on the
@@ -808,11 +843,14 @@ class FusedSilkDecoder:
 
     def decode_packed(self, buf_u8, lens):
         """buf [B, P] uint8, lens [B] on the device -> (xq [B, L] int16,
-        err [B] bool); the final range lands in ``final_range``."""
-        xq, self.state, err, d = fused_silk_decode(
+        err [B] bool); the final range lands in ``final_range`` and the
+        frame's OSCE inputs in ``osce_in``."""
+        xq, self.state, err, d, self.osce_in = fused_silk_decode(
             buf_u8, lens, self.state, fs_khz=self.fs_khz,
-            nb_subfr=self.nb_subfr, return_rc=True)
+            nb_subfr=self.nb_subfr, return_rc=True, return_osce=True)
         self.final_range = d["rng"]
+        if self.osce is not None:
+            xq = self.osce.enhance_frame(xq, **self.osce_in)
         return xq.to(torch.int16), err
 
     def decode(self, payloads):

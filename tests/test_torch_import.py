@@ -33,7 +33,9 @@ for name in ("opus_tpu_torch.models.hybrid_dec_fused",
              "opus_tpu_torch.models.batched_dnn",
              "opus_tpu_torch.models.dnn_recovery",
              "opus_tpu_torch.dnn.pitchdnn", "opus_tpu_torch.dnn.features",
-             "opus_tpu_torch.dnn.plc", "opus_tpu_torch.models.deep_plc"):
+             "opus_tpu_torch.dnn.plc", "opus_tpu_torch.models.deep_plc",
+             "opus_tpu_torch.dnn.nndsp", "opus_tpu_torch.dnn.osce_features",
+             "opus_tpu_torch.dnn.osce"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",
@@ -175,3 +177,35 @@ def test_torch_dnn_and_bitstream_copies_equal_jax_originals():
         assert pl._p0_icdf(decay) == jl._p0_icdf(decay)
     assert pw._HEAD.format == jw._HEAD.format
     assert pw._DTYPES == jw._DTYPES
+
+
+def test_torch_osce_copies_equal_jax_originals():
+    """The port's copies of the OSCE constants and tables (osce_features'
+    band centres and weights, window and DCT; osce's and nndsp's model
+    constants) equal the originals."""
+    import opus_tpu.dnn.nndsp as jd
+    import opus_tpu.dnn.osce as jo
+    import opus_tpu.dnn.osce_features as jf
+    import opus_tpu_torch.dnn.nndsp as pd
+    import opus_tpu_torch.dnn.osce as po
+    import opus_tpu_torch.dnn.osce_features as pf
+
+    for jmod, pmod in ((jf, pf), (jo, po), (jd, pd)):
+        names = [k for k, v in vars(jmod).items()
+                 if k.lstrip("_").isupper() and not callable(v)
+                 and not isinstance(v, type(jmod))
+                 and (not k.startswith("_") or hasattr(pmod, k))]
+        assert names, pmod.__name__
+        for k in names:
+            assert _same(getattr(pmod, k), getattr(jmod, k)), (pmod, k)
+    assert np.array_equal(pf._DCT18, jf._DCT18)
+    assert np.array_equal(po.default_numbits_scales(),
+                          jo.default_numbits_scales())
+    assert np.array_equal(pd.compute_overlap_window(40),
+                          jd.compute_overlap_window(40))
+    x = np.random.default_rng(0).standard_normal(161)
+    for bins, w in ((pf.CENTER_BINS_CLEAN, pf.BAND_WEIGHTS_CLEAN),
+                    (pf.CENTER_BINS_NOISY, pf.BAND_WEIGHTS_NOISY)):
+        np.testing.assert_allclose(x @ pf.filterbank_matrix(bins, w),
+                                   jf.apply_filterbank(x, bins, w),
+                                   rtol=1e-13, atol=1e-13)
