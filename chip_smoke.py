@@ -95,7 +95,27 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    (``opus_tpu_torch.tools.kbench_ops``): all 13 cases at the TPU's tile
    (1024 lanes in one block) and the main path's geometry (4096 lanes in
    64-thread blocks), each exactly equal to its plain version, the ns/op
-   table, and each case's signature instruction count in the SASS.
+   table, and each case's signature instruction count in the SASS;
+14. 10 ms CELT (LM 2, 480 samples, 80-byte packets) over 4096 streams of
+   ``tests/data/torch_celt10ms_64k.npz`` / ``torch_celt10ms_64k_enc.npz``
+   plus 32 garbage or hard ones: K1 and K2 against their plain versions
+   frame by frame, the decoder end to end against the scalar decoder,
+   the encoder with K3 against its plain version on every frame and its
+   packets decoded on the card to its final range (launch counters reset
+   around each), and K1's and K3's times at 480;
+15. tracked config 5's whole loop (``BatchedDREDEncoder``) over 1024
+   streams at 48 kHz, 24 frames of 20 ms: the DRED encoder fixture's 8
+   streams (``tests/data/torch_dred_enc.npz``) tiled, seeded speech-like
+   lanes and lanes with digital silence; each frame K3 encodes the CELT
+   frame and the DRED encoder takes its latents, the last two frames'
+   packets carry the DRED payload in extension 126, the CELT frames are
+   decoded by K1 and K2 to the encoder's final range (counters reset
+   around the 24 frames), the DRED is parsed and recovered (K2); the 16
+   kHz conversion bit for bit, latents and states, quantized integers,
+   packets and parse against the port's CPU run and the JAX package's
+   fixture; CUDA event times of ``compute_latents`` and its parts with
+   their device operations and busy share, the quantizer, the host
+   coder, ``attach`` and the chain frame.
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is the result JSON; any failed check
@@ -168,6 +188,25 @@ DRED_TILE = 8
 DRED_T = 4
 N_CONCEAL = 6
 DNN_RTOL, DNN_ATOL = 2e-4, 2e-5
+# DRED encoder (tracked config 5's encode half): latents and states
+# within the RDOVAE bound of tests/test_torch_dnn_models.py, card against
+# the CPU run and the port against the JAX package: the feature analysis
+# and the GEMMs sum in another order (TF32 off).  A quantized integer moves
+# only if its value before rounding v = xq - delta tanh(xq / (delta +
+# 0.1)), xq = x scale / 256, lies near a k + 0.5 boundary: dv/dx is
+# scale / 256 times a factor in (0, 1], so a latent within the bound
+# moves v by at most (DRED_ATOL + DRED_RTOL |x|) scale / 256 (near_half).
+DRED_RTOL, DRED_ATOL = 2e-4, 2e-5
+
+
+def near_half(v, x, scale):
+    """Bool array: values before rounding v whose float inputs x could
+    cross a k + 0.5 boundary within the latent bound (see DRED_RTOL)."""
+    import numpy as np
+    v = np.asarray(v, np.float64)
+    margin = (DRED_ATOL + DRED_RTOL * np.abs(np.asarray(x, np.float64))) \
+        * np.asarray(scale, np.float64) / 256.0
+    return np.abs(v - np.floor(v) - 0.5) <= margin
 
 
 def fail(msg: str) -> None:
@@ -305,17 +344,19 @@ def phase_kernel_vs_plain(lanes, dev, tabs):
     return outs, x_err, e_err, k2_err, captured[0]
 
 
-def phase_end_to_end(lanes, stream, fx, dev, plain_outs):
+def phase_end_to_end(lanes, stream, fx, dev, plain_outs,
+                     frame_size: int = 960):
     """The decoder as a user drives it, counters reset around the run."""
     import numpy as np
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
     from opus_tpu_torch.ops import iir
 
-    b = lanes[0][0].shape[0]
+    b, p = lanes[0][0].shape
     bufs = [(torch.from_numpy(bu).to(dev), torch.from_numpy(ln).to(dev))
             for bu, ln in lanes]
-    dec = CK.KernelCeltDecoder(b, device=dev, max_payload=160)
+    dec = CK.KernelCeltDecoder(b, frame_size=frame_size, device=dev,
+                               max_payload=p)
     frame_outs = []
     orig = CK.decode_frame
 
@@ -378,12 +419,12 @@ def phase_end_to_end(lanes, stream, fx, dev, plain_outs):
     return pcm_err, counts
 
 
-def hard_signals(n_lanes: int, nframes: int, rng):
-    """[n_lanes, nframes * 960] f32 numpy: digital silence, full-scale
-    white noise, clipped input (|x| up to 4), a DC step, impulses and
-    1e-7-level noise, in turn."""
+def hard_signals(n_lanes: int, nframes: int, rng, frame_size: int = 960):
+    """[n_lanes, nframes * frame_size] f32 numpy: digital silence,
+    full-scale white noise, clipped input (|x| up to 4), a DC step,
+    impulses and 1e-7-level noise, in turn."""
     import numpy as np
-    total = nframes * 960
+    total = nframes * frame_size
     out = np.zeros((n_lanes, total), np.float32)
     for j in range(n_lanes):
         kind = j % 6
@@ -401,12 +442,13 @@ def hard_signals(n_lanes: int, nframes: int, rng):
 
 
 def make_enc_lanes(efx, rng):
-    """[NFRAMES] of pcm [B_MAIN + N_BAD, 960] f32 numpy: the fixture's 8
-    streams tiled over B_MAIN lanes, then the hard lanes."""
+    """[NFRAMES] of pcm [B_MAIN + N_BAD, N] f32 numpy (N the fixture's
+    frame size): the fixture's 8 streams tiled over B_MAIN lanes, then the
+    hard lanes."""
     import numpy as np
     pcm = efx["pcm"]
-    ns = pcm.shape[0]
-    hard = hard_signals(N_BAD, NFRAMES, rng).reshape(N_BAD, NFRAMES, 960)
+    ns, _nf, n = pcm.shape
+    hard = hard_signals(N_BAD, NFRAMES, rng, n).reshape(N_BAD, NFRAMES, n)
     stream = np.arange(B_MAIN) % ns
     return [np.concatenate([pcm[stream, f], hard[:, f]]) for f in
             range(NFRAMES)]
@@ -555,22 +597,28 @@ def phase_duplex(enc_lanes, efx, dev, enc_outs):
 
 
 def phase_encode_rate(enc_lanes, dev, nbytes: int):
-    """KernelCeltEncoder at ``nbytes`` a frame over the 8 frames, state
-    carried: on every frame K3 (spied on at its wrapper) equals the plain
-    symbol pass on the same inputs, no fixture lane is flagged, and
-    KernelCeltDecoder on the card reaches the encoder's final range on
-    every lane-frame the encoder did not flag.  Returns K3's float
-    error."""
+    """KernelCeltEncoder at ``nbytes`` a frame over the 8 frames (of the
+    lanes' frame size), state carried: on every frame K3 (spied on at its
+    wrapper) equals the plain symbol pass on the same inputs, no fixture
+    lane is flagged, and KernelCeltDecoder on the card reaches the
+    encoder's final range on every lane-frame the encoder did not flag;
+    the launch counters reset just before the run and read just after
+    (the plain comparisons launch nothing).  Returns (K3's float error,
+    the counts)."""
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
     from opus_tpu_torch.models import celt_enc_kernel as EK
+    from opus_tpu_torch.ops import iir
 
-    b = enc_lanes[0].shape[0]
-    enc = EK.KernelCeltEncoder(b, nbytes=nbytes, device=dev)
-    dec = CK.KernelCeltDecoder(b, device=dev, max_payload=nbytes)
+    b, n = enc_lanes[0].shape
+    enc = EK.KernelCeltEncoder(b, frame_size=n, nbytes=nbytes, device=dev)
+    dec = CK.KernelCeltDecoder(b, frame_size=n, device=dev,
+                               max_payload=nbytes)
     lens = torch.full((b,), nbytes, dtype=torch.int64, device=dev)
     orig = EK.encode_frame
     f_err = 0.0
+    torch.cuda.synchronize()
+    CK.launches = iir.launches = EK.launches = 0
 
     def spy(X, ins, tabs, nb_):
         nonlocal f_err
@@ -599,11 +647,16 @@ def phase_encode_rate(enc_lanes, dev, nbytes: int):
                   f"error, ints exact); decoder range == encoder range on "
                   f"{int(ok.sum())} lanes; hard lanes flagged by the "
                   f"encoder: {int(err[B_MAIN:].sum())}")
+        torch.cuda.synchronize()
     finally:
         EK.encode_frame = orig
-    print(f"{nbytes}-byte encode: K3 float err {f_err:.3g} (bound "
-          f"{K3_F_TOL})")
-    return f_err
+    counts = {"K1": CK.launches, "K2": iir.launches, "K3": EK.launches}
+    if counts != {"K1": NFRAMES, "K2": NFRAMES, "K3": NFRAMES}:
+        fail(f"{nbytes}-byte encode and decode at N = {n}: expected one "
+             f"launch of K1, K2 and K3 per frame, got {counts}")
+    print(f"{nbytes}-byte encode at N = {n}: K3 float err {f_err:.3g} "
+          f"(bound {K3_F_TOL}); launch counters {counts}")
+    return f_err, counts
 
 
 def nbytes_of(*ts) -> int:
@@ -640,6 +693,36 @@ def bound(nbytes: int, flops: float, peak_ops: float = PEAK_F32_S) -> tuple:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def k1_bound(tabs, args, out) -> tuple:
+    """K1's bound on ``decode_frame(*args)`` -> out.  Bytes: each input
+    read once (packets, lens, energy memories, seeds, table), each output
+    written once (X, energies, 9 int lanes, gain); operations: ~20 f32
+    operations per coefficient (rotation, haar, renormalise), an estimate
+    from the source that stays below the bytes bound."""
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    buf, _ln, old_e, pm, seed = args[:5]
+    b = buf.shape[0]
+    tab = CK.k1_table(tabs, buf.device)
+    nbytes = nbytes_of(buf, old_e, pm, seed, tab, out["X"], out["energies"],
+                       out["pf_gain"]) + b * 4 * (1 + 9)
+    return bound(nbytes, 20.0 * tabs.nx * b)
+
+
+def k3_bound(tabs, X, out) -> tuple:
+    """(K3's bound on ``encode_frame(X, ...)`` -> out, the pulse-search
+    score evaluations).  Bytes: X, the 2nb+1 float and 7+2nb int inputs,
+    the tables; the payload, 2nb+1 float and 8 int outputs.  Operations:
+    this run's pulse-search score evaluations (6 f32 operations each) and
+    the wrap taps (2 per tap, 8 taps per coefficient)."""
+    from opus_tpu_torch.models import celt_enc_kernel as EK
+    itab, ftab = EK.k3_tables(tabs, X.device)
+    b, nb = X.shape[0], tabs.nb
+    nbytes = nbytes_of(X, itab, ftab, out["payload"]) \
+        + b * 4 * ((2 * nb + 1) * 2 + (7 + 2 * nb) + 8)
+    evals = float(out["search_evals"].sum().item())
+    return bound(nbytes, 6.0 * evals + 16.0 * tabs.nx_rows * b), evals
+
+
 def phase_times(lanes, dev, tabs, k2_in, smi):
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
@@ -655,16 +738,7 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
     k1 = cuda_ms(lambda: CK.decode_frame(*args), 20)
     k1p = cuda_ms(lambda: CK.decode_frame_plain(*args), 1)
     out = CK.decode_frame(*args)
-    tab = CK.k1_table(tabs, dev)
-    # bytes: each input read once (packets, lens, energy memories, seeds,
-    # table), each output written once (X, energies, 9 int lanes, gain);
-    # operations: ~20 f32 operations per coefficient (rotation, haar,
-    # renormalise), an estimate from the source that stays below the
-    # bytes bound
-    k1_bytes = nbytes_of(buf, st["old_e"], pm, st["seed"], tab, out["X"],
-                         out["energies"], out["pf_gain"]) \
-        + B_MAIN * 4 * (1 + 9)
-    k1_bound = bound(k1_bytes, 20.0 * tabs.nx * B_MAIN)
+    k1_bnd = k1_bound(tabs, args, out)
     # the same frame tiled to 4 x B_MAIN streams: a time that stays flat
     # means the card had room at B_MAIN; a time per stream that stays flat
     # means B_MAIN already filled it
@@ -673,10 +747,10 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
     args4 = (buf.repeat(4, 1), ln.repeat(4), st4["old_e"],
              torch.minimum(st4["prev1"], st4["prev2"]), st4["seed"], tabs)
     k1_big = cuda_ms(lambda: CK.decode_frame(*args4), 20)
-    if not torch.equal(CK.decode_frame(*args4)["rng"][:B_MAIN], out["rng"]):
+    out4 = CK.decode_frame(*args4)
+    if not torch.equal(out4["rng"][:B_MAIN], out["rng"]):
         fail("K1 at 4 x B_MAIN: final ranges differ from B_MAIN's")
-    k1_big_bound = bound(4 * k1_bytes - 3 * nbytes_of(tab),
-                         20.0 * tabs.nx * big)
+    k1_big_bound = k1_bound(tabs, args4, out4)
     print(f"K1 at B={big}: {k1_big:.4f} ms/frame, bound "
           f"{k1_big_bound[0]:.6f} ms ({k1_big_bound[1]}); per stream "
           f"{k1 / B_MAIN * 1e6:.2f} ns at B={B_MAIN}, "
@@ -696,7 +770,7 @@ def phase_times(lanes, dev, tabs, k2_in, smi):
     print(f"times at B={B_MAIN} [{smi}]: K1 {k1:.4f} ms/frame, plain "
           f"{k1p:.2f} ms; K2 {k2:.4f} ms, plain {k2p:.4f} ms; decode step "
           f"{step:.3f} ms/frame -> {streams:.0f} realtime 20 ms streams")
-    return dict(k1=k1, k1p=k1p, k1_bound=k1_bound, k1_big=k1_big,
+    return dict(k1=k1, k1p=k1p, k1_bound=k1_bnd, k1_big=k1_big,
                 k1_big_bound=k1_big_bound, k2=k2, k2p=k2p,
                 k2_bound=k2_bound, dec_step=step)
 
@@ -717,21 +791,7 @@ def phase_enc_times(enc_lanes, dev, smi, t):
     k3p = cuda_ms(lambda: EK.encode_frame_plain(X, ins, tabs, 160), 1)
     fe = cuda_ms(lambda: EK._front_end(pcm, state, tabs, 160), 10)
     out = EK.encode_frame(X, ins, tabs, 160)
-    itab, ftab = EK.k3_tables(tabs, dev)
-    nb = tabs.nb
-
-    def k3_bound(X_, out_):
-        # bytes: X, the 2nb+1 float and 7+2nb int inputs, the tables; the
-        # payload, 2nb+1 float and 8 int outputs.  Operations: this run's
-        # pulse-search score evaluations (6 f32 operations each) and the
-        # wrap taps (2 per tap, 8 taps per coefficient)
-        b_ = X_.shape[0]
-        nbytes_ = nbytes_of(X_, itab, ftab, out_["payload"]) \
-            + b_ * 4 * ((2 * nb + 1) * 2 + (7 + 2 * nb) + 8)
-        evals_ = float(out_["search_evals"].sum().item())
-        return bound(nbytes_, 6.0 * evals_ + 16.0 * tabs.nx_rows * b_), \
-            evals_
-    k3_bnd, evals = k3_bound(X, out)
+    k3_bnd, evals = k3_bound(tabs, X, out)
     # the same frame tiled to 4 x B_MAIN streams, as K1 is timed
     big = 4 * B_MAIN
     X4 = X.repeat(4, 1)
@@ -740,12 +800,12 @@ def phase_enc_times(enc_lanes, dev, smi, t):
     out4 = EK.encode_frame(X4, ins4, tabs, 160)
     if not torch.equal(out4["payload"][:B_MAIN], out["payload"]):
         fail("K3 at 4 x B_MAIN: payloads differ from B_MAIN's")
-    k3_big_bnd, _ = k3_bound(X4, out4)
+    k3_big_bnd, _ = k3_bound(tabs, X4, out4)
     # 320 bytes a frame (128 kb/s), the front end's inputs at that rate
     ins3, X3, _f3 = EK._front_end(pcm, state, tabs, 320)
     k3_320 = cuda_ms(lambda: EK.encode_frame(X3, ins3, tabs, 320), 20)
     k3p_320 = cuda_ms(lambda: EK.encode_frame_plain(X3, ins3, tabs, 320), 1)
-    k3_320_bnd, _ = k3_bound(X3, EK.encode_frame(X3, ins3, tabs, 320))
+    k3_320_bnd, _ = k3_bound(tabs, X3, EK.encode_frame(X3, ins3, tabs, 320))
     print(f"K3 at B={big}: {k3_big:.4f} ms/frame, bound "
           f"{k3_big_bnd[0]:.6f} ms ({k3_big_bnd[1]}); per stream "
           f"{k3 / B_MAIN * 1e6:.2f} ns at B={B_MAIN}, "
@@ -2111,6 +2171,557 @@ def k4_geometry() -> None:
         fail(f"ptxas reported {seen} K4 instantiations, expected 3")
 
 
+# 10 ms CELT (LM 2): the 20 ms phases' checks at 480 samples a frame and
+# 80 bytes (64 kb/s), on the 10 ms fixtures (tools/
+# make_torch_celt10ms_fixture.py), the same tolerances.
+FIXTURE10 = os.path.join(REPO, "tests", "data", "torch_celt10ms_64k.npz")
+ENC_FIXTURE10 = os.path.join(REPO, "tests", "data",
+                             "torch_celt10ms_64k_enc.npz")
+
+
+def phase_celt10ms(dev):
+    """10 ms CELT over B_MAIN fixture lanes plus N_BAD garbage ones: K1
+    and K2 against their plain versions frame by frame with state
+    carried, the decoder end to end against the scalar decoder (counters
+    reset around it), then the encoder at 80 bytes with K3 against its
+    plain version on every frame and its packets decoded on the card to
+    its final range (counters reset around it).  Returns the errors, the
+    counts and the lanes for the timing phase."""
+    import numpy as np
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+
+    tabs = CK.dec_tabs(48000, 480)
+    fx = dict(np.load(FIXTURE10))
+    lanes, stream = make_lanes(fx, np.random.default_rng(25))
+    plain, x_err, _e_err, k2_err, _k2_in = phase_kernel_vs_plain(lanes, dev,
+                                                                 tabs)
+    pcm_err, dcounts = phase_end_to_end(lanes, stream, fx, dev, plain,
+                                        frame_size=480)
+    efx = dict(np.load(ENC_FIXTURE10))
+    enc_lanes = make_enc_lanes(efx, np.random.default_rng(26))
+    k3_err, ecounts = phase_encode_rate(enc_lanes, dev, 80)
+    print(f"10 ms CELT: K1 == plain (X err {x_err:.3g}), decoder PCM max "
+          f"err {pcm_err:.3g} vs the scalar decoder; K3 == plain (float err "
+          f"{k3_err:.3g}); launches decode {dcounts}, encode + decode "
+          f"{ecounts}")
+    return dict(x_err=x_err, k2_err=k2_err, k3_err=k3_err, dcounts=dcounts,
+                ecounts=ecounts, lanes=lanes, enc_lanes=enc_lanes, tabs=tabs)
+
+
+def phase_celt10ms_times(dev, smi, d):
+    """K1 and K3 at 480 samples, B_MAIN lanes, timed as their 960 rows are
+    (CUDA events around 20 back-to-back launches), beside their plain
+    versions and bounds; the 10 ms decode and encode steps."""
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models import celt_enc_kernel as EK
+    from opus_tpu_torch.models.celt_dec_fused import fused_celt_init_state
+    from opus_tpu_torch.models.celt_enc_fused import fused_celt_enc_init
+
+    tabs = d["tabs"]
+    buf = torch.from_numpy(d["lanes"][0][0][:B_MAIN]).to(dev)
+    ln = torch.from_numpy(d["lanes"][0][1][:B_MAIN]).to(dev)
+    st = fused_celt_init_state(B_MAIN, tabs, dev)
+    args = (buf, ln, st["old_e"], torch.minimum(st["prev1"], st["prev2"]),
+            st["seed"], tabs)
+    k1 = cuda_ms(lambda: CK.decode_frame(*args), 20)
+    k1p = cuda_ms(lambda: CK.decode_frame_plain(*args), 1)
+    k1_bnd = k1_bound(tabs, args, CK.decode_frame(*args))
+    etabs = EK.enc_tabs(48000, 480)
+    pcm = torch.from_numpy(d["enc_lanes"][0][:B_MAIN]).to(dev)
+    est = fused_celt_enc_init(B_MAIN, etabs, dev)
+    ins, X, _front = EK._front_end(pcm, est, etabs, 80)
+    k3 = cuda_ms(lambda: EK.encode_frame(X, ins, etabs, 80), 20)
+    k3p = cuda_ms(lambda: EK.encode_frame_plain(X, ins, etabs, 80), 1)
+    k3_bnd, evals = k3_bound(etabs, X, EK.encode_frame(X, ins, etabs, 80))
+    dec = CK.KernelCeltDecoder(B_MAIN, frame_size=480, device=dev,
+                               max_payload=buf.shape[1])
+    dec_step = cuda_ms(lambda: dec.decode_packed(buf, ln), 10)
+    enc = EK.KernelCeltEncoder(B_MAIN, frame_size=480, nbytes=80, device=dev)
+    enc_step = cuda_ms(lambda: enc.encode_device(pcm), 10)
+    print(f"10 ms times at B={B_MAIN} [{smi}]: K1 {k1:.4f} ms/frame, plain "
+          f"{k1p:.2f} ms, bound {k1_bnd[0]:.6f} ms ({k1_bnd[1]}); K3 "
+          f"{k3:.4f} ms/frame, plain {k3p:.2f} ms, bound {k3_bnd[0]:.6f} ms "
+          f"({k3_bnd[1]}; {evals / B_MAIN:.0f} score evaluations per "
+          f"stream); decode step {dec_step:.3f} ms -> "
+          f"{B_MAIN * 10.0 / dec_step:.0f} realtime 10 ms streams; encode "
+          f"step {enc_step:.3f} ms -> {B_MAIN * 10.0 / enc_step:.0f}")
+    return dict(k1_10=k1, k1p_10=k1p, k1_10_bound=k1_bnd, k3_10=k3,
+                k3p_10=k3p, k3_10_bound=k3_bnd, dec_step_10=dec_step,
+                enc_step_10=enc_step)
+
+
+# Tracked config 5's whole loop on the card (BASELINE.md:30): PCM -> CELT
+# packet (KernelCeltEncoder, K3) and DRED latents (BatchedDREDEncoder) ->
+# the packet with the DRED payload in extension 126 (attach) -> the CELT
+# frame decoded (KernelCeltDecoder, K1 and K2) and the DRED parsed
+# (parse_batch) -> the loss recovery (BatchedDREDRecovery, K2).  B_DNN
+# streams at 48 kHz mono, CHAIN_FRAMES frames of 20 ms at 64 kb/s
+# (160-byte CELT frames, TOC 0xF8 as the JAX encoder writes it), DRED
+# duration 40 (11 chunks); the packets of the last CHAIN_ATTACH frames
+# carry DRED (attach codes every lane on the host, ~6 ms a lane).  Models
+# from the seeds of tests/data/torch_dred_enc.npz (RDOVAE encoder 31,
+# decoder 32, statistics 33, pitch DNN 35, FARGAN 36).  Bounds:
+# - the 16 kHz conversion bit for bit card against CPU (float64 in the
+#   numpy loop's order on both);
+# - latents and states within DRED_RTOL / DRED_ATOL, card against the CPU
+#   run (every lane) and against the JAX package (fixture lanes);
+# - quantized integers and payload bytes equal, card against CPU and the
+#   port against the JAX package; an integer may differ by one only where
+#   its value before rounding lies within that bound of a k + 0.5
+#   boundary (near_half, int_flips): such lane-frames are counted and
+#   printed (expected 0), and a fixture lane's is held instead by coding
+#   the JAX floats through the port's quantizer and coder;
+# - parse_batch returns exactly what each lane coded;
+# - the recovery's PCM within DNN_RTOL / DNN_ATOL of the CPU run.
+DRED_ENC_FIXTURE = os.path.join(REPO, "tests", "data", "torch_dred_enc.npz")
+CHAIN_FRAMES = 24
+CHAIN_ATTACH = 2
+CHAIN_MDB, CHAIN_RATE = 1276, 64000
+N_SILENT = 48
+
+
+def fixture_ring(efx, key: str, frame: int):
+    """The JAX encoder's latent and state rings (newest first) after
+    ``frame`` of tests/data/torch_dred_enc.npz's ``key`` rate, rebuilt
+    from the stored newest rows: ([S, 104, 80], [S, 104, 24], fill)."""
+    import numpy as np
+    lat, st = efx["latent_" + key], efx["state_" + key]
+    s = lat.shape[1]
+    fill = int(efx["fill_" + key][frame])
+    rl = np.zeros((s, 104, lat.shape[2]), np.float32)
+    rs = np.zeros((s, 104, st.shape[2]), np.float32)
+    for k in range(min(frame + 1, 104)):
+        rl[:, k], rs[:, k] = lat[frame - k], st[frame - k]
+    return rl, rs, fill
+
+
+def code_floats(stats, lat, st, nb, dred_offset, activity, q0, dq, qmax,
+                max_chunks, max_bytes):
+    """One stream's payload from its float rings through the port's
+    quantizer (on the CPU) and coder: (payload or None, chunks)."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import dred as PD
+    lo = int(PD.latent_skip(np.asarray(activity)[None], nb)[0])
+    levels = [PD.compute_quantizer(q0, dq, qmax, c) for c in
+              range(max_chunks)]
+    idx = np.minimum(2 * np.arange(max_chunks) + lo, lat.shape[0] - 1)
+    ql, _ = PD.quantize_latents(torch.from_numpy(lat[idx]),
+                                torch.from_numpy(stats.latent_scale[levels]),
+                                torch.from_numpy(
+                                    stats.latent_dead_zone[levels]))
+    qs, _ = PD.quantize_latents(torch.from_numpy(st[lo]),
+                                torch.from_numpy(stats.state_scale[q0]),
+                                torch.from_numpy(stats.state_dead_zone[q0]))
+    return PD.dred_encode(stats, qs.numpy(), ql.numpy(), nb, dred_offset,
+                          activity, lo, q0=q0, dq=dq, qmax=qmax,
+                          max_chunks=max_chunks, max_bytes=max_bytes)
+
+
+def int_flips(q, qc, stats, q0: int, dq: int, nb: int):
+    """Lanes whose coded integers differ between two
+    ``BatchedDREDEnc.quantized`` records (numpy; q the card's, qc the
+    reference run's).  Fails unless every difference is one step at a
+    value that near_half allows to flip (on the reference's floats)."""
+    import numpy as np
+    from opus_tpu_torch.dnn import dred as PD
+    if not np.array_equal(q["latent_offset"], qc["latent_offset"]):
+        fail("DRED: latent offsets differ between the runs")
+    v, x = qc["v_latents"], qc["x_latents"]
+    levels = [PD.compute_quantizer(q0, dq, 15, c) for c in range(v.shape[1])]
+    n = (np.minimum(2 * v.shape[1], nb - q["latent_offset"]) + 1) // 2
+    coded = (np.arange(v.shape[1])[None] < n[:, None])[..., None]
+    dl = (q["q_latents"] != qc["q_latents"]) & coded
+    ds = q["q_state"] != qc["q_state"]
+    ok_l = near_half(v, x, stats.latent_scale[levels][None]) & (
+        np.abs(q["q_latents"] - qc["q_latents"]) <= 1)
+    ok_s = near_half(qc["v_state"], qc["x_state"],
+                     stats.state_scale[q0][None]) & (
+        np.abs(q["q_state"] - qc["q_state"]) <= 1)
+    if (dl & ~ok_l).any() or (ds & ~ok_s).any():
+        lanes = np.nonzero((dl & ~ok_l).any(axis=(1, 2))
+                           | (ds & ~ok_s).any(axis=1))[0]
+        fail(f"DRED: quantized integers differ away from a rounding "
+             f"boundary on lanes {lanes[:8].tolist()}")
+    return np.nonzero(dl.any(axis=(1, 2)) | ds.any(axis=1))[0]
+
+
+def fixture_boundary_lanes(efx, key: str, a: int, stats):
+    """Streams of the fixture's attach frame a whose JAX values before
+    rounding lie near a rounding boundary (near_half on the JAX floats)."""
+    import numpy as np
+    from opus_tpu_torch.dnn import dred as PD
+    frame = efx["fill_" + key].shape[0] - efx["payload_" + key].shape[0] + a
+    rl, rs, fill = fixture_ring(efx, key, frame)
+    lanes = []
+    for s in range(rl.shape[0]):
+        lo = int(efx["latent_offset_" + key][a, s])
+        q0, dq = int(efx["q0_" + key][a, s]), int(efx["dq_" + key][a, s])
+        mc = int(efx["chunks_" + key][a, s])
+        n = (min(2 * mc, fill - lo) + 1) // 2
+        levels = [PD.compute_quantizer(q0, dq, 15, c) for c in range(n)]
+        idx = 2 * np.arange(n) + lo
+        if near_half(efx["v_latents_" + key][a, s, :n], rl[s, idx],
+                     stats.latent_scale[levels]).any() or near_half(
+                efx["v_state_" + key][a, s], rs[s, lo],
+                stats.state_scale[q0]).any():
+            lanes.append(s)
+    return lanes
+
+
+def chain_lanes(efx):
+    """PCM [B_DNN, CHAIN_FRAMES, 960] float32 and voice activity [B_DNN,
+    CHAIN_FRAMES] (0 on an all-zero frame, as the fixture's): the DRED
+    encoder fixture's 8 streams at 48 kHz tiled over the first 64 lanes,
+    seeded speech-like lanes (two harmonics of a vibrato f0 in 90-250 Hz,
+    1% noise, at 5-30% of full scale), then N_SILENT lanes with digital
+    silence: throughout (no DRED: the payload is None), in the last 20
+    frames (the latent skip goes back 19 latents) and in frames 8-15 (a
+    gap inside the window).  Returns (pcm, activity, fixture lanes)."""
+    import numpy as np
+    fx_pcm = efx["pcm_48k"]
+    ns, nf, n = fx_pcm.shape
+    if (nf, n) != (CHAIN_FRAMES, 960):
+        fail(f"DRED encoder fixture: {nf} frames of {n}")
+    n_fx = ns * 8
+    rng = np.random.default_rng(30)
+    t = np.arange(nf * n) / 48000.0
+    vib = 1 + 0.1 * np.sin(2 * np.pi * 3 * t)
+
+    def speech(k):
+        out = []
+        for i in range(0, k, 128):
+            m = min(128, k - i)
+            f0 = rng.uniform(90, 250, (m, 1))
+            amp = rng.uniform(0.05, 0.3, (m, 1))
+            ph = np.cumsum(f0 * vib, axis=1) / 48000.0
+            x = amp * (np.sin(2 * np.pi * ph) + 0.5 * np.sin(4 * np.pi * ph)) \
+                + 0.01 * rng.standard_normal((m, nf * n))
+            out.append(np.clip(x, -1, 1).astype(np.float32))
+        return np.concatenate(out).reshape(k, nf, n)
+
+    silent = speech(N_SILENT)
+    third = N_SILENT // 3
+    silent[:third] = 0.0
+    silent[third:2 * third, 4:] = 0.0
+    silent[2 * third:, 8:16] = 0.0
+    pcm = np.concatenate([np.tile(fx_pcm, (8, 1, 1)),
+                          speech(B_DNN - n_fx - N_SILENT), silent])
+    activity = (np.abs(pcm).max(axis=2) > 0).astype(np.uint8)
+    if not np.array_equal(activity[:n_fx],
+                          np.tile(efx["activity_48k"], (8, 1))):
+        fail("DRED chain: fixture lanes' activity differs from the fixture")
+    return pcm, activity, n_fx
+
+
+def phase_dred_chain(dev, efx):
+    """Config 5's loop as a user drives it, the launch counters reset
+    around the CHAIN_FRAMES frames (K1, K2, K3) and around the recovery
+    (K2); then the same DRED encoder on the CPU over every lane, and the
+    checks listed above.  Returns what the timing phase and the kernels
+    line need."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.bitstream import packet as pkt
+    from opus_tpu_torch.dnn import dred as PD
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.dnn import pitchdnn as PP
+    from opus_tpu_torch.dnn import rdovae as PV
+    from opus_tpu_torch.dnn.dred_dec import dred_find_payload
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models import celt_enc_kernel as EK
+    from opus_tpu_torch.models import dnn_recovery as PRec
+    from opus_tpu_torch.models.dred_encoder import BatchedDREDEncoder
+    from opus_tpu_torch.ops import iir
+
+    s_enc, s_dec, s_stats, s_pitch, s_fg = (int(v) for v in efx["seeds"])
+    stats = PD.random_stats(s_stats)
+    enc_m = PV.random_enc_model(s_enc, device="cpu")
+    pitch_m = PP.random_model(s_pitch, device="cpu")
+    pcm, activity, n_fx = chain_lanes(efx)
+    b = B_DNN
+    stream = np.arange(n_fx) % efx["pcm_48k"].shape[0]
+    celt = EK.KernelCeltEncoder(b, nbytes=160, device=dev)
+    dred = BatchedDREDEncoder(enc_m, pitch_m, stats, b,
+                              duration_frames_10ms=40, device=dev)
+    dec = CK.KernelCeltDecoder(b, device=dev, max_payload=160)
+    lens160 = torch.full((b,), 160, dtype=torch.int64, device=dev)
+    newest, x16s, attached, frame_s = [], [], [], []
+    torch.cuda.synchronize()
+    CK.launches = iir.launches = EK.launches = 0
+    for f in range(CHAIN_FRAMES):
+        t0 = time.perf_counter()
+        x = torch.from_numpy(pcm[:, f]).to(dev)
+        payload, rng, err = celt.encode_device(x)
+        x16 = dred.step(x, activity[:, f])
+        if f >= CHAIN_FRAMES - CHAIN_ATTACH:
+            pay = payload.cpu().numpy()
+            packets = [bytes([0xF8]) + pay[i].tobytes() for i in range(b)]
+            dpackets = dred.attach(packets, CHAIN_MDB, CHAIN_RATE)
+            frames = []
+            for i, p in enumerate(dpackets):
+                parsed = pkt.packet_parse(p)
+                if isinstance(parsed, int) or parsed.count != 1 \
+                        or parsed.frames[0] != pay[i].tobytes():
+                    fail(f"DRED chain frame {f} lane {i}: the packet's CELT "
+                         "frame is not the encoder's payload")
+                frames.append(parsed.frames[0])
+            buf, lens = dec.pack(frames)
+            q = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+                 for k, v in dred.dred.quantized.items()}
+            attached.append(dict(packets=packets, dpackets=dpackets, q=q,
+                                 dred_offset=dred.dred.dred_offset,
+                                 fill=dred.dred.latents_buffer_fill))
+        else:
+            buf, lens = payload, lens160
+        _out, derr = dec.decode_packed(buf, lens)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        ok = err == 0
+        if err[:n_fx].any() or derr[ok].any() or not torch.equal(
+                dec.state["seed"][ok], rng[ok]):
+            fail(f"DRED chain frame {f}: CELT lanes flagged or the decoder "
+                 "missed the encoder's final range")
+        newest.append((dred.dred.latents[:, 0].cpu().numpy(),
+                       dred.dred.states[:, 0].cpu().numpy(),
+                       dred.dred.dred_offset, dred.dred.latents_buffer_fill))
+        x16s.append(x16.cpu().numpy())
+    counts = {"K1": CK.launches, "K2": iir.launches, "K3": EK.launches}
+    print(f"DRED chain launch counters over {CHAIN_FRAMES} frames: {counts}")
+    if counts != {k: CHAIN_FRAMES for k in ("K1", "K2", "K3")}:
+        fail(f"DRED chain: expected one launch of K1, K2 and K3 a frame, "
+             f"got {counts}")
+
+    # the same DRED encoder on the CPU, every lane
+    t0 = time.time()
+    cpu = BatchedDREDEncoder(enc_m, pitch_m, stats, b,
+                             duration_frames_10ms=40, device="cpu")
+    e_lat = e_jax = 0.0
+    for f in range(CHAIN_FRAMES):
+        x16 = cpu.step(torch.from_numpy(pcm[:, f]), activity[:, f]).numpy()
+        if not np.array_equal(x16.view(np.uint32), x16s[f].view(np.uint32)):
+            fail(f"DRED chain frame {f}: convert_to_16k card != CPU")
+        lat, st, off, fill = newest[f]
+        if (off, fill) != (cpu.dred.dred_offset,
+                           cpu.dred.latents_buffer_fill) or (off, fill) != (
+                int(efx["dred_offset_48k"][f]), int(efx["fill_48k"][f])):
+            fail(f"DRED chain frame {f}: dred_offset / fill {off} / {fill}")
+        for got, ref, what in (
+                (lat, cpu.dred.latents[:, 0].numpy(), "latents"),
+                (st, cpu.dred.states[:, 0].numpy(), "states")):
+            bad = np.abs(got - ref) > DRED_ATOL + DRED_RTOL * np.abs(ref)
+            if bad.any():
+                fail(f"DRED chain frame {f}: {what} card vs CPU outside the "
+                     f"bound on lanes {np.nonzero(bad.any(1))[0][:8]}")
+            e_lat = max(e_lat, float(np.abs(got - ref).max()))
+        for got, key in ((lat, "latent_48k"), (st, "state_48k")):
+            ref = efx[key][f][stream]
+            bad = np.abs(got[:n_fx] - ref) > DRED_ATOL + DRED_RTOL * np.abs(
+                ref)
+            if bad.any():
+                fail(f"DRED chain frame {f}: {key} card vs the JAX package "
+                     f"outside the bound")
+            e_jax = max(e_jax, float(np.abs(got[:n_fx] - ref).max()))
+        if f >= CHAIN_FRAMES - CHAIN_ATTACH:
+            at = attached[f - (CHAIN_FRAMES - CHAIN_ATTACH)]
+            at["cpu_dpackets"] = cpu.attach(at["packets"], CHAIN_MDB,
+                                            CHAIN_RATE)
+            at["cpu_q"] = {k: v.numpy() if torch.is_tensor(v) else v
+                           for k, v in cpu.dred.quantized.items()}
+    cpu_s = time.time() - t0
+
+    # integers and bytes: card vs CPU, and the port vs the JAX package
+    q0 = min(15, max(4, 51 - 3 * max(1, CHAIN_RATE - 12000).bit_length()))
+    dq = 3 if CHAIN_RATE - 12000 > 36000 else 5
+    n_flip = n_flip_fx = n_none = 0
+    for a, at in enumerate(attached):
+        q, qc = at["q"], at["cpu_q"]
+        flips = set(int_flips(q, qc, stats, q0, dq, at["fill"]).tolist())
+        n_flip += len(flips)
+        for i in range(b):
+            if i not in flips and at["dpackets"][i] != at["cpu_dpackets"][i]:
+                fail(f"DRED chain attach {a} lane {i}: packet card != CPU")
+        n_none += sum(p == pk for p, pk in zip(at["dpackets"],
+                                               at["packets"]))
+        # fixture lanes against the JAX package's payloads
+        frame = CHAIN_FRAMES - CHAIN_ATTACH + a
+        rl, rs, fill = fixture_ring(efx, "48k", frame)
+        fx_bnd = None
+        for i in range(n_fx):
+            s = int(stream[i])
+            ln = int(efx["payload_len_48k"][a, s])
+            ref = None if ln < 0 else efx["payload_48k"][a, s, :ln].tobytes()
+            found = dred_find_payload(at["dpackets"][i])
+            if (None if found is None else found[0]) == ref:
+                continue
+            # a flipped rounding: allowed only near a boundary, and the
+            # JAX floats through the port's quantizer and coder give the
+            # JAX payload
+            if fx_bnd is None:
+                fx_bnd = fixture_boundary_lanes(efx, "48k", a, stats)
+            got, _ = code_floats(
+                stats, rl[s], rs[s], fill, at["dred_offset"],
+                efx["activity_mem_48k"][a, s], q0, dq, 15,
+                int(efx["chunks_48k"][a, s]),
+                int(efx["max_bytes_48k"][a, s]))
+            if s not in fx_bnd or got != ref:
+                fail(f"DRED chain attach {a} lane {i}: payload != the JAX "
+                     f"package's (stream {s})")
+            n_flip_fx += 1
+    print(f"DRED chain: convert_to_16k card == CPU bit for bit on "
+          f"{b} x {CHAIN_FRAMES} lane-frames; latents / states within rtol "
+          f"{DRED_RTOL} / atol {DRED_ATOL}: max err {e_lat:.3g} vs the CPU "
+          f"run, {e_jax:.3g} vs the JAX package ({n_fx} lanes); the last "
+          f"{CHAIN_ATTACH} frames' integers and packets == the CPU run's, "
+          f"payloads == the JAX package's; lane-frames with an integer "
+          f"flipped at a rounding boundary (expected 0): {n_flip} of "
+          f"{b * CHAIN_ATTACH} card vs CPU, {n_flip_fx} of "
+          f"{n_fx * CHAIN_ATTACH} vs JAX (held on the JAX floats instead); "
+          f"packets without DRED (payload None): {n_none}; the CPU run took "
+          f"{cpu_s:.1f} s")
+
+    # parse_batch returns what each lane coded
+    at = attached[-1]
+    q = at["q"]
+    parsed = PRec.parse_batch(stats, at["dpackets"], 48000, 48000)
+    levels = [PD.compute_quantizer(q0, dq, 15, c)
+              for c in range(q["q_latents"].shape[1])]
+
+    def dequant(qv, scale, r, p0):
+        mask = (r != 0) & (p0 != 255)
+        return np.where(mask, qv * 256.0 / np.maximum(scale, 1).astype(
+            np.float64), 0.0).astype(np.float32)
+    lat_exp = dequant(q["q_latents"], stats.latent_scale[levels],
+                      stats.latent_r[levels], stats.latent_p0[levels])
+    st_exp = dequant(q["q_state"], stats.state_scale[q0][None],
+                     stats.state_r[q0][None], stats.state_p0[q0][None])
+    has = np.asarray([p != pk for p, pk in zip(at["dpackets"],
+                                               at["packets"])])
+    nb = np.where(has, q["chunks"], 0)
+    if not (np.array_equal(parsed.has_dred, has)
+            and np.array_equal(parsed.nb_latents, nb)):
+        fail("DRED chain: parse_batch's lanes or chunk counts differ from "
+             "what the encoder coded")
+    lo = q["latent_offset"]
+    if not np.array_equal(parsed.dred_offset[has],
+                          (at["dred_offset"] - 8 * lo)[has]):
+        fail("DRED chain: parse_batch's dred_offset differs")
+    if not np.array_equal(parsed.state0[has], st_exp[has]):
+        fail("DRED chain: parse_batch's state differs from the coded one")
+    for c in range(int(nb.max())):
+        m = nb > c
+        if not (np.array_equal(parsed.latents[c, m, :80], lat_exp[m, c])
+                and (parsed.latents[c, m, 80]
+                     == np.float32(levels[c] * 0.125 - 1.0)).all()):
+            fail(f"DRED chain: parse_batch's chunk {c} differs from the "
+                 "coded one")
+    print(f"DRED chain: parse_batch == the coded latents, state, chunk "
+          f"counts ({np.bincount(nb).tolist()} lanes with 0, 1, ... chunks) "
+          f"and offsets on all {b} lanes")
+
+    # the recovery from these packets
+    dec_m = PV.random_dec_model(s_dec, device="cpu")
+    fg_m = PF.random_model(s_fg, device="cpu")
+    pcm0 = x16s[-1] / 32768.0
+    loss = 2 + np.arange(b) % 3
+    rec = PRec.BatchedDREDRecovery(dec_m, stats, fg_m, device=dev)
+    torch.cuda.synchronize()
+    iir.launches = 0
+    out = rec.recover(parsed, pcm0, loss, N_CONCEAL)
+    torch.cuda.synchronize()
+    rcounts = {"K2": iir.launches}
+    if rcounts["K2"] != PF.FARGAN_NB_SUBFRAMES * (1 + N_CONCEAL):
+        fail(f"DRED chain recovery: K2 launched {rcounts['K2']} times")
+    ref = PRec.BatchedDREDRecovery(dec_m, stats, fg_m, device="cpu").recover(
+        parsed, pcm0, loss, N_CONCEAL).numpy()
+    e_rec = dnn_close(out.cpu().numpy(), ref,
+                      "DRED chain recovery PCM, card vs the CPU run")
+    print(f"DRED chain recovery at B={b}: PCM finite, max err {e_rec:.3g} vs "
+          f"the CPU run (rtol {DNN_RTOL} / atol {DNN_ATOL}); K2 {rcounts}")
+    return dict(counts=counts, rcounts=rcounts, dred=dred, celt=celt,
+                dec=dec, pcm=pcm, activity=activity, attached=attached,
+                frame_s=frame_s, parsed=parsed, pcm0=pcm0, loss=loss,
+                rec=rec, stats=stats, q0=q0, dq=dq)
+
+
+def phase_dred_chain_times(dev, smi, d):
+    """The DRED encoder's parts at B_DNN: compute_latents and its
+    conversion, feature analysis and RDOVAE step (CUDA events around
+    back-to-back calls, device operations and device time from the
+    profiler), the device quantizer, the host coder over every lane,
+    attach, and the chain frame with and without DRED."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import dred as PD
+    from opus_tpu_torch.dnn import dred_enc as PE
+    from opus_tpu_torch.dnn import features as PFe
+    from opus_tpu_torch.dnn import rdovae as PV
+    from opus_tpu_torch.tools.device_time import device_profile
+
+    enc = d["dred"].dred
+    b = B_DNN
+    x = torch.from_numpy(d["pcm"][:, 0]).to(dev)
+    x64 = x.to(torch.float64)
+    mem = torch.zeros((b, PE.RESAMPLING_ORDER + 1), dtype=torch.float64,
+                      device=dev)
+    frame16 = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([d["pcm"][:, 0, ::3], d["pcm"][:, 1, ::3]], 1)
+        * 32768.0)).to(dev)
+    fstate = enc.feat_state
+    feats = torch.zeros((b, 40), device=dev)
+    rstate = enc.rdovae_state
+
+    def features():
+        st, f0 = PFe.compute_frame_features(fstate, frame16[:, :160],
+                                            enc.pitch_model)
+        return PFe.compute_frame_features(st, frame16[:, 160:320],
+                                          enc.pitch_model)
+    parts = {
+        "conversion": lambda: PE.convert_to_16k(x64, 48000, 1, mem, 320),
+        "features": features,
+        "RDOVAE": lambda: PV.encode_dframe(enc.model, rstate, feats),
+        "compute_latents": lambda: enc.compute_latents(x, 960),
+    }
+    res = {}
+    for name, fn in parts.items():
+        ms = cuda_ms(fn, 3)
+        ops, dev_ms = device_profile(fn, 2)
+        res[name] = (ms, ops, dev_ms)
+        print(f"DRED encoder at B={b} [{smi}]: {name} {ms:.3f} ms a 20 ms "
+              f"frame, {ops:.0f} device operations, {dev_ms:.3f} ms device "
+              f"(busy {100 * dev_ms / ms:.1f}%)")
+    lo = d["attached"][-1]["q"]["latent_offset"]
+    quant = cuda_ms(lambda: enc.quantize(lo, 11, d["q0"], d["dq"], 15), 10)
+    qops, qdev = device_profile(
+        lambda: enc.quantize(lo, 11, d["q0"], d["dq"], 15), 3)
+    q = d["attached"][-1]["q"]
+    act = d["dred"].activity_mem
+    t0 = time.perf_counter()
+    for i in range(b):
+        PD.dred_encode(d["stats"], q["q_state"][i], q["q_latents"][i],
+                       enc.latents_buffer_fill, enc.dred_offset, act[i],
+                       int(lo[i]), q0=d["q0"], dq=d["dq"], max_chunks=11,
+                       max_bytes=997)
+    coder = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    d["dred"].attach(d["attached"][-1]["packets"], CHAIN_MDB, CHAIN_RATE)
+    attach_ms = (time.perf_counter() - t0) * 1e3
+    plain = 1e3 * float(np.median(d["frame_s"][2:CHAIN_FRAMES
+                                               - CHAIN_ATTACH]))
+    with_dred = 1e3 * d["frame_s"][-1]
+    print(f"DRED encoder at B={b} [{smi}]: quantizer {quant:.3f} ms "
+          f"({qops:.0f} device operations, {qdev:.4f} ms device); host "
+          f"coder over {b} lanes {coder:.1f} ms ({coder / b:.3f} ms a lane); "
+          f"attach {attach_ms:.1f} ms; chain frame (K3 encode, DRED step, "
+          f"K1/K2 decode) {plain:.1f} ms without DRED in the packet (median "
+          f"of frames 2-{CHAIN_FRAMES - CHAIN_ATTACH - 1}), {with_dred:.1f} "
+          f"ms with attach and the packets' parse")
+    return dict(chain_parts=res, chain_quant=quant, chain_coder=coder,
+                chain_attach=attach_ms, chain_frame=plain,
+                chain_frame_dred=with_dred)
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2125,7 +2736,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE,
-                 SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE):
+                 SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE,
+                 FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -2180,8 +2792,12 @@ def main() -> int:
     k3_err = phase_k3_vs_plain(enc_lanes, dev)
     ecounts, enc_outs = phase_encode(enc_lanes, dev)
     dcounts = phase_duplex(enc_lanes, efx, dev, enc_outs)
-    k3_err = max(k3_err, phase_encode_rate(enc_lanes, dev, 320))
+    k3_err = max(k3_err, phase_encode_rate(enc_lanes, dev, 320)[0])
     phase_s["celt_encode_duplex"] = time.time() - t0
+
+    t0 = time.time()
+    c10 = phase_celt10ms(dev)
+    phase_s["celt_10ms"] = time.time() - t0
 
     t0 = time.time()
     sfx = dict(np.load(SILK_FIXTURE))
@@ -2231,16 +2847,24 @@ def main() -> int:
     phase_s["osce"] = time.time() - t0
 
     t0 = time.time()
+    chain = phase_dred_chain(dev, dict(np.load(DRED_ENC_FIXTURE)))
+    phase_s["dred_chain"] = time.time() - t0
+
+    t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
     t = phase_enc_times(enc_lanes, dev, smi, t)
     t = phase_silk_times(slanes, dev, smi, k4_in, t)
     t = phase_hybrid_times(hlanes, dev, smi, htabs, k1h_in, t)
     t.update(phase_dnn_times(dev, smi, dred))
     t.update(phase_plc_times(dev, smi, plc))
+    t.update(phase_celt10ms_times(dev, smi, c10))
     phase_s["times"] = time.time() - t0
     t0 = time.time()
     t.update(phase_osce_times(dev, smi, osce))
     phase_s["osce_times"] = time.time() - t0
+    t0 = time.time()
+    t.update(phase_dred_chain_times(dev, smi, chain))
+    phase_s["dred_chain_times"] = time.time() - t0
 
     t0 = time.time()
     k5 = phase_k5(dev, smi)
@@ -2256,8 +2880,13 @@ def main() -> int:
                 "hybrid swb": swcounts, "dred": {"K2": dred["k2"]},
                 "deep plc": {"K2": plc["k2"]},
                 "osce lace": osce["counts"]["LACE"],
-                "osce nolace": osce["counts"]["NoLACE"]}
-    print(f"launches per path over {NFRAMES} frames: {per_path}")
+                "osce nolace": osce["counts"]["NoLACE"],
+                "celt decode 10 ms": c10["dcounts"],
+                "celt encode + decode 10 ms": c10["ecounts"],
+                "dred chain": chain["counts"],
+                "dred chain recovery": chain["rcounts"]}
+    print(f"launches per path ({NFRAMES} frames; the DRED chain "
+          f"{CHAIN_FRAMES}): {per_path}")
 
     def total(k):
         return sum(c.get(k, 0) for c in per_path.values())
@@ -2265,17 +2894,19 @@ def main() -> int:
     kernels = {"kernels": [
         kernel_line("celt_dec_frame", "opus_tpu_torch/csrc/celt_dec_frame.cu",
                     "opus_tpu/models/celt_dec_kernel.py:656", total("K1"),
-                    max(x_err, k1h_err, k1s_err), t["k1"], t["k1p"],
+                    max(x_err, k1h_err, k1s_err, c10["x_err"]), t["k1"],
+                    t["k1p"],
                     t["k1_bound"]),
         kernel_line("deemphasis", "opus_tpu_torch/csrc/deemphasis.cu",
                     "opus_tpu/ops/iir_pallas.py:47", total("K2"),
                     max(k2_err, dred["k2_err"], plc["k2_err"],
-                        osce["k2_err"]), t["k2"],
+                        osce["k2_err"], c10["k2_err"]), t["k2"],
                     t["k2p"],
                     t["k2_bound"]),
         kernel_line("celt_enc_frame", "opus_tpu_torch/csrc/celt_enc_frame.cu",
                     "opus_tpu/models/celt_enc_kernel.py:798", total("K3"),
-                    k3_err, t["k3"], t["k3p"], t["k3_bound"]),
+                    max(k3_err, c10["k3_err"]), t["k3"], t["k3p"],
+                    t["k3_bound"]),
         kernel_line("silk_lpc", "opus_tpu_torch/csrc/silk_lpc.cu",
                     "opus_tpu/ops/lpc_pallas.py:67", total("K4"), k4_err,
                     t["k4"], t["k4p"], t["k4_bound"]),
@@ -2305,7 +2936,13 @@ def main() -> int:
           f"{t['osce_LACE enhancer']:.4f} / "
           f"{t['osce_NoLACE enhancer']:.4f} ms; enhanced PCM within "
           f"{osce['LACE']['e_fx'][0]}/{osce['NoLACE']['e_fx'][0]} LSB of "
-          f"the scalar decoder)")
+          f"the scalar decoder); 10 ms: K1 {t['k1_10']:.4f} ms, K3 "
+          f"{t['k3_10']:.4f} ms, decode step {t['dec_step_10']:.3f} ms, "
+          f"encode step {t['enc_step_10']:.3f} ms; DRED chain at B={B_DNN}: "
+          f"compute_latents {t['chain_parts']['compute_latents'][0]:.3f} ms, "
+          f"host coder {t['chain_coder']:.1f} ms, attach "
+          f"{t['chain_attach']:.1f} ms, chain frame {t['chain_frame']:.1f} "
+          f"ms ({t['chain_frame_dred']:.1f} with DRED)")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

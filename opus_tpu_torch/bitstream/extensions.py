@@ -1,6 +1,7 @@
-"""Copy of the extension reader of ``opus_tpu/bitstream/extensions.py``
-(``ExtensionIterator``, ``ExtensionData``) for the PyTorch port, which
-imports nothing of the JAX package (reference: src/extensions.c:120-311).
+"""Copy of ``opus_tpu/bitstream/extensions.py`` (the reader
+``ExtensionIterator`` / ``extensions_parse`` and the writer
+``extensions_generate``) for the PyTorch port, which imports nothing of
+the JAX package (reference: src/extensions.c:120-311, :471).
 
 Extensions are (id, frame, payload) triples carried inside Opus padding;
 DRED uses id 126.  The format has short (id < 32, 0/1-byte payload) and
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .packet import OPUS_INVALID_PACKET
+from .packet import OPUS_BAD_ARG, OPUS_BUFFER_TOO_SMALL, OPUS_INVALID_PACKET
 
 
 @dataclass
@@ -214,3 +215,168 @@ class ExtensionIterator:
                 return ret
             if ret.id == ext_id:
                 return ret
+
+
+def extensions_parse(data: bytes, nb_frames: int):
+    """Returns list of ExtensionData or a negative error code."""
+    it = ExtensionIterator(data, nb_frames)
+    out = []
+    while True:
+        ret = it.next()
+        if ret == 0:
+            return out
+        if not isinstance(ret, ExtensionData):
+            return ret
+        out.append(ret)
+
+
+def _write_extension_payload(out: bytearray | None, cap: int, pos: int,
+                             ext: ExtensionData, last: bool) -> int:
+    assert 3 <= ext.id <= 127
+    if ext.id < 32:
+        if ext.len > 1:
+            return OPUS_BAD_ARG
+        if ext.len > 0:
+            if cap - pos < ext.len:
+                return OPUS_BUFFER_TOO_SMALL
+            if out is not None:
+                out[pos] = ext.data[0]
+            pos += 1
+    else:
+        length_bytes = 0 if last else 1 + ext.len // 255
+        if cap - pos < length_bytes + ext.len:
+            return OPUS_BUFFER_TOO_SMALL
+        if not last:
+            for _ in range(ext.len // 255):
+                if out is not None:
+                    out[pos] = 255
+                pos += 1
+            if out is not None:
+                out[pos] = ext.len % 255
+            pos += 1
+        if out is not None:
+            out[pos:pos + ext.len] = ext.data
+        pos += ext.len
+    return pos
+
+
+def _write_extension(out: bytearray | None, cap: int, pos: int,
+                     ext: ExtensionData, last: bool) -> int:
+    if cap - pos < 1:
+        return OPUS_BUFFER_TOO_SMALL
+    assert 3 <= ext.id <= 127
+    if out is not None:
+        out[pos] = (ext.id << 1) + (ext.len if ext.id < 32
+                                    else (0 if last else 1))
+    pos += 1
+    return _write_extension_payload(out, cap, pos, ext, last)
+
+
+def extensions_generate(extensions: list[ExtensionData], nb_frames: int,
+                        cap: int, pad: bool = False,
+                        out: bytearray | None = None):
+    """Serialize extensions into padding bytes.  Returns the byte length, the
+    filled `out` (if provided), or a negative error (reference:
+    opus_packet_extensions_generate src/extensions.c:471)."""
+    if nb_frames > 48:
+        return OPUS_BAD_ARG
+    nb_ext = len(extensions)
+    frame_min_idx = [nb_ext] * nb_frames
+    frame_max_idx = [0] * nb_frames
+    for i, e in enumerate(extensions):
+        f = e.frame
+        if f < 0 or f >= nb_frames:
+            return OPUS_BAD_ARG
+        if e.id < 3 or e.id > 127:
+            return OPUS_BAD_ARG
+        frame_min_idx[f] = min(frame_min_idx[f], i)
+        frame_max_idx[f] = max(frame_max_idx[f], i + 1)
+    frame_repeat_idx = list(frame_min_idx)
+    curr_frame = 0
+    pos = 0
+    written = 0
+    for f in range(nb_frames):
+        last_long_idx = -1
+        repeat_count = 0
+        if f + 1 < nb_frames:
+            for i in range(frame_min_idx[f], frame_max_idx[f]):
+                if extensions[i].frame != f:
+                    continue
+                ok = True
+                for g in range(f + 1, nb_frames):
+                    j = frame_repeat_idx[g]
+                    if j >= frame_max_idx[g]:
+                        ok = False
+                        break
+                    if extensions[j].id != extensions[i].id:
+                        ok = False
+                        break
+                    if extensions[j].id < 32 \
+                            and extensions[j].len != extensions[i].len:
+                        ok = False
+                        break
+                if not ok:
+                    break
+                if extensions[i].id >= 32:
+                    last_long_idx = frame_repeat_idx[nb_frames - 1]
+                for g in range(f + 1, nb_frames):
+                    j = frame_repeat_idx[g] + 1
+                    while j < frame_max_idx[g] and extensions[j].frame != g:
+                        j += 1
+                    frame_repeat_idx[g] = j
+                repeat_count += 1
+                frame_repeat_idx[f] = i
+        for i in range(frame_min_idx[f], frame_max_idx[f]):
+            if extensions[i].frame != f:
+                continue
+            if f != curr_frame:
+                diff = f - curr_frame
+                if cap - pos < 2:
+                    return OPUS_BUFFER_TOO_SMALL
+                if diff == 1:
+                    if out is not None:
+                        out[pos] = 0x02
+                    pos += 1
+                else:
+                    if out is not None:
+                        out[pos] = 0x03
+                        out[pos + 1] = diff
+                    pos += 2
+                curr_frame = f
+            pos = _write_extension(out, cap, pos, extensions[i],
+                                   written == nb_ext - 1)
+            if pos < 0:
+                return pos
+            written += 1
+            if repeat_count > 0 and frame_repeat_idx[f] == i:
+                nb_repeated = repeat_count * (nb_frames - (f + 1))
+                last = (written + nb_repeated == nb_ext
+                        or (last_long_idx < 0 and i + 1 >= frame_max_idx[f]))
+                if cap - pos < 1:
+                    return OPUS_BUFFER_TOO_SMALL
+                if out is not None:
+                    out[pos] = 0x04 + (0 if last else 1)
+                pos += 1
+                for g in range(f + 1, nb_frames):
+                    j = frame_min_idx[g]
+                    while j < frame_repeat_idx[g]:
+                        if extensions[j].frame == g:
+                            pos = _write_extension_payload(
+                                out, cap, pos, extensions[j],
+                                last and j == last_long_idx)
+                            if pos < 0:
+                                return pos
+                            written += 1
+                        j += 1
+                    frame_min_idx[g] = j
+                if last:
+                    curr_frame += 1
+    assert written == nb_ext
+    if pad and pos < cap:
+        padding = cap - pos
+        if out is not None:
+            out[padding:padding + pos] = out[0:pos]
+            for i in range(padding):
+                out[i] = 0x01
+        pos += padding
+    return pos

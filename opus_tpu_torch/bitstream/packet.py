@@ -1,8 +1,8 @@
 """Copy of the packet parser of ``opus_tpu/bitstream/packet.py``
-(``packet_parse`` and what it needs) for the PyTorch port, which imports
-nothing of the JAX package: it finds a packet's padding, where DRED rides
-(reference: src/opus.c opus_packet_parse_impl).  Errors are the
-reference's negative codes.
+(``packet_parse``, the frame count and size coding it and the repacketizer
+need) for the PyTorch port, which imports nothing of the JAX package: it
+finds a packet's padding, where DRED rides (reference: src/opus.c
+opus_packet_parse_impl).  Errors are the reference's negative codes.
 """
 
 from __future__ import annotations
@@ -30,6 +30,27 @@ def packet_get_samples_per_frame(data: bytes, fs: int) -> int:
     if audiosize == 3:
         return fs * 60 // 1000
     return (fs << audiosize) // 100
+
+
+def packet_get_nb_frames(data: bytes) -> int:
+    if len(data) < 1:
+        return OPUS_BAD_ARG
+    count = data[0] & 0x3
+    if count == 0:
+        return 1
+    if count != 3:
+        return 2
+    if len(data) < 2:
+        return OPUS_INVALID_PACKET
+    return data[1] & 0x3F
+
+
+def encode_size(size: int) -> bytes:
+    """1- or 2-byte frame length encoding."""
+    if size < 252:
+        return bytes([size])
+    b0 = 252 + (size & 0x3)
+    return bytes([b0, (size - b0) >> 2])
 
 
 def parse_size(data: bytes, length: int) -> tuple[int, int]:

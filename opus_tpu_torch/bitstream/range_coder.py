@@ -1,9 +1,12 @@
-"""Copy of the range decoder of ``opus_tpu/bitstream/range_coder.py``
-(``RangeDecoder`` and what it needs) for the PyTorch port, which imports
-nothing of the JAX package: the host-side DRED payload parse reads with it.
+"""Copy of the range coder of ``opus_tpu/bitstream/range_coder.py``
+(``RangeEncoder``, ``RangeDecoder`` and what they need) for the PyTorch
+port, which imports nothing of the JAX package: the host-side DRED payload
+parse reads with the decoder, the DRED payload coder writes with the
+encoder.
 
-RFC 6716 section 4.1 range decoder, exact integer arithmetic on Python
-ints masked to 32 bits (reference: celt/entdec.c, celt/entcode.c).
+RFC 6716 section 4.1 range coder, exact integer arithmetic on Python ints
+masked to 32 bits (reference: celt/entenc.c, celt/entdec.c,
+celt/entcode.c).
 """
 
 from __future__ import annotations
@@ -42,6 +45,218 @@ def ec_tell_frac(coder) -> int:
     b += 1 if r > _TELL_CORRECTION[b] else 0
     l = (l << 3) + b
     return nbits - l
+
+
+class RangeEncoder:
+    """Range encoder writing range-coded bytes forward and raw bits backward
+    into one buffer (reference: celt/entenc.c)."""
+
+    __slots__ = ("buf", "storage", "end_offs", "end_window", "nend_bits",
+                 "nbits_total", "offs", "rng", "val", "ext", "rem", "error")
+
+    def __init__(self, size: int, buf: bytearray | None = None):
+        self.buf = buf if buf is not None else bytearray(size)
+        assert len(self.buf) >= size
+        self.storage = size
+        self.end_offs = 0
+        self.end_window = 0
+        self.nend_bits = 0
+        self.nbits_total = CODE_BITS + 1
+        self.offs = 0
+        self.rng = CODE_TOP
+        self.rem = -1
+        self.val = 0
+        self.ext = 0
+        self.error = 0
+
+    # -- low-level output ------------------------------------------------
+    def _write_byte(self, value: int) -> int:
+        if self.offs + self.end_offs >= self.storage:
+            return -1
+        self.buf[self.offs] = value & 0xFF
+        self.offs += 1
+        return 0
+
+    def _write_byte_at_end(self, value: int) -> int:
+        if self.offs + self.end_offs >= self.storage:
+            return -1
+        self.end_offs += 1
+        self.buf[self.storage - self.end_offs] = value & 0xFF
+        return 0
+
+    def _carry_out(self, c: int) -> None:
+        if c != SYM_MAX:
+            carry = c >> SYM_BITS
+            if self.rem >= 0:
+                self.error |= self._write_byte(self.rem + carry)
+            if self.ext > 0:
+                sym = (SYM_MAX + carry) & SYM_MAX
+                while self.ext > 0:
+                    self.error |= self._write_byte(sym)
+                    self.ext -= 1
+            self.rem = c & SYM_MAX
+        else:
+            self.ext += 1
+
+    def _normalize(self) -> None:
+        while self.rng <= CODE_BOT:
+            self._carry_out(self.val >> CODE_SHIFT)
+            self.val = (self.val << SYM_BITS) & (CODE_TOP - 1)
+            self.rng = (self.rng << SYM_BITS) & M32
+            self.nbits_total += SYM_BITS
+
+    # -- symbol coding ----------------------------------------------------
+    def encode(self, fl: int, fh: int, ft: int) -> None:
+        r = self.rng // ft
+        if fl > 0:
+            self.val = (self.val + self.rng - r * (ft - fl)) & M32
+            self.rng = r * (fh - fl)
+        else:
+            self.rng -= r * (ft - fh)
+        self._normalize()
+
+    def encode_bin(self, fl: int, fh: int, bits: int) -> None:
+        r = self.rng >> bits
+        total = 1 << bits
+        if fl > 0:
+            self.val = (self.val + self.rng - r * (total - fl)) & M32
+            self.rng = r * (fh - fl)
+        else:
+            self.rng -= r * (total - fh)
+        self._normalize()
+
+    def enc_bit_logp(self, val: int, logp: int) -> None:
+        r = self.rng
+        s = r >> logp
+        r -= s
+        if val:
+            self.val = (self.val + r) & M32
+        self.rng = s if val else r
+        self._normalize()
+
+    def enc_icdf(self, s: int, icdf, ftb: int) -> None:
+        """icdf is a sequence of *inverse* cumulative counts (descending)."""
+        r = self.rng >> ftb
+        if s > 0:
+            self.val = (self.val + self.rng - r * icdf[s - 1]) & M32
+            self.rng = r * (icdf[s - 1] - icdf[s])
+        else:
+            self.rng -= r * icdf[s]
+        self._normalize()
+
+    # 16-bit icdf tables use identical arithmetic
+    enc_icdf16 = enc_icdf
+
+    def enc_uint(self, fl: int, ft: int) -> None:
+        assert ft > 1
+        ft -= 1
+        ftb = ilog(ft)
+        if ftb > UINT_BITS:
+            ftb -= UINT_BITS
+            ftrunc = (ft >> ftb) + 1
+            fltrunc = fl >> ftb
+            self.encode(fltrunc, fltrunc + 1, ftrunc)
+            self.enc_bits(fl & ((1 << ftb) - 1), ftb)
+        else:
+            self.encode(fl, fl + 1, ft + 1)
+
+    def enc_bits(self, fl: int, bits: int) -> None:
+        """Raw bits, written backward from the end of the buffer."""
+        assert bits > 0
+        window = self.end_window
+        used = self.nend_bits
+        if used + bits > WINDOW_SIZE:
+            while used >= SYM_BITS:
+                self.error |= self._write_byte_at_end(window & SYM_MAX)
+                window >>= SYM_BITS
+                used -= SYM_BITS
+        window |= fl << used
+        used += bits
+        self.end_window = window
+        self.nend_bits = used
+        self.nbits_total += bits
+
+    def patch_initial_bits(self, val: int, nbits: int) -> None:
+        assert nbits <= SYM_BITS
+        shift = SYM_BITS - nbits
+        mask = ((1 << nbits) - 1) << shift
+        if self.offs > 0:
+            self.buf[0] = (self.buf[0] & ~mask) | (val << shift)
+        elif self.rem >= 0:
+            self.rem = (self.rem & ~mask) | (val << shift)
+        elif self.rng <= (CODE_TOP >> nbits):
+            self.val = ((self.val & ~((mask << CODE_SHIFT) & M32)) |
+                        (val << (CODE_SHIFT + shift))) & M32
+        else:
+            self.error = -1
+
+    def shrink(self, size: int) -> None:
+        assert self.offs + self.end_offs <= size
+        # move the raw-bit tail so it abuts the new, smaller storage end
+        tail = bytes(self.buf[self.storage - self.end_offs:self.storage])
+        self.buf[size - self.end_offs:size] = tail
+        self.storage = size
+
+    def done(self) -> None:
+        l = CODE_BITS - ilog(self.rng)
+        msk = (CODE_TOP - 1) >> l
+        end = (self.val + msk) & ~msk & M32
+        if (end | msk) >= self.val + self.rng:
+            l += 1
+            msk >>= 1
+            end = (self.val + msk) & ~msk & M32
+        while l > 0:
+            self._carry_out(end >> CODE_SHIFT)
+            end = (end << SYM_BITS) & (CODE_TOP - 1)
+            l -= SYM_BITS
+        if self.rem >= 0 or self.ext > 0:
+            self._carry_out(0)
+        window = self.end_window
+        used = self.nend_bits
+        while used >= SYM_BITS:
+            self.error |= self._write_byte_at_end(window & SYM_MAX)
+            window >>= SYM_BITS
+            used -= SYM_BITS
+        if not self.error:
+            for i in range(self.offs, self.storage - self.end_offs):
+                self.buf[i] = 0
+            if used > 0:
+                if self.end_offs >= self.storage:
+                    self.error = -1
+                else:
+                    l = -l
+                    if self.offs + self.end_offs >= self.storage and l < used:
+                        window &= (1 << l) - 1
+                        self.error = -1
+                    self.buf[self.storage - self.end_offs - 1] |= window & 0xFF
+
+    # -- state snapshots (for two-pass encoding decisions) -----------------
+    def save_state(self):
+        return (self.storage, self.end_offs, self.end_window, self.nend_bits,
+                self.nbits_total, self.offs, self.rng, self.val, self.ext,
+                self.rem, self.error, bytes(self.buf[:self.offs]),
+                bytes(self.buf[self.storage - self.end_offs:self.storage]))
+
+    def restore_state(self, state):
+        (self.storage, self.end_offs, self.end_window, self.nend_bits,
+         self.nbits_total, self.offs, self.rng, self.val, self.ext,
+         self.rem, self.error, head, tail) = state
+        self.buf[:len(head)] = head
+        if self.end_offs:
+            self.buf[self.storage - self.end_offs:self.storage] = tail
+
+    # -- introspection -----------------------------------------------------
+    def range_bytes(self) -> int:
+        return self.offs
+
+    def tell(self) -> int:
+        return ec_tell(self)
+
+    def tell_frac(self) -> int:
+        return ec_tell_frac(self)
+
+    def data(self) -> bytes:
+        return bytes(self.buf[:self.storage])
 
 
 class RangeDecoder:

@@ -40,6 +40,10 @@ state.
   ``LPCNetPLC`` of the port holding their stacked state (feature analysis,
   pitch DNN, FARGAN, PLC GRU and its backups, FEC queue, PCM buffer), so
   that both can start mid-stream.
+- ``dred_enc_state_from_jax``: B JAX ``DREDEnc`` instances (in lockstep)
+  -> one B-lane ``BatchedDREDEnc`` holding their stacked feature, pitch
+  DNN, RDOVAE and resampler state, latent ring and pending 16 kHz input,
+  with their shared fills and offsets, so that both can start mid-stream.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ import sys
 import numpy as np
 import torch
 
-from .dnn import dred, fargan, features, nnet, osce, pitchdnn, plc, rdovae
+from .dnn import (dred, dred_enc, fargan, features, nnet, osce, pitchdnn,
+                  plc, rdovae)
 from .models.celt_dec_fused import DecTabs
 
 _BAND_KEYS = ("old_e", "prev1", "prev2")
@@ -351,6 +356,18 @@ def _stack_tuple(cls, items, device, dtypes=None):
     return cls(*out)
 
 
+def _feature_state(states, device) -> features.FeatureState:
+    """B JAX ``FeatureState``s -> one of [B] tensors (the pitch DNN's
+    included)."""
+    dnn = _stack_tuple(pitchdnn.PitchDNNState, [e.dnn for e in states],
+                       device)
+    return features.FeatureState(
+        *(_stack([getattr(e, f) for e in states], device,
+                 {"prev_if": torch.complex128,
+                  "lp_mem": torch.float64}.get(f, torch.float32))
+          for f in features.FeatureState._fields[:-1]), dnn)
+
+
 _HOST_COUNTERS = ("analysis_gap", "analysis_pos", "predict_pos", "blend")
 _LANE_COUNTERS = ("fec_read_pos", "fec_fill_pos", "fec_skip", "loss_count")
 
@@ -368,13 +385,7 @@ def lpcnet_state_from_jax(jax_plcs, device="cpu"):
                         pitchdnn_from_jax(first.pitch_model, device),
                         fargan_from_jax(first.fargan_model, device),
                         len(jax_plcs), device=device)
-    encs = [j.enc for j in jax_plcs]
-    dnn = _stack_tuple(pitchdnn.PitchDNNState, [e.dnn for e in encs], device)
-    out.enc = features.FeatureState(
-        *(_stack([getattr(e, f) for e in encs], device,
-                 {"prev_if": torch.complex128,
-                  "lp_mem": torch.float64}.get(f, torch.float32))
-          for f in features.FeatureState._fields[:-1]), dnn)
+    out.enc = _feature_state([j.enc for j in jax_plcs], device)
     out.fargan = _stack_tuple(fargan.FARGANState,
                               [j.fargan for j in jax_plcs], device,
                               {"last_period": torch.int32})
@@ -392,4 +403,39 @@ def lpcnet_state_from_jax(jax_plcs, device="cpu"):
 
     out.plc_net = net([j.plc_net for j in jax_plcs])
     out.plc_bak = [net([j.plc_bak[k] for j in jax_plcs]) for k in range(2)]
+    return out
+
+
+_DRED_HOST_INTS = ("fs", "channels", "input_buffer_fill",
+                   "latents_buffer_fill", "dred_offset", "latent_offset")
+
+
+def dred_enc_state_from_jax(jax_encs, device="cpu"):
+    """B JAX ``DREDEnc`` -> a B-lane ``dred_enc.BatchedDREDEnc`` on
+    ``device`` with the first instance's models and every lane's state.
+    The host ints (rate, channels, fills, offsets) must agree across the
+    instances (the port keeps one of each)."""
+    first = jax_encs[0]
+    for name in _DRED_HOST_INTS:
+        if len({int(getattr(j, name)) for j in jax_encs}) != 1:
+            raise ValueError(f"dred_enc_state_from_jax: {name} differs "
+                             f"between the instances")
+    out = dred_enc.BatchedDREDEnc(
+        first.fs, first.channels, rdovae_enc_from_jax(first.model, device),
+        pitchdnn_from_jax(first.pitch_model, device),
+        dred_stats_from_jax(first.stats), len(jax_encs), device=device)
+    out.feat_state = _feature_state([j.feat_state for j in jax_encs],
+                                    device)
+    out.rdovae_state = _stack_tuple(rdovae.RDOVAEEncState,
+                                    [j.rdovae_state for j in jax_encs],
+                                    device)
+    fill = int(first.input_buffer_fill)
+    out.input_buffer = _stack([j.input_buffer[:fill] for j in jax_encs],
+                              device)
+    out.resample_mem = _stack([j.resample_mem for j in jax_encs], device,
+                              torch.float64)
+    out.latents = _stack([j.latents for j in jax_encs], device)
+    out.states = _stack([j.states for j in jax_encs], device)
+    for name in ("latents_buffer_fill", "dred_offset", "latent_offset"):
+        setattr(out, name, int(getattr(first, name)))
     return out

@@ -604,9 +604,10 @@ def _wrap_rows(tabs: ETabs, band: int, vslot: int, rows):
     if sp is None:
         return rows
     dev = rows.device
-    idx = const(("ew_idx", band, vslot), lambda: sp[0], dev)
-    coef = const(("ew_coef", band, vslot),
-                 lambda: sp[1].astype(np.float64), dev)
+    # the band's width and transform variants depend on the frame size
+    key = (int(tabs.mode.Fs), tabs.lm, band, vslot)
+    idx = const(("ew_idx",) + key, lambda: sp[0], dev)
+    coef = const(("ew_coef",) + key, lambda: sp[1].astype(np.float64), dev)
     acc = torch.zeros_like(rows)
     r64 = rows.to(torch.float64)
     for s in range(idx.shape[1]):
@@ -1002,9 +1003,10 @@ def kernel_celt_encode_frame(pcm, state: dict, tabs: ETabs, nbytes: int,
 
 
 class KernelCeltEncoder:
-    """PCM-in -> CELT-packets-out mono CBR encoder at 20 ms: kernel K3 for
-    the symbol pass on the card (the default device), its plain torch
-    version when ``device="cpu"``."""
+    """PCM-in -> CELT-packets-out mono CBR encoder at 10 or 20 ms
+    (``frame_size`` 480 or 960 at 48 kHz): kernel K3 for the symbol pass
+    on the card (the default device), its plain torch version when
+    ``device="cpu"``."""
 
     def __init__(self, batch: int, fs: int = 48000, frame_size: int = 960,
                  nbytes: int = 160, device="cuda"):

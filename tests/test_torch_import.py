@@ -35,7 +35,9 @@ for name in ("opus_tpu_torch.models.hybrid_dec_fused",
              "opus_tpu_torch.dnn.pitchdnn", "opus_tpu_torch.dnn.features",
              "opus_tpu_torch.dnn.plc", "opus_tpu_torch.models.deep_plc",
              "opus_tpu_torch.dnn.nndsp", "opus_tpu_torch.dnn.osce_features",
-             "opus_tpu_torch.dnn.osce"):
+             "opus_tpu_torch.dnn.osce", "opus_tpu_torch.dnn.dred_enc",
+             "opus_tpu_torch.bitstream.repacketizer",
+             "opus_tpu_torch.models.dred_encoder"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",
@@ -137,13 +139,15 @@ def test_torch_resampler_constants_equal_jax_originals():
 
 def test_torch_dnn_and_bitstream_copies_equal_jax_originals():
     """The port's copies of the DRED constants and quantizer ladder, the
-    range decoder's constants and tell table, the Laplace p0 tables, the
-    packet error codes and the DNN layer constants equal the originals."""
+    DRED encoder's resampling filters, the range coder's constants and
+    tell table, the Laplace p0 tables, the packet error codes and the DNN
+    layer constants equal the originals."""
     import opus_tpu.bitstream.laplace as jl
     import opus_tpu.bitstream.packet as jp
     import opus_tpu.bitstream.range_coder as jr
     import opus_tpu.dnn.dred as jd
     import opus_tpu.dnn.dred_dec as jdd
+    import opus_tpu.dnn.dred_enc as jde
     import opus_tpu.dnn.fargan as jf
     import opus_tpu.dnn.nnet as jn
     import opus_tpu.dnn.rdovae as jv
@@ -153,13 +157,14 @@ def test_torch_dnn_and_bitstream_copies_equal_jax_originals():
     import opus_tpu_torch.bitstream.range_coder as pr
     import opus_tpu_torch.dnn.dred as pd
     import opus_tpu_torch.dnn.dred_dec as pdd
+    import opus_tpu_torch.dnn.dred_enc as pde
     import opus_tpu_torch.dnn.fargan as pf
     import opus_tpu_torch.dnn.nnet as pn
     import opus_tpu_torch.dnn.rdovae as pv
     import opus_tpu_torch.dnn.weights as pw
 
-    for jmod, pmod in ((jr, pr), (jp, pp), (jd, pd), (jdd, pdd), (jf, pf),
-                       (jn, pn), (jv, pv), (jw, pw), (jl, pl)):
+    for jmod, pmod in ((jr, pr), (jp, pp), (jd, pd), (jdd, pdd), (jde, pde),
+                       (jf, pf), (jn, pn), (jv, pv), (jw, pw), (jl, pl)):
         names = [k for k, v in vars(pmod).items()
                  if k.lstrip("_").isupper() and k in vars(jmod)
                  and isinstance(v, (int, float, tuple))]
@@ -168,6 +173,7 @@ def test_torch_dnn_and_bitstream_copies_equal_jax_originals():
             assert _same(getattr(pmod, k), getattr(jmod, k)), (pmod, k)
     assert pr._TELL_CORRECTION == jr._TELL_CORRECTION
     assert pd._DQ_TABLE == jd._DQ_TABLE
+    assert pde._FILTERS == jde._FILTERS
     for q0 in range(16):
         for dq in range(8):
             for i in range(30):

@@ -1,7 +1,8 @@
 """Kernel K1's CUDA source (opus_tpu_torch/csrc/celt_dec_frame.cu) compiled
 as host C++ and run on the CPU, against the plain torch symbol pass
-(decode_frame_plain) on the same inputs: real 20 ms fixture packets with
-random energy memory and seeds, truncated packets and random bytes; and at
+(decode_frame_plain) on the same inputs: real 20 ms and 10 ms (LM 2)
+fixture packets with random energy memory and seeds, truncated packets and
+random bytes; and at
 start = 17, continuing the range decoder that the SILK half leaves, on the
 CELT halves of the hybrid fixture's frames (the plain hybrid chain's inputs
 to K1, frame by frame) plus garbage lanes.
@@ -38,7 +39,8 @@ from opus_tpu_torch.models.celt_dec_kernel import (INT_KEYS, dec_tabs,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "opus_tpu_torch", "csrc", "celt_dec_frame.cu")
-FIXTURE = os.path.join(REPO, "tests", "data", "torch_celt20ms_64k.npz")
+FIXTURES = {n: os.path.join(REPO, "tests", "data", f"torch_celt{ms}_64k.npz")
+            for n, ms in ((960, "20ms"), (480, "10ms"))}
 HYB_FIXTURE = os.path.join(REPO, "tests", "data", "torch_hybrid_fb20ms.npz")
 
 SHIM = r"""
@@ -199,8 +201,8 @@ def _build(tmp, lanes=1):
     return ctypes.CDLL(lib)
 
 
-def _lanes(rng):
-    fx = np.load(FIXTURE)
+def _lanes(rng, frame_size=960):
+    fx = np.load(FIXTURES[frame_size])
     frames, lens = fx["frames"], fx["lens"]
     ns, nf, p = frames.shape
     buf = np.zeros((48, p), np.uint8)
@@ -259,10 +261,11 @@ def _check(tabs, got, ref):
         assert (err <= 1e-5 * scale).all(), (i, err.max())
 
 
-def test_torch_k1_source_on_host_matches_plain(k1_lib):
-    tabs = dec_tabs(48000, 960)
+@pytest.mark.parametrize("frame_size", [960, 480])
+def test_torch_k1_source_on_host_matches_plain(k1_lib, frame_size):
+    tabs = dec_tabs(48000, frame_size)
     rng = np.random.default_rng(7)
-    buf, ln = _lanes(rng)
+    buf, ln = _lanes(rng, frame_size)
     b = buf.shape[0]
     nb = tabs.nb
     old_e = rng.normal(0, 4, (b, nb)).astype(np.float32)
@@ -378,16 +381,32 @@ def test_torch_k1_lane_width_is_one_macro_the_shim_sets():
     assert body.count("0xffffffffu") == 1     # FULL, defined once
 
 
+@pytest.fixture(scope="module")
+def thread_libs(tmp_path_factory):
+    """K1 built at a lane width, once per width for the module."""
+    built = {}
+
+    def get(lanes):
+        if lanes not in built:
+            built[lanes] = _build(str(tmp_path_factory.mktemp(
+                f"k1host{lanes}")), lanes)
+        return built[lanes]
+    return get
+
+
+@pytest.mark.parametrize("frame_size", [960, 480])
 @pytest.mark.parametrize("lanes", [4, 32])
-def test_torch_k1_source_on_host_threads_matches_plain(tmp_path, lanes):
+def test_torch_k1_source_on_host_threads_matches_plain(thread_libs, lanes,
+                                                       frame_size):
     """K1 at lane width 4 and at the card's 32, each lane a host thread:
     the strided passes, butterfly sums, ballot searches and jumped-ahead
     LCG fills give the plain version's outputs at start 0 (fixture,
-    truncated and random-byte lanes) and start 17 (two hybrid frames)."""
-    lib = _build(str(tmp_path), lanes)
-    tabs = dec_tabs(48000, 960)
+    truncated and random-byte lanes, 20 and 10 ms) and start 17 (two
+    hybrid frames, 20 ms)."""
+    lib = thread_libs(lanes)
+    tabs = dec_tabs(48000, frame_size)
     rng = np.random.default_rng(7)
-    buf, ln = _lanes(rng)
+    buf, ln = _lanes(rng, frame_size)
     b, nb = buf.shape[0], tabs.nb
     old_e = rng.normal(0, 4, (b, nb)).astype(np.float32)
     prevmin = rng.normal(0, 4, (b, nb)).astype(np.float32)
@@ -396,6 +415,8 @@ def test_torch_k1_source_on_host_threads_matches_plain(tmp_path, lanes):
                                (buf, ln, old_e, prevmin, seed)), tabs)
     assert int(ref["anti_collapse_on"].sum()) > 0
     _check(tabs, _run_host(lib, tabs, buf, ln, old_e, prevmin, seed), ref)
+    if frame_size != 960:
+        return
     tabs17 = dec_tabs(48000, 960, 17, 21)
     for args, ref in _hybrid_k1_frames(tabs17, 2):
         _check(tabs17, _run_host(lib, tabs17, *args), ref)

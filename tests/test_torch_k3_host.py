@@ -1,7 +1,8 @@
 """Kernel K3's CUDA source (opus_tpu_torch/csrc/celt_enc_frame.cu) compiled
 as host C++ and run on the CPU, against the plain torch symbol pass
 (encode_frame_plain) on the same inputs: the stored JAX front end outputs
-of the encoder fixture (8 streams x 8 frames) and hard lanes from the
+of the 20 ms and 10 ms (LM 2) encoder fixtures (8 streams x 8 frames, 160
+and 80 bytes) and hard lanes from the
 port's own front end (digital silence, full-scale white noise, clipped
 input up to |x| = 4, a DC step, impulses, 1e-7-level noise;
 chip_smoke.hard_signals, the hard lanes of the on-card check), at 160
@@ -40,7 +41,10 @@ from tests.test_torch_k1_host import SHIM
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "opus_tpu_torch", "csrc", "celt_enc_frame.cu")
-FIXTURE = os.path.join(REPO, "tests", "data", "torch_celt20ms_64k_enc.npz")
+FIXTURES = {n: os.path.join(REPO, "tests", "data",
+                            f"torch_celt{ms}_64k_enc.npz")
+            for n, ms in ((960, "20ms"), (480, "10ms"))}
+NBYTES = {960: 160, 480: 80}         # 64 kb/s
 
 HARNESS = r"""
 #include "cuda_runtime.h"
@@ -100,10 +104,10 @@ def k3_lib(tmp_path_factory):
     return _build(str(tmp_path_factory.mktemp("k3host")))
 
 
-def fixture_inputs(f: int):
-    """The JAX front end's outputs of fixture frame f (160 bytes): (X,
+def fixture_inputs(f: int, frame_size: int = 960):
+    """The JAX front end's outputs of fixture frame f (64 kb/s): (X,
     ins)."""
-    fx = np.load(FIXTURE)
+    fx = np.load(FIXTURES[frame_size])
     ins = {k: torch.as_tensor(fx["in_" + k][f]) for k in CK.FIN_KEYS}
     for k in CK.IIN_KEYS[1:]:
         ins[k] = torch.as_tensor(fx["in_" + k][f]).to(torch.int64)
@@ -111,15 +115,16 @@ def fixture_inputs(f: int):
     return torch.as_tensor(fx["X"][f]), ins
 
 
-def front_inputs(sig, nbytes: int, nframes: int = 2):
+def front_inputs(sig, nbytes: int, nframes: int = 2, frame_size: int = 960):
     """(X, ins) of the last of ``nframes`` frames of sig [B, >= nframes *
-    960] from the port's front end at ``nbytes``, state carried by the
-    plain chain."""
-    tabs = CK.enc_tabs()
+    frame_size] from the port's front end at ``nbytes``, state carried by
+    the plain chain."""
+    tabs = CK.enc_tabs(48000, frame_size)
     sig = torch.as_tensor(np.asarray(sig, np.float32))
     state = EF.fused_celt_enc_init(sig.shape[0], tabs, "cpu")
+    n = frame_size
     for f in range(nframes):
-        ins, X, front = CK._front_end(sig[:, f * 960:(f + 1) * 960], state,
+        ins, X, front = CK._front_end(sig[:, f * n:(f + 1) * n], state,
                                       tabs, nbytes)
         if f + 1 < nframes:
             out = CK.encode_frame_plain(X, ins, tabs, nbytes)
@@ -128,15 +133,16 @@ def front_inputs(sig, nbytes: int, nframes: int = 2):
 
 
 def hard_inputs(n_lanes: int, seed: int = 5, nframes: int = 2,
-                nbytes: int = 160):
+                nbytes: int = 160, frame_size: int = 960):
     """(X, ins) of the hard lanes' last frame from the port's front end."""
     return front_inputs(hard_signals(n_lanes, nframes,
-                                     np.random.default_rng(seed)),
-                        nbytes, nframes)
+                                     np.random.default_rng(seed),
+                                     frame_size),
+                        nbytes, nframes, frame_size)
 
 
-def run_k3_host(lib, X, ins, nbytes=160):
-    tabs = CK.enc_tabs()
+def run_k3_host(lib, X, ins, nbytes=160, frame_size=960):
+    tabs = CK.enc_tabs(48000, frame_size)
     b = X.shape[0]
     itab, ftab = tabs.kernel_tables()
     x = np.ascontiguousarray(X.numpy(), np.float32)
@@ -169,22 +175,24 @@ def _check(got, ref):
         assert bad.size == 0, (k, bad[:8].tolist())
 
 
-def test_torch_k3_source_on_host_matches_plain(k3_lib):
-    tabs = CK.enc_tabs()
+@pytest.mark.parametrize("frame_size", [960, 480])
+def test_torch_k3_source_on_host_matches_plain(k3_lib, frame_size):
+    tabs = CK.enc_tabs(48000, frame_size)
+    nb = NBYTES[frame_size]
     for f in (0, 3, 6):
-        X, ins = fixture_inputs(f)
-        _check(run_k3_host(k3_lib, X, ins),
-               CK.encode_frame_plain(X, ins, tabs, 160))
-    X, ins = hard_inputs(24)
-    ref = CK.encode_frame_plain(X, ins, tabs, 160)
-    _check(run_k3_host(k3_lib, X, ins), ref)
+        X, ins = fixture_inputs(f, frame_size)
+        _check(run_k3_host(k3_lib, X, ins, nb, frame_size),
+               CK.encode_frame_plain(X, ins, tabs, nb))
+    X, ins = hard_inputs(24, nbytes=nb, frame_size=frame_size)
+    ref = CK.encode_frame_plain(X, ins, tabs, nb)
+    _check(run_k3_host(k3_lib, X, ins, nb, frame_size), ref)
     assert ins["silence"].any() and (ins["is_transient"] != 0).any()
 
 
 def _rate_lanes(nbytes: int):
     """The encoder fixture's 8 streams and 8 hard lanes, frame 2 of the
     port's front end at ``nbytes``."""
-    fx = np.load(FIXTURE)
+    fx = np.load(FIXTURES[960])
     sig = np.concatenate([fx["pcm"][:, :2, :].reshape(8, -1),
                           hard_signals(8, 2, np.random.default_rng(9))])
     return front_inputs(sig, nbytes)
@@ -212,17 +220,36 @@ def test_torch_k3_source_on_host_matches_plain_at_320_bytes(k3_lib):
     assert torch.equal(dec["rng"][ok], ref["rng"][ok])
 
 
+@pytest.fixture(scope="module")
+def thread_libs(tmp_path_factory):
+    """K3 built at a lane width, once per width for the module."""
+    built = {}
+
+    def get(lanes):
+        if lanes not in built:
+            built[lanes] = _build(str(tmp_path_factory.mktemp(
+                f"k3host{lanes}")), lanes)
+        return built[lanes]
+    return get
+
+
+@pytest.mark.parametrize("frame_size", [960, 480])
 @pytest.mark.parametrize("lanes", [4, 32])
-def test_torch_k3_source_on_host_threads_matches_plain(tmp_path, lanes):
+def test_torch_k3_source_on_host_threads_matches_plain(thread_libs, lanes,
+                                                       frame_size):
     """K3 at lane width 4 and at the card's 32, each lane a host thread:
     the tree sums, the pulse search's warp argmax, the CWRS suffix scan,
     the rotation chains and the carry scan give the plain version's
-    outputs on fixture and hard lanes, at 160 and 320 bytes."""
-    lib = _build(str(tmp_path), lanes)
-    tabs = CK.enc_tabs()
-    X, ins = fixture_inputs(3)
-    _check(run_k3_host(lib, X, ins),
-           CK.encode_frame_plain(X, ins, tabs, 160))
+    outputs on fixture lanes at 20 and 10 ms (64 kb/s), and on fixture and
+    hard lanes at 320 bytes (20 ms)."""
+    lib = thread_libs(lanes)
+    tabs = CK.enc_tabs(48000, frame_size)
+    nb = NBYTES[frame_size]
+    X, ins = fixture_inputs(3, frame_size)
+    _check(run_k3_host(lib, X, ins, nb, frame_size),
+           CK.encode_frame_plain(X, ins, tabs, nb))
+    if frame_size != 960:
+        return
     X, ins = _rate_lanes(320)
     _check(run_k3_host(lib, X, ins, 320),
            CK.encode_frame_plain(X, ins, tabs, 320))
