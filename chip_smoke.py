@@ -115,7 +115,27 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    packets and parse against the port's CPU run and the JAX package's
    fixture; CUDA event times of ``compute_latents`` and its parts with
    their device operations and busy share, the quantizer, the host
-   coder, ``attach`` and the chain frame.
+   coder, ``attach`` and the chain frame;
+16. BBWE (``dnn/bbwe.BBWE``, seed 70) alone over the standalone streams
+   of ``tests/data/torch_bbwe.npz`` tiled to 1024 lanes plus 32 garbage
+   ones (full-scale noise, clicks in silence), 8 frames, against the JAX
+   fixture and the port's CPU run within ``bbwe_pcm_bound``; then the
+   SILK fixture tiled to 1024 + 32 lanes through
+   ``FusedSilkDecoder(fs_out=48000)`` end to end, plain (int16 and final
+   range bit for bit against the scalar decoder and the CPU run), with
+   BBWE and with NoLACE + BBWE, the K2 and K4 counters reset around each
+   (half the fixture lanes hand the scalar decoder's enhanced frames on
+   to BBWE, ``feed_enhanced``);
+17. OSCE on hybrid frames: the FB and SWB hybrid fixtures tiled to 1024 +
+   32 lanes through ``FusedHybridDecoder`` with LACE and with NoLACE,
+   each without and with BBWE, 8 frames, the K1, K2 and K4 counters reset
+   around each and K2 held to its plain version on OSCE's de-emphasis:
+   final ranges equal to the scalar decoder's and the enhanced SILK half
+   within ``osce_pcm_bound`` on every frame, the PCM of the first 3
+   within ``hybrid_pcm_bound`` (half the fixture lanes fed as above); CUDA
+   event times of one BBWE frame alone (with its device operations and
+   busy share), of the 48 kHz SILK decode without and with BBWE and of
+   the FB hybrid decode with NoLACE and with NoLACE + BBWE.
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is the result JSON; any failed check
@@ -1042,7 +1062,8 @@ def phase_silk_end_to_end(lanes, stream, sfx, dev, plain_outs):
 def phase_silk_times(lanes, dev, smi, k4_in, t):
     """K4 and its plain version on a main-path subframe, K4's device time
     alone at B_MAIN and 4 x B_MAIN (sf 80) and at sf 40 and 60, the SILK
-    step and the symbol pass alone, at B_MAIN."""
+    step and the symbol pass alone (one timed call each after a warm-up
+    call), at B_MAIN."""
     import numpy as np
     import torch
     from opus_tpu_torch.models import fused_silk_dec as PF
@@ -1085,9 +1106,9 @@ def phase_silk_times(lanes, dev, smi, k4_in, t):
     buf = torch.from_numpy(lanes[0][0][:B_MAIN]).to(dev)
     ln = torch.from_numpy(lanes[0][1][:B_MAIN]).to(dev)
     dec = PF.FusedSilkDecoder(B_MAIN, device=dev, max_payload=buf.shape[1])
-    step = cuda_ms(lambda: dec.decode_packed(buf, ln), 3)
+    step = cuda_ms(lambda: dec.decode_packed(buf, ln), 1)
     st = PF.fused_init_state(B_MAIN, 16, dev)
-    sym = cuda_ms(lambda: PF.silk_symbols(buf, ln, st), 3)
+    sym = cuda_ms(lambda: PF.silk_symbols(buf, ln, st), 1)
     print(f"SILK times at B={B_MAIN} [{smi}]: K4 {k4:.5f} ms device time, "
           f"{k4_call:.5f} ms a call (events around 50 calls; sf {sf}), "
           f"plain {k4p:.3f} ms, bound {k4_bnd[0]:.6f} ms ({k4_bnd[1]}); "
@@ -1222,7 +1243,8 @@ def phase_hybrid_end_to_end(lanes, stream, hfx, dev, plain_outs, end=21):
 
 def phase_hybrid_times(lanes, dev, smi, tabs, k1_in, t):
     """K1 at start 17 and its plain version on frame 0's inputs, the hybrid
-    step and its SILK, CELT and resampler parts, at B_MAIN with CUDA
+    step and its SILK, CELT and resampler parts (the step and the SILK
+    part one timed call each after a warm-up call), at B_MAIN with CUDA
     events."""
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
@@ -1246,10 +1268,10 @@ def phase_hybrid_times(lanes, dev, smi, tabs, k1_in, t):
     buf = torch.from_numpy(lanes[0][0][main]).to(dev)
     ln = torch.from_numpy(lanes[0][1][main]).to(dev)
     dec = PH.FusedHybridDecoder(B_MAIN, max_payload=buf.shape[1], device=dev)
-    step = cuda_ms(lambda: dec.decode_packed(buf, ln), 3)
+    step = cuda_ms(lambda: dec.decode_packed(buf, ln), 1)
     st = PH.hybrid_init_state(B_MAIN, tabs, dev)
     silk = cuda_ms(lambda: PF.fused_silk_decode(buf, ln, st["silk"],
-                                                return_rc=True), 3)
+                                                return_rc=True), 1)
     celt = cuda_ms(lambda: CK.kernel_celt_decode_to_pcm(
         *args[:2], st["celt"], tabs, d0=args[6]), 10)
     xq = torch.zeros((B_MAIN, 320), dtype=torch.int64, device=dev)
@@ -1910,6 +1932,131 @@ def osce_compare(got, ref, env, what):
     return int(d.max()), float((d / bnd).max())
 
 
+# BBWE and OSCE on hybrid frames.  bbwe_pcm_bound: BBWE's int16
+# output against another computation of it.  With the same 16 kHz input,
+# the float output differs by the order of the GEMM sums (up to 384 terms
+# a product) in the feature net and its ~10 stages and by the float64 FFT
+# of the features, each relative to the magnitude it comes from (the
+# random model drives frame peaks of 0.3-2237 full scales): 1 LSB of
+# rounding plus BBWE_RTOL (OSCE's budget) of the larger peak |float
+# output| of the reference's frame and the one before.  Behind an
+# enhancer, half the fixture lanes hand the reference's enhanced frames
+# on (feed_enhanced), so BBWE is held there with its inputs equal; on the
+# rest its inputs differ by the enhancers' difference, and BBWE moves
+# its output by up to 49 LSB
+# for one input sample moved by 1 LSB on the standalone streams, printed
+# by tools/make_torch_bbwe_fixture.py (the stream whose output saturates
+# at 2237 full scales flips sign; it is compared with its inputs equal
+# only): BBWE_GAIN LSB per LSB of the inputs' L1 difference over the
+# frames so far (the feature net's GRU carries every frame forward).  The
+# SILK upsampler likewise: UPS_GAIN per LSB plus 1 of rounding, 0 where
+# the inputs agree (it is integer-exact).  Hybrid PCM: PCM_ABS_TOL plus
+# the SILK half's int16 bound / 32768.
+BBWE_FIXTURE = os.path.join(REPO, "tests", "data", "torch_bbwe.npz")
+BBWE_SEED = 70
+BBWE_LSB = 1
+BBWE_RTOL = 3e-5
+BBWE_GAIN = 64
+UPS_GAIN = 4
+HYB_FRAMES = 3          # frames of hybrid PCM in the BBWE fixture (its
+                        # final ranges and enhanced SILK half: NFRAMES)
+# the fixture lanes that hand the reference's enhanced frames on to what
+# follows the enhancer (feed_enhanced), and the rest
+FED, UNFED = slice(0, B_DNN // 2), slice(B_DNN // 2, B_DNN)
+
+
+def bbwe_pcm_bound(env, dev=0):
+    """BBWE's int16 output bound (LSB) against another computation of it,
+    for a frame whose float output and the previous frame's peak at
+    ``env`` (full scale 1) and whose inputs so far differ by ``dev`` (L1,
+    LSB)."""
+    return BBWE_LSB + 32768.0 * BBWE_RTOL * env + BBWE_GAIN * dev
+
+
+def up48_bound(dev):
+    """The 48 kHz upsampler's int16 output bound (LSB) against another
+    computation whose 16 kHz inputs so far differ by ``dev`` (L1, LSB)."""
+    import numpy as np
+    dev = np.asarray(dev, np.float64)
+    return np.where(dev > 0, 1 + UPS_GAIN * dev, 0.0)
+
+
+def hybrid_pcm_bound(silk_lsb):
+    """Hybrid PCM bound on [-1, 1] for a SILK half within ``silk_lsb``."""
+    return PCM_ABS_TOL + silk_lsb / 32768.0
+
+
+def hybrid_fixture_pcm(bfx, hfx, name):
+    """[8, HYB_FRAMES, 960] f32: the scalar decoder's hybrid PCM of the
+    BBWE fixture's run ``name``, kept as the SILK half's change in LSB
+    from the plain hybrid fixture's PCM (hfx)."""
+    import numpy as np
+    return (hfx["pcm"][:, :HYB_FRAMES].astype(np.float64)
+            + bfx[name + "_dlsb"] / 32768.0).astype(np.float32)
+
+
+def peak_env(peak):
+    """[..., F] peaks -> the larger of each frame's and the previous
+    frame's."""
+    import numpy as np
+    peak = np.asarray(peak, np.float64)
+    return np.maximum(peak, np.concatenate([peak[..., :1], peak[..., :-1]],
+                                           axis=-1))
+
+
+def cum_dev(a, b):
+    """a, b [L, F, N] int16 values -> [L, F] the L1 difference (LSB) over
+    frames 0..f."""
+    import numpy as np
+    d = np.abs(np.asarray(a, np.int64) - np.asarray(b, np.int64)).sum(-1)
+    return np.cumsum(d, axis=1)
+
+
+def within(got, ref, bnd, what):
+    """got, ref [L, F, N]; bnd [L, F] (or broadcastable): fails where the
+    largest |got - ref| of a lane-frame exceeds its bound.  Returns (max
+    error, max of the error over its bound, largest bound)."""
+    import numpy as np
+    d = np.abs(np.asarray(got, np.float64)
+               - np.asarray(ref, np.float64)).max(axis=-1)
+    bnd = np.broadcast_to(np.asarray(bnd, np.float64), d.shape)
+    if (d > bnd).any():
+        lane, f = np.argwhere(d > bnd)[0]
+        fail(f"{what}: lane {lane} frame {f} differs by {d[lane, f]:.6g}, "
+             f"bound {bnd[lane, f]:.6g}")
+    return (float(d.max()), float((d / np.maximum(bnd, 1e-30)).max()),
+            float(bnd.max()))
+
+
+def feed_enhanced(enh, frames=None, lanes=None):
+    """Record the outputs of the enhancer ``enh`` (``OSCEEnhancer``) and
+    what the decoder goes on with: its own output, or on ``lanes`` the
+    f-th call's ``frames[f]`` ([F, lanes, N] int on its device), another
+    computation's enhanced frames.  What follows the enhancer (the
+    2-sample buffer, the upsampler or BBWE) then sees that computation's
+    input and is held to it with no upstream difference.  Returns the
+    lists (own, passed), filled call by call."""
+    own, passed = [], []
+    orig = enh.enhance_frame
+
+    def wrapped(*a, **k):
+        y = orig(*a, **k)
+        own.append(y)
+        if frames is not None:
+            y = y.clone()
+            y[lanes] = frames[len(passed)].to(y.dtype)
+        passed.append(y)
+        return y
+
+    enh.enhance_frame = wrapped
+    return own, passed
+
+
+def bbwe_model(device):
+    from opus_tpu_torch.dnn import bbwe as PB
+    return PB.random_model(BBWE_SEED, device=device)
+
+
 def phase_osce(dev, sfx, ofx):
     """The osce phase: decode the SILK lanes once on the card with state
     carried (keeping the unenhanced PCM and the OSCE inputs), enhance them
@@ -1930,7 +2077,7 @@ def phase_osce(dev, sfx, ofx):
     dec = PF.FusedSilkDecoder(b, device=dev, max_payload=p)
     plain, inputs, errs = [], [], []
     for buf, ln in bufs:
-        xq, err = dec.decode_packed(buf, ln)
+        xq, err = dec.decode_packed(buf, ln, osce_inputs=True)
         plain.append(xq.to(torch.int64))
         inputs.append(dec.osce_in)
         errs.append(err)
@@ -2029,7 +2176,7 @@ def phase_osce(dev, sfx, ofx):
 def phase_osce_times(dev, smi, d):
     """CUDA event times at B_DNN streams, host included, of decode_packed
     without OSCE, with LACE and with NoLACE (the second frame's packets,
-    state carried; the three in turns, twice, the least kept) and of one
+    state carried; one timed call each after a warm-up call) and of one
     OSCEEnhancer frame alone per method; realtime streams = B x 20 ms /
     step.  Device operations and device time (device_profile, after every
     timing): of the decode without OSCE and of each enhancer alone, whose
@@ -2057,9 +2204,8 @@ def phase_osce_times(dev, smi, d):
             enhs[m] = PO.OSCEEnhancer(m, d["models"][m], B_DNN, device=dev)
             for _ in range(2):            # past the reset's pass-through
                 enhs[m].enhance_frame(xq, **inp)
-    for m in (0, 1, 2, 2, 1, 0):
-        t = cuda_ms(lambda: decs[m].decode_packed(buf, ln), 1)
-        ms[m] = min(ms.get(m, t), t)
+    for m in (0, 1, 2):
+        ms[m] = cuda_ms(lambda: decs[m].decode_packed(buf, ln), 1)
     ms_e = {m: cuda_ms(lambda: enhs[m].enhance_frame(xq, **inp), 5)
             for m in (1, 2)}
     ops0, dev0 = device_profile(lambda: decs[0].decode_packed(buf, ln), 1)
@@ -2093,6 +2239,374 @@ def phase_osce_times(dev, smi, d):
     print(f"OSCE times [{smi}]: K2 at [{B_DNN}, 320]: {k2:.5f} ms device "
           f"time, bound {k2_bound[0]:.6f} ms ({k2_bound[1]})")
     return {"osce_" + k: v for k, v in res.items()}
+
+
+def bbwe_lanes(bfx, rng):
+    """[B_DNN + N_BAD, NFRAMES, 320] int64: the standalone BBWE streams
+    tiled over B_DNN lanes, then 16 lanes of full-scale random samples and
+    16 of silence with isolated full-scale clicks."""
+    import numpy as np
+    x = bfx["bbwe_in"].astype(np.int64)
+    ns, nf, n = x.shape
+    out = np.zeros((B_DNN + N_BAD, nf, n), np.int64)
+    out[:B_DNN] = x[np.arange(B_DNN) % ns]
+    out[B_DNN:B_DNN + N_BAD // 2] = rng.integers(-32768, 32768,
+                                                 (N_BAD // 2, nf, n))
+    for j in range(N_BAD // 2):
+        lane = B_DNN + N_BAD // 2 + j
+        pos = rng.integers(0, n, (nf, 3))
+        for f in range(nf):
+            out[lane, f, pos[f]] = rng.choice([-32768, 32767], 3)
+    return out
+
+
+def cpu_lanes():
+    """The lanes a CPU run of a B_DNN + N_BAD batch covers: the first lane
+    of each of the 8 fixture streams, then the N_BAD garbage lanes."""
+    import numpy as np
+    return np.concatenate([np.arange(8), B_DNN + np.arange(N_BAD)])
+
+
+def silk48_run(bufs, dev, bwe=None, nolace=None, feed=None):
+    """The SILK lanes through FusedSilkDecoder(fs_out=48000) on ``dev``
+    (the card, or the CPU for the port's CPU run), with BBWE and NoLACE
+    when given, NoLACE's output fed as ``feed_enhanced(enhancer, *feed)``,
+    the K2 and K4 counters reset around the run.  Returns (pcm [L, F,
+    960] int64, final ranges, BBWE peaks [L, F], NoLACE's own output and
+    what the decoder went on with, [L, F, 320] each (None without
+    NoLACE), counts)."""
+    import torch
+    from opus_tpu_torch.dnn import osce as PO
+    from opus_tpu_torch.models import fused_silk_dec as PF
+    from opus_tpu_torch.ops import iir, lpc
+
+    b, p = bufs[0][0].shape
+    cuda = torch.device(dev).type == "cuda"
+    dec = PF.FusedSilkDecoder(b, device=dev, max_payload=p, fs_out=48000)
+    if bwe is not None:
+        dec.set_osce_bwe(bwe)
+    enh = None
+    if nolace is not None:
+        dec.set_osce(PO.OSCE_METHOD_NOLACE, nolace)
+        enh = feed_enhanced(dec.osce, *(feed or ()))
+    if cuda:
+        torch.cuda.synchronize()
+    iir.launches = lpc.launches = 0
+    pcm, rng, peak = [], [], []
+    for buf, ln in bufs:
+        xq, _err = dec.decode_packed(buf, ln)
+        pcm.append(xq.to(torch.int64))
+        rng.append(dec.final_range)
+        peak.append(dec.bwe.peak if bwe is not None
+                    else torch.zeros(b, device=dev))
+    if cuda:
+        torch.cuda.synchronize()
+    counts = {"K2": iir.launches, "K4": lpc.launches}
+
+    def host(ts):
+        return torch.stack(ts, 1).cpu().numpy()
+    return (host(pcm), host(rng), host(peak),
+            None if enh is None else tuple(host(e) for e in enh), counts)
+
+
+def frames_first(x, dev):
+    """[L, F, N] numpy -> [F, L, N] on ``dev`` (feed_enhanced's frames)."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(1, 0, 2))) \
+        .to(dev)
+
+
+def phase_bbwe(dev, sfx, bfx, ofx):
+    """The bbwe phase.  BBWE alone on the card over the fixture's streams
+    tiled to B_DNN lanes plus N_BAD garbage ones, against the JAX fixture
+    and the port's CPU run; then the SILK lanes (B_DNN + N_BAD) through
+    FusedSilkDecoder at 48 kHz end to end, plain, with BBWE and with
+    NoLACE + BBWE (decoder complexity 7), the K2 and K4 counters reset
+    around each run; each held to the scalar decoder (fixture lanes) and
+    to the port's CPU run of the same decoder (the 8 streams' first lanes
+    and the garbage lanes).  Behind NoLACE the fed lanes hand the scalar
+    decoder's enhanced frames on to BBWE, and the CPU run is handed the
+    card's.  Returns the kernels line's numbers and what the timing
+    needs."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import bbwe as PB
+
+    model, cpu_model = bbwe_model(dev), bbwe_model("cpu")
+    sel = cpu_lanes()
+    out = {"counts": {}, "model": model}
+
+    # ---- BBWE alone ----
+    x = bbwe_lanes(bfx, np.random.default_rng(27))
+    b = x.shape[0]
+    ext, cpu = PB.BBWE(model, b, device=dev), PB.BBWE(cpu_model, len(sel),
+                                                      device="cpu")
+    got, ref, ref_peak = [], [], []
+    for f in range(NFRAMES):
+        got.append(ext.process(torch.from_numpy(x[:, f]).to(dev)))
+        ref.append(cpu.process(torch.from_numpy(x[sel, f])).numpy())
+        ref_peak.append(cpu.peak.numpy())
+    got = torch.stack(got, 1).cpu().numpy()
+    ref, ref_peak = np.stack(ref, 1), np.stack(ref_peak, 1)
+    stream = np.arange(B_DNN) % 8
+    e_fx = within(got[:B_DNN], bfx["bbwe_out"][stream],
+                  bbwe_pcm_bound(peak_env(bfx["bbwe_peak"])[stream]),
+                  "BBWE alone, card vs JAX")
+    bnd_cpu = bbwe_pcm_bound(peak_env(ref_peak))
+    e_cpu = within(got[sel], ref, bnd_cpu,
+                   "BBWE alone, card vs the port's CPU run")
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 torch.utils._pytree.tree_leaves(ext.state)
+                 if t.is_floating_point())
+    if not finite:
+        fail("BBWE alone: a lane's state is not finite")
+    out["x"] = x
+    print(f"BBWE alone at B={b} ({B_DNN} fixture lanes, {N_BAD} garbage): "
+          f"int16 max diff {e_fx[0]:.0f} LSB vs JAX ({e_fx[1]:.2f} of the "
+          f"bound; largest bound {e_fx[2]:.1f} LSB), {e_cpu[0]:.0f} vs the "
+          f"port's CPU run ({e_cpu[1]:.2f}; {e_cpu[2]:.1f}; "
+          f"{int((bnd_cpu >= 65535).sum())}/{bnd_cpu.size} lane-frames "
+          f"with a bound past the int16 range); "
+          f"{100 * float(np.mean(np.abs(got) >= 32767)):.1f}% of samples "
+          f"clip; state finite")
+
+    # ---- SILK at 48 kHz, end to end ----
+    lanes, sstream = make_lanes(sfx, np.random.default_rng(26), B_DNN)
+    bufs = [(torch.from_numpy(bu).to(dev), torch.from_numpy(ln).to(dev))
+            for bu, ln in lanes]
+    cpu_bufs = [(torch.from_numpy(bu[sel]), torch.from_numpy(ln[sel]))
+                for bu, ln in lanes]
+    nolace, cpu_nolace = osce_models(dev)[2], osce_models("cpu")[2]
+    out["bufs"] = bufs
+    ref16 = ofx["xq"][1][sstream]             # the scalar decoder's NoLACE
+    fed, rest = FED, UNFED
+    runs = (("plain", None, None), ("BBWE", model, None),
+            ("NoLACE + BBWE", model, nolace))
+    keys = {"plain": "silk48", "BBWE": "silk48_bwe",
+            "NoLACE + BBWE": "silk48_nolace_bwe"}
+    for name, bwe, osc in runs:
+        feed = None if osc is None else (frames_first(ref16[fed], dev), fed)
+        pcm, rng, pk, enh, counts = silk48_run(bufs, dev, bwe, osc, feed)
+        c_feed = None if osc is None else (
+            frames_first(enh[1][sel], "cpu"), slice(None))
+        c_pcm, c_rng, c_pk, c_enh, _ = silk48_run(
+            cpu_bufs, "cpu", None if bwe is None else cpu_model,
+            None if osc is None else cpu_nolace, c_feed)
+        want = {"K2": NFRAMES if osc is not None else 0,
+                "K4": 4 * NFRAMES}
+        if counts != want:
+            fail(f"SILK 48 kHz {name}: launches {counts}, expected {want}")
+        if not np.array_equal(rng[:B_DNN],
+                              sfx["final_range"][sstream].astype(np.int64)):
+            fail(f"SILK 48 kHz {name}: final ranges differ from the scalar "
+                 f"decoder's")
+        if not np.array_equal(rng[sel], c_rng):
+            fail(f"SILK 48 kHz {name}: final ranges differ from the CPU run")
+        ref_fx = bfx[keys[name] + "_xq"][sstream]
+        if bwe is None:
+            if not np.array_equal(pcm[:B_DNN], ref_fx) or \
+                    not np.array_equal(pcm[sel], c_pcm):
+                fail("SILK 48 kHz plain: the int16 differs from the scalar "
+                     "decoder's or the CPU run's")
+            note = "bit-exact"
+        else:
+            env_fx = peak_env(bfx[keys[name] + "_peak"])[sstream]
+            e_cpu = within(pcm[sel], c_pcm, bbwe_pcm_bound(peak_env(c_pk)),
+                           f"SILK 48 kHz {name}, card vs the port's CPU run")
+            if osc is None:
+                e_fx = within(pcm[:B_DNN], ref_fx, bbwe_pcm_bound(env_fx),
+                              f"SILK 48 kHz {name}, card vs the scalar "
+                              f"decoder")
+                note = (f"int16 max diff {e_fx[0]:.0f} LSB vs the scalar "
+                        f"decoder ({e_fx[1]:.2f} of the bound; largest "
+                        f"bound {e_fx[2]:.1f} LSB), {e_cpu[0]:.0f} vs the "
+                        f"port's CPU run ({e_cpu[1]:.2f}; {e_cpu[2]:.1f})")
+            else:
+                own, passed = enh
+                osce_compare(own[:B_DNN], ref16, osce_env(ofx, 2),
+                             "NoLACE at 48 kHz, card vs the scalar decoder")
+                osce_compare(own[:8], c_enh[0][:8], osce_env(ofx, 2),
+                             "NoLACE at 48 kHz, card vs the port's CPU run")
+                dv = cum_dev(passed[:B_DNN], ref16)
+                bnd = bbwe_pcm_bound(env_fx, dv)
+                e_fed = within(pcm[fed], ref_fx[fed], bnd[fed],
+                               f"SILK 48 kHz {name}, fed lanes, card vs the "
+                               f"scalar decoder")
+                e_fx = within(pcm[rest], ref_fx[rest], bnd[rest],
+                              f"SILK 48 kHz {name}, card vs the scalar "
+                              f"decoder")
+                note = (f"int16 max diff {e_fed[0]:.0f} LSB vs the scalar "
+                        f"decoder on the {fed.stop} lanes that hand its "
+                        f"NoLACE output on to BBWE ({e_fed[1]:.2f} of the "
+                        f"bound; largest bound {e_fed[2]:.1f} LSB), "
+                        f"{e_fx[0]:.0f} on the rest ({e_fx[1]:.2f}; "
+                        f"{e_fx[2]:.1f}; BBWE's inputs equal so far on "
+                        f"{int((dv[rest] == 0).sum())}/{dv[rest].size} "
+                        f"lane-frames); {e_cpu[0]:.0f} vs the port's CPU "
+                        f"run handed the card's NoLACE output "
+                        f"({e_cpu[1]:.2f}; {e_cpu[2]:.1f})")
+        out["counts"][name] = counts
+        print(f"SILK 48 kHz {name} at B={B_DNN + N_BAD}: final ranges == "
+              f"the scalar decoder's and the CPU run's; {note}; launches "
+              f"{counts}")
+    return out
+
+
+def phase_osce_hybrid(dev, bfx):
+    """The osce_hybrid phase: the FB and SWB hybrid fixtures tiled to B_DNN
+    lanes plus N_BAD garbage ones through FusedHybridDecoder with LACE and
+    with NoLACE, each without and with BBWE, NFRAMES frames, the K1, K2
+    and K4 counters reset around each run and K2 held to its plain
+    version on OSCE's de-emphasis.  Against the scalar decoder on the
+    fixture lanes: the final ranges and the enhanced SILK half on every
+    frame, the PCM on the first HYB_FRAMES; the fed lanes hand the scalar
+    decoder's enhanced SILK half on to the upsampler or BBWE."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import osce as PO
+    from opus_tpu_torch.models import hybrid_dec_fused as PH
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.ops import iir, lpc
+
+    models = osce_models(dev)
+    bbwe = bbwe_model(dev)
+    out = {"counts": {}, "k2_err": 0.0}
+    nf, hf = NFRAMES, HYB_FRAMES
+    fed, rest = FED, UNFED
+    for bw, path, end, seed in (("fb", HYB_FIXTURE, 21, 28),
+                                ("swb", SWB_FIXTURE, 19, 29)):
+        hfx = dict(np.load(path))
+        lanes, stream = make_lanes(hfx, np.random.default_rng(seed), B_DNN)
+        bufs = [(torch.from_numpy(bu).to(dev), torch.from_numpy(ln).to(dev))
+                for bu, ln in lanes]
+        b, p = bufs[0][0].shape
+        if bw == "fb":
+            out["bufs"] = bufs
+        for m, with_bwe in ((1, False), (2, False), (1, True), (2, True)):
+            mname = "lace" if m == 1 else "nolace"
+            name = f"hyb_{bw}_{mname}" + ("_bwe" if with_bwe else "")
+            ref16 = bfx[f"hyb_{bw}_{mname}_xq16"][stream]
+            dec = PH.FusedHybridDecoder(b, end=end, max_payload=p, device=dev)
+            dec.set_osce(m, models[m])
+            if with_bwe:
+                dec.set_osce_bwe(bbwe)
+            own, passed = feed_enhanced(dec.osce,
+                                        frames_first(ref16[fed], dev), fed)
+
+            def run():
+                torch.cuda.synchronize()
+                CK.launches = iir.launches = lpc.launches = 0
+                res = []
+                for buf, ln in bufs:
+                    pcm, err = dec.decode_packed(buf, ln)
+                    res.append((pcm, err, dec.final_range.clone()))
+                torch.cuda.synchronize()
+                return res, {"K1": CK.launches, "K2": iir.launches,
+                             "K4": lpc.launches}
+
+            (res, counts), k2_err = k2_spy(run, PO)
+            want = {"K1": nf, "K2": 2 * nf, "K4": 4 * nf}
+            if counts != want:
+                fail(f"{name}: launches {counts}, expected {want}")
+            out["k2_err"] = max(out["k2_err"], k2_err)
+            pcm, errs, rng = (torch.stack([r[i] for r in res], 1).cpu()
+                              .numpy() for i in range(3))
+            e16 = torch.stack(own, 1).cpu().numpy()
+            fed16 = torch.stack(passed, 1).cpu().numpy()
+            if errs[:B_DNN].any():
+                fail(f"{name}: fixture lanes flagged by the decoder")
+            if not np.array_equal(rng[:B_DNN], bfx[name + "_rng"][stream]):
+                fail(f"{name}: final ranges differ from the scalar decoder's")
+            if not np.isfinite(pcm).all():
+                fail(f"{name}: PCM not finite")
+            env_o = peak_env(bfx[name + "_osce_peak"])[stream]
+            env_o[:, 0] = 0.0              # the first frame passes through
+            e_16 = within(e16[:B_DNN], ref16, osce_pcm_bound(env_o),
+                          f"{name}: the enhanced SILK half vs the scalar "
+                          f"decoder's")
+            dv = cum_dev(fed16[:B_DNN, :hf], ref16[:, :hf])
+            if with_bwe:
+                silk = bbwe_pcm_bound(
+                    peak_env(bfx[name + "_bwe_peak"])[stream, :hf], dv)
+            else:
+                silk = up48_bound(dv)
+            bnd = hybrid_pcm_bound(silk)
+            ref = hybrid_fixture_pcm(bfx, hfx, name)[stream]
+            e_fed = within(pcm[fed, :hf], ref[fed], bnd[fed],
+                           f"{name}: PCM vs the scalar decoder's, fed lanes")
+            e_pcm = within(pcm[rest, :hf], ref[rest], bnd[rest],
+                           f"{name}: PCM vs the scalar decoder's")
+            out["counts"][name] = counts
+            print(f"{name} at B={b} ({B_DNN} fixture lanes, {N_BAD} garbage, "
+                  f"{nf} frames): final ranges == the scalar decoder's; "
+                  f"enhanced SILK half within {e_16[0]:.0f} LSB "
+                  f"({e_16[1]:.2f} of the bound); PCM of the first {hf} "
+                  f"frames within {e_fed[0]:.3g} ({e_fed[1]:.2f} of the "
+                  f"bound; largest bound {e_fed[2]:.3g}) on the {fed.stop} "
+                  f"lanes that hand the scalar decoder's SILK half on, "
+                  f"{e_pcm[0]:.3g} ({e_pcm[1]:.2f}; {e_pcm[2]:.3g}) on the "
+                  f"rest, their SILK half's inputs equal so far on "
+                  f"{int((dv[rest] == 0).sum())}/{dv[rest].size} lane-frames;"
+                  f" launches {counts}; K2 == plain on OSCE's de-emphasis "
+                  f"(max err {k2_err:.3g})")
+    out["models"], out["bbwe"] = models, bbwe
+    return out
+
+
+def phase_bbwe_times(dev, smi, d, h):
+    """CUDA event times at B_DNN streams, host included: one BBWE frame
+    alone (20 ms, the standalone streams' second frame, state carried)
+    with its device operations and busy share (device_profile); the
+    48 kHz SILK decode without and with BBWE (the second frame's packets)
+    and the FB hybrid decode with NoLACE and with NoLACE + BBWE (the first
+    frame's; without OSCE it is phase_hybrid_times' step), each one timed
+    call after a warm-up call, as the other decodes.  The decodes' device
+    time is not profiled: the profiler's own host time on a ~72 000-
+    operation decode would add ~40 s a call."""
+    import torch
+    from opus_tpu_torch.dnn import bbwe as PB
+    from opus_tpu_torch.models import fused_silk_dec as PF
+    from opus_tpu_torch.models import hybrid_dec_fused as PH
+    from opus_tpu_torch.tools.device_time import device_profile
+
+    x = torch.from_numpy(d["x"][:B_DNN, 1]).to(dev)
+    ext = PB.BBWE(d["model"], B_DNN, device=dev)
+    ext.process(x)
+    ms_b = cuda_ms(lambda: ext.process(x), 5)
+    ops_b, dev_b = device_profile(lambda: ext.process(x), 2)
+    print(f"BBWE times [{smi}]: one BBWE frame alone (20 ms) at B={B_DNN}: "
+          f"{ms_b:.3f} ms -> {B_DNN * 20.0 / ms_b:.0f} realtime streams; "
+          f"{ops_b:.0f} device operations and {dev_b:.3f} ms device time a "
+          f"call (device busy {100 * dev_b / ms_b:.1f}%)")
+
+    buf, ln = (t[:B_DNN] for t in d["bufs"][1])
+    ms = {}
+    for k in ("plain", "BBWE"):
+        dec = PF.FusedSilkDecoder(B_DNN, device=dev, fs_out=48000,
+                                  max_payload=buf.shape[1])
+        if k == "BBWE":
+            dec.set_osce_bwe(d["model"])
+        ms[k] = cuda_ms(lambda: dec.decode_packed(buf, ln), 1)
+        print(f"BBWE times [{smi}]: FusedSilkDecoder(fs_out=48000) "
+              f"decode_packed at B={B_DNN}, {k}: {ms[k]:.3f} ms a 20 ms frame "
+              f"-> {B_DNN * 20.0 / ms[k]:.0f} realtime streams")
+
+    hbuf, hln = (t[:B_DNN] for t in h["bufs"][0])
+    hms = {}
+    for k in ("NoLACE", "NoLACE + BBWE"):
+        dec = PH.FusedHybridDecoder(B_DNN, max_payload=hbuf.shape[1],
+                                    device=dev)
+        dec.set_osce(2, h["models"][2])
+        if k == "NoLACE + BBWE":
+            dec.set_osce_bwe(h["bbwe"])
+        hms[k] = cuda_ms(lambda: dec.decode_packed(hbuf, hln), 1)
+        print(f"BBWE times [{smi}]: FusedHybridDecoder (FB) decode_packed at "
+              f"B={B_DNN}, OSCE {k}: {hms[k]:.3f} ms a 20 ms frame -> "
+              f"{B_DNN * 20.0 / hms[k]:.0f} realtime streams")
+    return {"bbwe_frame": ms_b, "silk48_plain": ms["plain"],
+            "silk48_bbwe": ms["BBWE"], "hyb_nolace": hms["NoLACE"],
+            "hyb_nolace_bbwe": hms["NoLACE + BBWE"]}
 
 
 def phase_k5(dev, smi):
@@ -2737,7 +3251,7 @@ def main() -> int:
         return 1
     for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE,
                  SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE,
-                 FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE):
+                 FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE, BBWE_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -2843,8 +3357,17 @@ def main() -> int:
     phase_s["deep_plc"] = time.time() - t0
 
     t0 = time.time()
-    osce = phase_osce(dev, sfx, dict(np.load(OSCE_FIXTURE)))
+    ofx = dict(np.load(OSCE_FIXTURE))
+    osce = phase_osce(dev, sfx, ofx)
     phase_s["osce"] = time.time() - t0
+
+    t0 = time.time()
+    bfx = dict(np.load(BBWE_FIXTURE))
+    bb = phase_bbwe(dev, sfx, bfx, ofx)
+    phase_s["bbwe"] = time.time() - t0
+    t0 = time.time()
+    oh = phase_osce_hybrid(dev, bfx)
+    phase_s["osce_hybrid"] = time.time() - t0
 
     t0 = time.time()
     chain = phase_dred_chain(dev, dict(np.load(DRED_ENC_FIXTURE)))
@@ -2862,6 +3385,9 @@ def main() -> int:
     t0 = time.time()
     t.update(phase_osce_times(dev, smi, osce))
     phase_s["osce_times"] = time.time() - t0
+    t0 = time.time()
+    t.update(phase_bbwe_times(dev, smi, bb, oh))
+    phase_s["bbwe_times"] = time.time() - t0
     t0 = time.time()
     t.update(phase_dred_chain_times(dev, smi, chain))
     phase_s["dred_chain_times"] = time.time() - t0
@@ -2881,6 +3407,9 @@ def main() -> int:
                 "deep plc": {"K2": plc["k2"]},
                 "osce lace": osce["counts"]["LACE"],
                 "osce nolace": osce["counts"]["NoLACE"],
+                **{"silk 48 kHz " + k: v for k, v in bb["counts"].items()},
+                **{k.replace("_", " "): v
+                   for k, v in oh["counts"].items()},
                 "celt decode 10 ms": c10["dcounts"],
                 "celt encode + decode 10 ms": c10["ecounts"],
                 "dred chain": chain["counts"],
@@ -2900,7 +3429,7 @@ def main() -> int:
         kernel_line("deemphasis", "opus_tpu_torch/csrc/deemphasis.cu",
                     "opus_tpu/ops/iir_pallas.py:47", total("K2"),
                     max(k2_err, dred["k2_err"], plc["k2_err"],
-                        osce["k2_err"], c10["k2_err"]), t["k2"],
+                        osce["k2_err"], c10["k2_err"], oh["k2_err"]), t["k2"],
                     t["k2p"],
                     t["k2_bound"]),
         kernel_line("celt_enc_frame", "opus_tpu_torch/csrc/celt_enc_frame.cu",
@@ -2936,7 +3465,12 @@ def main() -> int:
           f"{t['osce_LACE enhancer']:.4f} / "
           f"{t['osce_NoLACE enhancer']:.4f} ms; enhanced PCM within "
           f"{osce['LACE']['e_fx'][0]}/{osce['NoLACE']['e_fx'][0]} LSB of "
-          f"the scalar decoder); 10 ms: K1 {t['k1_10']:.4f} ms, K3 "
+          f"the scalar decoder); BBWE frame at B={B_DNN} "
+          f"{t['bbwe_frame']:.3f} ms, SILK 48 kHz decode "
+          f"{t['silk48_plain']:.3f} ms ({t['silk48_bbwe']:.3f} with BBWE), "
+          f"FB hybrid decode with NoLACE {t['hyb_nolace']:.3f} ms "
+          f"({t['hyb_nolace_bbwe']:.3f} with NoLACE + BBWE); "
+          f"10 ms: K1 {t['k1_10']:.4f} ms, K3 "
           f"{t['k3_10']:.4f} ms, decode step {t['dec_step_10']:.3f} ms, "
           f"encode step {t['enc_step_10']:.3f} ms; DRED chain at B={B_DNN}: "
           f"compute_latents {t['chain_parts']['compute_latents'][0]:.3f} ms, "

@@ -35,6 +35,8 @@ state.
 - ``lace_from_jax``, ``nolace_from_jax``: the OSCE models (nested
   NamedTuples of layers: the feature net, the comb, conv and shape
   layers), the same way.
+- ``bbwe_from_jax``: the BBWE model (its feature net, and the tuples of
+  the adaptive conv and shape layers), the same way.
 - ``lpcnet_state_from_jax``: B JAX ``LPCNetPLC`` instances (one stream
   each, at the same point of the same call sequence) -> one B-lane
   ``LPCNetPLC`` of the port holding their stacked state (feature analysis,
@@ -53,8 +55,8 @@ import sys
 import numpy as np
 import torch
 
-from .dnn import (dred, dred_enc, fargan, features, nnet, osce, pitchdnn,
-                  plc, rdovae)
+from .dnn import (bbwe, dred, dred_enc, fargan, features, nnet, osce,
+                  pitchdnn, plc, rdovae)
 from .models.celt_dec_fused import DecTabs
 
 _BAND_KEYS = ("old_e", "prev1", "prev2")
@@ -334,6 +336,11 @@ def lace_from_jax(model, device="cpu"):
 def nolace_from_jax(model, device="cpu"):
     """A JAX ``NoLACEModel`` -> the port's, on ``device``."""
     return _dnn_tree(model, osce.NoLACEModel, device)
+
+
+def bbwe_from_jax(model, device="cpu"):
+    """A JAX ``BBWEModel`` -> the port's, on ``device``."""
+    return _dnn_tree(model, bbwe.BBWEModel, device)
 
 
 def _stack(leaves, device, dtype=torch.float32):

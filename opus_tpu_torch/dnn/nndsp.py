@@ -216,14 +216,14 @@ def adashape_init(batch, feature_dim, frame_size, avg_pool_k,
                          torch.zeros((batch,), device=device))
 
 
-def _np_sum_f32(x) -> torch.Tensor:
-    """numpy's float32 sum of a contiguous 1-D array of at most 128 terms,
-    over the last axis: a plain loop below 8 terms, else its pairwise sum's
-    block (8 partial sums over blocks of 8, combined as a tree, then the
-    remainder in order)."""
+def np_sum(x) -> torch.Tensor:
+    """numpy's sum of a contiguous 1-D array of at most 128 terms (float32
+    or float64), over the last axis: a plain loop below 8 terms, else its
+    pairwise sum's block (8 partial sums over blocks of 8, combined as a
+    tree, then the remainder in order)."""
     n = x.shape[-1]
     if n > 128:
-        raise ValueError("_np_sum_f32: at most 128 terms")
+        raise ValueError("np_sum: at most 128 terms")
     if n < 8:
         s = x[..., 0]
         for i in range(1, n):
@@ -241,13 +241,16 @@ def _np_sum_f32(x) -> torch.Tensor:
 
 
 def conv1d_seq(layer: nn.Linear, mem, xs, activation: int):
-    """``nn.conv1d`` over n steps in one product, for a layer whose memory
-    is one input wide: xs [B, n, D], mem [B, D].  Returns (out [B, n, N],
-    new mem)."""
-    if mem.shape[-1] != xs.shape[-1]:
-        raise ValueError("conv1d_seq: memory must be one input wide")
-    win = torch.cat([_prev(mem, xs), xs], dim=-1)
-    return nn.dense(layer, win, activation), xs[:, -1]
+    """``nn.conv1d`` over n steps in one product: xs [B, n, D], mem [B,
+    (k - 1) D] the k - 1 previous inputs, oldest first, for a layer k
+    inputs wide.  Returns (out [B, n, N], new mem)."""
+    b, n, d = xs.shape
+    if mem.shape[-1] % d:
+        raise ValueError("conv1d_seq: memory must be whole inputs wide")
+    k1 = mem.shape[-1] // d
+    seq = torch.cat([mem.reshape(b, k1, d), xs], dim=1)
+    win = torch.cat([seq[:, i:i + n] for i in range(k1 + 1)], dim=-1)
+    return nn.dense(layer, win, activation), seq[:, n:].reshape(b, k1 * d)
 
 
 def adashape_process_frame(state: AdaShapeState, x_in, features,
@@ -263,10 +266,10 @@ def adashape_process_frame(state: AdaShapeState, x_in, features,
     x = x_in.to(torch.float32).reshape(b, n, frame_size)
     # temporal envelope, log domain, mean removed (numpy's sum orders)
     tenv = x.abs().reshape(b, n, tenv_size, avg_pool_k)
-    tenv = _np_sum_f32(tenv) / avg_pool_k
+    tenv = np_sum(tenv) / avg_pool_k
     tenv = torch.log((tenv + 1.52587890625e-05).to(torch.float64)) \
         .to(torch.float32)
-    mean = _np_sum_f32(tenv) / tenv_size
+    mean = np_sum(tenv) / tenv_size
     tenv = torch.cat([tenv - mean[..., None], mean[..., None]], dim=-1)
 
     f_out, a1f_mem = conv1d_seq(alpha1f, state.alpha1f_mem, features,

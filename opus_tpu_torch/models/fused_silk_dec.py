@@ -42,6 +42,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..dnn.bbwe import BBWE
 from ..dnn.osce import OSCEEnhancer
 from ..ops import silk_fixed as F
 from ..ops.device_cache import const
@@ -50,6 +51,7 @@ from ..ops.rc_kernel import (M32, pack_payloads, rk_dec_bit_logp,
 from ..ops.silk_fixed import w32
 from ..silk import tables as T
 from ..silk import tables_data as TD
+from ..silk.resampler import upsample_to_48k, upsampler_init
 from .batched_silk import init_state, silk_decode_step
 
 LTP_ORDER = 5
@@ -803,31 +805,64 @@ def fused_silk_decode(buf, lens, state: dict, *, fs_khz: int = 16,
         + tuple(osce_in)
 
 
+def silk_out_48k(xq16, smid, rs, bwe=None, frame_ms: int = 20):
+    """The SILK API's output stage at 48 kHz (silk/dec_API.c): xq16 [B, L]
+    the frame at 16 kHz (enhanced, if OSCE is on), smid [B, 2] the last
+    two samples of the frame before, rs the upsampler's state.  The
+    resampler, or ``bwe`` in its place (``BBWE``, silk/dec_API.c:267),
+    reads [smid[1], xq16[:-1]]; the resampler does not advance on a BBWE
+    frame.  Returns (out [B, 3L] int64 int16-valued, rs, new smid)."""
+    seq = torch.cat([smid[:, 1:], xq16[:, :-1]], dim=1)
+    if bwe is not None:
+        out = bwe.process(seq)
+    else:
+        out, rs = upsample_to_48k(seq, rs, 16, frame_ms)
+    return out, rs, xq16[:, -2:]
+
+
 class FusedSilkDecoder:
     """Packets-in -> PCM-out mono SILK decoder with everything on the card
     (the default device; kernel K4 for the LPC synthesis), the plain torch
     versions when ``device="cpu"``.
 
+    ``fs_out`` is the output rate: the internal rate (the default), or
+    48000 at ``fs_khz=16``, where the frame goes through the SILK API's
+    16 -> 48 kHz upsampler, one sample late through its mono 2-sample
+    buffer (``silk_out_48k``).
+
     ``set_osce(method, model)`` switches LACE or NoLACE enhancement on
     (``OpusDecoder.set_osce``): ``decode_packed`` then returns the
     enhanced PCM of 16 kHz 20 ms frames (other frames pass through and
     reset the enhancer).  The synthesis state never sees the enhancement:
-    as in the scalar decoder, it keeps the unenhanced history."""
+    as in the scalar decoder, it keeps the unenhanced history.
+    ``set_osce_bwe(model)`` puts the neural bandwidth extension in the
+    upsampler's place at 48 kHz (``OpusDecoder.set_osce_bwe``); it and
+    the 2-sample buffer see the enhanced samples."""
 
     def __init__(self, batch: int, fs_khz: int = 16, nb_subfr: int = 4,
-                 max_payload: int = 512, device="cuda"):
+                 max_payload: int = 512, device="cuda", fs_out=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FusedSilkDecoder: no CUDA device (pass "
                                "device='cpu' for the plain versions)")
+        fs_out = 1000 * fs_khz if fs_out is None else fs_out
+        if fs_out != 1000 * fs_khz and (fs_out, fs_khz) != (48000, 16):
+            raise ValueError(f"FusedSilkDecoder: output at {fs_out} Hz from "
+                             f"{fs_khz} kHz (the internal rate, or 48000 "
+                             f"from 16 kHz)")
         self.batch = batch
         self.fs_khz = fs_khz
         self.nb_subfr = nb_subfr
+        self.fs_out = fs_out
         self.P = max_payload
         self.state = fused_init_state(batch, fs_khz, self.device)
+        self.rs = upsampler_init(batch, 16, self.device)
+        self.smid = torch.zeros((batch, 2), dtype=torch.int64,
+                                device=self.device)
         self.final_range = None      # [B] the range decoder's, last frame
         self.osce_in = None          # the last frame's OSCE inputs
         self.osce = None             # the OSCEEnhancer, if switched on
+        self.bwe = None              # the BBWE, if switched on
 
     def set_osce(self, method: int, model) -> None:
         """Enhance with ``model`` by ``method`` (1 LACE, 2 NoLACE; the
@@ -836,21 +871,37 @@ class FusedSilkDecoder:
         self.osce = OSCEEnhancer(method, model, self.batch,
                                  device=self.device) if method else None
 
+    def set_osce_bwe(self, model) -> None:
+        """Extend the bandwidth with ``model`` (the port's ``dnn.bbwe``
+        model on the decoder's device) in place of the upsampler; None
+        switches it off.  Needs the 48 kHz output."""
+        if model is not None and self.fs_out != 48000:
+            raise ValueError("FusedSilkDecoder: BBWE needs fs_out=48000")
+        self.bwe = BBWE(model, self.batch, device=self.device) \
+            if model is not None else None
+
     def pack(self, payloads):
         """list of B byte strings -> (buf [B, P] uint8, lens [B]) on the
         decoder's device; raises ValueError on a payload longer than P."""
         return pack_payloads(payloads, self.batch, self.P, self.device)
 
-    def decode_packed(self, buf_u8, lens):
-        """buf [B, P] uint8, lens [B] on the device -> (xq [B, L] int16,
-        err [B] bool); the final range lands in ``final_range`` and the
-        frame's OSCE inputs in ``osce_in``."""
-        xq, self.state, err, d, self.osce_in = fused_silk_decode(
+    def decode_packed(self, buf_u8, lens, osce_inputs: bool = False):
+        """buf [B, P] uint8, lens [B] on the device -> (pcm [B, L] int16
+        at ``fs_out``, err [B] bool); the final range lands in
+        ``final_range``.  The frame's OSCE inputs are taken when the
+        enhancer is on or ``osce_inputs`` asks for them, and land in
+        ``osce_in`` (else None)."""
+        want = osce_inputs or self.osce is not None
+        xq, self.state, err, d, *osce_in = fused_silk_decode(
             buf_u8, lens, self.state, fs_khz=self.fs_khz,
-            nb_subfr=self.nb_subfr, return_rc=True, return_osce=True)
+            nb_subfr=self.nb_subfr, return_rc=True, return_osce=want)
+        self.osce_in = osce_in[0] if want else None
         self.final_range = d["rng"]
         if self.osce is not None:
             xq = self.osce.enhance_frame(xq, **self.osce_in)
+        if self.fs_out == 48000:
+            xq, self.rs, self.smid = silk_out_48k(
+                xq, self.smid, self.rs, self.bwe, 5 * self.nb_subfr)
         return xq.to(torch.int16), err
 
     def decode(self, payloads):

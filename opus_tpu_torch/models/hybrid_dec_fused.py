@@ -14,16 +14,21 @@ through both halves, as in the reference frame loop
    (``kernel_celt_decode_to_pcm`` with ``d0``, kernel K1 at start 17,
    then the synthesis with K2), reading ``lens - redundancy bytes`` as
    the scalar decoder shrinks ``dec.storage``;
-4. SILK's output, one 16 kHz sample late through the decoder's mono
-   2-sample buffer (``smid``, silk/dec_API.c sStereo.sMid; the resampler
-   reads from its second sample), is upsampled to 48 kHz
-   (``silk/resampler.py``) and the CELT synthesis is added on top.
+4. SILK's output, enhanced by LACE or NoLACE when OSCE is on, one 16 kHz
+   sample late through the decoder's mono 2-sample buffer (``smid``,
+   silk/dec_API.c sStereo.sMid; the resampler reads from its second
+   sample), is upsampled to 48 kHz (``silk/resampler.py``, or the neural
+   bandwidth extension in its place, ``dnn/bbwe.py``) and the CELT
+   synthesis is added on top.
 
 Held to the scalar ``opus_tpu/models/opus_decoder.py`` ``OpusDecoder``
 (final range equal, PCM within float tolerance), which, unlike the JAX
 fused path, does the CELT half's special hybrid folding and delays
-SILK's output by that one sample before the upsampler.  Scope: mono,
-20 ms, steady-state hybrid (no mode transitions, no redundancy, no loss);
+SILK's output by that one sample before the upsampler.  The JAX fused
+path has no OSCE and no BBWE; the scalar decoder enhances the SILK half
+of a hybrid frame as a SILK-only one (silk/decoder.py decode_frame) and
+hands it to BBWE at 48 kHz (silk/api.py).  Scope: mono, 20 ms,
+steady-state hybrid (no mode transitions, no redundancy, no loss);
 out-of-envelope lanes set ``error``.
 """
 
@@ -31,11 +36,13 @@ from __future__ import annotations
 
 import torch
 
+from ..dnn.bbwe import BBWE
+from ..dnn.osce import OSCEEnhancer
 from ..ops import rc_kernel as K
-from ..silk.resampler import upsample_to_48k, upsampler_init
+from ..silk.resampler import upsampler_init
 from .celt_dec_fused import fused_celt_init_state
 from .celt_dec_kernel import dec_tabs, kernel_celt_decode_to_pcm
-from .fused_silk_dec import fused_init_state, fused_silk_decode
+from .fused_silk_dec import fused_init_state, fused_silk_decode, silk_out_48k
 
 HYBRID_START = 17          # the first CELT band of a hybrid frame
 
@@ -51,20 +58,26 @@ def hybrid_init_state(batch: int, tabs, device="cpu") -> dict:
                                  device=device))
 
 
-def fused_hybrid_decode(buf, lens, state: dict, tabs, frame_fn=None):
+def fused_hybrid_decode(buf, lens, state: dict, tabs, frame_fn=None,
+                        osce=None, bwe=None):
     """One 20 ms hybrid frame per stream on the tensors' device.
 
     buf: [B, P] uint8 frame payload bytes (no TOC); lens: [B] byte
     lengths; tabs: a start-17 ``DecTabs``; frame_fn: the CELT symbol
-    pass (default kernel K1's wrapper).  Returns (pcm [B, 960] f32, new
-    state, error [B] bool); the final range is the new state's
-    ``celt["seed"]``."""
+    pass (default kernel K1's wrapper); osce: an ``OSCEEnhancer`` for the
+    SILK half, bwe: a ``BBWE`` in the upsampler's place (each optional,
+    carrying its own state).  Returns (pcm [B, 960] f32, new state, error
+    [B] bool); the final range is the new state's ``celt["seed"]``, which
+    the enhancement never touches."""
     assert tabs.start == HYBRID_START
     lens = lens.to(torch.int64).clamp(0, buf.shape[1])
 
     # ---- SILK low band, 16 kHz internal (src/opus_decoder.c:461) ----
-    xq16, silk_state, err, d = fused_silk_decode(
-        buf, lens, state["silk"], fs_khz=16, nb_subfr=4, return_rc=True)
+    xq16, silk_state, err, d, *osce_in = fused_silk_decode(
+        buf, lens, state["silk"], fs_khz=16, nb_subfr=4, return_rc=True,
+        return_osce=osce is not None)
+    if osce is not None:
+        xq16 = osce.enhance_frame(xq16, **osce_in[0])
 
     # ---- redundancy signalling (src/opus_decoder.c:522-541) ----
     can_red = K.rk_tell(d) + 17 + 20 <= 8 * lens
@@ -83,20 +96,21 @@ def fused_hybrid_decode(buf, lens, state: dict, tabs, frame_fn=None):
         buf, lens2, state["celt"], tabs, frame_fn, d0=d)
     err = err | err_c
 
-    # ---- 16 -> 48 kHz upsample, then accumulate (:476, :608); the
-    # resampler reads [sMid[1], xq[:-1]] (silk/dec_API.c) ----
-    seq = torch.cat([state["smid"][:, 1:], xq16[:, :-1]], dim=1)
-    silk48, rs_state = upsample_to_48k(seq, state["rs"], 16, 20)
+    # ---- 16 -> 48 kHz upsample, then accumulate (:476, :608) ----
+    silk48, rs_state, smid = silk_out_48k(xq16, state["smid"], state["rs"],
+                                          bwe, 20)
     pcm = pcm_c[:, 0, :] + silk48.to(torch.float32) * (1.0 / 32768.0)
     return pcm, dict(silk=silk_state, celt=celt_state, rs=rs_state,
-                     smid=xq16[:, -2:]), err
+                     smid=smid), err
 
 
 class FusedHybridDecoder:
     """Packets-in -> 48 kHz-PCM-out mono hybrid decoder at 20 ms with
     everything on the card (the default device; kernels K1, K2 and K4),
     the plain torch versions when ``device="cpu"``.  end: the last CELT
-    band + 1 (21 fullband, 19 superwideband)."""
+    band + 1 (21 fullband, 19 superwideband).  ``set_osce`` and
+    ``set_osce_bwe`` switch on OSCE for the SILK half and BBWE in the
+    upsampler's place, as on ``FusedSilkDecoder``."""
 
     def __init__(self, batch: int, end: int = 21, max_payload: int = 512,
                  device="cuda"):
@@ -108,6 +122,21 @@ class FusedHybridDecoder:
         self.P = max_payload
         self.tabs = dec_tabs(48000, 960, HYBRID_START, end)
         self.state = hybrid_init_state(batch, self.tabs, self.device)
+        self.osce = None             # the OSCEEnhancer, if switched on
+        self.bwe = None              # the BBWE, if switched on
+
+    def set_osce(self, method: int, model) -> None:
+        """LACE (1) or NoLACE (2) enhancement of the SILK half with
+        ``model`` (the port's ``dnn.osce`` model on the decoder's device);
+        0 switches it off (src/opus_decoder.c:443-455)."""
+        self.osce = OSCEEnhancer(method, model, self.batch,
+                                 device=self.device) if method else None
+
+    def set_osce_bwe(self, model) -> None:
+        """BBWE with ``model`` (the port's ``dnn.bbwe`` model) in place of
+        the SILK half's upsampler; None switches it off."""
+        self.bwe = BBWE(model, self.batch, device=self.device) \
+            if model is not None else None
 
     @property
     def final_range(self):
@@ -122,8 +151,8 @@ class FusedHybridDecoder:
     def decode_packed(self, buf_u8, lens):
         """buf [B, P] uint8, lens [B] on the device -> (pcm [B, 960] f32,
         err [B] bool)."""
-        pcm, self.state, err = fused_hybrid_decode(buf_u8, lens, self.state,
-                                                   self.tabs)
+        pcm, self.state, err = fused_hybrid_decode(
+            buf_u8, lens, self.state, self.tabs, osce=self.osce, bwe=self.bwe)
         return pcm, err
 
     def decode(self, payloads):

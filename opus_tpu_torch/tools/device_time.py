@@ -9,34 +9,43 @@ device time, whatever the host does between launches.
 
 from __future__ import annotations
 
+# profiles taken by device_ms before it gives up on the profiler
+PROFILE_ATTEMPTS = 3
+
 
 def device_ms(fn, kernel: str, reps: int = 50) -> float:
     """Mean device time (ms) of one launch of the kernel whose name
     contains ``kernel``, over ``reps`` calls of ``fn`` after one warm-up
-    call.  The profiler may drop a record now and then; raises if it
-    kept fewer than half of them, or more than one per call."""
+    call.  The profiler may drop a record now and then, and once in a
+    while every record of a profile (seen on an H100 after several
+    profiles in a row): a profile that kept fewer than half of them is
+    taken again, up to PROFILE_ATTEMPTS times in all; raises if none
+    kept enough, or if one kept more than one per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA \
-                or kernel not in e.key:
-            continue
-        dt = getattr(e, "device_time_total", None)
-        total_us += e.cuda_time_total if dt is None else dt
-        count += e.count
-    if not reps // 2 <= count <= reps:
-        raise RuntimeError(f"device_ms: {count} records of a kernel named "
-                           f"'{kernel}' in {reps} calls")
-    return total_us / count / 1e3
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA \
+                    or kernel not in e.key:
+                continue
+            dt = getattr(e, "device_time_total", None)
+            total_us += e.cuda_time_total if dt is None else dt
+            count += e.count
+        if count > reps:
+            break
+        if count >= reps // 2:
+            return total_us / count / 1e3
+    raise RuntimeError(f"device_ms: {count} records of a kernel named "
+                       f"'{kernel}' in {reps} calls")
 
 
 def device_profile(fn, reps: int = 3) -> tuple:

@@ -36,6 +36,7 @@ for name in ("opus_tpu_torch.models.hybrid_dec_fused",
              "opus_tpu_torch.dnn.plc", "opus_tpu_torch.models.deep_plc",
              "opus_tpu_torch.dnn.nndsp", "opus_tpu_torch.dnn.osce_features",
              "opus_tpu_torch.dnn.osce", "opus_tpu_torch.dnn.dred_enc",
+             "opus_tpu_torch.dnn.bbwe",
              "opus_tpu_torch.bitstream.repacketizer",
              "opus_tpu_torch.models.dred_encoder"):
     assert name in names, name
