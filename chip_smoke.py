@@ -1512,6 +1512,45 @@ PLC_FEAT_TOL = 2e-3
 # (steps 2 and 3) plus 4 per concealed frame (6 + 2 + 2)
 PLC_K2_LAUNCHES = 4 * 2 + 4 * 10
 PLC_INT_KEYS = ("apitch", "period", "fec_read", "loss")
+# per-lane loss on the decode side: the plc_lanes phase's ticks and its
+# mid-run reset (before tick PLC_RESET_TICK, on every third lane; the
+# fixture's 8 lanes: 0, 3 and 6)
+PLC_TICKS, PLC_RESET_TICK = 16, 8
+PLC_RESET_LANES = (0, 3, 6)
+# dred_decode's other rates: Resampler(16000, fs) down (DOWN_FIR 1/2 at 8
+# kHz, 3/4 at 12) or up (IIR_FIR at 24) from the 16 kHz concealment, whose
+# samples are within PLC_LSB_16K = 1 LSB of the reference's.  A 1-LSB step
+# on every input sample moves an output sample by at most the largest sum
+# of |h| that reaches one output sample (``resampler_l1``: 2.38, 2.54 and
+# 3.02, measured on the port's bit-exact resampler); the rounded outputs
+# then differ by at most its ceiling (3, 3 and 4 LSB), as the 4 LSB at
+# 48 kHz above.
+PLC_RATES = (8000, 12000, 24000)
+
+
+def resampler_l1(fs: int, pieces: int = 6) -> float:
+    """The largest sum over input samples of |h| reaching one output sample
+    of Resampler(16000, fs), from the port's resampler on the CPU: a 4096
+    impulse at each of pieces x 160 input positions, one lane each, the
+    state carried over 10 ms pieces."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.silk import resampler as PR
+    n, amp = 160 * pieces, 4096
+    x = torch.diag(torch.full((n,), amp, dtype=torch.int64))
+    st = PR.dec_resampler_init(n, fs)
+    ys = []
+    for k in range(pieces):
+        y, st = PR.resample_16k(x[:, 160 * k:160 * (k + 1)], st, fs)
+        ys.append(y)
+    h = torch.cat(ys, dim=1).to(torch.float64) / amp
+    return float(h.abs().sum(dim=0).max())
+
+
+def plc_rate_lsb(fs: int) -> int:
+    """The int16 bound at fs card vs CPU and port vs JAX (above)."""
+    import math
+    return int(math.ceil(resampler_l1(fs) * PLC_LSB_16K))
 
 
 def speech_history(n_streams: int, seed: int, n_frames: int = 18):
@@ -1566,8 +1605,8 @@ def deep_plc_sequence(models, dreds, hist, off48, off16, dev):
         analysed.append(f)
         return st, f
 
-    def conceal():
-        out = orig_conceal()
+    def conceal(lanes=None):
+        out = orig_conceal(lanes)
         log.append((out, lp.features, lp.fec_read_pos, lp.loss_count))
         return out
 
@@ -1757,6 +1796,7 @@ def phase_deep_plc(dev, dfx, pfx, dred):
           f"[{B_DNN}, 40], max err {k2_err:.3g}); the CPU run took "
           f"{cpu_s:.1f} s (host)")
     return dict(k2=k2, k2_err=k2_err, models=models, dreds=card_dreds,
+                cpu_dreds=cpu_dreds, n_fx=n_fx,
                 hist=hist, off48=off48, e_cpu=e_cpu, e_jax=e_jax)
 
 
@@ -2884,6 +2924,25 @@ def fixture_boundary_lanes(efx, key: str, a: int, stats):
     return lanes
 
 
+def speech_lanes(k: int, rng, nf: int, n: int):
+    """k seeded speech-like lanes, [k, nf, n] float32 at 48 kHz: two
+    harmonics of a vibrato f0 in 90-250 Hz, 1% noise, at 5-30% of full
+    scale, drawn from ``rng`` in blocks of 128 lanes."""
+    import numpy as np
+    t = np.arange(nf * n) / 48000.0
+    vib = 1 + 0.1 * np.sin(2 * np.pi * 3 * t)
+    out = []
+    for i in range(0, k, 128):
+        m = min(128, k - i)
+        f0 = rng.uniform(90, 250, (m, 1))
+        amp = rng.uniform(0.05, 0.3, (m, 1))
+        ph = np.cumsum(f0 * vib, axis=1) / 48000.0
+        x = amp * (np.sin(2 * np.pi * ph) + 0.5 * np.sin(4 * np.pi * ph)) \
+            + 0.01 * rng.standard_normal((m, nf * n))
+        out.append(np.clip(x, -1, 1).astype(np.float32))
+    return np.concatenate(out).reshape(k, nf, n)
+
+
 def chain_lanes(efx):
     """PCM [B_DNN, CHAIN_FRAMES, 960] float32 and voice activity [B_DNN,
     CHAIN_FRAMES] (0 on an all-zero frame, as the fixture's): the DRED
@@ -2900,20 +2959,9 @@ def chain_lanes(efx):
         fail(f"DRED encoder fixture: {nf} frames of {n}")
     n_fx = ns * 8
     rng = np.random.default_rng(30)
-    t = np.arange(nf * n) / 48000.0
-    vib = 1 + 0.1 * np.sin(2 * np.pi * 3 * t)
 
     def speech(k):
-        out = []
-        for i in range(0, k, 128):
-            m = min(128, k - i)
-            f0 = rng.uniform(90, 250, (m, 1))
-            amp = rng.uniform(0.05, 0.3, (m, 1))
-            ph = np.cumsum(f0 * vib, axis=1) / 48000.0
-            x = amp * (np.sin(2 * np.pi * ph) + 0.5 * np.sin(4 * np.pi * ph)) \
-                + 0.01 * rng.standard_normal((m, nf * n))
-            out.append(np.clip(x, -1, 1).astype(np.float32))
-        return np.concatenate(out).reshape(k, nf, n)
+        return speech_lanes(k, rng, nf, n)
 
     silent = speech(N_SILENT)
     third = N_SILENT // 3
@@ -3236,6 +3284,761 @@ def phase_dred_chain_times(dev, smi, d):
                 chain_frame_dred=with_dred)
 
 
+# Per-lane loss on the decode side: opus_demo's `decode -sim_loss 10 -dred`
+# / `-loss 10 -dred` loop (tracked config 4's 10% loss with config 5's DRED)
+# as ``tools/sim_loss.BatchedLossDecoder`` over B_DNN streams, each with its
+# own loss pattern (``tools/loss.py``: lanes below SIM_LOSSGEN_LANES from
+# one ``BatchedLossGen`` of ``random_model(LOSSGEN_SEED)``, the rest
+# i.i.d.), models from opus_demo's seeds (SIM_SEEDS).  The fixture
+# tests/data/torch_sim_loss.npz (tools/make_torch_sim_loss_fixture.py) holds
+# the JAX loop on 8 streams of the JAX encoder's packets; on the card those
+# streams ride lanes SIM_FX (4 from each source).  Bounds, card against the
+# port's CPU run (every lane) and the JAX loop (fixture lanes, its first
+# SIM_LOOP frames): loss flags, final ranges, FEC choices and FARGAN
+# periods equal; CELT PCM within PCM_ABS_TOL (1e-4, the decode phase's
+# bound); concealed int16 at 48 kHz within PLC_LSB_48K (4 LSB).
+SIM_FIXTURE = os.path.join(REPO, "tests", "data", "torch_sim_loss.npz")
+SIM_SEEDS = dict(enc=31, dec=32, stats=33, plc=34, pitch=35, fargan=36)
+LOSSGEN_SEED = 33
+SIM_LOSS_PERC = 10.0
+PLC_LOSS_PERC = 30.0
+SIM_LOSSGEN_LANES = B_DNN // 2
+SIM_FX = (0, 1, 2, 3, SIM_LOSSGEN_LANES, SIM_LOSSGEN_LANES + 1,
+          SIM_LOSSGEN_LANES + 2, SIM_LOSSGEN_LANES + 3)
+SIM_LOOP = 12
+
+
+def sim_models(device):
+    """opus_demo's stand-in models: (PLC, pitch DNN, FARGAN, RDOVAE
+    decoder, DRED statistics)."""
+    from opus_tpu_torch.dnn import dred as PD
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.dnn import pitchdnn as PP
+    from opus_tpu_torch.dnn import plc as PL
+    from opus_tpu_torch.dnn import rdovae as PV
+    s = SIM_SEEDS
+    return (PL.random_model(s["plc"], device=device),
+            PP.random_model(s["pitch"], device=device),
+            PF.random_model(s["fargan"], device=device),
+            PV.random_dec_model(s["dec"], device=device),
+            PD.random_stats(s["stats"]))
+
+
+def sim_loss_flags(seeds, lossgen_lanes, n: int, dred_from: int, device):
+    """[B, n] bool numpy: ``-sim_loss 10`` (one BatchedLossGen of
+    random_model(LOSSGEN_SEED)) on the lanes where ``lossgen_lanes`` holds,
+    ``-loss 10`` elsewhere, each lane from its own seed; no loss before
+    frame ``dred_from`` (the first frame from which every packet carries
+    DRED)."""
+    import numpy as np
+    from opus_tpu_torch.dnn import lossgen
+    from opus_tpu_torch.tools.loss import loss_flags
+    seeds = np.asarray(seeds)
+    lg = np.asarray(lossgen_lanes, bool)
+    out = np.zeros((len(seeds), n), bool)
+    if lg.any():
+        model = lossgen.random_model(LOSSGEN_SEED, device=device)
+        out[lg] = loss_flags(n, seeds[lg], sim_loss_perc=SIM_LOSS_PERC,
+                             model=model, device=device).cpu().numpy()
+    if (~lg).any():
+        out[~lg] = loss_flags(n, seeds[~lg], loss_perc=SIM_LOSS_PERC,
+                              device=device).cpu().numpy()
+    out[:, :dred_from] = False
+    return out
+
+
+def sim_fixture_packets(sfx):
+    """The fixture's packets: [8][FRAMES] bytes."""
+    lens = sfx["packet_lens"]
+    return [[bytes(sfx["packets"][i, f, :lens[i, f]])
+             for f in range(lens.shape[1])] for i in range(lens.shape[0])]
+
+
+def sim_loss_run(dec, packets, lost):
+    """Drives a BatchedLossDecoder through packets[i][f] with the flags
+    lost [B, F]; returns numpy: the final range after each received packet
+    (``rng``, 0 when lost), its float PCM (``celt``), the concealed int16 of
+    each lost frame a later packet's DRED concealed (``conc``, with
+    ``concealed``), the span ``pending`` at the end, the resume events, and
+    each concealed 10 ms frame's lanes, FEC choices and FARGAN periods
+    (``trace_mask``, ``trace_fec``, ``trace_period`` [N, B]); ``k2`` is the
+    number of K2 launches the run makes (one a tick for the CELT
+    de-emphasis, one per FARGAN subframe of each concealed frame and of
+    each tick's priming)."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import fargan as PF
+    b, nf = lost.shape
+    rng = np.zeros((b, nf), np.uint32)
+    celt = np.zeros((b, nf, 960), np.float32)
+    conc = np.zeros((b, nf, 960), np.int16)
+    concealed = np.zeros((b, nf), bool)
+    pend = [[] for _ in range(b)]
+    tm, tf, tp, tick_s = [], [], [], []
+    k2 = 0
+    for f in range(nf):
+        resume = ~lost[:, f] & (dec.pending() > 0)
+        prime = bool((resume & (dec.plc.lpcnet.blend.cpu().numpy()
+                                == 0)).any())
+        t0 = time.perf_counter()
+        out, n = dec.tick([packets[i][f] for i in range(b)], lost[:, f])
+        if dec.device.type == "cuda":
+            torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t0)
+        out = out.cpu().numpy()
+        k2 += 1 + PF.FARGAN_NB_SUBFRAMES * (prime + (
+            len(dec.plc.trace) if resume.any() else 0))
+        if resume.any():
+            for m, fec, per in dec.plc.trace:
+                tm.append(m.cpu().numpy())
+                tf.append(fec.cpu().numpy())
+                tp.append(per.cpu().numpy())
+        r = dec.final_range().cpu().numpy()
+        pcm = dec.pcm.cpu().numpy()
+        for i in np.nonzero(~lost[:, f])[0]:
+            p = len(pend[i])
+            if n[i] != 960 * (p + 1):
+                fail(f"sim_loss frame {f} lane {i}: {n[i]} samples out")
+            if p:
+                conc[i, pend[i]] = out[i, :960 * p].reshape(p, 960)
+                concealed[i, pend[i]] = True
+                pend[i] = []
+            rng[i, f] = r[i]
+            celt[i, f] = pcm[i]
+        for i in np.nonzero(lost[:, f])[0]:
+            pend[i].append(f)
+    z = np.zeros((0, b))
+    return dict(lost=lost, rng=rng, celt=celt, conc=conc,
+                concealed=concealed, pending=dec.pending(),
+                resumes=dec.resumes, k2=k2, tick_s=tick_s,
+                trace_mask=np.array(tm).reshape(-1, b) if tm else z.astype(
+                    bool),
+                trace_fec=np.array(tf).reshape(-1, b) if tf else z.astype(
+                    bool),
+                trace_period=np.array(tp).reshape(-1, b) if tp else z)
+
+
+def sim_compare(got, ref, what, lanes=None, frames=None):
+    """The sim_loss bounds on ``lanes`` (default all) over the first
+    ``frames`` (default all) frames; ``ref`` a sim_loss_run result or the
+    fixture's JAX loop (``loop_*`` keys).  Returns (max CELT PCM error,
+    max concealed LSB, lane-frames concealed in both)."""
+    import numpy as np
+    if "loop_lost" in ref:
+        ref = {"lost": ref["loop_lost"], "rng": ref["loop_range"],
+               "celt": ref["loop_celt"], "conc": ref["loop_conc"],
+               "concealed": ref["loop_concealed"]}
+    nf = ref["lost"].shape[1] if frames is None else frames
+    sel = np.arange(len(got["lost"])) if lanes is None else \
+        np.asarray(lanes)
+    gl = {k: got[k][sel][:, :nf] for k in ("lost", "rng", "celt", "conc",
+                                         "concealed")}
+    rl = {k: ref[k][:, :nf] for k in gl}
+    if not np.array_equal(gl["lost"], rl["lost"]):
+        fail(f"sim_loss {what}: loss flags differ")
+    recv = ~rl["lost"]
+    if not np.array_equal(gl["rng"][recv], rl["rng"][recv]):
+        fail(f"sim_loss {what}: final ranges differ on lane-frames "
+             f"{np.argwhere(recv & (gl['rng'] != rl['rng']))[:4].tolist()}")
+    e_pcm = float(np.abs(gl["celt"][recv] - rl["celt"][recv]).max()) \
+        if recv.any() else 0.0
+    if not e_pcm <= PCM_ABS_TOL:
+        fail(f"sim_loss {what}: CELT PCM err {e_pcm} > {PCM_ABS_TOL}")
+    both = rl["concealed"]
+    if (both & ~gl["concealed"]).any():
+        fail(f"sim_loss {what}: lost frames the reference concealed are not "
+             f"concealed")
+    d = np.abs(gl["conc"][both].astype(np.int64)
+               - rl["conc"][both].astype(np.int64))
+    e_conc = int(d.max()) if d.size else 0
+    if e_conc > PLC_LSB_48K:
+        fail(f"sim_loss {what}: concealed PCM {e_conc} LSB > {PLC_LSB_48K}")
+    return e_pcm, e_conc, int(both.sum())
+
+
+def sim_traffic(dev, sfx):
+    """The sim_loss phase's packets, [B_DNN][CHAIN_FRAMES] bytes: seeded
+    speech-like lanes (``speech_lanes``) through the config-5 encoder on
+    the card (K3 at 160 bytes, ``BatchedDREDEncoder`` of duration 40,
+    ``attach`` on every frame with the DRED chain's 1276-byte budget and
+    rate), the fixture's 8 JAX-encoded streams on lanes SIM_FX.  Returns
+    (packets, K3 launches, seconds)."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import dred as PD
+    from opus_tpu_torch.dnn import pitchdnn as PP
+    from opus_tpu_torch.dnn import rdovae as PV
+    from opus_tpu_torch.models import celt_enc_kernel as EK
+    from opus_tpu_torch.models.dred_encoder import BatchedDREDEncoder
+
+    t0 = time.time()
+    b = B_DNN
+    pcm = speech_lanes(b, np.random.default_rng(31), CHAIN_FRAMES, 960)
+    s = SIM_SEEDS
+    celt = EK.KernelCeltEncoder(b, nbytes=160, device=dev)
+    dred = BatchedDREDEncoder(PV.random_enc_model(s["enc"], device="cpu"),
+                              PP.random_model(s["pitch"], device="cpu"),
+                              PD.random_stats(s["stats"]), b,
+                              duration_frames_10ms=40, device=dev)
+    ones = np.ones(b, np.uint8)
+    packets = [[] for _ in range(b)]
+    torch.cuda.synchronize()
+    EK.launches = 0
+    for f in range(CHAIN_FRAMES):
+        x = torch.from_numpy(pcm[:, f]).to(dev)
+        payload, _rng, err = celt.encode_device(x)
+        if err.any():
+            fail(f"sim_loss traffic frame {f}: the encoder flagged lanes")
+        dred.step(x, ones)
+        pay = payload.cpu().numpy()
+        for i, p in enumerate(dred.attach(
+                [bytes([0xF8]) + pay[i].tobytes() for i in range(b)],
+                CHAIN_MDB, CHAIN_RATE)):
+            packets[i].append(p)
+    torch.cuda.synchronize()
+    k3 = EK.launches
+    for s_, lane in enumerate(SIM_FX):
+        packets[lane] = sim_fixture_packets(sfx)[s_]
+    return packets, k3, time.time() - t0
+
+
+def dred_from_frame(packets) -> int:
+    """The first frame from which every lane's packets carry DRED."""
+    from opus_tpu_torch.dnn.dred_dec import dred_find_payload
+    nf = len(packets[0])
+    first = 0
+    for f in range(nf):
+        if any(dred_find_payload(p[f]) is None for p in packets):
+            first = f + 1
+    if first >= nf:
+        fail("sim_loss: the last frame's packets carry no DRED")
+    return first
+
+
+def sim_seeds(b: int):
+    """Each lane's loss seed (1000 + lane; the fixture's streams 500 + s on
+    lanes SIM_FX) and its source (lossgen below SIM_LOSSGEN_LANES)."""
+    import numpy as np
+    seeds = 1000 + np.arange(b)
+    for s, lane in enumerate(SIM_FX):
+        seeds[lane] = 500 + s
+    return seeds, np.arange(b) < SIM_LOSSGEN_LANES
+
+
+def sim_loss_inputs(dev, sfx):
+    """The sim_loss phase's traffic (``sim_traffic``), the first frame with
+    DRED on every packet, and each lane's flags from ``tools/loss.py`` on
+    the card."""
+    import numpy as np
+    packets, k3, traffic_s = sim_traffic(dev, sfx)
+    dred_from = dred_from_frame(packets)
+    seeds, lg = sim_seeds(B_DNN)
+    lost = sim_loss_flags(seeds, lg, CHAIN_FRAMES, dred_from, dev)
+    if not np.array_equal(lost[list(SIM_FX), :SIM_LOOP], sfx["loop_lost"]):
+        fail("sim_loss: the fixture lanes' flags differ from the JAX "
+             "package's")
+    return dict(packets=packets, k3=k3, traffic_s=traffic_s,
+                dred_from=dred_from, lost=lost, lossgen=lg)
+
+
+def cpu_sim_loss(packets, lost):
+    """The sim_loss run on the CPU (the port's plain versions), in a worker
+    process while the card runs."""
+    from opus_tpu_torch.tools.sim_loss import BatchedLossDecoder
+    t0 = time.time()
+    out = sim_loss_run(BatchedLossDecoder(len(packets), *sim_models("cpu"),
+                                          device="cpu"), packets, lost)
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def phase_sim_loss(dev, sfx, inp, cpu_job):
+    """The loss loop as a user drives it: the BatchedLossDecoder on the
+    card over ``sim_loss_inputs``' traffic and flags, the K1 and K2
+    counters reset just before it and read just after; held to the CPU run
+    (``cpu_job``, a future of ``cpu_sim_loss``) and the JAX loop.  Returns
+    what the timing phase and the kernels line need."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.ops import iir
+    from opus_tpu_torch.tools.sim_loss import BatchedLossDecoder
+
+    packets, lost, lg = inp["packets"], inp["lost"], inp["lossgen"]
+    dred_from, k3 = inp["dred_from"], inp["k3"]
+    b, nf = lost.shape
+    width = max(len(p) for row in packets for p in row)
+    torch.cuda.synchronize()
+    CK.launches = iir.launches = 0
+    dec = BatchedLossDecoder(b, *sim_models(dev), device=dev)
+    card = sim_loss_run(dec, packets, lost)
+    torch.cuda.synchronize()
+    counts = {"K1": CK.launches, "K2": iir.launches}
+    print(f"sim_loss launch counters over {nf} ticks: {counts}; the "
+          f"traffic's encoder: K3 {k3}")
+    if counts != {"K1": nf, "K2": card["k2"]} or k3 != nf:
+        fail(f"sim_loss: expected K1 {nf}, K2 {card['k2']} and K3 {nf}")
+    cpu = cpu_job.result()
+    e_pcm, e_conc, n_conc = sim_compare(card, cpu, "card vs the CPU run")
+    if not (np.array_equal(card["pending"], cpu["pending"])
+            and np.array_equal(card["trace_mask"], cpu["trace_mask"])):
+        fail("sim_loss: pending spans or concealed lanes card != CPU")
+    m = card["trace_mask"]
+    for k in ("trace_fec", "trace_period"):
+        if not np.array_equal(card[k][m], cpu[k][m]):
+            fail(f"sim_loss: {k[6:]} card != CPU")
+    jx = sim_compare(card, sfx, "card vs the JAX loop", lanes=SIM_FX,
+                     frames=SIM_LOOP)
+    share = {src: float(lost[sel, dred_from:].mean()) for src, sel in
+             (("sim_loss", lg), ("loss", ~lg))}
+    print(f"sim_loss at B={b} over {nf} ticks (traffic {inp['traffic_s']:.1f} "
+          f"s, packets up to {width} bytes, DRED on every packet from frame "
+          f"{dred_from}): realised loss share from frame {dred_from} "
+          f"{share['sim_loss']:.4f} (-sim_loss {SIM_LOSS_PERC:g}, lanes "
+          f"0-{SIM_LOSSGEN_LANES - 1}) and {share['loss']:.4f} (-loss "
+          f"{SIM_LOSS_PERC:g}); {card['resumes']} resume events, "
+          f"{int(m.any(axis=1).sum())} concealed 10 ms frames "
+          f"({int(m.sum())} lane-frames, {int(card['trace_fec'][m].sum())} "
+          f"from a FEC row); pending at the end {int(card['pending'].sum())} "
+          f"samples on {int((card['pending'] > 0).sum())} lanes (the "
+          f"classic PLC's, not ported); card vs CPU: flags, ranges, FEC "
+          f"choices, FARGAN periods equal, CELT PCM {e_pcm:.3g}, concealed "
+          f"{e_conc} LSB on {n_conc} lane-frames; fixture lanes vs the JAX "
+          f"loop ({SIM_LOOP} frames): CELT PCM {jx[0]:.3g}, concealed "
+          f"{jx[1]} LSB on {jx[2]} lane-frames; card ticks "
+          f"{1e3 * min(card['tick_s']):.1f}-{1e3 * max(card['tick_s']):.1f} "
+          f"ms; the CPU run took {cpu['seconds']:.1f} s (worker process)")
+    return dict(counts=dict(counts, K3=k3), packets=packets, lost=lost,
+                e_pcm=e_pcm, e_conc=e_conc)
+
+
+def plc_lanes_run(lp, hist, lost, reset, feed=None):
+    """PLC_TICKS ticks of per-lane update / conceal on an LPCNetPLC (reset
+    before PLC_RESET_TICK on the lanes of ``reset``): per tick the
+    concealed int16, features, FARGAN period and counters, the lanes
+    whose conceal primed FARGAN (``primed``) and the pitch features of its
+    5 priming frames (``cont_pitch``), numpy; and the K2 launches the run
+    makes.  ``feed`` (int16 [B, PLC_TICKS, 160], another run's concealed
+    frames) puts those frames in the history in place of this run's own,
+    so that the next catch-up analyses the same PCM."""
+    import torch
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.dnn import plc as PL
+    dev = lp.device
+    h = torch.as_tensor(hist, device=dev)
+    keys = ("loss_count", "analysis_pos", "predict_pos", "blend",
+            "analysis_gap")
+    rec = {k: [] for k in ("pcm", "feats", "period", "primed",
+                           "cont_pitch") + keys}
+    k2 = 0
+    orig_cont = PF.cont
+
+    def cont(model, state, pcm0, features0):
+        rec["cont_pitch"][-1] = features0[..., PL.NB_BANDS]
+        return orig_cont(model, state, pcm0, features0)
+    PF.cont = cont
+    try:
+        for t in range(PLC_TICKS):
+            if t == PLC_RESET_TICK:
+                lp.reset(torch.as_tensor(reset, device=dev))
+            lt = torch.as_tensor(lost[:, t], device=dev)
+            primed = lt & (lp.blend == 0)
+            rec["primed"].append(primed)
+            rec["cont_pitch"].append(torch.zeros((len(hist), 5),
+                                                 device=dev))
+            lp.update(h[:, t], ~lt)
+            rec["pcm"].append(lp.conceal(lt))
+            k2 += PF.FARGAN_NB_SUBFRAMES * (1 + bool(primed.any()))
+            if feed is not None:
+                fed = torch.as_tensor(feed[:, t], device=dev)
+                lp.pcm = torch.where(lt[:, None], torch.cat(
+                    [lp.pcm[:, :-160], fed.to(torch.float32) / 32768.0],
+                    dim=1), lp.pcm)
+            rec["feats"].append(lp.features)
+            rec["period"].append(lp.fargan.last_period)
+            for k in keys:
+                rec[k].append(getattr(lp, k))
+    finally:
+        PF.cont = orig_cont
+    return {k: torch.stack(v, dim=1).cpu().numpy() for k, v in
+            rec.items()}, k2
+
+
+def period_value(f):
+    """FARGAN's period before rounding (``fargan.period_from_feature``'s
+    256 / 2**(...) in its float32 steps) from pitch features, float64."""
+    import numpy as np
+    f = np.asarray(f, np.float32)
+    e = np.float32(1.0 / 60.0) * ((f + np.float32(1.5)) * np.float32(60.0))
+    p = np.power(2.0, e.astype(np.float64)).astype(np.float32)
+    return (np.float32(256.0) / p).astype(np.float64)
+
+
+def period_flips(card, ref):
+    """[B] the first tick at which a lane's FARGAN period decisions (its 5
+    priming frames' and its synthesized frame's) differ between two
+    plc_lanes runs (PLC_TICKS where none does).  A difference is allowed
+    only where the period before rounding lies within the features'
+    float bound (PLC_FEAT_TOL, through d period = period ln 2 d feature)
+    of k + 0.5; fails on any other, or on more than 1% of the lanes."""
+    import numpy as np
+    vc, vr = period_value(card["cont_pitch"]), period_value(ref["cont_pitch"])
+    cont = card["primed"][..., None] & (np.floor(vc + 0.5)
+                                        != np.floor(vr + 0.5))
+    synth = card["period"] != ref["period"]
+    vs = period_value(card["feats"][..., 18])
+    margin = np.log(2.0) * PLC_FEAT_TOL
+
+    def near(v):
+        return np.abs(v - np.floor(v) - 0.5) <= margin * v
+    ok = (~cont | near(vc)).all(axis=2) & (~synth | near(vs))
+    bad = cont.any(axis=2) | synth
+    first = np.where(bad.any(axis=1), bad.argmax(axis=1), PLC_TICKS)
+    lanes = np.nonzero(first < PLC_TICKS)[0]
+    if not ok[lanes, first[lanes]].all():
+        fail(f"plc_lanes: FARGAN periods differ away from a rounding "
+             f"boundary on lanes {lanes[~ok[lanes, first[lanes]]][:8]}")
+    if len(lanes) > len(first) // 100:
+        fail(f"plc_lanes: period flips on {len(lanes)} lanes")
+    return first
+
+
+def plc_lanes_inputs(dev, sfx):
+    """The plc_lanes phase's B_DNN lanes: the fixture's 8 histories then
+    seeded speech-like ones, each lane's BatchedLossGen pattern
+    (PLC_LOSS_PERC, seed 300 + lane) from the card, every third lane
+    reset."""
+    import numpy as np
+    from opus_tpu_torch.dnn import lossgen
+    from opus_tpu_torch.tools.loss import loss_flags
+    b = B_DNN
+    n_fx = sfx["plc_lost"].shape[0]
+    hist = np.concatenate([sfx["plc_hist"],
+                           speech_history(b - n_fx, 8, PLC_TICKS)])
+    lost = loss_flags(PLC_TICKS, 300 + np.arange(b),
+                      sim_loss_perc=PLC_LOSS_PERC,
+                      model=lossgen.random_model(LOSSGEN_SEED, device=dev),
+                      device=dev).cpu().numpy()
+    if not np.array_equal(lost[:n_fx], sfx["plc_lost"]):
+        fail("plc_lanes: the fixture lanes' patterns differ from JAX's")
+    return dict(hist=hist, lost=lost, reset=np.arange(b) % 3 == 0)
+
+
+def cpu_plc_lanes(hist, lost, reset, feed):
+    """plc_lanes_run on the CPU fed the card's concealed frames, in a
+    worker process."""
+    from opus_tpu_torch.dnn import plc as PL
+    t0 = time.time()
+    out, _ = plc_lanes_run(PL.LPCNetPLC(*plc_models("cpu"), len(hist),
+                                        device="cpu"), hist, lost, reset,
+                           feed)
+    return out, time.time() - t0
+
+
+def phase_plc_lanes(dev, sfx, inp, pool):
+    """Per-lane update / conceal on ``plc_lanes_inputs``' lanes with K2
+    counted; card vs the CPU run on every lane (integers equal, PCM within
+    1 LSB, features within PLC_FEAT_TOL) and vs the fixture's 8 JAX
+    instances on lanes 0-7.  The CPU run (in ``pool``) is fed the card's
+    concealed frames, so that every catch-up of both runs analyses the
+    same PCM.  A FARGAN period may flip at a rounding boundary
+    (``period_flips``: a card run met 150.49998 on the card and 150.5 on
+    the CPU in one priming frame of lane 260, from analysed
+    pitch features one float32 step apart, and the concealed frame moved
+    by 708 LSB); such a lane is held up to the flip and counted."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import plc as PL
+    from opus_tpu_torch.ops import iir
+
+    hist, lost, reset = inp["hist"], inp["lost"], inp["reset"]
+    b = len(hist)
+    n_fx = sfx["plc_lost"].shape[0]
+    torch.cuda.synchronize()
+    iir.launches = 0
+    card, k2 = plc_lanes_run(PL.LPCNetPLC(*plc_models(dev), b, device=dev),
+                             hist, lost, reset)
+    torch.cuda.synchronize()
+    counts = {"K2": iir.launches}
+    print(f"plc_lanes launch counters over {PLC_TICKS} ticks: {counts}")
+    if counts["K2"] != k2:
+        fail(f"plc_lanes: K2 launched {counts['K2']} times, expected {k2}")
+    cpu, cpu_s = pool.submit(cpu_plc_lanes, hist, lost, reset,
+                             card["pcm"]).result()
+    ints = ("period", "loss_count", "analysis_pos", "predict_pos", "blend",
+            "analysis_gap")
+
+    def check(got, ref, what, upto):
+        held = np.arange(PLC_TICKS)[None, :] < upto[:, None]
+        for k in ints:
+            if not np.array_equal(got[k][held], ref[k][held]):
+                fail(f"plc_lanes {what}: {k} differs")
+        e_pcm = int(np.abs(got["pcm"][held].astype(np.int64)
+                           - ref["pcm"][held].astype(np.int64)).max())
+        e_f = float(np.abs(got["feats"][held] - ref["feats"][held]).max())
+        if e_pcm > PLC_LSB_16K or not e_f <= PLC_FEAT_TOL:
+            fail(f"plc_lanes {what}: PCM {e_pcm} LSB, features {e_f}")
+        return e_pcm, e_f
+    first = period_flips(card, cpu)
+    flipped = np.nonzero(first < PLC_TICKS)[0]
+    e_cpu = check(card, cpu, "card vs the CPU run", first)
+    e_jax = check({k: v[:n_fx] for k, v in card.items()},
+                  {k: sfx["plc_" + k] for k in ints + ("pcm", "feats")},
+                  "card vs JAX", np.full(n_fx, PLC_TICKS))
+    print(f"plc_lanes at B={b}: {int(lost.sum())} concealed lane-ticks of "
+          f"{lost.size} (loss share {lost.mean():.4f}), reset on "
+          f"{int(reset.sum())} lanes before tick {PLC_RESET_TICK}; "
+          f"integers equal card / CPU, PCM {e_cpu[0]} LSB, features "
+          f"{e_cpu[1]:.3g} (the CPU run fed the card's concealed frames); "
+          f"lanes with a FARGAN period flipped at a rounding boundary, held "
+          f"up to the flip: {flipped.tolist()} at ticks "
+          f"{first[flipped].tolist()}; {e_jax[0]} LSB, {e_jax[1]:.3g} vs "
+          f"JAX ({n_fx} lanes, every tick); the CPU run took {cpu_s:.1f} s "
+          f"(worker process)")
+    return dict(counts=counts, hist=hist, lost=lost)
+
+
+def rate_offsets(off48, fs: int):
+    """The deep-PLC fixture's 48 kHz offsets at fs: whole 10 ms frames kept,
+    the remainder scaled."""
+    return (off48 // 480) * (fs // 100) + (off48 % 480) * fs // 48000
+
+
+RATE_PIECES = 6
+
+
+def rate_inputs(b: int):
+    """Seeded int16 [b, RATE_PIECES, 160] for the resampler alone (8
+    full-scale lanes, 8 alternating at -32768)."""
+    import numpy as np
+    rng = np.random.default_rng(40)
+    x = np.clip(rng.standard_normal((b, RATE_PIECES, 160)) * 9000, -32768,
+                32767).astype(np.int64)
+    x[:8] = 32767
+    x[8:16, :, ::2] = -32768
+    return x
+
+
+def plc_rates_run(fs, device, dreds, hist, off48, x):
+    """16 good frames, then dred_decode of 60 ms at fs on ``device``
+    (int16, each concealed frame's lanes, FEC choices and FARGAN periods,
+    numpy), and the resampler alone on ``x``."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models.deep_plc import BatchedDeepPLC
+    from opus_tpu_torch.silk import resampler as PR
+    p = BatchedDeepPLC(*plc_models(device), len(hist), fs=fs, device=device)
+    h = torch.as_tensor(hist, device=device)
+    for k in range(16):
+        p.lpcnet.update(h[:, k])
+    out = p.dred_decode(dreds, rate_offsets(off48, fs), 6 * fs // 100)
+    trace = [np.stack([t.cpu().numpy() for t in e]) for e in p.trace]
+    st = PR.dec_resampler_init(len(x), fs, device)
+    ys = []
+    for k in range(x.shape[1]):
+        y, st = PR.resample_16k(torch.as_tensor(x[:, k], device=device), st,
+                                fs)
+        ys.append(y.cpu().numpy())
+    return out.cpu().numpy(), np.stack(trace), np.concatenate(ys, axis=1)
+
+
+def cpu_plc_rates(dreds, hist, off48):
+    """plc_rates_run at every rate on the CPU, in a worker process."""
+    t0 = time.time()
+    x = rate_inputs(len(hist))
+    out = {fs: plc_rates_run(fs, "cpu", dreds, hist, off48, x)
+           for fs in PLC_RATES}
+    return out, time.time() - t0
+
+
+def phase_plc_rates(dev, sfx, plc, cpu_job):
+    """The deep-PLC sequence's first step (16 good frames, dred_decode
+    of 60 ms) at 8, 12 and 24 kHz on the deep-PLC phase's lanes, K2
+    counted; card vs the CPU run (``cpu_job``) on every lane (FEC choices
+    and FARGAN periods equal, int16 within plc_rate_lsb) and the JAX
+    decoder's output on the fixture lanes; the resampler alone card vs CPU
+    bit for bit."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import fargan as PF
+    from opus_tpu_torch.ops import iir
+
+    b = B_DNN
+    x = rate_inputs(b)
+    n_fx = plc["n_fx"]
+    counts = {"K2": 0}
+    card = {}
+    for fs in PLC_RATES:
+        torch.cuda.synchronize()
+        iir.launches = 0
+        card[fs] = plc_rates_run(fs, dev, plc["dreds"], plc["hist"],
+                                 plc["off48"], x)
+        torch.cuda.synchronize()
+        counts["K2"] += iir.launches
+        if iir.launches != PF.FARGAN_NB_SUBFRAMES * (1 + 6):
+            fail(f"plc_rates at {fs} Hz: K2 launched {iir.launches} times")
+    cpu, cpu_s = cpu_job.result()
+    for fs in PLC_RATES:
+        (out, tr, rs), (out_c, tr_c, rs_c) = card[fs], cpu[fs]
+        if not np.array_equal(rs, rs_c):
+            fail(f"plc_rates: the resampler at {fs} Hz card != CPU")
+        if not np.array_equal(tr, tr_c):
+            fail(f"plc_rates at {fs} Hz: FEC choices or periods card != CPU")
+        bound = plc_rate_lsb(fs)
+        e_cpu = int(np.abs(out.astype(np.int64) - out_c).max())
+        ref = np.tile(sfx[f"rate_pcm{fs // 1000}"], (DRED_TILE, 1))
+        e_jax = int(np.abs(out[:n_fx].astype(np.int64) - ref).max())
+        if e_cpu > bound or e_jax > bound:
+            fail(f"plc_rates at {fs} Hz: {e_cpu} / {e_jax} LSB > {bound}")
+        print(f"plc_rates at {fs} Hz, B={b}: dred_decode of 60 ms (catch-up, "
+              f"6 frames, Resampler(16000, {fs})): FEC choices and FARGAN "
+              f"periods equal card / CPU; int16 within {e_cpu} LSB of the "
+              f"CPU run and {e_jax} of JAX ({n_fx} lanes), bound {bound}; "
+              f"the resampler alone card == CPU on {x.size} samples")
+    print(f"plc_rates: K2 {counts['K2']}; the CPU run took {cpu_s:.1f} s "
+          f"(worker process)")
+    return dict(counts=counts)
+
+
+def cpu_pool():
+    """Worker processes for the CPU reference runs of the loss phases, so
+    that they run while the card does (2 torch threads each)."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init)
+
+
+def _cpu_worker_init():
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(2)
+
+
+def loss_times(dev, smi, sl, pl, plc):
+    """CUDA event times (and device operations and busy share from the
+    profiler, one call after the timed ones: the profiler's host time is
+    ~0.25 ms an operation) of a BatchedLossDecoder tick with no resuming
+    lane and one with resuming lanes, BatchedLossGen's first sample (the
+    burn-in: 1001 samples, so its operations are counted from a later
+    sample's) and a later one, a conceal with a third of the lanes masked,
+    and dred_decode of 60 ms at 8, 12 and 24 kHz."""
+    import copy
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import lossgen
+    from opus_tpu_torch.dnn import plc as PL
+    from opus_tpu_torch.models.deep_plc import BatchedDeepPLC
+    from opus_tpu_torch.silk import resampler as PR
+    from opus_tpu_torch.tools.device_time import device_profile
+    from opus_tpu_torch.tools.sim_loss import BatchedLossDecoder
+
+    b = B_DNN
+    out = {}
+
+    def timed(setup, fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            setup()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        return min(ts)
+
+    def report(name, setup, fn, reps=3, profiled=None):
+        ms = timed(setup, fn, reps)
+        ops, dms = profiled if profiled else device_profile(
+            lambda: (setup(), fn()), reps=1, warmup=False)
+        out[name] = ms
+        print(f"loss times [{smi}]: {name} at B={b}: {ms:.3f} ms a call, "
+              f"{ops:.0f} device operations, {dms:.3f} ms device (busy "
+              f"{100 * dms / ms:.1f}%)")
+
+    packets = sl["packets"]
+    dec = BatchedLossDecoder(b, *sim_models(dev), device=dev)
+    first = np.zeros(b, bool)
+    first[::10] = True
+    dec.tick([p[0] for p in packets], first)
+    snap = (dec.celt.state, copy.copy(dec.plc.lpcnet), dec.plc.rs,
+            dec.pending(), dec.resumes)
+
+    def restore():
+        (dec.celt.state, lp, dec.plc.rs, dec._pending, dec.resumes) = snap
+        dec.plc.lpcnet = copy.copy(lp)
+    none = np.zeros(b, bool)
+
+    def restore_none():
+        restore()
+        dec._pending = np.zeros(b, np.int64)
+    report("tick, no resuming lane", restore_none,
+           lambda: dec.tick([p[1] for p in packets], none))
+    report(f"tick, {int(first.sum())} lanes resuming after 20 ms", restore,
+           lambda: dec.tick([p[1] for p in packets], none))
+    model = lossgen.random_model(LOSSGEN_SEED, device=dev)
+    seeds = 1000 + np.arange(SIM_LOSSGEN_LANES)
+    gen = [None]
+
+    def fresh():
+        gen[0] = lossgen.BatchedLossGen(model, seeds, device=dev)
+    fresh()
+    gen[0].sample(SIM_LOSS_PERC)
+    ops, dms = device_profile(lambda: gen[0].sample(SIM_LOSS_PERC), reps=3)
+    report(f"BatchedLossGen.sample, {SIM_LOSSGEN_LANES} lanes",
+           lambda: None, lambda: gen[0].sample(SIM_LOSS_PERC),
+           profiled=(ops, dms))
+    burn = lossgen.BURN_IN + 1
+    report(f"BatchedLossGen.sample with the burn-in, {SIM_LOSSGEN_LANES} "
+           f"lanes ({burn} samples' operations)", fresh,
+           lambda: gen[0].sample(SIM_LOSS_PERC), reps=1,
+           profiled=(burn * ops, burn * dms))
+    lp = PL.LPCNetPLC(*plc_models(dev), b, device=dev)
+    h = torch.as_tensor(pl["hist"], device=dev)
+    for k in range(16):
+        lp.update(h[:, k])
+    third = torch.as_tensor(np.arange(b) % 3 == 0, device=dev)
+    lp.conceal(third)
+    lp0 = copy.copy(lp)
+    report("conceal on a third of the lanes", lambda: None,
+           lambda: copy.copy(lp0).conceal(third))
+    # dred_decode differs between the rates only by the resampler: the
+    # 24 kHz call is profiled whole, the others take its operations with
+    # its resampler's 6 pieces swapped for their own (profiled alone)
+    piece = torch.as_tensor(rate_inputs(b)[:, 0], device=dev)
+    rs_prof = {fs: device_profile(lambda fs=fs: PR.resample_16k(
+        piece, PR.dec_resampler_init(b, fs, dev), fs), reps=3)
+        for fs in PLC_RATES}
+    whole = None
+    for fs in sorted(PLC_RATES, reverse=True):
+        p = BatchedDeepPLC(*plc_models(dev), b, fs=fs, device=dev)
+        hh = torch.as_tensor(plc["hist"], device=dev)
+        for k in range(16):
+            p.lpcnet.update(hh[:, k])
+        snap_p = (copy.copy(p.lpcnet), p.rs)
+
+        def back(p=p, s=snap_p):
+            p.lpcnet, p.rs = copy.copy(s[0]), s[1]
+
+        def call(p=p, fs=fs):
+            return p.dred_decode(plc["dreds"], rate_offsets(plc["off48"], fs),
+                                 6 * fs // 100)
+        if whole is None:
+            prof = whole = device_profile(lambda: (back(), call()), reps=1,
+                                          warmup=False)
+        else:
+            prof = tuple(w + 6 * (r - r24) for w, r, r24 in zip(
+                whole, rs_prof[fs], rs_prof[max(PLC_RATES)]))
+        report(f"dred_decode of 60 ms at {fs} Hz (catch-up of 15 frames"
+               f"{'' if prof is whole else '; operations from 24 kHz'})",
+               back, call, reps=1, profiled=prof)
+    return out
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -3251,7 +4054,8 @@ def main() -> int:
         return 1
     for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE,
                  SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE,
-                 FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE, BBWE_FIXTURE):
+                 FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE, BBWE_FIXTURE,
+                 SIM_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -3373,6 +4177,27 @@ def main() -> int:
     chain = phase_dred_chain(dev, dict(np.load(DRED_ENC_FIXTURE)))
     phase_s["dred_chain"] = time.time() - t0
 
+    # the loss phases: their CPU reference runs go to worker processes as
+    # soon as their inputs exist and run while the card works
+    simfx = dict(np.load(SIM_FIXTURE))
+    t0 = time.time()
+    with cpu_pool() as pool:
+        pl_in = plc_lanes_inputs(dev, simfx)
+        pr_job = pool.submit(cpu_plc_rates, plc["cpu_dreds"], plc["hist"],
+                             plc["off48"])
+        sl_in = sim_loss_inputs(dev, simfx)
+        sl_job = pool.submit(cpu_sim_loss, sl_in["packets"], sl_in["lost"])
+        phase_s["loss_inputs"] = time.time() - t0
+        t0 = time.time()
+        pl = phase_plc_lanes(dev, simfx, pl_in, pool)
+        phase_s["plc_lanes"] = time.time() - t0
+        t0 = time.time()
+        sl = phase_sim_loss(dev, simfx, sl_in, sl_job)
+        phase_s["sim_loss"] = time.time() - t0
+        t0 = time.time()
+        pr = phase_plc_rates(dev, simfx, plc, pr_job)
+        phase_s["plc_rates"] = time.time() - t0
+
     t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
     t = phase_enc_times(enc_lanes, dev, smi, t)
@@ -3391,6 +4216,9 @@ def main() -> int:
     t0 = time.time()
     t.update(phase_dred_chain_times(dev, smi, chain))
     phase_s["dred_chain_times"] = time.time() - t0
+    t0 = time.time()
+    lt = loss_times(dev, smi, sl, pl, plc)
+    phase_s["loss_times"] = time.time() - t0
 
     t0 = time.time()
     k5 = phase_k5(dev, smi)
@@ -3413,7 +4241,9 @@ def main() -> int:
                 "celt decode 10 ms": c10["dcounts"],
                 "celt encode + decode 10 ms": c10["ecounts"],
                 "dred chain": chain["counts"],
-                "dred chain recovery": chain["rcounts"]}
+                "dred chain recovery": chain["rcounts"],
+                "sim loss": sl["counts"], "plc lanes": pl["counts"],
+                "plc rates": pr["counts"]}
     print(f"launches per path ({NFRAMES} frames; the DRED chain "
           f"{CHAIN_FRAMES}): {per_path}")
 
@@ -3476,7 +4306,9 @@ def main() -> int:
           f"compute_latents {t['chain_parts']['compute_latents'][0]:.3f} ms, "
           f"host coder {t['chain_coder']:.1f} ms, attach "
           f"{t['chain_attach']:.1f} ms, chain frame {t['chain_frame']:.1f} "
-          f"ms ({t['chain_frame_dred']:.1f} with DRED)")
+          f"ms ({t['chain_frame_dred']:.1f} with DRED); loss chain at "
+          f"B={B_DNN}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in
+                                     lt.items()))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

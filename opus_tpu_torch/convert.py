@@ -37,11 +37,12 @@ state.
   layers), the same way.
 - ``bbwe_from_jax``: the BBWE model (its feature net, and the tuples of
   the adaptive conv and shape layers), the same way.
+- ``lossgen_from_jax``: the generative loss model, the same way.
 - ``lpcnet_state_from_jax``: B JAX ``LPCNetPLC`` instances (one stream
-  each, at the same point of the same call sequence) -> one B-lane
+  each, each at its own point of its own call sequence) -> one B-lane
   ``LPCNetPLC`` of the port holding their stacked state (feature analysis,
-  pitch DNN, FARGAN, PLC GRU and its backups, FEC queue, PCM buffer), so
-  that both can start mid-stream.
+  pitch DNN, FARGAN, PLC GRU and its backups, FEC queue, PCM buffer and
+  every counter, per lane), so that both can start mid-stream.
 - ``dred_enc_state_from_jax``: B JAX ``DREDEnc`` instances (in lockstep)
   -> one B-lane ``BatchedDREDEnc`` holding their stacked feature, pitch
   DNN, RDOVAE and resampler state, latent ring and pending 16 kHz input,
@@ -55,8 +56,8 @@ import sys
 import numpy as np
 import torch
 
-from .dnn import (bbwe, dred, dred_enc, fargan, features, nnet, osce,
-                  pitchdnn, plc, rdovae)
+from .dnn import (bbwe, dred, dred_enc, fargan, features, lossgen, nnet,
+                  osce, pitchdnn, plc, rdovae)
 from .models.celt_dec_fused import DecTabs
 
 _BAND_KEYS = ("old_e", "prev1", "prev2")
@@ -343,6 +344,11 @@ def bbwe_from_jax(model, device="cpu"):
     return _dnn_tree(model, bbwe.BBWEModel, device)
 
 
+def lossgen_from_jax(model, device="cpu"):
+    """A JAX ``LossGenModel`` -> the port's, on ``device``."""
+    return _dnn_tree(model, lossgen.LossGenModel, device)
+
+
 def _stack(leaves, device, dtype=torch.float32):
     return torch.as_tensor(np.stack([np.asarray(v) for v in leaves]),
                            device=device).to(dtype)
@@ -375,19 +381,16 @@ def _feature_state(states, device) -> features.FeatureState:
           for f in features.FeatureState._fields[:-1]), dnn)
 
 
-_HOST_COUNTERS = ("analysis_gap", "analysis_pos", "predict_pos", "blend")
-_LANE_COUNTERS = ("fec_read_pos", "fec_fill_pos", "fec_skip", "loss_count")
+_LANE_COUNTERS = ("fec_read_pos", "fec_fill_pos", "fec_skip", "loss_count",
+                  "analysis_gap", "analysis_pos", "predict_pos", "blend")
 
 
 def lpcnet_state_from_jax(jax_plcs, device="cpu"):
     """B JAX ``LPCNetPLC`` -> a B-lane ``plc.LPCNetPLC`` on ``device`` with
-    the first instance's models and every lane's state.  The host counters
-    must agree across the instances (the port keeps one of each)."""
+    the first instance's models and every lane's state, its counters
+    included: the instances may stand at different points of their own
+    call sequences."""
     first = jax_plcs[0]
-    for name in _HOST_COUNTERS:
-        if len({int(getattr(j, name)) for j in jax_plcs}) != 1:
-            raise ValueError(f"lpcnet_state_from_jax: {name} differs "
-                             f"between the instances")
     out = plc.LPCNetPLC(plc_from_jax(first.model, device),
                         pitchdnn_from_jax(first.pitch_model, device),
                         fargan_from_jax(first.fargan_model, device),
@@ -402,8 +405,6 @@ def lpcnet_state_from_jax(jax_plcs, device="cpu"):
     for name in _LANE_COUNTERS:
         setattr(out, name, _stack([getattr(j, name) for j in jax_plcs],
                                   device, torch.int64))
-    for name in _HOST_COUNTERS:
-        setattr(out, name, int(getattr(first, name)))
 
     def net(nets):
         return tuple(_stack([n[k] for n in nets], device) for k in range(2))

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.device_cache import const
+from ..ops.lanes import lane_mask, select_lanes
 from . import nndsp
 from . import nnet as nn
 
@@ -370,8 +371,8 @@ class BBWE:
     output delay.  ``process`` takes [B] lanes of 160 or 320 int16
     samples at 16 kHz and gives 3x as many at 48 kHz; ``peak`` keeps each
     lane's largest |float output| of the last frame (before clipping).
-    All lanes advance together: a lane's state is its own, but there is
-    no per-lane reset."""
+    All lanes advance together; a lane's state is its own, and ``reset``
+    takes a lane mask."""
 
     def __init__(self, model: BBWEModel, batch: int, *, device="cuda"):
         self.device = torch.device(device)
@@ -383,10 +384,17 @@ class BBWE:
         self.peak = None
         self.reset()
 
-    def reset(self):
-        """Every lane back to the initial state."""
-        self.state = init_state(self.batch, device=self.device)
-        self.feat_state = bwe_feature_init(self.batch, device=self.device)
+    def reset(self, lanes=None):
+        """The lanes of ``lanes`` ([B] bool, default every lane) back to the
+        initial state: features, feature net, filter and resampler
+        histories and the output delay line; the other lanes keep theirs
+        bit for bit."""
+        fresh = (init_state(self.batch, device=self.device),
+                 bwe_feature_init(self.batch, device=self.device))
+        if lanes is not None:
+            fresh = select_lanes(lane_mask(lanes, self.batch, self.device),
+                                 fresh, (self.state, self.feat_state))
+        self.state, self.feat_state = fresh
 
     def process(self, xq16):
         """xq16 [B, 160 or 320] int16 values -> [B, 480 or 960] int64,

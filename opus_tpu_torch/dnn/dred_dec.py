@@ -20,6 +20,7 @@ import torch
 
 from ..bitstream import packet as pkt
 from ..bitstream.extensions import ExtensionData, ExtensionIterator
+from ..ops.lanes import lane_mask
 from . import dred, rdovae
 from .nnet import to_device
 
@@ -136,26 +137,33 @@ class OpusDREDDecoder:
 
 
 def feed_dred_fec(lpcnet, d: DREDBatch, dred_offset, fs: int,
-                  frame_size: int):
+                  frame_size, lanes=None):
     """Queues DRED features into a B-lane deep-PLC instance for the coming
-    concealment call (reference: src/opus_decoder.c:735-760), each lane at
-    its own ``dred_offset`` (samples at fs, [B] ints).  A feature row
-    inside the lane's window is queued, an offset past it is a skip and a
-    negative offset nothing, per lane."""
+    concealment call (reference: src/opus_decoder.c:735-760) on the lanes
+    of ``lanes`` ([B] bool, default all; the other lanes' queues stay as
+    they are), each lane at its own ``dred_offset`` and ``frame_size``
+    (samples at fs, ints or [B] ints).  A lane queues two initial rows only
+    if its own ``blend`` is 0; a feature row inside the lane's window is
+    queued, an offset past it is a skip and a negative offset nothing."""
+    b = lpcnet.batch
+    dev = d.fec_features.device
     f10 = fs // 100
-    lpcnet.fec_clear()
-    init_frames = 2 if lpcnet.blend == 0 else 0
-    features_per_frame = max(1, frame_size // f10)
+    m = lane_mask(lanes, b, dev)
+    lpcnet.fec_clear(m)
+    init = torch.where(lpcnet.blend == 0, 2, 0)
+    fpf = np.maximum(1, np.broadcast_to(np.asarray(frame_size, np.int64),
+                                        (b,)) // f10)
     base = np.floor((np.asarray(dred_offset, np.float64)
                      + d.dred_offset * f10 / 4) / f10).astype(np.int64)
-    hi = 4 * np.asarray(d.nb_latents, np.int64) - 1
+    base = torch.as_tensor(np.broadcast_to(base, (b,)).copy(), device=dev)
+    total = init + torch.as_tensor(fpf, device=dev)
+    hi = torch.as_tensor(4 * np.asarray(d.nb_latents, np.int64) - 1,
+                         device=dev)
     rows = d.fec_features.shape[1]
-    dev = d.fec_features.device
-    for i in range(init_frames + features_per_frame):
-        offs = init_frames - i - 2 + base
+    for i in range(2 + int(fpf.max(initial=1))):
+        offs = init - i - 2 + base
         present = (offs >= 0) & (offs <= hi)
-        idx = torch.as_tensor(np.clip(offs, 0, rows - 1), device=dev)
+        idx = torch.clamp(offs, 0, rows - 1)
         row = torch.gather(d.fec_features, 1, idx[:, None, None].expand(
             -1, 1, d.fec_features.shape[2]))[:, 0]
-        lpcnet.fec_add(row, torch.as_tensor(present, device=dev),
-                       torch.as_tensor(offs >= 0, device=dev))
+        lpcnet.fec_add(row, present, m & (i < total) & (offs >= 0))

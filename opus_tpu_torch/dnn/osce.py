@@ -32,6 +32,7 @@ import torch
 
 from ..ops.device_cache import const
 from ..ops.iir import deemphasis
+from ..ops.lanes import lane_mask, select_lanes
 from . import nndsp
 from . import nnet as nn
 from . import osce_features as OF
@@ -440,7 +441,8 @@ class OSCEEnhancer:
     applies only to 16 kHz / 4-subframe (20 ms WB) frames: any other frame
     passes through and resets every lane.  After a reset a lane's first
     frame passes through (its state still advances) and its second
-    cross-fades over 10 ms; ``reset_count`` is per lane."""
+    cross-fades over 10 ms; ``reset_count`` is per lane, and ``reset``
+    takes a lane mask."""
 
     def __init__(self, method: int, model, batch: int, *, device):
         if method not in (OSCE_METHOD_LACE, OSCE_METHOD_NOLACE):
@@ -453,14 +455,22 @@ class OSCEEnhancer:
         self.frame_features = None
         self.reset()
 
-    def reset(self):
+    def reset(self, lanes=None):
+        """The lanes of ``lanes`` ([B] bool, default every lane) back to the
+        initial features, filter and GRU state with ``reset_count`` 2
+        (osce_reset dnn/osce.c:1381); the other lanes keep theirs bit for
+        bit."""
         b, dev = self.batch, self.device
-        self.features = OF.init_feature_state(b, device=dev)
-        self.state = lace_init_state(b, device=dev) \
-            if self.method == OSCE_METHOD_LACE \
-            else nolace_init_state(b, device=dev)
-        self.reset_count = torch.full((b,), 2, dtype=torch.int64,
-                                      device=dev)
+        fresh = (OF.init_feature_state(b, device=dev),
+                 lace_init_state(b, device=dev)
+                 if self.method == OSCE_METHOD_LACE
+                 else nolace_init_state(b, device=dev),
+                 torch.full((b,), 2, dtype=torch.int64, device=dev))
+        if lanes is not None:
+            fresh = select_lanes(lane_mask(lanes, b, dev), fresh,
+                                 (self.features, self.state,
+                                  self.reset_count))
+        self.features, self.state, self.reset_count = fresh
 
     def enhance_frame(self, xq, num_bits, pred_coef_q12, pitch_lags,
                       ltp_coef_q14, gains_q16, signal_type, lpc_order: int,

@@ -7,16 +7,16 @@ flag] and predicts the next feature frame; FARGAN synthesizes the
 concealed waveform.  FEC features (from DRED) enter through a queue and
 take precedence over prediction.
 
-``LPCNetPLC`` holds B streams.  ``update`` and ``conceal`` act on all
-lanes at once (a server conceals the streams of one lost tick together),
-so the counters that follow from that call sequence alone stay host ints,
-as in the JAX class: ``analysis_pos``, ``predict_pos``, ``blend`` and
-``analysis_gap``.  The FEC queue is per lane (``feed_dred_fec`` adds a row
-or a skip per stream): ``fec_read_pos``, ``fec_fill_pos``, ``fec_skip`` and
-``loss_count`` are [B] int64 tensors, and the choice between a FEC row and
-the prediction is a per-lane selection around one run of the PLC network.
-Every tensor of the state is replaced, never written in place, so the two
-GRU backups never alias the live state.
+``LPCNetPLC`` holds B streams, each with its own loss pattern: ``update``,
+``conceal`` and ``reset`` take a [B] bool mask of the lanes they act on,
+and every counter of the state is a [B] int64 tensor (``analysis_pos``,
+``predict_pos``, ``blend``, ``analysis_gap``, the FEC queue's positions and
+``loss_count``).  The catch-up before a lane's first concealed frame
+analyses that lane's own good frames from its own ``analysis_pos``, under
+per-lane masks; the choice between a FEC row and the prediction is a
+per-lane selection around one run of the PLC network.  Every tensor of the
+state is replaced, never written in place, so the two GRU backups never
+alias the live state and a shallow copy is a snapshot.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.device_cache import const
+from ..ops.lanes import lane_mask, select_lanes
 from . import fargan as fg
 from . import features as feat
 from . import nnet as nn
@@ -103,7 +104,12 @@ def model_to_arrays(model: PLCModel) -> list[WeightArray]:
 class LPCNetPLC:
     """Deep-PLC state of B streams on one device (reference: LPCNetPLCState
     dnn/lpcnet_private.h:50, logic dnn/lpcnet_plc.c:72-210).  Each lane
-    computes what one JAX ``LPCNetPLC`` computes given the same calls."""
+    computes what one JAX ``LPCNetPLC`` computes given the same calls:
+    ``update``, ``conceal``, ``reset``, ``fec_add`` and ``fec_clear`` take a
+    [B] bool mask of the lanes they act on (default every lane), and a lane
+    outside it keeps every tensor of its state bit for bit.  The network,
+    the feature analysis and FARGAN run over all B lanes; their results are
+    selected per lane."""
 
     def __init__(self, plc_model: PLCModel, pitch_model: pdnn.PitchDNNModel,
                  fargan_model: fg.FARGANModel, batch: int, *, device):
@@ -112,7 +118,10 @@ class LPCNetPLC:
         self.model = nn.to_device(plc_model, self.device)
         self.pitch_model = nn.to_device(pitch_model, self.device)
         self.fargan_model = nn.to_device(fargan_model, self.device)
-        self.reset()
+        self._set(self._fresh())
+        # the last conceal's lanes that took a FEC row instead of the
+        # prediction
+        self.fec_used = None
 
     def _zeros(self, *shape, dtype=torch.float32):
         return torch.zeros((self.batch,) + shape, dtype=dtype,
@@ -121,23 +130,48 @@ class LPCNetPLC:
     def _zero_net(self):
         return (self._zeros(128), self._zeros(128))
 
-    def reset(self):
-        self.enc = feat.init_state(self.batch, device=self.device)
-        self.fargan = fg.init_state(self.batch, device=self.device)
-        self.fec = self._zeros(PLC_MAX_FEC, NB_FEATURES)
-        self.fec_read_pos = self._zeros(dtype=torch.int64)
-        self.fec_fill_pos = self._zeros(dtype=torch.int64)
-        self.fec_skip = self._zeros(dtype=torch.int64)
-        self.analysis_gap = 1
-        self.analysis_pos = PLC_BUF_SIZE
-        self.predict_pos = PLC_BUF_SIZE
-        self.pcm = self._zeros(PLC_BUF_SIZE)
-        self.blend = 0
-        self.features = self._zeros(feat.NB_TOTAL_FEATURES)
-        self.cont_features = self._zeros(CONT_VECTORS * NB_FEATURES)
-        self.loss_count = self._zeros(dtype=torch.int64)
-        self.plc_net = self._zero_net()
-        self.plc_bak = [self._zero_net(), self._zero_net()]
+    def _full(self, value):
+        return torch.full((self.batch,), value, dtype=torch.int64,
+                          device=self.device)
+
+    def _fresh(self) -> dict:
+        """The reset state of every lane (lpcnet_plc_reset)."""
+        i64 = torch.int64
+        return dict(
+            enc=feat.init_state(self.batch, device=self.device),
+            fargan=fg.init_state(self.batch, device=self.device),
+            fec=self._zeros(PLC_MAX_FEC, NB_FEATURES),
+            fec_read_pos=self._zeros(dtype=i64),
+            fec_fill_pos=self._zeros(dtype=i64),
+            fec_skip=self._zeros(dtype=i64),
+            analysis_gap=self._full(1),
+            analysis_pos=self._full(PLC_BUF_SIZE),
+            predict_pos=self._full(PLC_BUF_SIZE),
+            pcm=self._zeros(PLC_BUF_SIZE),
+            blend=self._zeros(dtype=i64),
+            features=self._zeros(feat.NB_TOTAL_FEATURES),
+            cont_features=self._zeros(CONT_VECTORS * NB_FEATURES),
+            loss_count=self._zeros(dtype=i64),
+            plc_net=self._zero_net(),
+            plc_bak=[self._zero_net(), self._zero_net()])
+
+    def _state(self) -> dict:
+        return {k: getattr(self, k) for k in _STATE}
+
+    def _set(self, st: dict):
+        for k in _STATE:
+            setattr(self, k, st[k])
+
+    def _mask(self, lanes) -> torch.Tensor:
+        return lane_mask(lanes, self.batch, self.device)
+
+    def reset(self, lanes=None):
+        """The masked lanes (default every lane) back to the reset state."""
+        if lanes is None:
+            self._set(self._fresh())
+            return
+        self._set(select_lanes(self._mask(lanes), self._fresh(),
+                               self._state()))
 
     # --- FEC queue (lpcnet_plc.c:92-104) ---
     def fec_add(self, features: Optional[torch.Tensor], present=None,
@@ -146,9 +180,7 @@ class LPCNetPLC:
         ``features`` [B, >= 20], the others a skip (the reference's
         fec_add(NULL)); ``lanes`` (default all) limits the call to some
         lanes.  ``features=None`` is a skip on every lane it reaches."""
-        b = self.batch
-        if lanes is None:
-            lanes = torch.ones(b, dtype=torch.bool, device=self.device)
+        lanes = self._mask(lanes)
         if features is None:
             present = torch.zeros_like(lanes)
         elif present is None:
@@ -165,130 +197,176 @@ class LPCNetPLC:
             self.fec_fill_pos = self.fec_fill_pos + add.to(torch.int64)
         self.fec_skip = self.fec_skip + (lanes & ~present).to(torch.int64)
 
-    def fec_clear(self):
-        z = self._zeros(dtype=torch.int64)
-        self.fec_read_pos = self.fec_fill_pos = self.fec_skip = z
+    def fec_clear(self, lanes=None):
+        m = self._mask(lanes)
+        z = torch.zeros_like(self.fec_read_pos)
+        self.fec_read_pos = torch.where(m, z, self.fec_read_pos)
+        self.fec_fill_pos = torch.where(m, z, self.fec_fill_pos)
+        self.fec_skip = torch.where(m, z, self.fec_skip)
 
-    def _queue_features(self, features):
-        self.cont_features = torch.cat(
-            [self.cont_features[:, NB_FEATURES:], features[:, :NB_FEATURES]],
-            dim=1)
+    def _queue_features(self, features, m):
+        q = torch.cat([self.cont_features[:, NB_FEATURES:],
+                       features[:, :NB_FEATURES]], dim=1)
+        self.cont_features = torch.where(m[:, None], q, self.cont_features)
 
-    def _get_fec_or_pred(self):
-        """(reference: get_fec_or_pred lpcnet_plc.c:119) for every lane:
+    def _get_fec_or_pred(self, m):
+        """(reference: get_fec_or_pred lpcnet_plc.c:119) on the lanes of m:
         a queued FEC row where there is one and no skip is pending, else
-        the network's prediction.  The network runs once either way, on
+        the network's prediction.  The network runs once on every lane, on
         [0 | row | -1] or on zeros.  Updates ``self.features[:, :20]``;
         returns the [B] bool of lanes that took a FEC row."""
-        use = (self.fec_read_pos != self.fec_fill_pos) & (self.fec_skip == 0)
+        use = m & (self.fec_read_pos != self.fec_fill_pos) \
+            & (self.fec_skip == 0)
         pos = torch.clamp(self.fec_read_pos, 0, PLC_MAX_FEC - 1)
         row = torch.gather(self.fec, 1, pos[:, None, None].expand(
             -1, 1, NB_FEATURES))[:, 0]
         plc_in = torch.cat([self._zeros(2 * NB_BANDS), row,
                             torch.full_like(row[:, :1], -1.0)], dim=1)
         plc_in = torch.where(use[:, None], plc_in, torch.zeros_like(plc_in))
-        self.plc_net, pred = compute_plc_pred(self.model, self.plc_net,
-                                              plc_in)
-        self.features = torch.cat(
-            [torch.where(use[:, None], row, pred),
-             self.features[:, NB_FEATURES:]], dim=1)
+        net, pred = compute_plc_pred(self.model, self.plc_net, plc_in)
+        self.plc_net = select_lanes(m, net, self.plc_net)
+        f20 = torch.where(use[:, None], row, torch.where(
+            m[:, None], pred, self.features[:, :NB_FEATURES]))
+        self.features = torch.cat([f20, self.features[:, NB_FEATURES:]],
+                                  dim=1)
         self.fec_read_pos = self.fec_read_pos + use.to(torch.int64)
-        self.fec_skip = torch.where(~use & (self.fec_skip > 0),
+        self.fec_skip = torch.where(m & ~use & (self.fec_skip > 0),
                                     self.fec_skip - 1, self.fec_skip)
         return use
 
-    def _rotate_bak(self):
-        self.plc_bak = [self.plc_bak[1], self.plc_net]
+    def _rotate_bak(self, m):
+        self.plc_bak = select_lanes(m, [self.plc_bak[1], self.plc_net],
+                                    self.plc_bak)
 
-    def update(self, pcm):
-        """Good frame received on every lane (reference: lpcnet_plc_update
-        lpcnet_plc.c:144).  pcm: int16 [B, 160]."""
-        if self.analysis_pos - FRAME_SIZE >= 0:
-            self.analysis_pos -= FRAME_SIZE
-        else:
-            self.analysis_gap = 1
-        if self.predict_pos - FRAME_SIZE >= 0:
-            self.predict_pos -= FRAME_SIZE
+    def _advance(self, m):
+        """The end of update and conceal: analysis_pos back a frame (or the
+        gap flag), on the lanes of m."""
+        back = self.analysis_pos - FRAME_SIZE >= 0
+        self.analysis_pos = torch.where(m & back,
+                                        self.analysis_pos - FRAME_SIZE,
+                                        self.analysis_pos)
+        self.analysis_gap = torch.where(m & ~back,
+                                        torch.ones_like(self.analysis_gap),
+                                        self.analysis_gap)
+
+    def _push_pcm(self, pcm_f32, m):
+        shifted = torch.cat([self.pcm[:, FRAME_SIZE:], pcm_f32], dim=1)
+        self.pcm = torch.where(m[:, None], shifted, self.pcm)
+
+    def update(self, pcm, lanes=None):
+        """Good frame received on the masked lanes (reference:
+        lpcnet_plc_update lpcnet_plc.c:144).  pcm: int16 [B, 160] (the
+        other lanes' rows are not read)."""
+        m = self._mask(lanes)
+        self._advance(m)
+        pp = self.predict_pos
+        self.predict_pos = torch.where(m & (pp - FRAME_SIZE >= 0),
+                                       pp - FRAME_SIZE, pp)
         pcm = torch.as_tensor(pcm, device=self.device).to(torch.float32)
-        self.pcm = torch.cat([self.pcm[:, FRAME_SIZE:], pcm / 32768.0],
-                             dim=1)
-        self.loss_count = self._zeros(dtype=torch.int64)
-        self.blend = 0
+        self._push_pcm(pcm / 32768.0, m)
+        zero = torch.zeros_like(self.loss_count)
+        self.loss_count = torch.where(m, zero, self.loss_count)
+        self.blend = torch.where(m, zero, self.blend)
 
-    def _catch_up(self):
-        """The analysis of the good frames not yet analysed, and the two
-        extra predictions that prime FARGAN (lpcnet_plc.c:166-199)."""
-        self.plc_net = self.plc_bak[0]
-        starts, pred = [], []
-        pos, count = self.analysis_pos, 0
-        while pos + FRAME_SIZE <= PLC_BUF_SIZE:
-            starts.append(pos)
-            pred.append((not self.analysis_gap or count > 0)
-                        and pos >= self.predict_pos)
-            pos += FRAME_SIZE
-            count += 1
+    def _catch_up(self, c):
+        """On the lanes of c (blend == 0): the analysis of the good frames
+        not yet analysed, each lane from its own analysis_pos, and the two
+        extra predictions that prime FARGAN (lpcnet_plc.c:166-199).  Slot k
+        is the k-th frame of every lane; lane i runs (2400 - pos_i) / 160
+        of them."""
+        self.plc_net = select_lanes(c, self.plc_bak[0], self.plc_net)
+        pos0 = self.analysis_pos
+        n = torch.where(c, torch.div(PLC_BUF_SIZE - pos0, FRAME_SIZE,
+                                     rounding_mode="floor"),
+                        torch.zeros_like(pos0))
+        slots = int(n.max()) if self.batch else 0
+        ar = torch.arange(FRAME_SIZE, device=self.device)
+        frames, active, pred = [], [], []
+        for k in range(slots):
+            start = pos0 + k * FRAME_SIZE
+            idx = torch.clamp(start[:, None] + ar, max=PLC_BUF_SIZE - 1)
+            frames.append(32768.0 * torch.gather(self.pcm, 1, idx))
+            active.append(k < n)
+            pred.append(active[-1] & ((self.analysis_gap == 0) | (k > 0))
+                        & (start >= self.predict_pos))
         # the Burg cepstra depend on the PCM buffer alone: one batch for
-        # every frame that feeds the network
-        frames = [32768.0 * self.pcm[:, p:p + FRAME_SIZE] for p in starts]
-        used = [f for f, p in zip(frames, pred) if p]
-        burg = feat.burg_cepstral_analysis(torch.cat(used, dim=0)) \
-            .to(torch.float32).split(self.batch) if used else []
-        k = 0
-        for x, p in zip(frames, pred):
-            self.enc, self.features = feat.compute_frame_features(
-                self.enc, x, self.pitch_model)
-            if p:
-                self._queue_features(self.features)
-                plc_in = torch.cat([burg[k], self.features[:, :NB_FEATURES],
-                                    torch.ones_like(burg[k][:, :1])], dim=1)
-                k += 1
-                self._rotate_bak()
-                self.plc_net, out = compute_plc_pred(self.model,
-                                                     self.plc_net, plc_in)
-                self.features = torch.cat(
-                    [out, self.features[:, NB_FEATURES:]], dim=1)
-        self.analysis_pos = pos
+        # every slot that feeds the network on some lane
+        fed = [k for k in range(slots) if bool(pred[k].any())]
+        burg = dict(zip(fed, feat.burg_cepstral_analysis(
+            torch.cat([frames[k] for k in fed], dim=0)).to(torch.float32)
+            .split(self.batch))) if fed else {}
+        for k in range(slots):
+            a, p = active[k], pred[k]
+            enc, f = feat.compute_frame_features(self.enc, frames[k],
+                                                 self.pitch_model)
+            self.enc = select_lanes(a, enc, self.enc)
+            self.features = torch.where(a[:, None], f, self.features)
+            if k not in burg:
+                continue
+            self._queue_features(self.features, p)
+            plc_in = torch.cat([burg[k], self.features[:, :NB_FEATURES],
+                                torch.ones_like(burg[k][:, :1])], dim=1)
+            self._rotate_bak(p)
+            net, out = compute_plc_pred(self.model, self.plc_net, plc_in)
+            self.plc_net = select_lanes(p, net, self.plc_net)
+            self.features = torch.cat(
+                [torch.where(p[:, None], out,
+                             self.features[:, :NB_FEATURES]),
+                 self.features[:, NB_FEATURES:]], dim=1)
+        self.analysis_pos = pos0 + n * FRAME_SIZE
         for _ in range(2):
-            self._rotate_bak()
-            self._get_fec_or_pred()
-            self._queue_features(self.features)
-        self.fargan = fg.cont(
+            self._rotate_bak(c)
+            self._get_fec_or_pred(c)
+            self._queue_features(self.features, c)
+        fargan = fg.cont(
             self.fargan_model, self.fargan,
             self.pcm[:, PLC_BUF_SIZE - fg.FARGAN_CONT_SAMPLES:],
             self.cont_features.reshape(self.batch, CONT_VECTORS,
                                        NB_FEATURES))
-        self.analysis_gap = 0
+        self.fargan = select_lanes(c, fargan, self.fargan)
+        self.analysis_gap = torch.where(c, torch.zeros_like(
+            self.analysis_gap), self.analysis_gap)
 
-    def conceal(self) -> torch.Tensor:
-        """One lost 10 ms frame on every lane (reference:
-        lpcnet_plc_conceal lpcnet_plc.c:157).  Returns int16 [B, 160]."""
-        if self.blend == 0:
-            self._catch_up()
-        self._rotate_bak()
-        used = self._get_fec_or_pred()
+    def conceal(self, lanes=None) -> torch.Tensor:
+        """One lost 10 ms frame on the masked lanes (reference:
+        lpcnet_plc_conceal lpcnet_plc.c:157).  Returns int16 [B, 160],
+        zeros on the other lanes."""
+        m = self._mask(lanes)
+        c = m & (self.blend == 0)
+        if bool(c.any()):
+            self._catch_up(c)
+        self._rotate_bak(m)
+        used = self._get_fec_or_pred(m)
+        self.fec_used = used
         lc = torch.where(used, torch.zeros_like(self.loss_count),
                          self.loss_count + 1)
+        lc = torch.where(m, lc, self.loss_count)
         self.loss_count = lc
         att = const("plc_att_table",
                     lambda: np.asarray(_ATT_TABLE, np.float32), self.device)
         f0 = self.features[:, 0]
         long_loss = (f0 + att[9]) - (2 * (lc - 9)).to(torch.float32)
-        short_loss = f0 + att[torch.clamp(lc, max=9)]
-        f0 = torch.clamp_min(torch.where(lc >= 10, long_loss, short_loss),
-                             -15.0)
+        short_loss = f0 + att[torch.clamp(lc, 0, 9)]
+        f0 = torch.where(m, torch.clamp_min(
+            torch.where(lc >= 10, long_loss, short_loss), -15.0), f0)
         self.features = torch.cat([f0[:, None], self.features[:, 1:]], dim=1)
-        self.fargan, out = fg.synthesize_frame(
+        fargan, out = fg.synthesize_frame(
             self.fargan_model, self.fargan, self.features[:, :NB_FEATURES])
+        self.fargan = select_lanes(m, fargan, self.fargan)
         pcm_out = torch.floor(0.5 + torch.clamp(
             32768.0 * out.to(torch.float64), -32767, 32767)) \
             .to(torch.int16)
-        self._queue_features(self.features)
-        if self.analysis_pos - FRAME_SIZE >= 0:
-            self.analysis_pos -= FRAME_SIZE
-        else:
-            self.analysis_gap = 1
-        self.predict_pos = PLC_BUF_SIZE
-        self.pcm = torch.cat([self.pcm[:, FRAME_SIZE:],
-                              pcm_out.to(torch.float32) / 32768.0], dim=1)
-        self.blend = 1
+        pcm_out = torch.where(m[:, None], pcm_out, torch.zeros_like(pcm_out))
+        self._queue_features(self.features, m)
+        self._advance(m)
+        self.predict_pos = torch.where(m, self._full(PLC_BUF_SIZE),
+                                       self.predict_pos)
+        self._push_pcm(pcm_out.to(torch.float32) / 32768.0, m)
+        self.blend = torch.where(m, torch.ones_like(self.blend), self.blend)
         return pcm_out
+
+
+# the per-lane state, in the order of lpcnet_plc_reset
+_STATE = ("enc", "fargan", "fec", "fec_read_pos", "fec_fill_pos", "fec_skip",
+          "analysis_gap", "analysis_pos", "predict_pos", "pcm", "blend",
+          "features", "cont_features", "loss_count", "plc_net", "plc_bak")

@@ -21,6 +21,7 @@ import torch
 
 from ..celt.tables import COMB_GAINS, COMBFILTER_MINPERIOD
 from ..ops.device_cache import const
+from ..ops.lanes import lane_mask, select_lanes
 from ..ops.rc_kernel import M32, ilog, pack_payloads, pack_state
 from .celt_dec_fused import DecTabs, fused_celt_decode_frame, \
     fused_celt_init_state
@@ -246,12 +247,28 @@ class KernelCeltDecoder:
         decoder's device; raises ValueError on a payload longer than P."""
         return pack_payloads(payloads, self.batch, self.P, self.device)
 
-    def decode_packed(self, buf_u8, lens):
+    def decode_packed(self, buf_u8, lens, active=None):
         """buf [B, P] uint8, lens [B] on the device -> (pcm [B, 1, N] f32,
-        err [B] bool)."""
-        pcm, self.state, err = kernel_celt_decode_to_pcm(
+        err [B] bool).  ``active`` ([B] bool, default every lane): a lane
+        outside it keeps its state bit for bit, returns zeros and raises no
+        error flag, as a lost packet never reaches the reference's decoder.
+        K1 and the synthesis still run over every lane; the state is
+        selected after them."""
+        pcm, state, err = kernel_celt_decode_to_pcm(
             buf_u8, lens, self.state, self.tabs)
-        return pcm, err
+        if active is None:
+            self.state = state
+            return pcm, err
+        m = lane_mask(active, self.batch, self.device)
+        self.state = select_lanes(m, state, self.state)
+        return torch.where(m[:, None, None], pcm, 0.0), err & m
+
+    def reset(self, lanes=None):
+        """The lanes of ``lanes`` ([B] bool, default every lane) back to the
+        decoder's initial state (``fused_celt_init_state``)."""
+        fresh = fused_celt_init_state(self.batch, self.tabs, self.device)
+        self.state = fresh if lanes is None else select_lanes(
+            lane_mask(lanes, self.batch, self.device), fresh, self.state)
 
     def decode(self, payloads):
         return self.decode_packed(*self.pack(payloads))

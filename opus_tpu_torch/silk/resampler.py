@@ -29,7 +29,9 @@ import torch
 
 from ..ops.device_cache import const
 from ..ops.silk_fixed import rshift_round, sat16
-from .tables import (RESAMPLER_FRAC_FIR_12, RESAMPLER_MAX_BATCH_SIZE_MS,
+from . import tables_data as T
+from .tables import (RESAMPLER_DOWN_ORDER_FIR0, RESAMPLER_DOWN_ORDER_FIR1,
+                     RESAMPLER_FRAC_FIR_12, RESAMPLER_MAX_BATCH_SIZE_MS,
                      RESAMPLER_ORDER_FIR_12, UP2_HQ_0, UP2_HQ_1)
 
 # decoder input delays by (input rate id, output rate id)
@@ -159,5 +161,154 @@ def upsample_to_48k(x, st: dict, fs_in_khz: int = 16, frame_ms: int = 20):
         acc = acc + z[:, idx[j]] * coef[j]
     out = sat16(rshift_round(acc, 15))
     new_st = dict(s_iir=s_iir, s_fir=z[:, -RESAMPLER_ORDER_FIR_12:],
+                  delay=x[:, n_in - delay:])
+    return out, new_st
+
+
+# ---------------------------------------------------------------------
+# the decoder-direction Resampler(16000, fs) for fs = 8, 12 and 24 kHz
+# (the rates of dred_decode's output besides 16 and 48 kHz)
+
+_FS_IN_KHZ = 16
+_DOWN = {8000: (RESAMPLER_DOWN_ORDER_FIR1, 1, T.RESAMPLER_1_2_COEFS),
+         12000: (RESAMPLER_DOWN_ORDER_FIR0, 3, T.RESAMPLER_3_4_COEFS)}
+DEC_RATES = (8000, 12000, 24000)
+
+
+def _inv_ratio(fs_in: int, fs_out: int, up2x: int) -> int:
+    """Resampler.__init__'s step in Q16 (silk_resampler_init)."""
+    inv = ((fs_in << (14 + up2x)) // fs_out) << 2
+    while (inv * fs_out) >> 16 < fs_in << up2x:
+        inv += 1
+    return inv
+
+
+def _calls(n_in: int) -> list:
+    """Resampler.process's two calls (the 1 ms head, then the rest), each
+    split into batches of at most 10 ms: input lengths in order."""
+    cap = _FS_IN_KHZ * RESAMPLER_MAX_BATCH_SIZE_MS
+    out = []
+    for n_call in (_FS_IN_KHZ, n_in - _FS_IN_KHZ):
+        pos = 0
+        while pos < n_call:
+            out.append(min(n_call - pos, cap))
+            pos += out[-1]
+    return out
+
+
+@lru_cache(maxsize=None)
+def _dec_plan(fs_out: int, n_in: int):
+    """The static tap plan of Resampler(16000, fs_out).process() on n_in
+    samples, as (a, b, coef) int64 [n_out, taps]: output j is
+    sum_t ((z[a] + z[b]) * coef) >> 16, each term shifted on its own as
+    SMULWB / SMLAWB do, over z = [s_fir | filtered input | 0] (the FIR
+    history, the AR2 (DOWN_FIR) or up2_HQ (IIR_FIR) output of the
+    processing order, and a zero at the end for one-sided taps).  The
+    IIR_FIR taps (16 bits by 16 bits, SMULBB) are put as coef << 16."""
+    rows_a, rows_b, rows_c = [], [], []
+    if fs_out in _DOWN:
+        order, fracs, coefs = _DOWN[fs_out]
+        fir = coefs[2:]
+        inv = _inv_ratio(_FS_IN_KHZ * 1000, fs_out, 0)
+        zlen = order + n_in
+        base = 0
+        for n in _calls(n_in):
+            index_q16 = 0
+            while index_q16 < n << 16:
+                b = base + (index_q16 >> 16)
+                if order == RESAMPLER_DOWN_ORDER_FIR0:
+                    ind = ((index_q16 & 0xFFFF) * fracs) >> 16
+                    p1, p2 = 9 * ind, 9 * (fracs - 1 - ind)
+                    a = [b + j for j in range(9)] + [b + 17 - j
+                                                     for j in range(9)]
+                    c = [fir[p1 + j] for j in range(9)] + [fir[p2 + j]
+                                                           for j in range(9)]
+                    bb = [zlen] * 18
+                else:
+                    a = [b + j for j in range(12)]
+                    bb = [b + order - 1 - j for j in range(12)]
+                    c = [fir[j] for j in range(12)]
+                rows_a.append(a)
+                rows_b.append(bb)
+                rows_c.append(c)
+                index_q16 += inv
+            base += n
+    else:
+        inv = _inv_ratio(_FS_IN_KHZ * 1000, fs_out, 1)
+        order = RESAMPLER_ORDER_FIR_12
+        zlen = order + 2 * n_in
+        base = 0
+        for n in _calls(n_in):
+            index_q16 = 0
+            while index_q16 < n << 17:
+                ti = ((index_q16 & 0xFFFF) * 12) >> 16
+                b = base + (index_q16 >> 16)
+                rows_a.append([b + j for j in range(8)])
+                rows_b.append([zlen] * 8)
+                rows_c.append([v << 16 for v in
+                               list(RESAMPLER_FRAC_FIR_12[ti])
+                               + list(RESAMPLER_FRAC_FIR_12[11 - ti])[::-1]])
+                index_q16 += inv
+            base += 2 * n
+    return tuple(np.asarray(r, np.int64) for r in (rows_a, rows_b, rows_c))
+
+
+def dec_resampler_init(batch: int, fs_out: int, device="cpu") -> dict:
+    """The zero state of Resampler(16000, fs_out) on ``batch`` lanes:
+    ``s_iir`` [B, 2] (AR2) or [B, 6] (up2_HQ), ``s_fir`` [B, order] and
+    ``delay`` [B, input_delay], int64."""
+    if fs_out not in DEC_RATES:
+        raise ValueError(f"dec_resampler_init: fs {fs_out} (8000, 12000 "
+                         f"or 24000)")
+    order = _DOWN[fs_out][0] if fs_out in _DOWN else RESAMPLER_ORDER_FIR_12
+    delay = _DELAY_DEC[_rate_id(_FS_IN_KHZ * 1000)][_rate_id(fs_out)]
+
+    def z(n):
+        return torch.zeros((batch, n), dtype=torch.int64, device=device)
+    return dict(s_iir=z(2 if fs_out in _DOWN else 6), s_fir=z(order),
+                delay=z(delay))
+
+
+def _ar2(x, s_iir, coefs):
+    """silk_resampler_private_AR2 on [B] lanes, one step a sample: x [B, N]
+    int16 values -> ([B, N] Q8 output, new state [B, 2])."""
+    a0, a1 = _c16(coefs[0]), _c16(coefs[1])
+    s0, s1 = s_iir[:, 0], s_iir[:, 1]
+    outs = []
+    for t in range(x.shape[1]):
+        o = s0 + (x[:, t] << 8)
+        outs.append(o)
+        o = o << 2
+        s0 = s1 + ((o * a0) >> 16)
+        s1 = (o * a1) >> 16
+    return torch.stack(outs, dim=1), torch.stack([s0, s1], dim=1)
+
+
+def resample_16k(x, st: dict, fs_out: int):
+    """x: [B, n_in] int16 values at 16 kHz (n_in a whole number of ms, at
+    least 2) -> ([B, n_in * fs_out / 16000] int64 int16 values, new state).
+    Bit-exact with Resampler(16000, fs_out).process() on each lane, the
+    state carried from call to call: DOWN_FIR 1/2 (8 kHz), DOWN_FIR 3/4
+    (12 kHz) and IIR_FIR (24 kHz)."""
+    x = x.to(torch.int64)
+    dev = x.device
+    n_in = x.shape[1]
+    delay = st["delay"].shape[1]
+    seq = torch.cat([st["delay"], x[:, :n_in - delay]], dim=1)
+    if fs_out in _DOWN:
+        y, s_iir = _ar2(seq, st["s_iir"], _DOWN[fs_out][2])
+        shift = 6
+    else:
+        y, s_iir = _up2_hq_scan(seq, st["s_iir"])
+        shift = 15
+    order = st["s_fir"].shape[1]
+    z = torch.cat([st["s_fir"], y, torch.zeros_like(y[:, :1])], dim=1)
+    a, b, c = (const(("rs16", fs_out, n_in, k), lambda k=k: np.ascontiguousarray(
+        _dec_plan(fs_out, n_in)[k].T), dev) for k in range(3))
+    acc = ((z[:, a[0]] + z[:, b[0]]) * c[0]) >> 16
+    for t in range(1, a.shape[0]):
+        acc = acc + (((z[:, a[t]] + z[:, b[t]]) * c[t]) >> 16)
+    out = sat16(rshift_round(acc, shift))
+    new_st = dict(s_iir=s_iir, s_fir=z[:, -1 - order:-1],
                   delay=x[:, n_in - delay:])
     return out, new_st

@@ -48,15 +48,17 @@ def device_ms(fn, kernel: str, reps: int = 50) -> float:
                        f"'{kernel}' in {reps} calls")
 
 
-def device_profile(fn, reps: int = 3) -> tuple:
+def device_profile(fn, reps: int = 3, warmup: bool = True) -> tuple:
     """(kernel launches per call, device ms per call) of ``fn`` over
-    ``reps`` calls after one warm-up call: the count and summed device
-    time of every CUDA kernel record the profiler kept.  Beside the
-    call's wall time it gives the card's busy share."""
+    ``reps`` calls after one warm-up call (none with ``warmup=False``, for
+    a call already warm): the count and summed device time of every CUDA
+    kernel record the profiler kept.  Beside the call's wall time it gives
+    the card's busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -250,7 +250,7 @@ def test_torch_feed_dred_fec_per_lane_offsets(jax_models, port_models,
         jd = _jax_dred(jdd, dred_fx, dred_packets, i)
         jplc[k].blend = blend
         JDD.feed_dred_fec(jplc[k], jd, int(offs[k]), 48000, 960)
-    pplc.blend = blend
+    pplc.blend = torch.full((len(lanes),), blend, dtype=torch.int64)
     PDD.feed_dred_fec(pplc, pdd.process_batch(dreds), offs, 48000, 960)
     fill = [j.fec_fill_pos for j in jplc]
     assert pplc.fec_fill_pos.tolist() == fill
@@ -427,7 +427,7 @@ def test_torch_deep_plc_cpu_run_matches_fixture(fixture, dred_packets,
 def test_torch_batched_deep_plc_refuses_bad_rate_and_missing_card(
         port_models):
     with pytest.raises(ValueError):
-        BatchedDeepPLC(*port_models, 2, fs=24000, device="cpu")
+        BatchedDeepPLC(*port_models, 2, fs=44100, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):

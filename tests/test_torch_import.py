@@ -38,7 +38,9 @@ for name in ("opus_tpu_torch.models.hybrid_dec_fused",
              "opus_tpu_torch.dnn.osce", "opus_tpu_torch.dnn.dred_enc",
              "opus_tpu_torch.dnn.bbwe",
              "opus_tpu_torch.bitstream.repacketizer",
-             "opus_tpu_torch.models.dred_encoder"):
+             "opus_tpu_torch.models.dred_encoder",
+             "opus_tpu_torch.dnn.lossgen", "opus_tpu_torch.tools.loss",
+             "opus_tpu_torch.tools.sim_loss", "opus_tpu_torch.ops.lanes"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",
