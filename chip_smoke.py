@@ -135,7 +135,17 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    within ``hybrid_pcm_bound`` (half the fixture lanes fed as above); CUDA
    event times of one BBWE frame alone (with its device operations and
    busy share), of the 48 kHz SILK decode without and with BBWE and of
-   the FB hybrid decode with NoLACE and with NoLACE + BBWE.
+   the FB hybrid decode with NoLACE and with NoLACE + BBWE;
+18. per-lane loss on the decode side (``tools/sim_loss.py``), opus_demo's
+   loss loop over 1024 streams with a loss pattern each: with ``-dred``
+   (sim_loss), per-lane deep PLC state (plc_lanes) and ``dred_decode`` at
+   8/12/24 kHz (plc_rates), and the classic CELT concealment (celt_plc):
+   the plain loop over 24 ticks and the ``-dred`` loop over 12 with DRED
+   stripped from every fourth packet on a quarter of the lanes, each with
+   ``flush()``, K1 and K2 counted, held to the port's CPU runs on every
+   lane and to the JAX package's loops (``tests/data/torch_celt_plc.npz``)
+   on the fixture lanes; CUDA event times of a tick with and without
+   concealing lanes, with their device operations and busy share.
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is the result JSON; any failed check
@@ -3906,7 +3916,7 @@ def cpu_pool():
     import concurrent.futures
     import multiprocessing
     return concurrent.futures.ProcessPoolExecutor(
-        max_workers=3, mp_context=multiprocessing.get_context("spawn"),
+        max_workers=4, mp_context=multiprocessing.get_context("spawn"),
         initializer=_cpu_worker_init)
 
 
@@ -4039,6 +4049,392 @@ def loss_times(dev, smi, sl, pl, plc):
     return out
 
 
+# The classic CELT packet-loss concealment (``celt/plc.py``,
+# ``KernelCeltDecoder.conceal``) and opus_demo's loss loops without DRED
+# (plain: a lost packet concealed in its own tick), with -inbandfec (the loss
+# deferred to the next packet, then concealed; a CELT-only stream carries
+# no LBRR) and with -dred where a resuming packet carries no DRED, as
+# ``tools/sim_loss.BatchedLossDecoder(dred=, inbandfec=)``.  The fixture
+# tests/data/torch_celt_plc.npz (tools/make_torch_celt_plc_fixture.py) holds
+# the JAX package's opus_demo loops on torch_sim_loss.npz's 8 streams, each
+# lane under its own pattern, and 10 ms concealments.  Bounds:
+# - branches, pitch periods, zeroing decisions, loss flags and final ranges
+#   equal (card, CPU and JAX);
+# - decoded PCM, the frames after a loss included, within PCM_ABS_TOL (the
+#   decode phase's 1e-4);
+# - concealed int16 within CLASSIC_LSB: the concealment runs in float64
+#   from the float32 history, energies and postfilter state, which hold
+#   the decoded PCM's bound; extrapolating that history does not amplify
+#   it (the attenuation and the energy rescaling are <= 1 and the LPC
+#   synthesis inverts the LPC analysis of the same samples), so the
+#   concealed float PCM holds PCM_ABS_TOL too, and its int16 (floor(32768
+#   x + 0.5)) moves by at most floor(32768 PCM_ABS_TOL) + 1 = 4 LSB
+#   (measured: 1 LSB, the float gap ~2e-6);
+# - concealed from DRED: PLC_LSB_48K, as in sim_loss.
+# A pitch period or a zeroing decision whose tie margin (``plc_trace``'s
+# ``pitch_margin``: the relative gap of the correlation ratios or half-lag
+# tests behind it; ``zero_margin``: of s1 against 0.2 s2) is below
+# CLASSIC_FLIP_TOL on the card or the CPU may flip between them (their
+# float64 sums round in other orders, their histories hold the PCM bound):
+# such a flip is counted, and its lane is held up to it.
+CELT_PLC_FIXTURE = os.path.join(REPO, "tests", "data", "torch_celt_plc.npz")
+CLASSIC_LSB = int(32768 * PCM_ABS_TOL) + 1
+CLASSIC_FLIP_TOL = 1e-3
+CLASSIC_DRED_FRAMES = 12        # the -dred loop's ticks (the fixture's)
+CLASSIC_KEYS = ("branch", "pitch", "zeroed", "pitch_margin", "zero_margin")
+
+
+def classic_loss_run(dec, packets, lost, flush=True):
+    """Drives a BatchedLossDecoder through packets[i][f] with the flags
+    lost [B, F], then ``flush()``; returns numpy: each lane's int16 output
+    in frame order (``out16`` [B, F * 960]: a slot's samples whenever the
+    loop emitted them), per slot its ``kind`` (0 decoded, 1 concealed
+    classically, 2 from DRED, 3 the zeros of a lane that has decoded
+    nothing), the final range of a decoded packet (``rng``), its float PCM
+    (``celt``), the classic concealment's branch, pitch, zeroing and tie
+    margins, the span ``pending`` at the end, the number of K2 launches
+    (``k2``: one a tick for the CELT decode, one a concealment call with a
+    concealing lane, 4 a FARGAN subframe of each DRED frame and priming)
+    and the tick times."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.dnn import fargan as PF
+    b, nf = lost.shape
+    out16 = np.zeros((b, nf * 960), np.int16)
+    n = np.zeros(b, np.int64)
+    rec = dict(kind=np.zeros((b, nf), np.int8),
+               rng=np.zeros((b, nf), np.uint32),
+               branch=np.zeros((b, nf), np.int8),
+               pitch=np.zeros((b, nf), np.int64),
+               zeroed=np.zeros((b, nf), bool),
+               pitch_margin=np.ones((b, nf)), zero_margin=np.ones((b, nf)))
+    celt = np.zeros((b, nf, 960), np.float32)
+    queue = [[] for _ in range(b)]
+    k2 = 0
+    tick_s = []
+
+    def emit(o, cnt):
+        o = o.cpu().numpy()
+        for i in np.nonzero(cnt)[0]:
+            out16[i, n[i]:n[i] + cnt[i]] = o[i, :cnt[i]]
+        n[:] += cnt
+
+    def take(entries):
+        nonlocal k2
+        for e in entries:
+            k2 += int((e["branch"] != 0).any())
+            for i in np.nonzero(e["lanes"])[0]:
+                f = queue[i].pop(0)
+                rec["kind"][i, f] = 1 if e["branch"][i] else 3
+                for k in CLASSIC_KEYS:
+                    rec[k][i, f] = e[k][i]
+
+    for f in range(nf):
+        m0 = len(dec.classic_trace)
+        blend = dec.plc.lpcnet.blend.cpu().numpy() if dec.plc else None
+        for i in np.nonzero(lost[:, f])[0]:
+            queue[i].append(f)
+        t0 = time.perf_counter()
+        o, cnt = dec.tick([packets[i][f] for i in range(b)], lost[:, f])
+        if dec.device.type == "cuda":
+            torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t0)
+        emit(o, cnt)
+        dl = dec.dred_lanes
+        if dl.any():
+            prime = bool((dl & (blend == 0)).any())
+            k2 += PF.FARGAN_NB_SUBFRAMES * (prime + len(dec.plc.trace))
+            for i in np.nonzero(dl)[0]:
+                rec["kind"][i, queue[i]] = 2
+                queue[i] = []
+        take(dec.classic_trace[m0:])
+        k2 += 1
+        recv = ~lost[:, f]
+        rec["rng"][recv, f] = dec.final_range().cpu().numpy()[recv]
+        celt[recv, f] = dec.pcm.cpu().numpy()[recv]
+    if flush:
+        m0 = len(dec.classic_trace)
+        emit(*dec.flush())
+        take(dec.classic_trace[m0:])
+    return dict(lost=lost, out16=out16, n=n, celt=celt,
+                pending=dec.pending(), k2=k2, tick_s=tick_s, **rec)
+
+
+def classic_fixture(cfx, name: str, frames=None) -> dict:
+    """The fixture's ``name`` loop ("plain" or "dred") over its first
+    ``frames`` frames (default all) in classic_loss_run's layout, without
+    out16: ``conc`` the int16 of the concealed slots (kind 1 and 2,
+    lane-major), ``after`` the float PCM of the first decoded frame after
+    each concealed run."""
+    import numpy as np
+    kind = cfx[f"{name}_kind"]
+    nf = kind.shape[1] if frames is None else frames
+    early = np.arange(kind.shape[1]) < nf
+    conc = (kind == 1) | (kind == 2)
+    after = classic_after_mask(kind)
+    out = {k: cfx[f"{name}_{k}"][:, :nf]
+           for k in ("kind", "branch", "pitch", "zeroed")}
+    out.update(lost=cfx["lost"][:, :nf], rng=cfx[f"{name}_range"][:, :nf],
+               conc=cfx[f"{name}_conc"][(conc & early)[conc]],
+               after=cfx[f"{name}_after_pcm"][(after & early)[after]])
+    return out
+
+
+def classic_after_mask(kind):
+    """The first decoded frame after a run of concealed ones."""
+    import numpy as np
+    c = (kind == 1) | (kind == 2)
+    after = np.zeros_like(c)
+    after[:, 1:] = c[:, :-1] & (kind[:, 1:] == 0)
+    return after
+
+
+def classic_flips(got, ref, held):
+    """Lanes whose first disagreement of kind, branch, pitch or zeroing
+    with ``ref`` is a classic concealment whose tie margin (on either
+    side) is below CLASSIC_FLIP_TOL: {lane: frame}; ``held`` [B, F] is
+    cleared from that frame on.  Any other disagreement fails."""
+    import numpy as np
+    flips = {}
+    diff = np.zeros_like(held)
+    for k in ("kind", "branch", "pitch", "zeroed"):
+        diff |= got[k] != ref[k]
+    for i in np.nonzero(diff.any(axis=1))[0]:
+        f = int(np.argmax(diff[i]))
+        tie = min(got["pitch_margin"][i, f], got["zero_margin"][i, f],
+                  ref["pitch_margin"][i, f], ref["zero_margin"][i, f])
+        if got["kind"][i, f] != 1 or not tie < CLASSIC_FLIP_TOL:
+            fail(f"classic loss: lane {i} frame {f}: kind / branch / pitch "
+                 f"/ zeroing {[int(got[k][i, f]) for k in CLASSIC_KEYS[:3]]}"
+                 f" against {[int(ref[k][i, f]) for k in CLASSIC_KEYS[:3]]}"
+                 f" (tie margin {tie:.3g})")
+        flips[int(i)] = f
+        held[i, f:] = False
+    return flips
+
+
+def classic_compare(got, ref, what, lanes=None):
+    """The classic loss bounds of ``got`` (a classic_loss_run result) on
+    ``lanes`` (default all) against ``ref``: another run (every check on
+    every held slot, flips excused as ``classic_flips`` says) or
+    ``classic_fixture`` (its frames; no flip excused).  Returns (max
+    decoded PCM error, max classic-concealed LSB, max DRED-concealed LSB,
+    lane-slots concealed, flips)."""
+    import numpy as np
+    sel = np.arange(len(got["lost"])) if lanes is None else np.asarray(lanes)
+    nf = ref["kind"].shape[1]
+    g = {k: got[k][sel][:, :nf] for k in ("lost", "kind", "rng", "branch",
+                                           "pitch", "zeroed", "pitch_margin",
+                                           "zero_margin", "celt")}
+    g16 = got["out16"][sel].reshape(len(sel), -1, 960)[:, :nf]
+    if not np.array_equal(g["lost"], ref["lost"]):
+        fail(f"classic loss {what}: loss flags differ")
+    held = np.ones(g["kind"].shape, bool)
+    flips = {}
+    if "conc" in ref:
+        for k in ("kind", "branch", "pitch", "zeroed"):
+            if not np.array_equal(g[k], ref[k]):
+                bad = np.argwhere(g[k] != ref[k])[:4].tolist()
+                fail(f"classic loss {what}: {k} differs at {bad}")
+    else:
+        flips = classic_flips(g, {k: ref[k][sel][:, :nf] for k in g}, held)
+    dec = (g["kind"] == 0) & held
+    rr = ref["rng"] if "conc" in ref else ref["rng"][sel][:, :nf]
+    if not np.array_equal(g["rng"][dec], rr[dec]):
+        fail(f"classic loss {what}: final ranges differ on lane-frames "
+             f"{np.argwhere(dec & (g['rng'] != rr))[:4].tolist()}")
+    conc = (g["kind"] == 1) | (g["kind"] == 2)
+    if "conc" in ref:
+        after = classic_after_mask(g["kind"])
+        e_pcm = float(np.abs(g["celt"][after] - ref["after"]).max()) \
+            if after.any() else 0.0
+        d16 = np.abs(g16[conc].astype(np.int64) - ref["conc"])
+        zeros = g16[g["kind"] == 3]
+    else:
+        r16 = ref["out16"][sel].reshape(len(sel), -1, 960)[:, :nf]
+        e_pcm = float(np.abs(g["celt"][dec] - ref["celt"][sel][:, :nf][dec])
+                      .max()) if dec.any() else 0.0
+        d16 = np.abs(g16[conc & held].astype(np.int64)
+                     - r16[conc & held])
+        zeros = g16[(g["kind"] == 3) & held]
+    if zeros.any():
+        fail(f"classic loss {what}: a lane that decoded nothing concealed "
+             f"non-zero samples")
+    if not e_pcm <= PCM_ABS_TOL:
+        fail(f"classic loss {what}: decoded PCM err {e_pcm} > {PCM_ABS_TOL}")
+    kinds = (g["kind"][conc & held] if "conc" not in ref
+             else g["kind"][conc])
+    e_cl = int(d16[kinds == 1].max()) if (kinds == 1).any() else 0
+    e_dr = int(d16[kinds == 2].max()) if (kinds == 2).any() else 0
+    if e_cl > CLASSIC_LSB or e_dr > PLC_LSB_48K:
+        fail(f"classic loss {what}: concealed int16 {e_cl} LSB (bound "
+             f"{CLASSIC_LSB}), from DRED {e_dr} (bound {PLC_LSB_48K})")
+    return e_pcm, e_cl, e_dr, int(conc.sum()), flips
+
+
+def strip_dred(p: bytes) -> bytes:
+    """A one-frame CELT packet without its padding (and DRED): the TOC as
+    code 0 and the CELT frame alone."""
+    from opus_tpu_torch.tools.sim_loss import celt_frame
+    return bytes([p[0] & 0xFC]) + celt_frame(p)
+
+
+def dred_loop_packets(packets, strip):
+    """packets[i][f] for the -dred loop's frames, DRED stripped where strip
+    [B, F] holds."""
+    nf = strip.shape[1]
+    return [[strip_dred(p) if strip[i, f] else p
+             for f, p in enumerate(row[:nf])] for i, row in
+            enumerate(packets)]
+
+
+def classic_inputs(sl_in, cfx):
+    """The celt_plc phase's traffic: sim_loss's packets and flags (lanes
+    0-511 BatchedLossGen, 512-1023 i.i.d. 10%); on lanes SIM_FX (which
+    carry torch_sim_loss.npz's streams) the fixture's flags.  The -dred
+    loop's packets: DRED stripped from every fourth packet (frames 2, 6,
+    10) on a quarter of the lanes (lane % 4 == 1), and on SIM_FX as the
+    fixture strips them."""
+    import numpy as np
+    packets = sl_in["packets"]
+    lost = sl_in["lost"].copy()
+    fx = list(SIM_FX)
+    lost[fx] = cfx["lost"]
+    nd = CLASSIC_DRED_FRAMES
+    strip = np.zeros((len(packets), nd), bool)
+    strip[1::4, 2::4] = True
+    strip[fx] = cfx["strip"][:, :nd]
+    return dict(packets=packets, lost=lost,
+                dred_packets=dred_loop_packets(packets, strip),
+                dred_lost=lost[:, :nd], strip=strip)
+
+
+def cpu_classic(packets, lost, dred):
+    """A classic loop on the CPU (the port's plain versions) in a worker
+    process while the card runs: plain, or -dred (opus_demo's models)."""
+    from opus_tpu_torch.tools.sim_loss import BatchedLossDecoder
+    t0 = time.time()
+    models = sim_models("cpu") if dred else ()
+    out = classic_loss_run(BatchedLossDecoder(len(packets), *models,
+                                              device="cpu", dred=dred),
+                           packets, lost)
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def phase_celt_plc(dev, cfx, inp, jobs):
+    """The classic loops as a user drives them on the card: the plain loop
+    over 24 ticks and the -dred loop over CLASSIC_DRED_FRAMES, each with
+    flush(), the K1 and K2 counters reset just before each and read just
+    after; held to the CPU runs (``jobs``: futures of cpu_classic) on every
+    lane and to the JAX loops on the fixture lanes.  -inbandfec conceals
+    what the plain loop conceals (a CELT-only stream has no LBRR), one
+    tick later: the CPU tests hold it."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.ops import iir
+    from opus_tpu_torch.tools.sim_loss import BatchedLossDecoder
+
+    res = {}
+    for name, pk, lost, dred in (
+            ("plain", inp["packets"], inp["lost"], False),
+            ("dred", inp["dred_packets"], inp["dred_lost"], True)):
+        b, nf = lost.shape
+        models = sim_models(dev) if dred else ()
+        torch.cuda.synchronize()
+        CK.launches = iir.launches = 0
+        dec = BatchedLossDecoder(b, *models, device=dev, dred=dred)
+        card = classic_loss_run(dec, pk, lost)
+        torch.cuda.synchronize()
+        counts = {"K1": CK.launches, "K2": iir.launches}
+        if counts != {"K1": nf, "K2": card["k2"]}:
+            fail(f"celt_plc {name}: launches {counts}, expected K1 {nf}, "
+                 f"K2 {card['k2']}")
+        if card["pending"].any():
+            fail(f"celt_plc {name}: samples pending after flush")
+        cpu = jobs[name].result()
+        e_cpu = classic_compare(card, cpu, f"{name}: card vs the CPU run")
+        e_jax = classic_compare(card, classic_fixture(cfx, name),
+                                f"{name}: card vs the JAX loop",
+                                lanes=SIM_FX)
+        k = card["kind"]
+        br = card["branch"]
+        print(f"celt_plc {name} at B={b} over {nf} ticks + flush: "
+              f"{int((k == 1).sum())} classic concealments "
+              f"({int((br == 1).sum())} periodic, {int((br == 2).sum())} "
+              f"noise, {int(card['zeroed'].sum())} zeroed), "
+              f"{int((k == 2).sum())} from DRED, {int((k == 3).sum())} "
+              f"before any packet; launches {counts}; card vs CPU: decoded "
+              f"PCM {e_cpu[0]:.3g}, concealed {e_cpu[1]} LSB (DRED "
+              f"{e_cpu[2]}), {len(e_cpu[4])} tie flips excused "
+              f"{e_cpu[4]}; fixture lanes vs JAX: decoded PCM "
+              f"{e_jax[0]:.3g}, concealed {e_jax[1]} LSB (DRED {e_jax[2]}) "
+              f"on {e_jax[3]} slots; card ticks "
+              f"{1e3 * min(card['tick_s']):.1f}-"
+              f"{1e3 * max(card['tick_s']):.1f} ms; the CPU run took "
+              f"{cpu['seconds']:.1f} s (worker process)")
+        res[name] = dict(counts=counts, e_cpu=e_cpu, e_jax=e_jax,
+                         kind=k, branch=br)
+    return res
+
+
+def celt_plc_times(dev, smi, inp):
+    """CUDA event times, device operations and busy share of a plain-loop
+    tick at B_DNN with no lost lane, with every tenth lane's first loss
+    (periodic, with the pitch search), with their second loss (periodic,
+    the period kept), and with their sixth (noise)."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.tools.device_time import device_profile
+    from opus_tpu_torch.tools.sim_loss import BatchedLossDecoder
+
+    b = B_DNN
+    pk = inp["packets"]
+    dec = BatchedLossDecoder(b, device=dev, dred=False)
+    none = np.zeros(b, bool)
+    some = np.zeros(b, bool)
+    some[::10] = True
+    for f in range(3):
+        dec.tick([p[f] for p in pk], none)
+    snaps = [dict(dec.celt.state)]
+    for k in range(5):
+        dec.tick([p[3 + k] for p in pk], some)
+        snaps.append(dict(dec.celt.state))
+    out = {}
+    for name, snap, flags in (("no lost lane", 0, none),
+                              (f"{int(some.sum())} lanes' first loss "
+                               f"(periodic, pitch search)", 0, some),
+                              ("their second loss (periodic)", 1, some),
+                              ("their sixth loss (noise)", 5, some)):
+        def setup(s=snaps[snap]):
+            dec.celt.state = dict(s)
+            dec.classic_trace = []
+
+        def call(flags=flags):
+            dec.tick([p[8] for p in pk], flags)
+        ts = []
+        for _ in range(2):
+            setup()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            call()
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        ms = min(ts)
+        ops, dms = device_profile(lambda: (setup(), call()), reps=1,
+                                  warmup=False)
+        out[name] = ms
+        print(f"celt_plc times [{smi}]: a tick at B={b}, {name}: {ms:.3f} "
+              f"ms a call ({b * 20 / ms:.0f} realtime streams), {ops:.0f} "
+              f"device operations, {dms:.3f} ms device (busy "
+              f"{100 * dms / ms:.1f}%)")
+    return out
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -4055,7 +4451,7 @@ def main() -> int:
     for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE,
                  SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE,
                  FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE, BBWE_FIXTURE,
-                 SIM_FIXTURE):
+                 SIM_FIXTURE, CELT_PLC_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -4191,12 +4587,22 @@ def main() -> int:
         t0 = time.time()
         pl = phase_plc_lanes(dev, simfx, pl_in, pool)
         phase_s["plc_lanes"] = time.time() - t0
+        # the classic loops' CPU references queue behind plc_lanes' own
+        cfx = dict(np.load(CELT_PLC_FIXTURE))
+        cl_in = classic_inputs(sl_in, cfx)
+        cl_jobs = {"plain": pool.submit(cpu_classic, cl_in["packets"],
+                                        cl_in["lost"], False),
+                   "dred": pool.submit(cpu_classic, cl_in["dred_packets"],
+                                       cl_in["dred_lost"], True)}
         t0 = time.time()
         sl = phase_sim_loss(dev, simfx, sl_in, sl_job)
         phase_s["sim_loss"] = time.time() - t0
         t0 = time.time()
         pr = phase_plc_rates(dev, simfx, plc, pr_job)
         phase_s["plc_rates"] = time.time() - t0
+        t0 = time.time()
+        cl = phase_celt_plc(dev, cfx, cl_in, cl_jobs)
+        phase_s["celt_plc"] = time.time() - t0
 
     t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
@@ -4219,6 +4625,9 @@ def main() -> int:
     t0 = time.time()
     lt = loss_times(dev, smi, sl, pl, plc)
     phase_s["loss_times"] = time.time() - t0
+    t0 = time.time()
+    ct = celt_plc_times(dev, smi, cl_in)
+    phase_s["celt_plc_times"] = time.time() - t0
 
     t0 = time.time()
     k5 = phase_k5(dev, smi)
@@ -4243,7 +4652,9 @@ def main() -> int:
                 "dred chain": chain["counts"],
                 "dred chain recovery": chain["rcounts"],
                 "sim loss": sl["counts"], "plc lanes": pl["counts"],
-                "plc rates": pr["counts"]}
+                "plc rates": pr["counts"],
+                "celt plc": cl["plain"]["counts"],
+                "celt plc dred": cl["dred"]["counts"]}
     print(f"launches per path ({NFRAMES} frames; the DRED chain "
           f"{CHAIN_FRAMES}): {per_path}")
 
@@ -4308,7 +4719,9 @@ def main() -> int:
           f"{t['chain_attach']:.1f} ms, chain frame {t['chain_frame']:.1f} "
           f"ms ({t['chain_frame_dred']:.1f} with DRED); loss chain at "
           f"B={B_DNN}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in
-                                     lt.items()))
+                                     lt.items()) + f"; classic loss at "
+          f"B={B_DNN}: " + "; ".join(f"tick, {k} {v:.3f} ms" for k, v in
+                                     ct.items()))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

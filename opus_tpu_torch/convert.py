@@ -9,6 +9,15 @@ state.
   lanes, ``dsp`` a ``DecState``) -> the port's state dict of tensors.
 - ``state_to_numpy``: the port's state -> the JAX layout with numpy
   leaves (``dsp`` as a dict; ``DecState(**dsp)`` rebuilds the JAX tuple).
+  The JAX tiers keep 1026 samples of history and no loss state: coming
+  from JAX the history is padded with zeros in front and nothing is
+  lost (a lane with energies off their reset values has decoded a
+  packet).
+- ``celt_state_from_scalar`` / ``celt_state_to_numpy``: the scalar tier's
+  ``CeltDecoder`` states (numpy fields, one a lane: the decode memory,
+  energies, background, loss counters, postfilter phases, ``rng``, the
+  PLC's LPC and period, the de-emphasis memory) to and from the port's
+  per-lane state, so that a port lane can start from any scalar state.
 - ``tabs_from_jax``: builds the port's ``DecTabs`` and checks every table
   against the JAX package's ``DecTabs``.
 - ``enc_state_from_jax`` / ``enc_state_to_numpy``: the same for the
@@ -58,7 +67,9 @@ import torch
 
 from .dnn import (bbwe, dred, dred_enc, fargan, features, lossgen, nnet,
                   osce, pitchdnn, plc, rdovae)
-from .models.celt_dec_fused import DecTabs
+from .models import batched_decode
+from .models.celt_dec_fused import DecTabs, fused_celt_init_state
+from .models.celt_dec_kernel import dec_tabs
 
 _BAND_KEYS = ("old_e", "prev1", "prev2")
 _INT_KEYS = ("pf_period", "pf_period_old", "pf_tapset", "pf_tapset_old")
@@ -66,8 +77,27 @@ _F32_KEYS = ("pf_gain", "pf_gain_old")
 _DSP_KEYS = ("tail", "hist", "deemph")
 
 
+def _loss_defaults(out: dict, device) -> dict:
+    """The loss state of ``fused_celt_init_state`` for a decoder state
+    without one (the JAX tiers keep none: they never conceal): nothing
+    lost, ``e_copy`` equal to old_e, the final range the seed; a lane
+    whose energies are not the reset values has decoded a packet
+    (``decoded_any``, ``skip_plc`` clear), the others are fresh."""
+    b = out["old_e"].shape[0]
+    fresh = fused_celt_init_state(b, dec_tabs(), device)
+    decoded = (out["old_e"] != 0).any(1) | (out["prev1"] != -28.0).any(1) \
+        | (out["prev2"] != -28.0).any(1)
+    fresh.update(out)
+    fresh.update(e_copy=out["old_e"].clone(), rng_final=out["seed"].clone(),
+                 decoded_any=decoded,
+                 skip_plc=torch.where(decoded, 0, fresh["skip_plc"]))
+    return fresh
+
+
 def state_from_jax(np_state: dict, device="cpu") -> dict:
-    """JAX decoder state (numpy leaves) -> the port's state dict."""
+    """JAX decoder state (numpy leaves) -> the port's state dict; the
+    JAX tier's 1026-sample history is padded with zeros in front to the
+    port's HIST, and nothing is lost (``_loss_defaults``)."""
     def t(v, dtype):
         return torch.as_tensor(np.array(v), device=device).to(dtype)
 
@@ -80,11 +110,15 @@ def state_from_jax(np_state: dict, device="cpu") -> dict:
     dsp = np_state["dsp"]
     dsp = dsp._asdict() if hasattr(dsp, "_asdict") else dict(dsp)
     out["dsp"] = {k: t(dsp[k], torch.float32) for k in _DSP_KEYS}
-    return out
+    h = out["dsp"]["hist"]
+    out["dsp"]["hist"] = torch.nn.functional.pad(
+        h, (batched_decode.HIST - h.shape[1], 0))
+    return _loss_defaults(out, device)
 
 
 def state_to_numpy(state: dict) -> dict:
-    """The port's state -> the JAX package's layout, numpy leaves."""
+    """The port's state -> the JAX package's layout, numpy leaves (the
+    last 1026 samples of the history, no loss state)."""
     def n(v):
         return v.detach().cpu().numpy()
 
@@ -94,6 +128,113 @@ def state_to_numpy(state: dict) -> dict:
     out.update({k: n(state[k]).astype(np.int32) for k in _INT_KEYS})
     out.update({k: n(state[k]).astype(np.float32) for k in _F32_KEYS})
     out["dsp"] = {k: n(state["dsp"][k]) for k in _DSP_KEYS}
+    out["dsp"]["hist"] = out["dsp"]["hist"][:, -batched_decode.COMB_HIST:]
+    return out
+
+
+# ---- the scalar CELT decoder's state (opus_tpu/celt/decoder.py) ----
+_SCALAR_INT = dict(loss_duration="loss_duration",
+                   plc_duration="plc_duration", skip_plc="skip_plc",
+                   last_frame_type="last_frame_type",
+                   prefilter_and_fold="prefilter_and_fold",
+                   last_pitch_index="last_pitch_index",
+                   pf_period="postfilter_period",
+                   pf_period_old="postfilter_period_old",
+                   pf_tapset="postfilter_tapset",
+                   pf_tapset_old="postfilter_tapset_old")
+_SCALAR_F32 = dict(pf_gain="postfilter_gain",
+                   pf_gain_old="postfilter_gain_old")
+SCALAR_KEYS = tuple(_SCALAR_INT.values()) + tuple(_SCALAR_F32.values()) + (
+    "decode_mem", "oldEBands", "oldLogE", "oldLogE2", "backgroundLogE",
+    "rng", "plc_lpc", "preemph_memD")
+
+
+def _preemph() -> float:
+    """The de-emphasis coefficient: the scalar keeps coef * y[-1] as its
+    memory, the port y[-1]."""
+    from .celt.modes import mode_create
+    return float(mode_create(48000, 960).preemph[0])
+
+
+def _scalar_get(d, k):
+    return d[k] if isinstance(d, dict) else getattr(d, k)
+
+
+def celt_state_from_scalar(decoders, device="cpu", decoded_any=True) -> dict:
+    """Mono 48 kHz states of the scalar tier's ``CeltDecoder`` (objects, or
+    dicts of their fields as numpy arrays and numbers; ``SCALAR_KEYS``),
+    one a lane -> the port's per-lane state (``fused_celt_init_state``'s
+    layout): decode_mem[0, :2048] is the history, [2048:2108] the IMDCT
+    tail and [2048:2168] the extrapolated overlap a fold reads; the
+    energies' first nb entries are old_e / prev1 / prev2 / background
+    and oldEBands[nb:2nb] is e_copy; ``rng`` is both the next frame's seed
+    and the final range."""
+    def col(k, dtype):
+        return torch.as_tensor(np.array([np.asarray(_scalar_get(d, k))
+                                         for d in decoders]),
+                               device=device).to(dtype)
+
+    mem = col("decode_mem", torch.float64)[:, 0]
+    nb = col("oldEBands", torch.float64).shape[1] // 2
+    e = {k: col(k, torch.float64) for k in ("oldEBands", "oldLogE",
+                                            "oldLogE2", "backgroundLogE")}
+    h = batched_decode.HIST
+    f32 = torch.float32
+    out = dict(
+        old_e=e["oldEBands"][:, :nb].to(f32),
+        e_copy=e["oldEBands"][:, nb:2 * nb].to(f32),
+        prev1=e["oldLogE"][:, :nb].to(f32), prev2=e["oldLogE2"][:, :nb]
+        .to(f32), background=e["backgroundLogE"][:, :nb].to(f32),
+        seed=col("rng", torch.int64),
+        plc_lpc=col("plc_lpc", torch.float64)[:, 0],
+        fold=mem[:, h:].to(f32),
+        dsp=dict(hist=mem[:, :h].to(f32),
+                 tail=mem[:, h:h + (mem.shape[1] - h) // 2].to(f32),
+                 deemph=(col("preemph_memD", torch.float64)[:, 0]
+                         / _preemph()).to(f32)))
+    out.update({p: col(k, torch.int64) for p, k in _SCALAR_INT.items()})
+    out.update({p: col(k, f32) for p, k in _SCALAR_F32.items()})
+    out["rng_final"] = out["seed"].clone()
+    out["decoded_any"] = torch.full((len(decoders),), bool(decoded_any),
+                                    device=device)
+    return out
+
+
+def celt_state_to_numpy(state: dict) -> list:
+    """The port's per-lane state -> one dict a lane in the scalar
+    ``CeltDecoder``'s field names (``SCALAR_KEYS``), numpy leaves;
+    decode_mem [1, 2048 + overlap] holds the fold buffer past the history
+    on a lane that will fold, the IMDCT tail elsewhere."""
+    def n(v):
+        return v.detach().cpu().numpy()
+
+    dsp = state["dsp"]
+    fold = n(state["fold"]).astype(np.float64)
+    tail = n(dsp["tail"]).astype(np.float64)
+    on = n(state["prefilter_and_fold"]) != 0
+    out = []
+    for i in range(fold.shape[0]):
+        after = fold[i].copy()
+        if not on[i]:
+            after[:] = 0.0
+            after[:tail.shape[1]] = tail[i]
+        lane = dict(decode_mem=np.concatenate(
+            [n(dsp["hist"][i]).astype(np.float64), after])[None, :])
+        for k, name in (("old_e", "oldEBands"), ("prev1", "oldLogE"),
+                        ("prev2", "oldLogE2"),
+                        ("background", "backgroundLogE")):
+            second = state["e_copy"][i] if k == "old_e" else state[k][i]
+            lane[name] = np.concatenate([n(state[k][i]), n(second)]
+                                        ).astype(np.float64)
+        lane.update({name: int(state[p][i]) for p, name in
+                     _SCALAR_INT.items()})
+        lane.update({name: float(state[p][i]) for p, name in
+                     _SCALAR_F32.items()})
+        lane.update(rng=int(state["seed"][i]),
+                    plc_lpc=n(state["plc_lpc"][i])[None, :],
+                    preemph_memD=np.array(
+                        [_preemph() * float(dsp["deemph"][i]), 0.0]))
+        out.append(lane)
     return out
 
 

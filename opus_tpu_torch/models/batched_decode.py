@@ -24,13 +24,15 @@ from ..ops.device_cache import const
 from ..ops.iir import deemphasis
 from ..ops.mdct import _backward_basis, _window
 
-HIST = 1026             # comb-filter history: COMBFILTER_MAXPERIOD + 2
+HIST = 2048             # postfiltered history: the PLC's DECODE_BUFFER_SIZE
+COMB_HIST = 1026        # what the comb reads of it: COMBFILTER_MAXPERIOD + 2
 CHUNK = 12              # comb chunk; must be <= COMBFILTER_MINPERIOD - 2
 
 
 def init_state(batch_ch: int, overlap: int = 120, device="cpu") -> dict:
     """Synthesis state: raw IMDCT tail [BC, overlap/2], postfiltered
-    history [BC, HIST], de-emphasis memory [BC]."""
+    history [BC, HIST] (the comb reads its last COMB_HIST samples, the
+    packet-loss concealment all of it), de-emphasis memory [BC]."""
     return dict(
         tail=torch.zeros((batch_ch, overlap // 2), dtype=torch.float32,
                          device=device),
@@ -89,7 +91,7 @@ def _comb_plan(n: int, overlap: int, lm: int):
 
 def _taps_at(ybuf, s0: int, t, g):
     """5-tap comb at per-stream lag t [BC], samples [s0, s0+CHUNK)."""
-    starts = HIST + s0 - t - 2
+    starts = COMB_HIST + s0 - t - 2
     idx = starts[:, None] + torch.arange(CHUNK + 4, device=ybuf.device)
     seg = ybuf.gather(1, idx)
     return (g[:, 0:1] * seg[:, 2:CHUNK + 2]
@@ -110,6 +112,26 @@ def decode_step(x, band_log_e, transient, silence, periods, tap_gains,
     state:      init_state dict with leading dim B*C
     returns (pcm [B, C, N] float in [-1, 1], new state)
     """
+    filt, dsp = synth_step(x, band_log_e, transient, silence, periods,
+                           tap_gains, state, fs=fs, frame_size=frame_size,
+                           lm=lm)
+    pcm, deemph = deemphasize(filt, state["deemph"], fs, frame_size)
+    return pcm.reshape(x.shape), dict(dsp, deemph=deemph)
+
+
+def deemphasize(filt, mem, fs: int = 48000, frame_size: int = 960):
+    """De-emphasis y[n] = x[n] + coef*y[n-1] (kernel K2 on the card) of
+    the postfiltered signal [BC, N] -> (pcm in [-1, 1], new memory)."""
+    mode = mode_create(fs, frame_size)
+    y, deemph = deemphasis(filt, mem, float(mode.preemph[0]))
+    return y * (1.0 / 32768.0), deemph
+
+
+def synth_step(x, band_log_e, transient, silence, periods, tap_gains,
+               state: dict, *, fs: int = 48000, frame_size: int = 960,
+               lm: int = 3):
+    """``decode_step`` up to the de-emphasis: returns (the postfiltered
+    signal [BC, N] f32, the new ``tail`` and ``hist``)."""
     mode = mode_create(fs, frame_size)
     n = mode.shortMdctSize << lm
     overlap = mode.overlap
@@ -151,8 +173,10 @@ def decode_step(x, band_log_e, transient, silence, periods, tap_gains,
     fprof = const(("comb_profile", n, overlap, lm), lambda: prof, dev)
     periods_bc = periods.to(torch.int64).repeat_interleave(c, dim=0)
     tgains_bc = tap_gains.repeat_interleave(c, dim=0)
+    hist = state["hist"]
     if bool((tgains_bc != 0.0).any()):
-        ybuf = torch.cat([state["hist"], torch.zeros_like(sig)], dim=1)
+        ybuf = torch.cat([hist[:, -COMB_HIST:], torch.zeros_like(sig)],
+                         dim=1)
         for j in range(n // CHUNK):
             s0 = j * CHUNK
             fc = fprof[s0:s0 + CHUNK]
@@ -162,13 +186,9 @@ def decode_step(x, band_log_e, transient, silence, periods, tap_gains,
                                         tgains_bc[:, ja]) \
                 + fc * _taps_at(ybuf, s0, periods_bc[:, jb],
                                 tgains_bc[:, jb])
-            ybuf[:, HIST + s0:HIST + s0 + CHUNK] = out
+            ybuf[:, COMB_HIST + s0:COMB_HIST + s0 + CHUNK] = out
+        filt = ybuf[:, COMB_HIST:]
     else:
-        ybuf = torch.cat([state["hist"], sig], dim=1)
-    filt = ybuf[:, HIST:]
-    new_hist = ybuf[:, n:n + HIST]
-
-    # --- de-emphasis y[n] = x[n] + coef*y[n-1] (kernel K2 on the card) ---
-    y, deemph = deemphasis(filt, state["deemph"], float(mode.preemph[0]))
-    pcm = (y * (1.0 / 32768.0)).reshape(b, c, n)
-    return pcm, dict(tail=new_tail, hist=new_hist, deemph=deemph)
+        filt = sig
+    return filt, dict(tail=new_tail, hist=torch.cat([hist[:, n:], filt],
+                                                    dim=1))

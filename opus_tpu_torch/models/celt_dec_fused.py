@@ -1404,7 +1404,14 @@ def fused_celt_decode_frame(buf, lens, old_e, prevmin, seed,
 def fused_celt_init_state(batch: int, tabs: DecTabs, device="cpu"):
     """Per-stream decoder state (celt_decoder.c reset values) as a dict
     of tensors: old_e/prev1/prev2 [B, nb], seed [B], the postfilter
-    phases, and the synthesis state ``dsp``."""
+    phases, the synthesis state ``dsp``, and the loss state of the
+    packet-loss concealment (``celt/plc.py``): the background energies
+    and the second copy of old_e that mono keeps (``e_copy``) [B, nb],
+    the loss counters (2.5 ms units), ``skip_plc``, the last frame's
+    type, the fold flag and the extrapolated overlap it folds (``fold``
+    [B, overlap]), the last PLC period and LPC ([B, 24] f64), the final
+    range of the last decoded packet and whether the lane has decoded
+    one."""
     from .batched_decode import init_state as dsp_init
 
     nb = tabs.nb
@@ -1419,4 +1426,16 @@ def fused_celt_init_state(batch: int, tabs: DecTabs, device="cpu"):
         pf_period_old=torch.full((batch,), 15, dtype=i64, device=device),
         pf_gain=zf.clone(), pf_gain_old=zf.clone(),
         pf_tapset=zi.clone(), pf_tapset_old=zi.clone(),
-        dsp=dsp_init(batch, tabs.mode.overlap, device=device))
+        dsp=dsp_init(batch, tabs.mode.overlap, device=device),
+        background=torch.full((batch, nb), -28.0, dtype=f32, device=device),
+        e_copy=torch.zeros((batch, nb), dtype=f32, device=device),
+        loss_duration=zi.clone(), plc_duration=zi.clone(),
+        skip_plc=torch.ones(batch, dtype=i64, device=device),
+        last_frame_type=zi.clone(), prefilter_and_fold=zi.clone(),
+        last_pitch_index=zi.clone(),
+        plc_lpc=torch.zeros((batch, 24), dtype=torch.float64,
+                            device=device),
+        fold=torch.zeros((batch, tabs.mode.overlap), dtype=f32,
+                         device=device),
+        rng_final=zi.clone(),
+        decoded_any=torch.zeros(batch, dtype=torch.bool, device=device))

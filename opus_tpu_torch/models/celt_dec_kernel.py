@@ -19,6 +19,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..celt.plc import decode_lost, fold_tails
 from ..celt.tables import COMB_GAINS, COMBFILTER_MINPERIOD
 from ..ops.device_cache import const
 from ..ops.lanes import lane_mask, select_lanes
@@ -153,17 +154,45 @@ def geometry(p: int) -> dict:
     return geo("opus_celt_dec_frame_occupancy", p)
 
 
+def _missing_decay(state: dict, tabs: DecTabs):
+    """The energies a good frame predicts from (celt_decoder.c:1251-1300):
+    mono's max of old_e and its second copy, then, on lanes whose last
+    frames were lost, the decay of each coded band toward where the two
+    frames before the loss pointed (applied before K1 on intra frames too:
+    K1 weighs the old energy by 0 there)."""
+    old = torch.maximum(state["old_e"], state["e_copy"])
+    ld = state["loss_duration"]
+    lost = ld != 0
+    if not bool(lost.any()):
+        return old
+    e0 = old.to(torch.float64)
+    l1 = state["prev1"].to(torch.float64)
+    l2 = state["prev2"].to(torch.float64)
+    missing = torch.clamp(ld >> tabs.lm, max=10).to(torch.float64)[:, None]
+    safety = {0: 1.5, 1: 0.5}.get(tabs.lm, 0.0)
+    slope = torch.clamp(torch.maximum(l1 - e0, 0.5 * (l2 - e0)), max=2.0)
+    down = torch.clamp(e0 - torch.clamp((1 + missing) * slope, min=0.0),
+                       min=-20.0)
+    keep = torch.minimum(torch.minimum(e0, l1), l2)
+    dec = torch.where(e0 < torch.maximum(l1, l2), down, keep) - safety
+    inside = (torch.arange(tabs.nb, device=old.device) >= tabs.start) \
+        & (torch.arange(tabs.nb, device=old.device) < tabs.end_band)
+    return torch.where(lost[:, None] & inside, dec.to(torch.float32), old)
+
+
 def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
                               frame_fn=None, d0=None):
     """One frame at 10/20 ms: the K1 symbol pass + the synthesis stage
     (IMDCT/TDAC, postfilter, de-emphasis with K2).  state: the
     fused_celt_init_state dict; d0: the live range-decoder dict to
-    continue from (hybrid), or None.  Mirrors celt_decoder.c:1209-1614;
-    returns (pcm [B, 1, N], new state, err [B])."""
+    continue from (hybrid), or None.  Mirrors celt_decoder.c:1209-1614,
+    the steps after a concealed frame included (the energies' decay, the
+    fold of the extrapolated overlap, the background energies and the
+    loss counters); returns (pcm [B, 1, N], new state, err [B])."""
     frame_fn = decode_frame if frame_fn is None else frame_fn
     prevmin = torch.minimum(state["prev1"], state["prev2"])
-    out = frame_fn(buf_u8, lens, state["old_e"], prevmin, state["seed"],
-                   tabs, d0)
+    out = frame_fn(buf_u8, lens, _missing_decay(state, tabs), prevmin,
+                   state["seed"], tabs, d0)
     err = out["error"] != 0
     silence = out["silence"] != 0
     transient = out["is_transient"] != 0
@@ -186,8 +215,9 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
                             pf_tapset], dim=-1)
     tgains = gains3[..., None] * comb[tapsets3]
 
+    dsp_in = dict(state["dsp"], tail=fold_tails(state, tabs.mode.overlap))
     pcm, dsp = decode_step(x, energies[:, None, :], transient, silence,
-                           periods, tgains, state["dsp"], fs=tabs.mode.Fs,
+                           periods, tgains, dsp_in, fs=tabs.mode.Fs,
                            frame_size=n_full, lm=tabs.lm, channels=1)
 
     # ---- state carry (celt_decoder.c:1560-1614) ----
@@ -195,6 +225,13 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
     tr = transient[:, None]
     prev1 = torch.where(tr, torch.minimum(state["prev1"], e_sil), e_sil)
     prev2 = torch.where(tr, state["prev2"], state["prev1"])
+    # the background creeps up by 1 dB/s (more after a loss) and never
+    # passes the frame's energies (celt_decoder.c:1598-1601)
+    ld = state["loss_duration"]
+    rise = torch.clamp(ld + tabs.M, max=160).to(torch.float64) * 0.001
+    background = torch.minimum(state["background"].to(torch.float64)
+                               + rise[:, None], e_sil.to(torch.float64)
+                               ).to(torch.float32)
     if tabs.start > 0 or tabs.end_band < tabs.nb:
         # bands outside [start, end) reset to 0 / -28 every frame
         # (celt_decoder.c:1604-1612)
@@ -210,7 +247,9 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
         pf_old = (pf_pitch, pf_gain, pf_tapset)
     else:
         pf_old = (periods[:, 1], state["pf_gain"], state["pf_tapset"])
+    zero = torch.zeros_like(ld)
     new_state = dict(
+        state,
         old_e=e_sil, prev1=prev1, prev2=prev2,
         # the next frame's fold/noise seed is the final range, not the
         # evolved LCG state (celt_decoder.c:1602 st->rng = dec->rng)
@@ -218,7 +257,13 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
         pf_period_old=pf_old[0], pf_gain_old=pf_old[1],
         pf_tapset_old=pf_old[2],
         pf_period=pf_pitch, pf_gain=pf_gain, pf_tapset=pf_tapset,
-        dsp=dsp)
+        dsp=dsp, background=background, e_copy=e_sil,
+        # skip_plc clears on a good frame that follows a good frame
+        # (celt_decoder.c:1237), so one frame after a noise run keeps it
+        skip_plc=torch.where(ld == 0, 0, state["skip_plc"]),
+        loss_duration=zero, plc_duration=zero, last_frame_type=zero,
+        prefilter_and_fold=zero, rng_final=out["rng"],
+        decoded_any=torch.ones_like(state["decoded_any"]))
     return pcm, new_state, err
 
 
@@ -241,6 +286,7 @@ class KernelCeltDecoder:
                                "device='cpu' for the plain versions)")
         self.P = max_payload
         self.state = fused_celt_init_state(batch, self.tabs, self.device)
+        self.plc_trace = None        # the last conceal's per-lane decisions
 
     def pack(self, payloads):
         """list of B byte strings -> (buf [B, P] uint8, lens [B]) on the
@@ -262,6 +308,24 @@ class KernelCeltDecoder:
         m = lane_mask(active, self.batch, self.device)
         self.state = select_lanes(m, state, self.state)
         return torch.where(m[:, None, None], pcm, 0.0), err & m
+
+    def conceal(self, lanes=None):
+        """One lost frame on the lanes of ``lanes`` ([B] bool, default every
+        lane) with the classic packet-loss concealment (``celt/plc.py``)
+        -> pcm [B, 1, N] f32.  A lane outside ``lanes`` keeps its state bit
+        for bit and returns zeros; so does a lane that has decoded no
+        packet yet (src/opus_decoder.c:334-341).  ``plc_trace`` holds each
+        lane's branch, pitch period and zeroing decision of this call."""
+        m = lane_mask(lanes, self.batch, self.device)
+        pcm, self.state, self.plc_trace = decode_lost(self.state, self.tabs,
+                                                      m)
+        return pcm
+
+    def final_range(self):
+        """[B] the final range of each lane's last decoded packet (the
+        noise concealment leaves its LCG state in ``state["seed"]``, not
+        this)."""
+        return self.state["rng_final"]
 
     def reset(self, lanes=None):
         """The lanes of ``lanes`` ([B] bool, default every lane) back to the

@@ -40,7 +40,8 @@ for name in ("opus_tpu_torch.models.hybrid_dec_fused",
              "opus_tpu_torch.bitstream.repacketizer",
              "opus_tpu_torch.models.dred_encoder",
              "opus_tpu_torch.dnn.lossgen", "opus_tpu_torch.tools.loss",
-             "opus_tpu_torch.tools.sim_loss", "opus_tpu_torch.ops.lanes"):
+             "opus_tpu_torch.tools.sim_loss", "opus_tpu_torch.ops.lanes",
+             "opus_tpu_torch.celt.pitch", "opus_tpu_torch.celt.plc"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",
@@ -218,3 +219,66 @@ def test_torch_osce_copies_equal_jax_originals():
         np.testing.assert_allclose(x @ pf.filterbank_matrix(bins, w),
                                    jf.apply_filterbank(x, bins, w),
                                    rtol=1e-13, atol=1e-13)
+
+
+def test_torch_pitch_copy_equals_jax_original():
+    """The port's batched copy of opus_tpu/celt/pitch.py (and the PLC's
+    autocorrelation, FIR and IIR, copies of opus_tpu/celt/decoder.py's)
+    computes what the original computes lane by lane: the pitch index and
+    the top-two picks equal, the float64 signals within 1e-9 relative
+    (batched products sum in another order than np.dot)."""
+    import torch
+
+    from opus_tpu.celt import decoder as jd
+    from opus_tpu.celt import pitch as jp
+    from opus_tpu_torch.celt import pitch as pp
+    from opus_tpu_torch.celt import plc as pplc
+
+    rng = np.random.default_rng(7)
+    t = np.arange(2048)
+    xs = []
+    for b in range(12):
+        f0 = rng.uniform(80, 400)
+        x = sum(rng.uniform(0.2, 1) * np.sin(2 * np.pi * f0 * k * t / 48000
+                                              + rng.uniform(0, 6))
+                for k in range(1, 8))
+        xs.append(3000 * x + rng.normal(0, 100 * (b % 3), 2048))
+    xs[5][:] = 0.0
+    xs = np.array(xs)
+    lp = pp.pitch_downsample(torch.from_numpy(xs), 1024)
+    margin = {}
+    idx = pp.pitch_search(lp[:, 360:], lp, 1328, 620, margin)
+    for b in range(len(xs)):
+        jlp = jp.pitch_downsample([xs[b]], 1024)
+        scale = max(1.0, np.abs(jlp).max())
+        assert np.abs(lp[b].numpy() - jlp).max() <= 1e-9 * scale
+        assert int(idx[b]) == jp.pitch_search(jlp[360:], jlp, 1328, 620)
+    assert (margin["pitch"] >= 0).all()
+    ac = rng.standard_normal((6, 25))
+    ac[:, 0] = np.abs(ac[:, 0]) + 30.0
+    lpc = pp.celt_lpc(torch.from_numpy(ac), 24).numpy()
+    for b in range(6):
+        assert np.allclose(lpc[b], jp._celt_lpc(ac[b], 24), rtol=1e-9,
+                           atol=1e-12)
+    xc = rng.standard_normal((6, 40))
+    yy = np.abs(rng.standard_normal(80)) * 10
+    syy = pp._syy(torch.from_numpy(np.tile(yy, (6, 1))), 40, 40)
+    got = pp.find_best_pitch(torch.from_numpy(xc), syy).numpy()
+    for b in range(6):
+        assert got[b].tolist() == jp._find_best_pitch(xc[b], yy, 40, 40)
+    x = rng.standard_normal((3, 1048)) * 1000
+    w = torch.from_numpy(jd._window(120))
+    ac2 = pplc.windowed_autocorr(torch.from_numpy(x[:, 24:]), w, 120, 24)
+    num = rng.standard_normal((3, 24)) * 0.1
+    fir = pplc.celt_fir(torch.from_numpy(x), torch.from_numpy(num), 1024)
+    mem = rng.standard_normal((3, 24))
+    iir = pplc.celt_iir(torch.from_numpy(x[:, :200]), torch.from_numpy(num),
+                        torch.from_numpy(mem))
+    for b in range(3):
+        ref = jd._windowed_autocorr(x[b, 24:], jd._window(120), 120, 24,
+                                    1024)
+        assert np.allclose(ac2[b].numpy(), ref, rtol=1e-12)
+        assert np.allclose(fir[b].numpy(), jd._celt_fir(
+            x[b, 24:], x[b, :24], num[b], 1024, 24), rtol=1e-12, atol=1e-9)
+        assert np.allclose(iir[b].numpy(), jd._celt_iir(
+            x[b, :200], num[b], 200, 24, mem[b]), rtol=1e-9, atol=1e-9)

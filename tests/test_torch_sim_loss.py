@@ -53,16 +53,41 @@ def test_sim_loss_loop_matches_jax_opus_demo(fx):
 
 
 def test_sim_loss_resume_without_dred_raises(fx):
-    """A lane that resumes on a packet without DRED would need the classic
-    PLC: NotImplementedError names it, nothing is concealed."""
+    """A lane that resumes on a packet without DRED conceals its pending
+    span with the classic CELT concealment (it raised NotImplementedError
+    before that was ported): lane 1 loses its second packet, lane 0 its
+    first (before any decode: zeros); the output equals the JAX
+    package's OpusDecoder within CLASSIC_LSB."""
+    from opus_tpu.models.opus_decoder import OpusDecoder
+
     cfx = np.load(os.path.join(DATA, "torch_celt20ms_64k.npz"))
     plain = [[bytes([0xF8]) + bytes(cfx["frames"][i, f, :cfx["lens"][i, f]])
-              for f in range(2)] for i in range(2)]
+              for f in range(3)] for i in range(2)]
+    lost = np.array([[True, False, False], [False, True, False]])
     dec = _decoder(2)
-    dec.tick([p[0] for p in plain], np.array([False, True]))
-    assert dec.pending().tolist() == [0, 960]
-    with pytest.raises(NotImplementedError, match=r"lanes \[1\]"):
-        dec.tick([p[1] for p in plain], np.array([False, False]))
+    outs = [[], []]
+    for f in range(3):
+        out, n = dec.tick([p[f] for p in plain], lost[:, f])
+        for i in range(2):
+            outs[i].append(out[i, :n[i]].numpy())
+    assert dec.pending().tolist() == [0, 0] and dec.resumes == 0
+    assert len(dec.classic_trace) == 2
+    assert dec.classic_trace[1]["branch"].tolist() == [0, 1]
+    for i in range(2):
+        ref = OpusDecoder(48000, 1)
+        r = []
+        for f in range(3):
+            if lost[i, f]:
+                continue
+            if f and lost[i, f - 1]:
+                r.append(ref.decode(None, 960))
+            r.append(ref.decode(plain[i][f]))
+        r16 = np.clip(np.floor(np.concatenate(r) * 32768 + 0.5), -32768,
+                      32767)
+        got = np.concatenate(outs[i]).astype(np.int64)
+        assert len(got) == len(r16)
+        assert np.abs(got - r16).max() <= CS.CLASSIC_LSB
+    assert not outs[0][1][:960].any()
 
 
 def test_sim_loss_lost_lanes_keep_state_and_report_pending(fx):
