@@ -145,7 +145,22 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    ``flush()``, K1 and K2 counted, held to the port's CPU runs on every
    lane and to the JAX package's loops (``tests/data/torch_celt_plc.npz``)
    on the fixture lanes; CUDA event times of a tick with and without
-   concealing lanes, with their device operations and busy share.
+   concealing lanes, with their device operations and busy share;
+19. the SILK classic concealment, comfort noise and in-band FEC, hybrid
+   and DTX frames under loss (silk_plc): opus_demo's plain and
+   ``-inbandfec`` loops over 1024 SILK-WB lanes each and 1024 FB hybrid
+   lanes each (one ``BatchedLossDecoder(mode=...)`` of 2048 lanes a mode,
+   the two loops on the same traffic: ``tests/data/torch_silk_plc.npz``'s
+   streams tiled, sim_loss's flags, the 8 fixture lanes under their
+   fixture patterns), ``SILK_PLC_TICKS`` ticks and ``flush()``, the K1,
+   K2 and K4 counters reset around each and held to the count its calls
+   imply; slot kinds, final ranges, loss counts and SILK int16 equal to
+   the port's CPU run (the fixture lanes and 48 more, in worker processes
+   beside the card) and to the JAX package's loops on the fixture lanes,
+   hybrid int16 within ``CLASSIC_LSB``; CUDA event times of a SILK-WB tick
+   with no lost lane, with a tenth of the lanes' first and second loss
+   and with their resume through LBRR, with device operations and busy
+   share.
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is the result JSON; any failed check
@@ -967,7 +982,7 @@ def phase_silk_k4_vs_plain(lanes, dev):
         frame_syms.append(syms)
         return d, error, syms
 
-    orig_lbrr = PF._parse_frame_symbols
+    orig_lbrr = PF._lbrr_symbols
 
     def spy_lbrr(d, ctx, active, *args):
         cov["lbrr"] += int(active[:B_MAIN].sum())
@@ -977,7 +992,7 @@ def phase_silk_k4_vs_plain(lanes, dev):
     saved = BS.lpc_subframe
     BS.lpc_subframe = plain_and_k4
     PF._frame_symbols = spy_sym
-    PF._parse_frame_symbols = spy_lbrr
+    PF._lbrr_symbols = spy_lbrr
     try:
         for f, (buf, ln) in enumerate(lanes):
             buf_t = torch.from_numpy(buf).to(dev)
@@ -995,7 +1010,7 @@ def phase_silk_k4_vs_plain(lanes, dev):
     finally:
         BS.lpc_subframe = saved
         PF._frame_symbols = orig_sym
-        PF._parse_frame_symbols = orig_lbrr
+        PF._lbrr_symbols = orig_lbrr
     if n_sub[0] != 4 * len(lanes):
         fail(f"K4 vs plain: {n_sub[0]} subframes, expected {4 * len(lanes)}")
 
@@ -2008,6 +2023,7 @@ BBWE_LSB = 1
 BBWE_RTOL = 3e-5
 BBWE_GAIN = 64
 UPS_GAIN = 4
+OSCE_HYB_FRAMES = 3     # frames of each osce_hybrid run
 HYB_FRAMES = 3          # frames of hybrid PCM in the BBWE fixture (its
                         # final ranges and enhanced SILK half: NFRAMES)
 # the fixture lanes that hand the reference's enhanced frames on to what
@@ -2506,7 +2522,9 @@ def phase_bbwe(dev, sfx, bfx, ofx):
 def phase_osce_hybrid(dev, bfx):
     """The osce_hybrid phase: the FB and SWB hybrid fixtures tiled to B_DNN
     lanes plus N_BAD garbage ones through FusedHybridDecoder with LACE and
-    with NoLACE, each without and with BBWE, NFRAMES frames, the K1, K2
+    with NoLACE, each without and with BBWE, the first OSCE_HYB_FRAMES
+    frames (the phase's 8 runs kept the whole script within its time
+    limit no longer once the SILK / hybrid loss phase came), the K1, K2
     and K4 counters reset around each run and K2 held to its plain
     version on OSCE's de-emphasis.  Against the scalar decoder on the
     fixture lanes: the final ranges and the enhanced SILK half on every
@@ -2522,7 +2540,7 @@ def phase_osce_hybrid(dev, bfx):
     models = osce_models(dev)
     bbwe = bbwe_model(dev)
     out = {"counts": {}, "k2_err": 0.0}
-    nf, hf = NFRAMES, HYB_FRAMES
+    nf, hf = OSCE_HYB_FRAMES, HYB_FRAMES
     fed, rest = FED, UNFED
     for bw, path, end, seed in (("fb", HYB_FIXTURE, 21, 28),
                                 ("swb", SWB_FIXTURE, 19, 29)):
@@ -2533,10 +2551,11 @@ def phase_osce_hybrid(dev, bfx):
         b, p = bufs[0][0].shape
         if bw == "fb":
             out["bufs"] = bufs
+        bufs = bufs[:nf]
         for m, with_bwe in ((1, False), (2, False), (1, True), (2, True)):
             mname = "lace" if m == 1 else "nolace"
             name = f"hyb_{bw}_{mname}" + ("_bwe" if with_bwe else "")
-            ref16 = bfx[f"hyb_{bw}_{mname}_xq16"][stream]
+            ref16 = bfx[f"hyb_{bw}_{mname}_xq16"][stream][:, :nf]
             dec = PH.FusedHybridDecoder(b, end=end, max_payload=p, device=dev)
             dec.set_osce(m, models[m])
             if with_bwe:
@@ -2566,11 +2585,12 @@ def phase_osce_hybrid(dev, bfx):
             fed16 = torch.stack(passed, 1).cpu().numpy()
             if errs[:B_DNN].any():
                 fail(f"{name}: fixture lanes flagged by the decoder")
-            if not np.array_equal(rng[:B_DNN], bfx[name + "_rng"][stream]):
+            if not np.array_equal(rng[:B_DNN],
+                                  bfx[name + "_rng"][stream][:, :nf]):
                 fail(f"{name}: final ranges differ from the scalar decoder's")
             if not np.isfinite(pcm).all():
                 fail(f"{name}: PCM not finite")
-            env_o = peak_env(bfx[name + "_osce_peak"])[stream]
+            env_o = peak_env(bfx[name + "_osce_peak"])[stream][:, :nf]
             env_o[:, 0] = 0.0              # the first frame passes through
             e_16 = within(e16[:B_DNN], ref16, osce_pcm_bound(env_o),
                           f"{name}: the enhanced SILK half vs the scalar "
@@ -4275,8 +4295,8 @@ def classic_compare(got, ref, what, lanes=None):
 def strip_dred(p: bytes) -> bytes:
     """A one-frame CELT packet without its padding (and DRED): the TOC as
     code 0 and the CELT frame alone."""
-    from opus_tpu_torch.tools.sim_loss import celt_frame
-    return bytes([p[0] & 0xFC]) + celt_frame(p)
+    from opus_tpu_torch.tools.sim_loss import mode_frame
+    return bytes([p[0] & 0xFC]) + mode_frame(p, "celt")
 
 
 def dred_loop_packets(packets, strip):
@@ -4435,6 +4455,391 @@ def celt_plc_times(dev, smi, inp):
     return out
 
 
+# ---- SILK / hybrid loss: the classic concealment, CNG and in-band FEC ----
+SILK_PLC_FIXTURE = os.path.join(REPO, "tests", "data", "torch_silk_plc.npz")
+SILK_PLC_TICKS = 10     # of the fixture's 16 (the script's time limit)
+SILK_PLC_KEY = dict(silk="silk", hybrid="hyb")     # the fixture's prefixes
+SLOT_KEYS = ("kind", "rng", "loss_cnt")
+
+
+def silk_plc_packets(sfx, mode: str):
+    """The fixture's 8 streams of ``mode`` ("silk" or "hybrid"): [8][16]
+    packets, TOC included."""
+    k = SILK_PLC_KEY[mode]
+    buf, lens = sfx[f"{k}_packets"], sfx[f"{k}_lens"]
+    return [[bytes(buf[i, f, :lens[i, f]]) for f in range(lens.shape[1])]
+            for i in range(lens.shape[0])]
+
+
+def slot_digests(out16):
+    """[B, F, 16] uint8: each 20 ms slot's BLAKE2b-128 digest of its int16
+    samples (little-endian), as tools/make_torch_silk_plc_fixture.py keeps
+    the SILK loops' reference."""
+    import hashlib
+    import numpy as np
+    b = out16.shape[0]
+    slots = np.ascontiguousarray(out16.astype("<i2")).reshape(b, -1, 960)
+    return np.asarray([[np.frombuffer(hashlib.blake2b(
+        x.tobytes(), digest_size=16).digest(), np.uint8) for x in row]
+        for row in slots])
+
+
+def loss_run(dec, packets, lost, flush=True):
+    """Drives a BatchedLossDecoder of any mode through packets[i][f] with
+    the flags lost [B, F], then ``flush()``; returns numpy: each lane's
+    int16 output in slot order (``out16`` [B, F * 960]), per 20 ms slot its
+    ``kind`` (``sim_loss.KINDS``: 0 decoded, 1 concealed, 2 from DRED, 3
+    zeros, 4 LBRR, 5 DTX), the final range after it (``rng``) and the SILK
+    loss count after it (``loss_cnt``), the span ``pending`` at the end
+    and the tick times."""
+    import numpy as np
+    import torch
+    b, nf = lost.shape
+    out16 = np.zeros((b, nf * 960), np.int16)
+    n = np.zeros(b, np.int64)
+    rec = dict(kind=np.full((b, nf), -1, np.int8),
+               rng=np.zeros((b, nf), np.uint32),
+               loss_cnt=np.zeros((b, nf), np.int16))
+    slot = np.zeros(b, np.int64)
+    tick_s = []
+
+    def emit(o, cnt):
+        o = o.cpu().numpy()
+        for i in np.nonzero(cnt)[0]:
+            out16[i, n[i]:n[i] + cnt[i]] = o[i, :cnt[i]]
+        n[:] += cnt
+
+    def take(events):
+        for ev in events:
+            idx = np.nonzero(ev["lanes"])[0]
+            if "span" in ev:                               # DRED
+                for i in idx:
+                    k = int(ev["span"][i])
+                    rec["kind"][i, slot[i]:slot[i] + k] = 2
+                    slot[i] += k
+                continue
+            s = slot[idx]
+            rec["kind"][idx, s] = ev["kind"][idx]
+            rec["rng"][idx, s] = ev["rng"][idx]
+            if "loss_cnt" in ev:
+                rec["loss_cnt"][idx, s] = ev["loss_cnt"][idx]
+            slot[idx] += 1
+
+    for f in range(nf):
+        e0 = len(dec.events)
+        t0 = time.perf_counter()
+        o, cnt = dec.tick([packets[i][f] for i in range(b)], lost[:, f])
+        if dec.device.type == "cuda":
+            torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t0)
+        emit(o, cnt)
+        take(dec.events[e0:])
+    if flush:
+        e0 = len(dec.events)
+        emit(*dec.flush())
+        take(dec.events[e0:])
+    return dict(lost=lost, out16=out16, n=n, pending=dec.pending(),
+                tick_s=tick_s, **rec)
+
+
+def silk_plc_fixture(sfx, mode: str, loop: str, ticks=None) -> dict:
+    """The fixture's ``loop`` ("plain" or "fec") of ``mode`` over its first
+    ``ticks`` frames (default all) in loss_run's layout: kind, rng,
+    loss_cnt and lost, and the reference output: ``digest`` (SILK: each
+    slot's digest) or ``out16`` (hybrid).  Cut short, the -inbandfec
+    loop's slots of a loss run still open at the cut (which a run of
+    ``ticks`` ticks flushes and the fixture resumes later) are marked kind
+    -2: not held."""
+    import numpy as np
+    k = SILK_PLC_KEY[mode]
+    nf = sfx[f"{k}_lost"].shape[1] if ticks is None else ticks
+    lost = sfx[f"{k}_lost"][:, :nf]
+    out = dict(lost=lost, kind=sfx[f"{k}_{loop}_kind"][:, :nf].copy(),
+               rng=sfx[f"{k}_{loop}_range"][:, :nf],
+               loss_cnt=sfx[f"{k}_{loop}_loss_cnt"][:, :nf])
+    if loop == "fec":
+        for i in range(len(lost)):
+            f = nf - 1
+            while f >= 0 and lost[i, f]:
+                out["kind"][i, f] = -2
+                f -= 1
+    if mode == "silk":
+        out["digest"] = sfx[f"silk_{loop}_digest"][:, :nf]
+    else:
+        plain = np.cumsum(sfx["hyb_plain_d16"].astype(np.int64), axis=1)
+        if loop == "fec":
+            plain = plain + np.cumsum(sfx["hyb_fec_d16"].astype(np.int64),
+                                      axis=1)
+        out["out16"] = plain[:, :nf * 960].astype(np.int16)
+    return out
+
+
+def silk_plc_compare(got, ref, mode: str, what: str, lanes=None):
+    """The SILK / hybrid loss bounds of ``got`` (a loss_run result) on
+    ``lanes`` (default all) against ``ref``, whose rows are those lanes:
+    another run or ``silk_plc_fixture``.  Slot kinds, final ranges and
+    SILK loss counts equal; SILK int16 equal on every sample (against the
+    fixture, each slot's digest); hybrid int16 within CLASSIC_LSB.
+    Returns (max int16 difference, slots by kind)."""
+    import numpy as np
+    sel = np.arange(len(got["lost"])) if lanes is None else np.asarray(lanes)
+    r = {k: ref[k] for k in SLOT_KEYS + ("lost",)}
+    if not np.array_equal(got["lost"][sel], r["lost"]):
+        fail(f"silk_plc {mode} {what}: loss flags differ")
+    held = r["kind"] != -2
+    for k in SLOT_KEYS:
+        g = got[k][sel]
+        if not np.array_equal(g[held], r[k][held]):
+            bad = np.argwhere((g != r[k]) & held)[:4].tolist()
+            fail(f"silk_plc {mode} {what}: {k} differs at lane-slots {bad}: "
+                 f"{[int(g[i, j]) for i, j in bad]} against "
+                 f"{[int(r[k][i, j]) for i, j in bad]}")
+    g16 = got["out16"][sel]
+    if "digest" in ref:
+        dg = slot_digests(g16)
+        same = (dg == ref["digest"]).all(axis=2) | ~held
+        if not same.all():
+            fail(f"silk_plc {mode} {what}: int16 differs on lane-slots "
+                 f"{np.argwhere(~same)[:4].tolist()}")
+        e = 0
+    else:
+        d = np.abs(g16.astype(np.int64) - ref["out16"]) \
+            * np.repeat(held, 960, axis=1)
+        e = int(d.max())
+        lim = 0 if mode == "silk" else CLASSIC_LSB
+        if e > lim:
+            i, j = np.unravel_index(np.argmax(d), g16.shape)
+            fail(f"silk_plc {mode} {what}: int16 {e} LSB from the reference"
+                 f" (bound {lim}) at lane {i} slot {j // 960}")
+    kinds = got["kind"][sel]
+    return e, {k: int((kinds == k).sum()) for k in range(6)}
+
+
+def silk_plc_expected(events, mode: str) -> dict:
+    """The K1 / K2 / K4 launches a run's ``events`` imply: a decode call
+    one K4 a subframe (4), and in hybrid one K1 and one K2; a concealment
+    call with a lane that had decoded a packet 8 K4 (the concealment's and
+    the comfort noise's synthesis) and in hybrid one K2 (the CELT noise
+    concealment's de-emphasis); an FEC call 4 K4 (plus 8 where a lane
+    whose packet has no LBRR frame conceals) and in hybrid one K2."""
+    k = dict(K1=0, K2=0, K4=0)
+    hyb = mode == "hybrid"
+    for ev in events:
+        kinds = ev["kind"][ev["lanes"]]
+        if ev["call"] == "decode":
+            k["K4"] += 4
+            k["K1"] += hyb
+            k["K2"] += hyb
+        elif ev["call"] == "conceal" and (kinds != 3).any():
+            k["K4"] += 8
+            k["K2"] += hyb
+        elif ev["call"] == "fec":
+            k["K4"] += 4 + 8 * bool((kinds == 1).any())
+            k["K2"] += hyb
+    return k
+
+
+def silk_plc_inputs(sl_in, sfx):
+    """The silk_plc phase's traffic, per mode: B_DNN lanes of the plain
+    loop then B_DNN of -inbandfec on the same packets and flags (one
+    decoder of 2 B_DNN lanes); the fixture's 8 streams tiled, the lanes
+    SIM_FX carrying stream j under its fixture pattern, the others
+    sim_loss's flags (lanes 0-511 BatchedLossGen, 512-1023 i.i.d. 10%)
+    over SILK_PLC_TICKS.  ``cpu_lanes``: the fixture lanes and 48 others
+    with a loss, whose CPU run the card is held to."""
+    import numpy as np
+    b, nf = B_DNN, SILK_PLC_TICKS
+    base = sl_in["lost"][:, :nf]
+    out = {}
+    for mode in ("silk", "hybrid"):
+        streams = silk_plc_packets(sfx, mode)
+        packets = [streams[i % len(streams)] for i in range(b)]
+        lost = base.copy()
+        for j, lane in enumerate(SIM_FX):
+            packets[lane] = streams[j]
+            lost[lane] = sfx[f"{SILK_PLC_KEY[mode]}_lost"][j, :nf]
+        out[mode] = dict(packets=packets + packets,
+                         lost=np.concatenate([lost, lost]))
+    others = [i for i in range(b) if i not in SIM_FX and base[i].any()]
+    half = [i for i in others if i < SIM_LOSSGEN_LANES]
+    rest = [i for i in others if i >= SIM_LOSSGEN_LANES]
+    pick = half[::max(1, len(half) // 24)][:24] \
+        + rest[::max(1, len(rest) // 24)][:24]
+    out["cpu_lanes"] = np.asarray(sorted(list(SIM_FX) + pick))
+    return out
+
+
+def silk_plc_run(mode, packets, lost, device):
+    """One mode's run: a BatchedLossDecoder of len(packets) lanes, the
+    first half the plain loop, the second -inbandfec, through loss_run."""
+    import numpy as np
+    from opus_tpu_torch.tools.sim_loss import BatchedLossDecoder
+    b = len(packets)
+    dec = BatchedLossDecoder(b, device=device, dred=False, mode=mode,
+                             inbandfec=np.arange(b) >= b // 2)
+    out = loss_run(dec, packets, lost)
+    out["events"] = dec.events
+    return out
+
+
+def cpu_silk_plc(mode, packets, lost, lanes):
+    """The silk_plc run of ``mode`` on the CPU over the lanes ``lanes`` of
+    each half (plain, -inbandfec), in a worker process while the card
+    runs."""
+    t0 = time.time()
+    b = len(packets) // 2
+    sel = list(lanes) + [b + i for i in lanes]
+    out = silk_plc_run(mode, [packets[i] for i in sel], lost[sel], "cpu")
+    del out["events"]
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def phase_silk_plc(dev, sfx, inp, jobs):
+    """opus_demo's loss loops over SILK-WB and FB hybrid streams as a user
+    drives them on the card: per mode one BatchedLossDecoder of 2 x B_DNN
+    lanes (the plain loop and -inbandfec on the same traffic) over
+    SILK_PLC_TICKS ticks and flush(), the K1 / K2 / K4 counters reset just
+    before and read just after; held to the CPU runs (``jobs``: futures
+    of cpu_silk_plc, on ``cpu_lanes``) and to the JAX loops on the fixture
+    lanes: slot kinds, final ranges and SILK loss counts equal, SILK int16
+    equal, hybrid within CLASSIC_LSB."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.ops import iir, lpc
+
+    res = {}
+    b = B_DNN
+    lanes = inp["cpu_lanes"]
+    for mode in ("silk", "hybrid"):
+        t0 = time.time()
+        torch.cuda.synchronize()
+        CK.launches = iir.launches = lpc.launches = 0
+        card = silk_plc_run(mode, inp[mode]["packets"], inp[mode]["lost"],
+                            dev)
+        torch.cuda.synchronize()
+        counts = {"K1": CK.launches, "K2": iir.launches, "K4": lpc.launches}
+        want = silk_plc_expected(card["events"], mode)
+        if counts != want:
+            fail(f"silk_plc {mode}: launches {counts}, expected {want}")
+        if card["pending"].any():
+            fail(f"silk_plc {mode}: samples pending after flush")
+        card_s = time.time() - t0
+        cpu = jobs[mode].result()
+        sel = np.concatenate([lanes, b + lanes])
+        e_cpu, _k = silk_plc_compare(card, cpu, mode, "card vs the CPU run",
+                                     lanes=sel)
+        e_jax = []
+        for j, loop in enumerate(("plain", "fec")):
+            e, _k = silk_plc_compare(card, silk_plc_fixture(
+                sfx, mode, loop, SILK_PLC_TICKS), mode,
+                f"{loop}: card vs the JAX loop",
+                                     lanes=np.asarray(SIM_FX) + j * b)
+            e_jax.append(e)
+        k = card["kind"]
+        by = {name: [int((k[h * b:(h + 1) * b] == v).sum()) for h in (0, 1)]
+              for name, v in (("concealed", 1), ("LBRR", 4), ("DTX", 5),
+                              ("zeros", 3))}
+        print(f"silk_plc {mode} at B={b} plain + {b} -inbandfec over "
+              f"{SILK_PLC_TICKS} ticks + flush: slots (plain, -inbandfec) "
+              f"{by}; launches {counts}; card vs the CPU run on "
+              f"{len(sel)} lanes: int16 within {e_cpu} LSB, kinds, ranges "
+              f"and loss counts equal; fixture lanes vs JAX: int16 within "
+              f"{e_jax} LSB; card ticks {1e3 * min(card['tick_s']):.1f}-"
+              f"{1e3 * max(card['tick_s']):.1f} ms; card run {card_s:.1f} s; "
+              f"the CPU run took {cpu['seconds']:.1f} s (worker process)")
+        res[mode] = dict(counts=counts, e_cpu=e_cpu, e_jax=e_jax, by=by)
+    return res
+
+
+def silk_plc_times(dev, smi, inp):
+    """CUDA event times (one call each; the decoders are warm) of a
+    SILK-WB loss-loop tick at B_DNN (48 kHz out):
+    with no lost lane; with every tenth lane's first loss (concealment and
+    comfort noise); their second loss; and, in the -inbandfec loop, those
+    lanes resuming through their packet's LBRR frame (the FEC call, then
+    the decode).  Device operations and device time (device_profile): the
+    no-loss tick traced whole; a loss tick is that tick's decode plus its
+    one extra call (the concealment, or the FEC call), which alone is
+    traced (the decode of a loss tick runs the same operations over its
+    masked lanes; a tick traced whole costs ~35 s of profiler host time)."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.tools.device_time import device_profile
+    from opus_tpu_torch.tools.sim_loss import BatchedLossDecoder, mode_frame
+
+    b = B_DNN
+    pk = inp["silk"]["packets"][:b]
+    none = np.zeros(b, bool)
+    some = np.zeros(b, bool)
+    some[::10] = True
+    decs = {fec: BatchedLossDecoder(b, device=dev, dred=False, mode="silk",
+                                    inbandfec=fec) for fec in (False, True)}
+
+    def snap(d):
+        s = d.decoder
+        return (s.state, s.rs, s.smid, s._rng, d._pending.copy(), d._rng)
+
+    def restore(d, v):
+        s = d.decoder
+        s.state, s.rs, s.smid, s._rng, p, d._rng = v
+        d._pending = p.copy()
+        d.events = []
+    for d in decs.values():
+        for f in range(3):
+            d.tick([p[f] for p in pk], none)
+    s0 = snap(decs[False])
+    decs[False].tick([p[3] for p in pk], some)
+    s1 = snap(decs[False])
+    decs[True].tick([p[3] for p in pk], some)
+    sf = snap(decs[True])
+    mt = torch.as_tensor(some, device=dev)
+    buf4, lens4 = decs[True].decoder.pack([mode_frame(p[4], "silk")
+                                           for p in pk])
+    out = {}
+    base = None
+    for name, d, state, frame, flags, extra in (
+            ("no lost lane", decs[False], s0, 3, none, None),
+            (f"{int(some.sum())} lanes' first loss", decs[False], s0, 3,
+             some, lambda d: d.decoder.conceal(mt)),
+            ("their second loss", decs[False], s1, 4, some,
+             lambda d: d.decoder.conceal(mt)),
+            ("their resume through LBRR (-inbandfec)", decs[True], sf, 4,
+             none, lambda d: d.decoder.decode_packed(buf4, lens4, active=mt,
+                                                     fec=mt))):
+        def setup(d=d, state=state):
+            restore(d, state)
+
+        def call(d=d, frame=frame, flags=flags):
+            d.tick([p[frame] for p in pk], flags)
+        setup()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        call()
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1)
+        if extra is None:
+            ops, dms = device_profile(lambda: (setup(), call()), reps=1,
+                                      warmup=False)
+            base = (ops, dms)
+            how = "traced whole"
+        else:
+            xo, xd = device_profile(lambda: (setup(), extra(d)), reps=1,
+                                    warmup=False)
+            ops, dms = base[0] + xo, base[1] + xd
+            how = f"its extra call {xo:.0f} operations, {xd:.3f} ms device"
+        out[name] = (ms, ops, dms)
+        print(f"silk_plc times [{smi}]: a SILK-WB tick at B={b}, {name}: "
+              f"{ms:.3f} ms a call ({b * 20 / ms:.0f} realtime streams), "
+              f"{ops:.0f} device operations, {dms:.3f} ms device (busy "
+              f"{100 * dms / ms:.1f}%; {how})")
+    return out
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -4451,7 +4856,7 @@ def main() -> int:
     for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE,
                  SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE,
                  FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE, BBWE_FIXTURE,
-                 SIM_FIXTURE, CELT_PLC_FIXTURE):
+                 SIM_FIXTURE, CELT_PLC_FIXTURE, SILK_PLC_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -4594,6 +4999,11 @@ def main() -> int:
                                         cl_in["lost"], False),
                    "dred": pool.submit(cpu_classic, cl_in["dred_packets"],
                                        cl_in["dred_lost"], True)}
+        spfx = dict(np.load(SILK_PLC_FIXTURE))
+        sp_in = silk_plc_inputs(sl_in, spfx)
+        sp_jobs = {m: pool.submit(cpu_silk_plc, m, sp_in[m]["packets"],
+                                  sp_in[m]["lost"], sp_in["cpu_lanes"])
+                   for m in ("silk", "hybrid")}
         t0 = time.time()
         sl = phase_sim_loss(dev, simfx, sl_in, sl_job)
         phase_s["sim_loss"] = time.time() - t0
@@ -4603,6 +5013,9 @@ def main() -> int:
         t0 = time.time()
         cl = phase_celt_plc(dev, cfx, cl_in, cl_jobs)
         phase_s["celt_plc"] = time.time() - t0
+        t0 = time.time()
+        sp = phase_silk_plc(dev, spfx, sp_in, sp_jobs)
+        phase_s["silk_plc"] = time.time() - t0
 
     t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
@@ -4628,6 +5041,9 @@ def main() -> int:
     t0 = time.time()
     ct = celt_plc_times(dev, smi, cl_in)
     phase_s["celt_plc_times"] = time.time() - t0
+    t0 = time.time()
+    spt = silk_plc_times(dev, smi, sp_in)
+    phase_s["silk_plc_times"] = time.time() - t0
 
     t0 = time.time()
     k5 = phase_k5(dev, smi)
@@ -4654,7 +5070,9 @@ def main() -> int:
                 "sim loss": sl["counts"], "plc lanes": pl["counts"],
                 "plc rates": pr["counts"],
                 "celt plc": cl["plain"]["counts"],
-                "celt plc dred": cl["dred"]["counts"]}
+                "celt plc dred": cl["dred"]["counts"],
+                "silk plc silk": sp["silk"]["counts"],
+                "silk plc hybrid": sp["hybrid"]["counts"]}
     print(f"launches per path ({NFRAMES} frames; the DRED chain "
           f"{CHAIN_FRAMES}): {per_path}")
 
@@ -4721,7 +5139,9 @@ def main() -> int:
           f"B={B_DNN}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in
                                      lt.items()) + f"; classic loss at "
           f"B={B_DNN}: " + "; ".join(f"tick, {k} {v:.3f} ms" for k, v in
-                                     ct.items()))
+                                     ct.items()) + f"; SILK-WB loss at "
+          f"B={B_DNN}: " + "; ".join(f"tick, {k} {v[0]:.3f} ms" for k, v in
+                                     spt.items()))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,11 @@ state.
 - ``silk_state_from_jax`` / ``silk_state_to_numpy``: the SILK decoder
   state (``FusedSilkState`` / ``SilkState`` with numpy leaves) to and from
   the port's dict.
+- ``silk_state_from_scalar`` / ``silk_state_to_scalar``: the scalar
+  tier's SILK ``ChannelState`` (its fields as numpy arrays and numbers,
+  ``SILK_SCALAR_KEYS``, one a lane) to and from the port's per-lane SILK
+  state with its loss fields, so that a port lane can start from any
+  scalar state and be held to the next one.
 - ``silk_tabs_from_jax``: builds the port's SILK ``_SilkTabs`` and checks
   every table against the JAX package's.
 - ``hybrid_state_from_jax`` / ``hybrid_state_to_numpy``: the hybrid
@@ -354,6 +359,67 @@ def silk_state_to_numpy(state: dict) -> dict:
         return {k: n(state[k]) for k in _SYNTH_KEYS}
     out = {k: n(state[k]) for k in _SILK_KEYS}
     out["synth"] = {k: n(state["synth"][k]) for k in _SYNTH_KEYS}
+    return out
+
+
+# the scalar ChannelState's fields -> the port's SILK state keys
+# (``synth.<k>`` under the synthesis dict)
+SILK_SCALAR_KEYS = dict(
+    exc_Q14="exc_q14", sLPC_Q14_buf="synth.slpc", outBuf="synth.out_buf",
+    lagPrev="lag_prev", lossCnt="loss_cnt", prevSignalType="prev_signal_type",
+    first_frame_after_reset="first_frame", prev_gain_Q16="prev_gain_q16",
+    LastGainIndex="last_gain_index", prevNLSF_Q15="prev_nlsf",
+    plc_pitchL_Q8="plc_pitch_l_q8", plc_LTPCoef_Q14="plc_ltp_coef_q14",
+    plc_prevLPC_Q12="plc_prev_lpc_q12",
+    plc_prevLTP_scale_Q14="plc_prev_ltp_scale_q14",
+    plc_prevGain_Q16="plc_prev_gain_q16",
+    plc_randScale_Q14="plc_rand_scale_q14", plc_rand_seed="plc_rand_seed",
+    plc_conc_energy="plc_conc_energy",
+    plc_conc_energy_shift="plc_conc_energy_shift",
+    plc_last_frame_lost="plc_last_frame_lost", plc_nb_subfr="plc_nb_subfr",
+    plc_subfr_length="plc_subfr_length", cng_exc_buf_Q14="cng_exc_buf_q14",
+    cng_smth_NLSF_Q15="cng_smth_nlsf_q15", cng_synth_state="cng_synth_state",
+    cng_smth_Gain_Q16="cng_smth_gain_q16", cng_rand_seed="cng_rand_seed")
+
+
+def silk_state_from_scalar(fields: dict, device="cpu") -> dict:
+    """The scalar ``ChannelState``'s fields (``SILK_SCALAR_KEYS``; each a
+    numpy array with the lane first, outBuf its first ltp_mem samples) of
+    16 kHz 20 ms lanes -> the port's SILK state dict.  A channel that has
+    not run a frame yet (its CNG NLSFs all zero) gets the PLC and CNG
+    reset values its first frame would set, which the port's initial
+    state holds."""
+    from .models.silk_plc import loss_init_state
+
+    fields = dict(fields)
+    fresh = ~np.asarray(fields["cng_smth_NLSF_Q15"]).any(axis=1)
+    if fresh.any():
+        init = loss_init_state(1, 16, 4, "cpu")
+        for k, p in (("cng_smth_NLSF_Q15", "cng_smth_nlsf_q15"),
+                     ("plc_pitchL_Q8", "plc_pitch_l_q8")):
+            v = np.array(fields[k], np.int64)
+            v[fresh] = init[p][0].numpy()
+            fields[k] = v
+    out = dict(synth={})
+    for k, p in SILK_SCALAR_KEYS.items():
+        v = torch.as_tensor(np.asarray(fields[k], np.int64), device=device)
+        if p == "first_frame":
+            v = v != 0
+        if p.startswith("synth."):
+            out["synth"][p[6:]] = v
+        else:
+            out[p] = v
+    out["decoded_any"] = torch.ones_like(out["first_frame"])
+    return out
+
+
+def silk_state_to_scalar(state: dict) -> dict:
+    """The port's SILK state -> the scalar ``ChannelState``'s fields
+    (``SILK_SCALAR_KEYS``) as int64 numpy arrays, the lane first."""
+    out = {}
+    for k, p in SILK_SCALAR_KEYS.items():
+        v = state["synth"][p[6:]] if p.startswith("synth.") else state[p]
+        out[k] = v.detach().cpu().numpy().astype(np.int64)
     return out
 
 

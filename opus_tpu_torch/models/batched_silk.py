@@ -90,7 +90,10 @@ def silk_decode_step(exc, a_q12, b_q14, pitch_l, gain_q10, gain_adj,
     b_q14:       [B, nb_subfr, 5] (int16 values)
     pitch_l:     [B, nb_subfr]
     gain_q10 / gain_adj / whiten_gain: [B, nb_subfr]
-    voiced:      [B] bool; rewhiten2: [B] bool (voiced & NLSF interp)
+    voiced:      [B] bool, or [B, nb_subfr] per subframe (the frame after
+                 a loss runs unvoiced subframes as voiced,
+                 ``silk_plc.ltp_after_loss``); rewhiten2: [B] bool
+                 (voiced & NLSF interp)
     state:       the ``init_state`` dict
     returns (xq [B, L] (int16 values), new state)"""
     sf = 5 * fs_khz
@@ -103,10 +106,10 @@ def silk_decode_step(exc, a_q12, b_q14, pitch_l, gain_q10, gain_adj,
     t_idx = torch.arange(ltp_mem + l, device=dev)[None, :]
     out_buf = state["out_buf"]
     slpc = state["slpc"]
-    vcol = voiced[:, None]
     xq_subs = []
 
     for k in range(nb_subfr):
+        vcol = (voiced if voiced.dim() == 1 else voiced[:, k])[:, None]
         lag = pitch_l[:, k]
         adj = gain_adj[:, k:k + 1]
         # --- gain-change rescale of the LPC state (decode_core.c:115) ---

@@ -23,11 +23,14 @@ Differences from the JAX twin, none of which changes a result:
 - The excitation LCG's ``associative_scan`` is a log-depth doubling scan
   on int64 lanes, exact mod 2**32.
 
-Scope, as in the JAX twin: mono, one 10 or 20 ms frame per packet,
-normal decode; in-band FEC (LBRR) payloads are parsed through and
-discarded (dec_API.c:258-283).  Streams needing a third pulse escape, or
-whose LPC is still unstable after two bandwidth expansions, are flagged
-in the ``error`` lane.
+Scope, as in the JAX twin: mono, one 10 or 20 ms frame per packet.  A
+normal decode parses in-band FEC (LBRR) payloads through
+(dec_API.c:258-283); ``lbrr=`` lanes decode them in place of the regular
+frame, and lost frames are concealed (``fused_silk_conceal``, the
+classic concealment and comfort noise of ``silk_plc.py``, scalar-exact,
+so far at 16 kHz 20 ms).  Streams needing a third pulse escape, or whose
+LPC is still unstable after two bandwidth expansions, are flagged in the
+``error`` lane.
 
 Reference: silk/dec_API.c:135, decode_indices.c, decode_pulses.c,
 shell_coder.c, code_signs.c, decode_parameters.c, NLSF_decode.c,
@@ -52,6 +55,8 @@ from ..ops.silk_fixed import w32
 from ..silk import tables as T
 from ..silk import tables_data as TD
 from ..silk.resampler import upsample_to_48k, upsampler_init
+from ..ops.lanes import lane_mask, select_lanes
+from . import silk_plc as PLC
 from .batched_silk import init_state, silk_decode_step
 
 LTP_ORDER = 5
@@ -229,9 +234,10 @@ def _rc_step(a, inv_gain_q30):
     return ok & (inv_gain_q30 >= 107374), rc_q31, rc_mult1_q30, inv_gain_q30
 
 
-def _lpc_inverse_pred_gain(a_q12, order: int):
+def _lpc_inverse_pred_gain(a_q12, order: int, q30: bool = False):
     """Returns stable [B] bool (inv gain > 0), int32-exact
-    (silk/LPC_inv_pred_gain.c)."""
+    (silk/LPC_inv_pred_gain.c); with q30=True also the inverse prediction
+    gain in Q30 (0 where not stable)."""
     a_qa = w32(a_q12 << (24 - 12))
     ok = w32(a_q12.sum(dim=1)) < 4096
     inv_gain_q30 = torch.full_like(ok, 1 << 30, dtype=torch.int64)
@@ -257,8 +263,15 @@ def _lpc_inverse_pred_gain(a_q12, order: int):
         upd = torch.cat([new1[:, :k - nhalf], new2.flip(1), a_qa[:, k:]],
                         dim=1)
         a_qa = torch.where(ok[:, None], upd, a_qa)
-    ok_0, _rc, _m1, _g = _rc_step(a_qa[:, 0], inv_gain_q30)
-    return ok & ok_0
+    ok_0, _rc, _m1, gain = _rc_step(a_qa[:, 0], inv_gain_q30)
+    ok = ok & ok_0
+    return (ok, torch.where(ok, gain, 0)) if q30 else ok
+
+
+def lpc_inverse_pred_gain_q30(a_q12, order: int):
+    """silk_LPC_inverse_pred_gain over [B, >= order] int16-valued
+    coefficients: the inverse prediction gain in Q30, 0 if unstable."""
+    return _lpc_inverse_pred_gain(a_q12[:, :order], order, q30=True)[1]
 
 
 def _nlsf2a(tabs: _SilkTabs, nlsf_q15):
@@ -387,16 +400,20 @@ def _nlsf_stabilize(nlsf, dmin_np):
 # the symbol pass                                                       #
 # ===================================================================== #
 
-def fused_init_state(batch: int, fs_khz: int = 16, device="cpu") -> dict:
-    """The ``FusedSilkState`` fields as a dict; ``synth`` is the
-    ``batched_silk.init_state`` dict."""
+def fused_init_state(batch: int, fs_khz: int = 16, device="cpu",
+                     nb_subfr: int = 4) -> dict:
+    """The ``FusedSilkState`` fields as a dict (``synth`` is the
+    ``batched_silk.init_state`` dict; ``first_frame`` is the scalar's
+    ``first_frame_after_reset``), plus the loss fields of
+    ``silk_plc.loss_init_state``."""
     def full(shape, v, dtype=torch.int64):
         return torch.full(shape, v, dtype=dtype, device=device)
     return dict(prev_nlsf=full((batch, MAX_LPC_ORDER), 0),
                 last_gain_index=full((batch,), 10),
                 prev_gain_q16=full((batch,), 1 << 16),
                 first_frame=full((batch,), True, torch.bool),
-                synth=init_state(batch, fs_khz, device))
+                synth=init_state(batch, fs_khz, device),
+                **PLC.loss_init_state(batch, fs_khz, nb_subfr, device))
 
 
 class _Ctx:
@@ -591,16 +608,27 @@ def _frame_symbols(d, ctx: _Ctx, active, type_ix, error, nb_subfr: int,
     return d, error, syms
 
 
-def _parse_frame_symbols(d, ctx: _Ctx, active, error, nb_subfr: int,
-                         fs_khz: int):
-    """Advance the range decoder over one frame's indices + pulses
-    without keeping the values — the LBRR skip of dec_API.c:258-283
-    (silk_decode_indices with decode_LBRR=1, i.e. the VAD type table,
-    then silk_decode_pulses)."""
+def _lbrr_symbols(d, ctx: _Ctx, active, error, nb_subfr: int,
+                  fs_khz: int):
+    """One LBRR frame's indices + pulses (silk_decode_indices with
+    decode_LBRR=1, i.e. the VAD type table, CODE_INDEPENDENTLY, then
+    silk_decode_pulses; dec_API.c:258-283 parses them through on a normal
+    decode, decode_frame.c decodes them in place of a lost frame).
+    Returns (d, error, symbols dict)."""
     t_ix, d = ctx.dec(d, "type_vad", active)
-    d, error, _syms = _frame_symbols(d, ctx, active, t_ix + 2, error,
-                                     nb_subfr, fs_khz)
-    return d, error
+    return _frame_symbols(d, ctx, active, t_ix + 2, error, nb_subfr, fs_khz)
+
+
+def _zero_symbols(b: int, order: int, nb_subfr: int, L: int, dev) -> dict:
+    """``_frame_symbols``' dict of a frame no lane decodes (its lanes
+    conceal instead)."""
+    z = torch.zeros((b,), dtype=torch.int64, device=dev)
+    return dict(signal_type=z, quant_offset_type=z, gains_idx0=z,
+                gains_deltas=[z] * (nb_subfr - 1), cb1=z,
+                pred_q8=z.new_zeros((b, order)),
+                nlsf_idx=z.new_zeros((b, order)), interp_q2=z + 4,
+                lag_index=z, contour=z, per_index=z, ltp_idx=[z] * nb_subfr,
+                scale_ix=z, seed=z, pulses=z.new_zeros((b, L)))
 
 
 _LCG_A = 196314165
@@ -639,11 +667,19 @@ def _lcg_signs(pulses, seed):
 
 
 def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
-                 nb_subfr: int = 4, osce: bool = False):
+                 nb_subfr: int = 4, osce: bool = False, lbrr=None,
+                 active=None):
     """The symbol pass of one frame: range decoding and decode_parameters.
     Returns (the ``silk_decode_step`` inputs as a dict, the carried state
-    fields prev_nlsf / last_gain_index / prev_gain_q16, error [B] bool,
-    the final range-decoder dict); with osce=True appends the frame's OSCE
+    fields prev_nlsf / last_gain_index / prev_gain_q16 and under ``frame``
+    the frame's signal_type, gains_q16, ltp_scale_q14 and lbrr_flag (the
+    header's LBRR bit), error [B] bool, the final range-decoder dict).
+    ``lbrr`` ([B] bool): lanes that decode the packet's LBRR frame in
+    place of its regular one (in-band FEC, decode_frame.c with
+    FLAG_DECODE_LBRR: the VAD type table, CODE_INDEPENDENTLY); their range
+    decoder stops after it, or after the header where the packet carries
+    none.  ``active`` ([B] bool): lanes outside it decode nothing (their
+    outputs are don't-care).  With osce=True appends the frame's OSCE
     inputs, the keyword arguments of ``OSCEEnhancer.enhance_frame`` but
     xq (decode_frame.c:113, ``silk/decoder.py``'s enhance_frame call):
     num_bits [B], the bits of the regular frame's indices and pulses
@@ -658,28 +694,38 @@ def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
     ctx = _Ctx(buf, lens, tabs)
     order = tabs.order
     d = rk_init(buf, lens)
-    active = torch.ones((b,), dtype=torch.bool, device=dev)
+    active = lane_mask(active, b, dev)
+    fec = torch.zeros_like(active) if lbrr is None else lane_mask(lbrr, b,
+                                                                  dev)
     error = torch.zeros_like(active)
 
     # --- header flags (dec_API.c:252) ---
     vad, d = rk_dec_bit_logp(d, buf, lens, 1, active)
-    lbrr, d = rk_dec_bit_logp(d, buf, lens, 1, active)
-    # LBRR present: parse-through the in-band FEC frame (indices +
-    # pulses with the VAD type table, dec_API.c:258-283) so the range
-    # decoder lands on the regular frame; the decoded values are
-    # discarded on the normal path
-    has_lbrr = active & (lbrr != 0)
+    lbrr_bit, d = rk_dec_bit_logp(d, buf, lens, 1, active)
+    # LBRR present: the in-band FEC frame (indices + pulses with the VAD
+    # type table, dec_API.c:258-283); on a normal decode it is parsed
+    # through so the range decoder lands on the regular frame, and its
+    # values are discarded
+    has_lbrr = active & (lbrr_bit != 0)
+    ls = None
     if _any(has_lbrr):
-        d, error = _parse_frame_symbols(d, ctx, has_lbrr, error, nb_subfr,
-                                        fs_khz)
+        d, error, ls = _lbrr_symbols(d, ctx, has_lbrr, error, nb_subfr,
+                                     fs_khz)
 
     # --- decode_indices (decode_indices.c), CODE_INDEPENDENTLY ---
     ec_start = rk_tell(d) if osce else None
-    t_vad, d = ctx.dec(d, "type_vad", active & (vad != 0))
-    t_nv, d = ctx.dec(d, "type_novad", active & (vad == 0))
-    type_ix = torch.where(vad != 0, t_vad + 2, t_nv)
-    d, error, s = _frame_symbols(d, ctx, active, type_ix, error, nb_subfr,
-                                 fs_khz)
+    reg = active & ~fec
+    if _any(reg):
+        t_vad, d = ctx.dec(d, "type_vad", reg & (vad != 0))
+        t_nv, d = ctx.dec(d, "type_novad", reg & (vad == 0))
+        type_ix = torch.where(vad != 0, t_vad + 2, t_nv)
+        d, error, s = _frame_symbols(d, ctx, reg, type_ix, error, nb_subfr,
+                                     fs_khz)
+        if ls is not None and _any(fec):
+            s = select_lanes(fec, ls, s)
+    else:
+        s = ls if ls is not None else _zero_symbols(
+            b, order, nb_subfr, nb_subfr * 5 * fs_khz, dev)
     signal_type = s["signal_type"]
 
     # --- decode_parameters ---
@@ -770,7 +816,10 @@ def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
                    gain_adj=gain_adj, whiten_gain=whiten, voiced=voiced,
                    rewhiten2=voiced & do_interp)
     carry = dict(prev_nlsf=new_prev_nlsf, last_gain_index=prev_ind,
-                 prev_gain_q16=gains_q16[:, -1])
+                 prev_gain_q16=gains_q16[:, -1],
+                 frame=dict(signal_type=signal_type, gains_q16=gains_q16,
+                            ltp_scale_q14=ltp_scale_q14,
+                            lbrr_flag=has_lbrr))
     error = error | (d["error"] != 0)
     if not osce:
         return step_in, carry, error, d
@@ -784,8 +833,11 @@ def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
 
 def fused_silk_decode(buf, lens, state: dict, *, fs_khz: int = 16,
                       nb_subfr: int = 4, return_rc: bool = False,
-                      return_osce: bool = False):
-    """One SILK frame per stream, all on the tensors' device.
+                      return_osce: bool = False, lbrr=None, active=None):
+    """One SILK frame per stream, all on the tensors' device, in
+    decode_frame's order (silk/decoder.py:706-756): the symbol pass, the
+    bandwidth expansion and LTP override of a first frame after a loss,
+    decode_core, ``plc_update``, the CNG update, the glue's fade.
 
     buf: [B, P] uint8 payload bytes; lens: [B] byte lengths.  Returns
     (xq int16-valued [B, L] int64, new state, error [B] bool); with
@@ -793,16 +845,81 @@ def fused_silk_decode(buf, lens, state: dict, *, fs_khz: int = 16,
     can continue decoding the CELT half from the same coder
     (src/opus_decoder.c:432 shares one ec_dec across both); with
     return_osce=True then appends the frame's OSCE inputs
-    (``silk_symbols``)."""
+    (``silk_symbols``).  ``lbrr`` ([B] bool): lanes that decode the
+    packet's LBRR frame instead (in-band FEC), or conceal the frame where
+    the packet carries none (decode_frame.c's lost branch under
+    FLAG_DECODE_LBRR); ``active``: see ``silk_symbols``."""
     step_in, carry, error, d, *osce_in = silk_symbols(
         buf, lens, state, fs_khz=fs_khz, nb_subfr=nb_subfr,
-        osce=return_osce)
+        osce=return_osce, lbrr=lbrr, active=active)
+    fr = carry.pop("frame")
+    order = 16 if fs_khz >= 16 else 10
+    if _any(state["loss_cnt"] > 0):
+        voiced, b_q14, pitch = PLC.ltp_after_loss(
+            state, step_in["voiced"], step_in["b_q14"], step_in["pitch_l"])
+        step_in = dict(step_in, voiced=voiced, b_q14=b_q14, pitch_l=pitch,
+                       a_q12=PLC.bwe_after_loss(step_in["a_q12"],
+                                                state["loss_cnt"], order))
     xq, synth = silk_decode_step(**step_in, state=state["synth"],
                                  fs_khz=fs_khz, nb_subfr=nb_subfr)
-    new_state = dict(carry, first_frame=torch.zeros_like(error),
-                     synth=synth)
+    xq, new_state = _good_frame_state(state, step_in, fr, carry, synth, xq,
+                                      fs_khz=fs_khz, nb_subfr=nb_subfr)
+    if lbrr is not None:
+        conc = lane_mask(lbrr, xq.shape[0], xq.device) & ~fr["lbrr_flag"]
+        if _any(conc):
+            xq_c, st_c = fused_silk_conceal(state, fs_khz=fs_khz,
+                                            nb_subfr=nb_subfr)
+            xq = torch.where(conc[:, None], xq_c, xq)
+            new_state = select_lanes(conc, dict(
+                st_c, decoded_any=new_state["decoded_any"]), new_state)
     return (xq, new_state, error) + ((d,) if return_rc else ()) \
         + tuple(osce_in)
+
+
+def _good_frame_state(state, step_in, fr, carry, synth, xq, *, fs_khz,
+                      nb_subfr):
+    """The state after a decoded frame (decode_frame.c's good branch and
+    the CNG update and glue that follow it) and its output after the
+    glue's fade."""
+    sf = 5 * fs_khz
+    order = 16 if fs_khz >= 16 else 10
+    pitch = step_in["pitch_l"]
+    sig = fr["signal_type"]
+    new = dict(state, **carry, first_frame=torch.zeros_like(
+        state["first_frame"]), synth=synth, exc_q14=step_in["exc"],
+        lag_prev=pitch[:, nb_subfr - 1], loss_cnt=torch.zeros_like(sig),
+        prev_signal_type=sig, decoded_any=torch.ones_like(
+            state["decoded_any"]))
+    new.update(PLC.plc_update(state, sig, pitch, step_in["b_q14"],
+                              step_in["a_q12"][:, 1], fr["ltp_scale_q14"],
+                              fr["gains_q16"], fs_khz=fs_khz,
+                              nb_subfr=nb_subfr))
+    inactive = sig == PLC.TYPE_NO_VOICE_ACTIVITY
+    if _any(inactive):
+        upd = PLC.cng_update(new, step_in["exc"], fr["gains_q16"], sf=sf,
+                             order=order)
+        new.update(select_lanes(inactive, upd, {k: new[k] for k in upd}))
+    new["cng_synth_state"] = torch.zeros_like(state["cng_synth_state"])
+    xq, glue = PLC.glue_good(state, xq)
+    new.update(glue)
+    return xq, new
+
+
+def fused_silk_conceal(state: dict, *, fs_khz: int = 16,
+                       nb_subfr: int = 4):
+    """One lost SILK frame on every lane (decode_frame.c's lost branch:
+    ``silk_plc.plc_conceal``, the comfort noise, the glue's energy).
+    Returns (xq int16-valued [B, L], new state).  The caller selects its
+    lanes; the Opus decoder's packet-loss path also sets
+    ``last_gain_index`` to 10 (silk/dec_API.c:396, not under in-band
+    FEC)."""
+    xq, upd = PLC.plc_conceal(state, fs_khz=fs_khz, nb_subfr=nb_subfr)
+    new = dict(state, **upd)
+    xq, cng = PLC.cng_add(new, xq, silk_tabs(fs_khz, nb_subfr),
+                          sf=5 * fs_khz, order=16 if fs_khz >= 16 else 10)
+    new.update(cng)
+    new.update(PLC.glue_lost(xq))
+    return xq, new
 
 
 def silk_out_48k(xq16, smid, rs, bwe=None, frame_ms: int = 20):
@@ -830,6 +947,16 @@ class FusedSilkDecoder:
     16 -> 48 kHz upsampler, one sample late through its mono 2-sample
     buffer (``silk_out_48k``).
 
+    Loss, lane by lane, as the Opus decoder runs it on a SILK-only
+    stream: ``conceal(lanes)`` hides a lost frame (``silk_plc.py``: the
+    classic concealment, the comfort noise, the glue);
+    ``decode_packed(..., fec=lanes)`` decodes those lanes' LBRR frame in
+    place of the packet's regular one (in-band FEC; a lane whose packet
+    carries none conceals); ``decode_packed(..., active=lanes)`` leaves
+    the other lanes' state alone; ``reset(lanes)``.  ``final_range`` is
+    each lane's final range after its last frame, 0 after a concealment
+    (src/opus_decoder.c:334).
+
     ``set_osce(method, model)`` switches LACE or NoLACE enhancement on
     (``OpusDecoder.set_osce``): ``decode_packed`` then returns the
     enhanced PCM of 16 kHz 20 ms frames (other frames pass through and
@@ -837,7 +964,9 @@ class FusedSilkDecoder:
     as in the scalar decoder, it keeps the unenhanced history.
     ``set_osce_bwe(model)`` puts the neural bandwidth extension in the
     upsampler's place at 48 kHz (``OpusDecoder.set_osce_bwe``); it and
-    the 2-sample buffer see the enhanced samples."""
+    the 2-sample buffer see the enhanced samples.  Neither runs on
+    concealed or FEC frames yet: ``conceal``, ``fec`` and ``active``
+    raise ValueError while one is on."""
 
     def __init__(self, batch: int, fs_khz: int = 16, nb_subfr: int = 4,
                  max_payload: int = 512, device="cuda", fs_out=None):
@@ -855,14 +984,16 @@ class FusedSilkDecoder:
         self.nb_subfr = nb_subfr
         self.fs_out = fs_out
         self.P = max_payload
-        self.state = fused_init_state(batch, fs_khz, self.device)
-        self.rs = upsampler_init(batch, 16, self.device)
-        self.smid = torch.zeros((batch, 2), dtype=torch.int64,
-                                device=self.device)
-        self.final_range = None      # [B] the range decoder's, last frame
         self.osce_in = None          # the last frame's OSCE inputs
         self.osce = None             # the OSCEEnhancer, if switched on
         self.bwe = None              # the BBWE, if switched on
+        self.reset()
+
+    @property
+    def final_range(self):
+        """[B] each lane's final range after its last frame (0 after a
+        concealment)."""
+        return self._rng
 
     def set_osce(self, method: int, model) -> None:
         """Enhance with ``model`` by ``method`` (1 LACE, 2 NoLACE; the
@@ -880,29 +1011,96 @@ class FusedSilkDecoder:
         self.bwe = BBWE(model, self.batch, device=self.device) \
             if model is not None else None
 
+    def _plain_only(self, what: str) -> None:
+        if self.osce is not None or self.bwe is not None:
+            raise ValueError(f"FusedSilkDecoder: {what} with OSCE or BBWE "
+                             f"on is not ported")
+
     def pack(self, payloads):
         """list of B byte strings -> (buf [B, P] uint8, lens [B]) on the
         decoder's device; raises ValueError on a payload longer than P."""
         return pack_payloads(payloads, self.batch, self.P, self.device)
 
-    def decode_packed(self, buf_u8, lens, osce_inputs: bool = False):
+    def _out(self, xq):
+        """The frame at fs_out: (pcm, the upsampler state, smid)."""
+        if self.fs_out == 48000:
+            return silk_out_48k(xq, self.smid, self.rs, self.bwe,
+                                5 * self.nb_subfr)
+        return xq, self.rs, self.smid
+
+    def _commit(self, m, state, rs, smid, rng):
+        """The lanes of m ([B] bool, None: every lane) take the new state,
+        upsampler state, smid and final range; the others keep theirs bit
+        for bit."""
+        if m is None:
+            self.state, self.rs, self.smid, self._rng = state, rs, smid, rng
+            return
+        self.state = select_lanes(m, state, self.state)
+        self.rs = select_lanes(m, rs, self.rs)
+        self.smid = torch.where(m[:, None], smid, self.smid)
+        self._rng = torch.where(m, rng, self._rng)
+
+    def decode_packed(self, buf_u8, lens, osce_inputs: bool = False,
+                      active=None, fec=None):
         """buf [B, P] uint8, lens [B] on the device -> (pcm [B, L] int16
-        at ``fs_out``, err [B] bool); the final range lands in
-        ``final_range``.  The frame's OSCE inputs are taken when the
-        enhancer is on or ``osce_inputs`` asks for them, and land in
-        ``osce_in`` (else None)."""
+        at ``fs_out``, err [B] bool).  The frame's OSCE inputs are taken
+        when the enhancer is on or ``osce_inputs`` asks for them, and land
+        in ``osce_in`` (else None).  ``fec`` ([B] bool): those lanes decode
+        the packet's LBRR frame (or conceal where it carries none) in
+        place of its regular frame.  ``active`` ([B] bool, default every
+        lane): a lane outside it keeps its state bit for bit, returns zeros
+        and raises no error flag."""
+        if active is not None or fec is not None:
+            self._plain_only("active or fec")
         want = osce_inputs or self.osce is not None
-        xq, self.state, err, d, *osce_in = fused_silk_decode(
+        xq, state, err, d, *osce_in = fused_silk_decode(
             buf_u8, lens, self.state, fs_khz=self.fs_khz,
-            nb_subfr=self.nb_subfr, return_rc=True, return_osce=want)
+            nb_subfr=self.nb_subfr, return_rc=True, return_osce=want,
+            lbrr=fec, active=active)
         self.osce_in = osce_in[0] if want else None
-        self.final_range = d["rng"]
         if self.osce is not None:
             xq = self.osce.enhance_frame(xq, **self.osce_in)
-        if self.fs_out == 48000:
-            xq, self.rs, self.smid = silk_out_48k(
-                xq, self.smid, self.rs, self.bwe, 5 * self.nb_subfr)
-        return xq.to(torch.int16), err
+        pcm, rs, smid = self._out(xq)
+        if active is None:
+            self._commit(None, state, rs, smid, d["rng"])
+            return pcm.to(torch.int16), err
+        m = lane_mask(active, self.batch, self.device)
+        self._commit(m, state, rs, smid, d["rng"])
+        return torch.where(m[:, None], pcm, 0).to(torch.int16), err & m
+
+    def conceal(self, lanes=None):
+        """One lost frame on the lanes of ``lanes`` ([B] bool, default every
+        lane) -> pcm [B, L] int16 at ``fs_out``.  A lane outside ``lanes``
+        keeps its state bit for bit and returns zeros; so does a lane that
+        has decoded no packet yet (src/opus_decoder.c:334-341)."""
+        self._plain_only("conceal")
+        m = lane_mask(lanes, self.batch, self.device) \
+            & self.state["decoded_any"]
+        n = self.nb_subfr * self.fs_out // 200
+        if not _any(m):
+            return torch.zeros((self.batch, n), dtype=torch.int16,
+                               device=self.device)
+        xq, state = fused_silk_conceal(self.state, fs_khz=self.fs_khz,
+                                       nb_subfr=self.nb_subfr)
+        state["last_gain_index"] = torch.full_like(
+            state["last_gain_index"], 10)
+        pcm, rs, smid = self._out(xq)
+        self._commit(m, state, rs, smid, torch.zeros_like(self._rng))
+        return torch.where(m[:, None], pcm, 0).to(torch.int16)
+
+    def reset(self, lanes=None):
+        """The lanes of ``lanes`` ([B] bool, default every lane) back to the
+        decoder's initial state (and the enhancers', if on)."""
+        b, dev = self.batch, self.device
+        state = fused_init_state(b, self.fs_khz, dev, self.nb_subfr)
+        rs = upsampler_init(b, 16, dev)
+        smid = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+        rng = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self._commit(None if lanes is None else lane_mask(lanes, b, dev),
+                     state, rs, smid, rng)
+        for enh in (self.osce, self.bwe):
+            if enh is not None:
+                enh.reset(lanes)
 
     def decode(self, payloads):
         return self.decode_packed(*self.pack(payloads))

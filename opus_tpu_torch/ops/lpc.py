@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .silk_fixed import add_sat32, lshift_sat32, smulwb, w32
+from .silk_fixed import add_sat32, lshift_sat32, w32
 
 ORDER = 16
 
@@ -37,7 +37,10 @@ def lpc_subframe_plain(slpc, res, a_rev, order_half: int):
                       torch.zeros((b, sf), dtype=torch.int64,
                                   device=res.device)], dim=1)
     for i in range(sf):
-        pred = w32(order_half + smulwb(hist[:, i:i + ORDER], a_rev).sum(1))
+        # SMULWB of an int16 coefficient: the int64 product shifted is
+        # value-exact (ops/silk_fixed.smulwb's split form computes the same)
+        pred = w32(order_half + ((hist[:, i:i + ORDER] * a_rev) >> 16)
+                   .sum(1))
         hist[:, ORDER + i] = add_sat32(res[:, i], lshift_sat32(pred, 4))
     return (hist[:, ORDER:].to(torch.int32),
             hist[:, sf:].to(torch.int32))

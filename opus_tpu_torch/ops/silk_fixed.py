@@ -185,3 +185,92 @@ def log2lin(in_log_q7):
     out2 = torch.where(v < 2048, out + ((out * poly) >> 7),
                        out + (out >> 7) * poly)
     return torch.where(neg, 0, torch.where(big, I32_MAX, out2))
+
+
+def wrap16(x):
+    """The int16 value with the same low 16 bits."""
+    return ((x + (1 << 15)) & 0xFFFF) - (1 << 15)
+
+
+def smulbb(a, b):
+    """silk_SMULBB: the int16 parts of a and b multiplied."""
+    return wrap16(a) * wrap16(b)
+
+
+RAND_A = 196314165
+RAND_C = 907633515
+
+
+def silk_rand(seed):
+    """silk_RAND (SigProc_FIX.h): one step of SILK's LCG, int32 values."""
+    return w32(RAND_C + seed * RAND_A)
+
+
+def _rand_table(n: int):
+    """[2, n] int64: after k + 1 steps of silk_RAND the state is (A[k] seed
+    + C[k]) mod 2**32, with A[k] = a**(k+1) and C[k] = c (a**(k+1) - 1) /
+    (a - 1), both mod 2**32."""
+    import numpy as np
+    out = np.zeros((2, n), np.int64)
+    a, c = 1, 0
+    for k in range(n):
+        a, c = (RAND_A * a) & M32, (RAND_A * c + RAND_C) & M32
+        out[0, k], out[1, k] = a, c
+    return out
+
+
+def _mulu32(s, a):
+    """(s a) mod 2**32 for s, a in [0, 2**32) as int64, a split in 16-bit
+    halves so that no product passes 2**48."""
+    return (s * (a & 0xFFFF) + (((s * (a >> 16)) & 0xFFFF) << 16)) & M32
+
+
+def silk_rand_seq(seed, n: int):
+    """The n states that n steps of silk_RAND pass through from ``seed``
+    [B] (int32 values), in closed form: [B, n] int32 values, state k the
+    seed after k + 1 steps.  One gather-free product a sample, no chain."""
+    from .device_cache import const
+    tab = const(("silk_rand", n), lambda: _rand_table(n), seed.device)
+    return w32(_mulu32((seed & M32)[:, None], tab[0]) + tab[1])
+
+
+def sum_sqr_shift(x):
+    """silk_sum_sqr_shift (sum_sqr_shift.c) over the last axis of x [B, n]
+    (int16 values): (energy [B], shift [B]) with the energy < 2**31 after
+    the shift.  Both passes shift each pair's sum of squares before adding
+    it, as the reference does, so the int64 sums are exact in any order."""
+    n = x.shape[1]
+    sq = x * x
+    terms = sq[:, 0:n - 1:2] + sq[:, 1:n:2]
+    if n % 2:
+        terms = torch.cat([terms, sq[:, n - 1:]], dim=1)
+    shft0 = 31 - (32 - int(n).bit_length())
+    nrg = n + (terms >> shft0).sum(1)
+    shft = (shft0 + 3 - clz32(nrg)).clamp_min(0)
+    return (terms >> shft[:, None]).sum(1), shft
+
+
+def sqrt_approx(x):
+    """silk_SQRT_APPROX (Inlines.h): 0 for x <= 0."""
+    pos = x > 0
+    u = torch.where(pos, x, 1) & M32
+    lz = clz32(u)
+    frac = torch.where(lz <= 24, u >> (24 - lz).clamp_min(0),
+                       u << (lz - 24).clamp_min(0)) & 0x7F
+    y = torch.where((lz & 1) != 0, 32768, 46214) >> (lz >> 1)
+    y = y + ((y * (213 * frac)) >> 16)
+    return torch.where(pos, y, 0)
+
+
+def bwexpander(ar, chirp_q16: int):
+    """silk_bwexpander (bwexpander.c), the 16-bit one, over [B, d] with one
+    chirp for every lane: coefficient i scaled by the chirp's i-th power
+    in Q16, rounded and wrapped to int16."""
+    d = ar.shape[1]
+    chirps = []
+    c = chirp_q16
+    for _ in range(d):
+        chirps.append(c)
+        c += ((c * (chirp_q16 - 65536) >> 15) + 1) >> 1
+    cv = torch.as_tensor(chirps, dtype=torch.int64, device=ar.device)
+    return wrap16(rshift_round(ar * cv[None, :], 16))

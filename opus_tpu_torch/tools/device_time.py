@@ -53,15 +53,17 @@ def device_profile(fn, reps: int = 3, warmup: bool = True) -> tuple:
     ``reps`` calls after one warm-up call (none with ``warmup=False``, for
     a call already warm): the count and summed device time of every CUDA
     kernel record the profiler kept.  Beside the call's wall time it gives
-    the card's busy share."""
+    the card's busy share.  Only the card is traced: host operator records
+    add nothing to these sums and cost the host ~0.25 ms a launch (a SILK
+    loss tick of ~10**5 launches: 58.1 s traced with them, 33.7 s without,
+    the same count and device time; NVIDIA H100 80GB HBM3, 700.00 W)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if warmup:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()

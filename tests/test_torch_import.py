@@ -41,7 +41,12 @@ for name in ("opus_tpu_torch.models.hybrid_dec_fused",
              "opus_tpu_torch.models.dred_encoder",
              "opus_tpu_torch.dnn.lossgen", "opus_tpu_torch.tools.loss",
              "opus_tpu_torch.tools.sim_loss", "opus_tpu_torch.ops.lanes",
-             "opus_tpu_torch.celt.pitch", "opus_tpu_torch.celt.plc"):
+             "opus_tpu_torch.celt.pitch", "opus_tpu_torch.celt.plc",
+             "opus_tpu_torch.models.silk_plc",
+             "opus_tpu_torch.models.fused_silk_dec",
+             "opus_tpu_torch.models.batched_silk",
+             "opus_tpu_torch.ops.silk_fixed", "opus_tpu_torch.ops.lpc",
+             "opus_tpu_torch.convert"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",
