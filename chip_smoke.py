@@ -4840,6 +4840,447 @@ def silk_plc_times(dev, smi, inp):
     return out
 
 
+API_FIXTURE = os.path.join(REPO, "tests", "data", "torch_opus_api.npz")
+API_TICKS = 12          # of the fixture streams' 20-27 packets
+API_FX = tuple(range(8))    # lanes carrying the fixture streams from packet 0
+API_CPU_EXTRA = 48      # other lanes the card is held to the CPU run on
+API_LOSS_SEED = 1600
+API_OFFSET = 6          # the packet every other group of 8 lanes starts at
+API_FEC_EVERY = 4       # every 4th lane past the fixture's recovers by FEC
+API_CLIP_LANES = 256    # loud lanes the soft clip is held to the scalar on
+
+
+def api_streams(afx):
+    """The fixture's 8 streams: packets (bytes, or None where lost)."""
+    plen, buf = afx["plen"], afx["packets"]
+    return [[None if plen[s, t] == -1 else bytes(buf[s, t, :plen[s, t]])
+             for t in range(plen.shape[1]) if plen[s, t] != -2]
+            for s in range(plen.shape[0])]
+
+
+def opus_api_inputs(dev, afx):
+    """B_DNN lanes of mixed traffic over API_TICKS: lane i carries stream
+    i % 8, from packet 0 or, in every other group of 8 lanes, from packet
+    API_OFFSET, so that each tick mixes CELT, SILK and hybrid lanes at two
+    points of each stream, some in mid-transition; lanes API_FX under the
+    fixture's own losses, the others losing a packet also where
+    ``tools/loss.py``'s ``-loss 10`` flags (each lane its own seed, on the
+    card) say so, so that their states part.  Every API_FEC_EVERY-th lane
+    recovers a lost packet from the next one where that one has arrived,
+    as a jitter buffer does: the tick decodes the next packet with
+    ``decode_fec`` over the lost packet's duration (the default where the
+    fixture lost it), and the next tick decodes it.  (More offsets put
+    more (rate, 10/20 ms) groups in a tick, each a SILK symbol pass of
+    ~1 s of host: 8 offsets took 9.8-13.4 s a tick on an NVIDIA H100
+    80GB HBM3 at 700 W.)  ``cpu_lanes``: the fixture lanes and
+    API_CPU_EXTRA others."""
+    import numpy as np
+    from opus_tpu_torch.bitstream.packet import packet_get_nb_samples
+    from opus_tpu_torch.tools.loss import loss_flags
+    streams = api_streams(afx)
+    b, nt = B_DNN, API_TICKS
+    lost = loss_flags(nt, API_LOSS_SEED + np.arange(b),
+                      loss_perc=SIM_LOSS_PERC, device=dev).cpu().numpy()
+    packets = []
+    fec = np.zeros((b, nt), bool)
+    size = np.zeros((b, nt), np.int64)
+    for i in range(b):
+        st = streams[i % len(streams)]
+        off = API_OFFSET * ((i // len(streams)) % 2)
+        sent = [st[(off + t) % len(st)] for t in range(nt)]
+        row = list(sent)
+        if i not in API_FX:
+            row = [None if lost[i, t] else p for t, p in enumerate(row)]
+            if i % API_FEC_EVERY == API_FEC_EVERY - 1:
+                for t in range(nt - 1):
+                    if row[t] is None and row[t + 1] is not None:
+                        row[t], fec[i, t] = row[t + 1], True
+                        if sent[t] is not None:
+                            size[i, t] = packet_get_nb_samples(sent[t],
+                                                               48000)
+        packets.append(row)
+    others = [i for i in range(b) if i not in API_FX]
+    pick = others[::len(others) // API_CPU_EXTRA][:API_CPU_EXTRA]
+    cpu_lanes = np.asarray(sorted(list(API_FX) + pick))
+    if not fec[cpu_lanes].any() or not (cpu_lanes // 8 % 2).any():
+        fail("opus_api: the CPU lanes hold no FEC call or no offset lane")
+    return dict(packets=packets, fec=fec, size=size,
+                lost_share=float(np.mean(
+                    [p is None for row in packets for p in row])),
+                fec_share=float(fec.mean()), cpu_lanes=cpu_lanes)
+
+
+def opus_api_run(packets, device, keep=None, timed=False, fec=None,
+                 size=None):
+    """``BatchedOpusDecoder`` over len(packets) lanes, one call a tick
+    (``fec`` / ``size`` [B, T]: the lanes' ``decode_fec`` and
+    ``frame_size``), and the int16 of ``decode_int16`` (the soft clip with
+    each lane's memory).  Per tick and kept lane (``keep``, default all): float PCM,
+    int16, sample count, final range, celt_used; the decoder's events and
+    flags; with timed=True each tick's CUDA event time."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models.opus_decoder import BatchedOpusDecoder
+    from opus_tpu_torch.utils.soft_clip import (float2int16_lanes,
+                                                soft_clip_lanes)
+    b = len(packets)
+    keep = np.arange(b) if keep is None else np.asarray(keep)
+    dec = BatchedOpusDecoder(b, device=device)
+    out = dict(pcm=[], pcm16=[], n=[], rng=[], celt=[], tick_ms=[])
+    for t in range(len(packets[0])):
+        if timed:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        pcm, n = dec.decode([row[t] for row in packets],
+                            None if fec is None else fec[:, t],
+                            None if size is None else size[:, t])
+        clipped, dec.softclip_mem = soft_clip_lanes(pcm, dec.softclip_mem,
+                                                    n=n)
+        pcm16 = float2int16_lanes(clipped)
+        if timed:
+            e1.record()
+            torch.cuda.synchronize()
+            out["tick_ms"].append(e0.elapsed_time(e1))
+        k = torch.as_tensor(keep, device=pcm.device)
+        out["pcm"].append(pcm.index_select(0, k).cpu().numpy())
+        out["pcm16"].append(pcm16.index_select(0, k).cpu().numpy())
+        out["n"].append(n[keep])
+        out["rng"].append(dec.final_range.index_select(0, k).cpu().numpy())
+        out["celt"].append(dec.celt_used[keep])
+    out.update(events=dict(dec.events), flagged=dec.flagged[keep],
+               decoder=dec)
+    return out
+
+
+def cpu_opus_api(packets, fec, size, lanes):
+    """The opus_api run on the CPU over ``lanes``, in a worker process
+    while the card runs."""
+    t0 = time.time()
+    out = opus_api_run([packets[i] for i in lanes], "cpu", fec=fec[lanes],
+                       size=size[lanes])
+    del out["decoder"]
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def api_compare(got, ref, what, gl=None, rl=None, silk_exact=None):
+    """Per tick and lane (got's rows gl, ref's rows rl): sample counts and
+    final ranges equal; int16 equal where ``silk_exact`` [T, L] holds (no
+    CELT contribution); elsewhere float PCM within PCM_ABS_TOL, or, on a
+    concealed packet (``concealed`` [T, L]), int16 within CLASSIC_LSB.
+    Returns (max float err, max int16 err) over the checked packets."""
+    import numpy as np
+    e_f, e_i = 0.0, 0
+    for t in range(len(ref["n"])):
+        ga = slice(None) if gl is None else gl
+        ra = slice(None) if rl is None else rl
+        n_g, n_r = got["n"][t][ga], ref["n"][t][ra]
+        if not np.array_equal(n_g, n_r):
+            fail(f"opus_api {what}: tick {t}: sample counts differ")
+        if not np.array_equal(got["rng"][t][ga], ref["rng"][t][ra]):
+            bad = np.nonzero(got["rng"][t][ga] != ref["rng"][t][ra])[0]
+            fail(f"opus_api {what}: tick {t}: final ranges differ on "
+                 f"rows {bad[:8].tolist()}")
+        pg, pr = got["pcm"][t][ga], ref["pcm"][t][ra]
+        ig, ir = got["pcm16"][t][ga], ref["pcm16"][t][ra]
+        for j in range(len(n_r)):
+            m = int(n_r[j])
+            di = int(np.abs(ig[j, :m].astype(np.int64)
+                            - ir[j, :m].astype(np.int64)).max(initial=0))
+            df = float(np.abs(pg[j, :m] - pr[j, :m]).max(initial=0.0))
+            kind = ref["kind"][t][j]
+            if kind == "silk" and di != 0:
+                fail(f"opus_api {what}: tick {t} row {j}: SILK int16 "
+                     f"differs by {di} LSB")
+            if kind == "concealed" and di > CLASSIC_LSB:
+                fail(f"opus_api {what}: tick {t} row {j}: concealed int16 "
+                     f"{di} LSB > {CLASSIC_LSB}")
+            if kind == "celt" and not df <= PCM_ABS_TOL:
+                fail(f"opus_api {what}: tick {t} row {j}: PCM err {df}")
+            e_f = max(e_f, df if kind == "celt" else 0.0)
+            e_i = max(e_i, di)
+    return e_f, e_i
+
+
+def api_kinds(run, packets_rows, fec_rows):
+    """Each tick and row's check: "concealed" (a lost packet, or an FEC
+    call the CELT decoder took part in: its concealment), "silk" (no CELT
+    contribution: int16 exact), or "celt" (float PCM within
+    PCM_ABS_TOL)."""
+    return [["concealed" if packets_rows[j][t] is None
+             or (fec_rows[j, t] and run["celt"][t][j])
+             else ("celt" if run["celt"][t][j] else "silk")
+             for j in range(len(packets_rows))]
+            for t in range(len(run["n"]))]
+
+
+def api_fixture_ref(afx, ticks: int):
+    """The JAX scalar decoder's outputs on the fixture lanes (the stored
+    float PCM, its int16 through the port's copy of the soft clip, one
+    memory a stream), per tick, with each packet's check: SILK int16
+    exact where the scalar CELT decoder did not run during it."""
+    import numpy as np
+    from opus_tpu_torch.utils.soft_clip import float2int16, pcm_soft_clip
+    s_n = afx["plen"].shape[0]
+    mem = np.zeros(s_n, np.float32)
+    out = dict(pcm=[], pcm16=[], n=[], rng=[], kind=[])
+    w = int(afx["nsamp"].max())
+    for t in range(ticks):
+        pcm = np.zeros((s_n, w), np.float32)
+        pcm16 = np.zeros((s_n, w), np.int16)
+        kinds = []
+        for s in range(s_n):
+            n = int(afx["nsamp"][s, t])
+            o = int(afx["pcm_off"][s, t])
+            x = afx["pcm"][o:o + n].astype(np.float32).copy()
+            pcm[s, :n] = x
+            m = mem[s:s + 1]
+            pcm_soft_clip(x, 1, m)
+            pcm16[s, :n] = float2int16(x)
+            lost = afx["plen"][s, t] == -1
+            kinds.append("concealed" if lost else (
+                "silk" if afx["celt_calls"][s, t] == 0 else "celt"))
+        out["pcm"].append(pcm)
+        out["pcm16"].append(pcm16)
+        out["n"].append(afx["nsamp"][:, t].copy())
+        out["rng"].append(afx["rng"][:, t].copy())
+        out["kind"].append(kinds)
+    return out
+
+
+def soft_clip_inputs(rng, b: int, w: int):
+    """b lanes of w samples that reach each branch of the soft clip: loud
+    noise, slow sines (segments across the frame boundary: the carried
+    curve, a segment that starts the frame and its ramp), sparse spikes
+    among zeros, values on a 0.25 grid (exact zeros, +-1, tied peaks),
+    constant runs and the clamp at +-2."""
+    import numpy as np
+    t = np.arange(w)
+    rows = []
+    for i in range(b):
+        k = i % 6
+        if k == 0:
+            x = rng.standard_normal(w) * rng.uniform(0.3, 3.0)
+        elif k == 1:
+            x = rng.uniform(0.9, 2.5) * np.sin(
+                2 * np.pi * t / rng.uniform(60, 900) + rng.uniform(0, 6.3))
+        elif k == 2:
+            x = np.where(rng.random(w) < 0.05,
+                         rng.standard_normal(w) * 2, 0.0)
+        elif k == 3:
+            x = np.round(rng.standard_normal(w) * 4) / 4
+        elif k == 4:
+            x = np.full(w, rng.choice([-1.5, 1.25, 0.5, 2.5]))
+            x[:int(rng.integers(0, 4))] = 0.0
+        else:
+            x = np.clip(rng.standard_normal(w) * 3, -2.5, 2.5)
+        rows.append(x)
+    return np.asarray(rows, np.float32)
+
+
+def k1_short_lanes(captured, rng):
+    """K1's LM 0/1 inputs captured on the card (per (lm, start, end)):
+    their rows tiled to B_MAIN lanes plus N_BAD garbage lanes (half the
+    captured packets truncated, half random bytes), and the same bytes at
+    start 17 (a hybrid range at LM 0/1, which no decoder path reaches)."""
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    cases = {}
+    for key, rows in captured.items():
+        p = max(r[0].shape[1] for r in rows)
+        buf = torch.cat([torch.nn.functional.pad(r[0], (0, p - r[0].shape[1]))
+                         for r in rows])
+        lens, old_e, pm, seed = (torch.cat([r[i] for r in rows])
+                                 for i in range(1, 5))
+        reps = -(-B_MAIN // buf.shape[0])
+        t = [x.repeat((reps,) + (1,) * (x.dim() - 1))[:B_MAIN]
+             for x in (buf, lens, old_e, pm, seed)]
+        bad_buf = torch.zeros((N_BAD, p), dtype=torch.uint8,
+                              device=buf.device)
+        bad_len = torch.zeros(N_BAD, dtype=torch.int64, device=buf.device)
+        for j in range(N_BAD):
+            src = j % buf.shape[0]
+            if j < N_BAD // 2:
+                cut = int(rng.integers(0, int(lens[src]) + 1))
+                bad_buf[j, :cut] = buf[src, :cut]
+            else:
+                cut = int(rng.integers(0, p + 1))
+                bad_buf[j, :cut] = torch.as_tensor(
+                    rng.integers(0, 256, cut), dtype=torch.uint8)
+            bad_len[j] = cut
+        args = (torch.cat([t[0], bad_buf]), torch.cat([t[1], bad_len]),
+                torch.cat([t[2], t[2][:N_BAD]]),
+                torch.cat([t[3], t[3][:N_BAD]]),
+                torch.cat([t[4], t[4][:N_BAD]]))
+        lm, start, end = key
+        cases[key] = (CK.dec_tabs(48000, 120 << lm, start, end), args)
+        if start == 0:
+            k17 = (lm, 17, 21)
+            cases.setdefault(k17, (CK.dec_tabs(48000, 120 << lm, 17, 21),
+                                   args))
+    return cases
+
+
+def phase_opus_api(dev, afx, inp, job):
+    """The port's top-level decoder as a user drives it on the card:
+    ``BatchedOpusDecoder`` over B_DNN lanes of mixed traffic for
+    API_TICKS calls, the K1 / K2 / K4 counters reset just before and read
+    just after; held to the CPU run (``job``: a future of cpu_opus_api on
+    ``cpu_lanes``) and, on the fixture lanes, to the JAX scalar decoder's
+    stored outputs.  Then (a): K1 at LM 0/1 against its plain version on
+    the LM 0/1 inputs the run gave it (2.5 and 5 ms CELT frames, the
+    redundant frames, the 2.5 ms fade frames), tiled to B_MAIN lanes with
+    N_BAD garbage lanes, and the same bytes at start 17."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.ops import iir, lpc
+
+    t0 = time.time()
+    captured = {}
+    orig = CK.decode_frame
+
+    def spy(buf, lens, old_e, prevmin, seed, tabs=None, d0=None):
+        if tabs.lm <= 1 and d0 is None:
+            captured.setdefault((tabs.lm, tabs.start, tabs.end_band),
+                                []).append(tuple(
+                                    x.clone() for x in (buf, lens, old_e,
+                                                        prevmin, seed)))
+        return orig(buf, lens, old_e, prevmin, seed, tabs, d0)
+    CK.decode_frame = spy
+    try:
+        torch.cuda.synchronize()
+        CK.launches = iir.launches = lpc.launches = 0
+        card = opus_api_run(inp["packets"], dev, keep=inp["cpu_lanes"],
+                            timed=True, fec=inp["fec"], size=inp["size"])
+        torch.cuda.synchronize()
+        counts = {"K1": CK.launches, "K2": iir.launches, "K4": lpc.launches}
+    finally:
+        CK.decode_frame = orig
+    card_s = time.time() - t0
+    for k, v in counts.items():
+        if v == 0:
+            fail(f"opus_api: kernel {k} launched no time")
+    if card["flagged"].any():
+        fail(f"opus_api: lanes flagged: "
+             f"{np.nonzero(card['flagged'])[0].tolist()}")
+    lanes = inp["cpu_lanes"]
+    rows = [inp["packets"][i] for i in lanes]
+    cpu = job.result()
+    cpu["kind"] = api_kinds(cpu, rows, inp["fec"][lanes])
+    card_kind = api_kinds(card, rows, inp["fec"][lanes])
+    if card_kind != cpu["kind"]:
+        t, j = next((t, j) for t in range(len(card_kind))
+                    for j in range(len(rows))
+                    if card_kind[t][j] != cpu["kind"][t][j])
+        fail(f"opus_api: tick {t} lane {int(lanes[j])}: the card's CELT "
+             f"use ({card_kind[t][j]}) differs from the CPU run's "
+             f"({cpu['kind'][t][j]})")
+    e_cpu = api_compare(card, cpu, "card vs the CPU run")
+    ref = api_fixture_ref(afx, API_TICKS)
+    fx_rows = [int(np.nonzero(lanes == i)[0][0]) for i in API_FX]
+    e_jax = api_compare(card, ref, "fixture lanes: card vs JAX", gl=fx_rows)
+    ev = card["events"]
+    if not ev.get("fec_frames"):
+        fail("opus_api: no lane decoded an in-band FEC frame")
+
+    # (a) K1 at LM 0/1 against its plain version
+    cases = k1_short_lanes(captured, np.random.default_rng(25))
+    x_err, n_short = 0.0, {}
+    for key, (tabs, args) in sorted(cases.items()):
+        got = CK._decode_frame_cuda(*args, tabs)
+        ref_k = CK.decode_frame_plain(*args, tabs)
+        xe, _ee = compare_k1(got, ref_k, tabs)
+        x_err = max(x_err, xe)
+        n_short[key] = int(args[0].shape[0])
+    if not any(k[0] == 0 for k in cases) or not any(k[0] == 1
+                                                     for k in cases):
+        fail(f"opus_api: K1 saw no LM 0 or no LM 1 frame: {sorted(cases)}")
+    key1 = max(k for k in cases if k[0] == 1 and k[1] == 0)
+
+    # (b) the soft clip on loud lanes against its scalar copy
+    from opus_tpu_torch.utils.soft_clip import pcm_soft_clip, soft_clip_lanes
+    rng = np.random.default_rng(26)
+    mem = torch.zeros(API_CLIP_LANES, dtype=torch.float32, device=dev)
+    ref_mem = np.zeros((API_CLIP_LANES, 1), np.float32)
+    for call in range(3):
+        x = soft_clip_inputs(rng, API_CLIP_LANES, 960)
+        got, mem = soft_clip_lanes(torch.from_numpy(x).to(dev), mem)
+        got = got.cpu().numpy()
+        for i in range(API_CLIP_LANES):
+            y = x[i].copy()
+            pcm_soft_clip(y, 1, ref_mem[i])
+            if not np.array_equal(got[i], y):
+                fail(f"opus_api: soft clip call {call} lane {i} differs "
+                     f"from the scalar")
+        if not np.array_equal(mem.cpu().numpy(), ref_mem[:, 0]):
+            fail(f"opus_api: soft clip memory differs on call {call}")
+    print(f"opus_api at B={B_DNN} over {API_TICKS} ticks (lanes at packet "
+          f"offsets 0 and {API_OFFSET}; {100 * inp['lost_share']:.1f}% of "
+          f"packets lost, {100 * inp['fec_share']:.1f}% of calls in-band "
+          f"FEC): launches {counts}; frames {ev}; card vs the "
+          f"CPU run on {len(lanes)} lanes: ranges equal, PCM within "
+          f"{e_cpu[0]:.3g}, int16 within {e_cpu[1]} LSB (SILK-only "
+          f"exact); fixture lanes vs JAX: ranges equal, PCM within "
+          f"{e_jax[0]:.3g}, int16 within {e_jax[1]} LSB; card run "
+          f"{card_s:.1f} s (ticks {min(card['tick_ms']):.0f}-"
+          f"{max(card['tick_ms']):.0f} ms), the CPU run "
+          f"{cpu['seconds']:.1f} s (worker process); K1 at LM 0/1 vs plain "
+          f"(integers exact, X within {x_err:.3g}) on "
+          f"{ {str(k): v for k, v in n_short.items()} } lanes; the soft "
+          f"clip on {API_CLIP_LANES} loud lanes x 3 calls bit for bit with "
+          f"the scalar")
+    return dict(counts=counts, x_err=x_err, e_cpu=e_cpu, e_jax=e_jax,
+                events=ev, decoder=card["decoder"], tick_ms=card["tick_ms"],
+                k1_case=cases[key1])
+
+
+def opus_api_times(dev, smi, inp, api):
+    """A tick of the opus_api traffic at B_DNN, timed with CUDA events and
+    traced (device operations, device time, busy share) on a copy of the
+    decoder; and K1 at LM 1 (the 5 ms frames and redundant frames) at
+    B_MAIN + N_BAD lanes: its time, its plain version's and its bound."""
+    import copy
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.tools.device_time import device_profile
+
+    dec = api["decoder"]
+    pk = [row[0] for row in inp["packets"]]
+    twin = copy.deepcopy(dec)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    dec.decode(pk)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    ops, dms = device_profile(lambda: twin.decode(pk), reps=1, warmup=False)
+    tabs, args = api["k1_case"]
+    k1 = cuda_ms(lambda: CK._decode_frame_cuda(*args, tabs), 20)
+    k1p = cuda_ms(lambda: CK.decode_frame_plain(*args, tabs), 1)
+    out = CK._decode_frame_cuda(*args, tabs)
+    bnd = k1_bound(tabs, args, out)
+    b = args[0].shape[0]
+    import numpy as np
+    from opus_tpu_torch.utils.soft_clip import soft_clip_lanes
+    loud = torch.from_numpy(soft_clip_inputs(np.random.default_rng(27),
+                                             B_DNN, 960)).to(dev)
+    mem = torch.zeros(B_DNN, dtype=torch.float32, device=dev)
+    clip = cuda_ms(lambda: soft_clip_lanes(loud, mem), 5)
+    print(f"opus_api times [{smi}]: a tick at B={B_DNN} (the traffic's "
+          f"first packets again) {ms:.1f} ms, {ops:.0f} device operations, "
+          f"{dms:.2f} ms device (busy {100 * dms / ms:.1f}%); ticks of the "
+          f"run {min(api['tick_ms']):.0f}-{max(api['tick_ms']):.0f} ms; K1 at "
+          f"LM 1 (start 0, end {tabs.end_band}) at B={b}: {k1:.4f} ms, plain "
+          f"{k1p:.2f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}); the soft clip "
+          f"on {B_DNN} loud lanes x 960 {clip:.3f} ms")
+    return dict(tick_ms=ms, ops=ops, dev_ms=dms, k1_lm1=k1, k1_lm1p=k1p,
+                k1_lm1_bound=bnd, soft_clip_ms=clip)
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -4856,7 +5297,8 @@ def main() -> int:
     for path in (FIXTURE, ENC_FIXTURE, SILK_FIXTURE, HYB_FIXTURE,
                  SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE,
                  FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE, BBWE_FIXTURE,
-                 SIM_FIXTURE, CELT_PLC_FIXTURE, SILK_PLC_FIXTURE):
+                 SIM_FIXTURE, CELT_PLC_FIXTURE, SILK_PLC_FIXTURE,
+                 API_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -5004,6 +5446,11 @@ def main() -> int:
         sp_jobs = {m: pool.submit(cpu_silk_plc, m, sp_in[m]["packets"],
                                   sp_in[m]["lost"], sp_in["cpu_lanes"])
                    for m in ("silk", "hybrid")}
+        afx = dict(np.load(API_FIXTURE))
+        api_in = opus_api_inputs(dev, afx)
+        api_job = pool.submit(cpu_opus_api, api_in["packets"],
+                              api_in["fec"], api_in["size"],
+                              api_in["cpu_lanes"])
         t0 = time.time()
         sl = phase_sim_loss(dev, simfx, sl_in, sl_job)
         phase_s["sim_loss"] = time.time() - t0
@@ -5016,6 +5463,9 @@ def main() -> int:
         t0 = time.time()
         sp = phase_silk_plc(dev, spfx, sp_in, sp_jobs)
         phase_s["silk_plc"] = time.time() - t0
+        t0 = time.time()
+        api = phase_opus_api(dev, afx, api_in, api_job)
+        phase_s["opus_api"] = time.time() - t0
 
     t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
@@ -5044,6 +5494,9 @@ def main() -> int:
     t0 = time.time()
     spt = silk_plc_times(dev, smi, sp_in)
     phase_s["silk_plc_times"] = time.time() - t0
+    t0 = time.time()
+    apt = opus_api_times(dev, smi, api_in, api)
+    phase_s["opus_api_times"] = time.time() - t0
 
     t0 = time.time()
     k5 = phase_k5(dev, smi)
@@ -5072,7 +5525,8 @@ def main() -> int:
                 "celt plc": cl["plain"]["counts"],
                 "celt plc dred": cl["dred"]["counts"],
                 "silk plc silk": sp["silk"]["counts"],
-                "silk plc hybrid": sp["hybrid"]["counts"]}
+                "silk plc hybrid": sp["hybrid"]["counts"],
+                "opus api": api["counts"]}
     print(f"launches per path ({NFRAMES} frames; the DRED chain "
           f"{CHAIN_FRAMES}): {per_path}")
 
@@ -5082,7 +5536,8 @@ def main() -> int:
     kernels = {"kernels": [
         kernel_line("celt_dec_frame", "opus_tpu_torch/csrc/celt_dec_frame.cu",
                     "opus_tpu/models/celt_dec_kernel.py:656", total("K1"),
-                    max(x_err, k1h_err, k1s_err, c10["x_err"]), t["k1"],
+                    max(x_err, k1h_err, k1s_err, c10["x_err"],
+                        api["x_err"]), t["k1"],
                     t["k1p"],
                     t["k1_bound"]),
         kernel_line("deemphasis", "opus_tpu_torch/csrc/deemphasis.cu",
@@ -5141,7 +5596,10 @@ def main() -> int:
           f"B={B_DNN}: " + "; ".join(f"tick, {k} {v:.3f} ms" for k, v in
                                      ct.items()) + f"; SILK-WB loss at "
           f"B={B_DNN}: " + "; ".join(f"tick, {k} {v[0]:.3f} ms" for k, v in
-                                     spt.items()))
+                                     spt.items()) + f"; opus_api tick at "
+          f"B={B_DNN} {apt['tick_ms']:.1f} ms (busy "
+          f"{100 * apt['dev_ms'] / apt['tick_ms']:.1f}%), K1 at LM 1 "
+          f"{apt['k1_lm1']:.4f} ms (bound {apt['k1_lm1_bound'][0]:.6f} ms)")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Copy of the packet parser of ``opus_tpu/bitstream/packet.py``
 (``packet_parse``, the frame count and size coding it and the repacketizer
-need) for the PyTorch port, which imports nothing of the JAX package: it
+need, and the TOC helpers ``Mode``, ``Bandwidth``, ``packet_get_mode``,
+``packet_get_bandwidth``, ``packet_get_nb_channels`` and
+``packet_get_nb_samples`` the top-level decoder needs) for the PyTorch port, which imports nothing of the JAX package: it
 finds a packet's padding, where DRED rides (reference: src/opus.c
 opus_packet_parse_impl).  Errors are the reference's negative codes.
 """
@@ -8,6 +10,7 @@ opus_packet_parse_impl).  Errors are the reference's negative codes.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from enum import IntEnum
 
 OPUS_OK = 0
 OPUS_BAD_ARG = -1
@@ -17,6 +20,20 @@ OPUS_INVALID_PACKET = -4
 OPUS_UNIMPLEMENTED = -5
 OPUS_INVALID_STATE = -6
 OPUS_ALLOC_FAIL = -7
+
+
+class Mode(IntEnum):
+    SILK_ONLY = 1000
+    HYBRID = 1001
+    CELT_ONLY = 1002
+
+
+class Bandwidth(IntEnum):
+    NARROWBAND = 1101      # 4 kHz
+    MEDIUMBAND = 1102      # 6 kHz
+    WIDEBAND = 1103        # 8 kHz
+    SUPERWIDEBAND = 1104   # 12 kHz
+    FULLBAND = 1105        # 20 kHz
 
 
 def packet_get_samples_per_frame(data: bytes, fs: int) -> int:
@@ -32,6 +49,32 @@ def packet_get_samples_per_frame(data: bytes, fs: int) -> int:
     return (fs << audiosize) // 100
 
 
+def packet_get_mode(data: bytes) -> Mode:
+    toc = data[0]
+    if toc & 0x80:
+        return Mode.CELT_ONLY
+    if (toc & 0x60) == 0x60:
+        return Mode.HYBRID
+    return Mode.SILK_ONLY
+
+
+def packet_get_bandwidth(data: bytes) -> Bandwidth:
+    toc = data[0]
+    if toc & 0x80:
+        bw = Bandwidth.MEDIUMBAND + ((toc >> 5) & 0x3)
+        if bw == Bandwidth.MEDIUMBAND:
+            bw = Bandwidth.NARROWBAND
+    elif (toc & 0x60) == 0x60:
+        bw = Bandwidth.FULLBAND if (toc & 0x10) else Bandwidth.SUPERWIDEBAND
+    else:
+        bw = Bandwidth.NARROWBAND + ((toc >> 5) & 0x3)
+    return Bandwidth(bw)
+
+
+def packet_get_nb_channels(data: bytes) -> int:
+    return 2 if (data[0] & 0x4) else 1
+
+
 def packet_get_nb_frames(data: bytes) -> int:
     if len(data) < 1:
         return OPUS_BAD_ARG
@@ -43,6 +86,16 @@ def packet_get_nb_frames(data: bytes) -> int:
     if len(data) < 2:
         return OPUS_INVALID_PACKET
     return data[1] & 0x3F
+
+
+def packet_get_nb_samples(data: bytes, fs: int) -> int:
+    count = packet_get_nb_frames(data)
+    if count < 0:
+        return count
+    samples = count * packet_get_samples_per_frame(data, fs)
+    if samples * 25 > fs * 3:
+        return OPUS_INVALID_PACKET
+    return samples
 
 
 def encode_size(size: int) -> bytes:

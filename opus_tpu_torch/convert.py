@@ -75,6 +75,7 @@ from .dnn import (bbwe, dred, dred_enc, fargan, features, lossgen, nnet,
 from .models import batched_decode
 from .models.celt_dec_fused import DecTabs, fused_celt_init_state
 from .models.celt_dec_kernel import dec_tabs
+from .ops.lanes import select_lanes
 
 _BAND_KEYS = ("old_e", "prev1", "prev2")
 _INT_KEYS = ("pf_period", "pf_period_old", "pf_tapset", "pf_tapset_old")
@@ -654,3 +655,69 @@ def dred_enc_state_from_jax(jax_encs, device="cpu"):
     for name in ("latents_buffer_fill", "dred_offset", "latent_offset"):
         setattr(out, name, int(getattr(first, name)))
     return out
+
+
+# ---- the top-level Opus decoder ----
+
+
+def opus_decoder_state(jax_decoders, device="cpu") -> dict:
+    """B scalar ``OpusDecoder``s of the JAX package (48 kHz mono), taken
+    mid-stream -> the port's per-lane ``BatchedOpusDecoder`` state
+    (``BatchedOpusDecoder.set_state``): the CELT decoder
+    (``celt_state_from_scalar``; the Opus level gates its concealment, so
+    every lane counts as having decoded), the SILK channel at its rate at
+    the port's widest buffers (the first 320 samples of the scalar's
+    outBuf, exc_Q14 and CNG buffer), its 48 kHz resampler (IIR state, the
+    FIR's 8 taps, the delay line padded to the widest), the 2-sample
+    buffer, the soft clip memory, the final range and the host fields:
+    prev_mode, prev_redundancy, mode, bandwidth, frame size, last packet
+    duration, the CELT decoder's start and end, the SILK rate (0 before
+    its first frame or after a reset), the gain."""
+    from .models.opus_decoder import RS_DELAY, BatchedOpusDecoder, \
+        _silk_fresh
+    decs = list(jax_decoders)
+    b = len(decs)
+    celt = celt_state_from_scalar([d.celt for d in decs], device)
+    fields = {}
+    for k in SILK_SCALAR_KEYS:
+        rows = []
+        for d in decs:
+            v = np.asarray(getattr(d.silk.channel_state[0], k), np.int64)
+            rows.append(v.reshape(-1)[:320] if v.ndim else v)
+        fields[k] = np.stack(rows)
+    silk = silk_state_from_scalar(fields, device)
+    fresh = [d.silk.channel_state[0].fs_kHz == 0 for d in decs]
+    if any(fresh):
+        m = torch.as_tensor(fresh, device=device)
+        silk = select_lanes(m, _silk_fresh(b, 16, device), silk)
+    rs = dict(s_iir=np.zeros((b, 6), np.int64),
+              s_fir=np.zeros((b, 8), np.int64),
+              delay=np.zeros((b, RS_DELAY), np.int64))
+    for i, d in enumerate(decs):
+        r = d.silk.channel_state[0].resampler
+        if r is not None:
+            rs["s_iir"][i] = r.s_iir[:6]
+            rs["s_fir"][i] = r.s_fir[:8]
+            rs["delay"][i, :r.input_delay] = r.delay_buf[:r.input_delay]
+    scalar = dict(
+        prev_mode=lambda d: d.prev_mode,
+        prev_redundancy=lambda d: bool(d.prev_redundancy),
+        mode=lambda d: int(d.mode), bandwidth=lambda d: int(d.bandwidth),
+        frame_size=lambda d: d.frame_size,
+        last_packet_duration=lambda d: d.last_packet_duration,
+        celt_start=lambda d: d.celt.start, celt_end=lambda d: d.celt.end,
+        silk_fs=lambda d: d.silk.channel_state[0].fs_kHz,
+        decode_gain=lambda d: d.decode_gain)
+    host = {k: [scalar[k](d) for d in decs]
+            for k in BatchedOpusDecoder.HOST_KEYS}
+    return dict(
+        celt=celt, silk=silk,
+        rs={k: torch.from_numpy(v).to(device) for k, v in rs.items()},
+        smid=torch.as_tensor(np.array([d.silk.sStereo.sMid for d in decs],
+                                      np.int64), device=device),
+        softclip_mem=torch.as_tensor(np.array(
+            [d.softclip_mem[0] for d in decs], np.float32), device=device),
+        rng=torch.as_tensor(np.array([d.rangeFinal for d in decs],
+                                     np.int64), device=device),
+        host={k: np.asarray(v, bool if k == "prev_redundancy" else np.int64)
+              for k, v in host.items()})

@@ -1,4 +1,4 @@
-"""Packets -> PCM at 10/20 ms with the symbol pass of kernel K1.
+"""Packets -> PCM at 2.5-20 ms with the symbol pass of kernel K1.
 
 Port of ``opus_tpu/models/celt_dec_kernel.py`` (``build_frame_fn``'s
 ``fn``, ``kernel_celt_decode_to_pcm`` and ``KernelCeltDecoder``).
@@ -34,11 +34,6 @@ INT_KEYS = ("silence", "is_transient", "intra", "anti_collapse_on",
 # launches of kernel K1 (counted where the kernel is launched, only there)
 launches = 0
 
-# K1 is held to its plain version at 10 and 20 ms only, as the reference
-# kernel path (opus_tpu/models/celt_dec_kernel.py KTabs) is
-_LM_MSG = "kernel K1 decodes 10/20 ms frames (LM >= 2) only"
-
-
 @lru_cache(maxsize=None)
 def dec_tabs(fs: int = 48000, frame_size: int = 960, start: int = 0,
              end: int | None = None) -> DecTabs:
@@ -67,8 +62,6 @@ def decode_frame(buf_u8, lens, old_e, prevmin, seed, tabs=None,
     pf_gain [B] (f32), and the int64 [B] lanes silence, is_transient,
     intra, anti_collapse_on, pf_pitch, pf_tapset, error, tell and rng."""
     tabs = dec_tabs() if tabs is None else tabs
-    if tabs.lm < 2:
-        raise ValueError(_LM_MSG)
     if buf_u8.device.type == "cpu":
         return decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs,
                                   d0)
@@ -78,7 +71,10 @@ def decode_frame(buf_u8, lens, old_e, prevmin, seed, tabs=None,
 def decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs,
                        d0=None) -> dict:
     """The plain torch version of kernel K1 (any device); it also returns
-    ``pulses`` [B, nb], each band's bit allocation (8th bits)."""
+    ``pulses`` [B, nb], each band's bit allocation (8th bits).  X is zero
+    on silence lanes, as K1 leaves it (the synthesis zeroes a silence
+    frame's spectrum; at LM 0 the masked pass would leave the sign of the
+    one-bin bands there)."""
     lens = lens.to(torch.int64).clamp(0, buf_u8.shape[1])
     nb = tabs.nb
     out, d = fused_celt_decode_frame(
@@ -86,7 +82,8 @@ def decode_frame_plain(buf_u8, lens, old_e, prevmin, seed, tabs,
         [prevmin[:, i] for i in range(nb)], seed.to(torch.int64), tabs,
         torch.ones_like(lens, dtype=torch.bool), d0)
     res = {k: out[k].to(torch.int64) for k in INT_KEYS[:6]}
-    res.update(X=out["X"], energies=torch.stack(out["energies"], dim=1),
+    silence = res["silence"] != 0
+    res.update(X=torch.where(silence[:, None], 0.0, out["X"]), energies=torch.stack(out["energies"], dim=1),
                pf_gain=out["pf_gain"], error=d["error"],
                tell=d["nbits_total"] - ilog(d["rng"]), rng=d["rng"],
                pulses=torch.stack(out["pulses"], dim=1))
@@ -182,7 +179,7 @@ def _missing_decay(state: dict, tabs: DecTabs):
 
 def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
                               frame_fn=None, d0=None):
-    """One frame at 10/20 ms: the K1 symbol pass + the synthesis stage
+    """One frame at 2.5-20 ms: the K1 symbol pass + the synthesis stage
     (IMDCT/TDAC, postfilter, de-emphasis with K2).  state: the
     fused_celt_init_state dict; d0: the live range-decoder dict to
     continue from (hybrid), or None.  Mirrors celt_decoder.c:1209-1614,
@@ -268,17 +265,15 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
 
 
 class KernelCeltDecoder:
-    """Packets-in -> PCM-out mono CELT decoder at 10/20 ms: kernel K1 for
-    the symbol pass and K2 for de-emphasis on the card (the default
-    device), their plain torch versions when ``device="cpu"``.  A 2.5 or
-    5 ms ``frame_size`` raises ValueError on either device, as the
-    reference's kernel decoder refuses it."""
+    """Packets-in -> PCM-out mono CELT decoder at 2.5, 5, 10 or 20 ms:
+    kernel K1 for the symbol pass and K2 for de-emphasis on the card (the
+    default device), their plain torch versions when ``device="cpu"``.
+    (The reference's kernel decoder refuses 2.5 and 5 ms; the port's K1
+    is held to its plain version at every LM.)"""
 
     def __init__(self, batch: int, fs: int = 48000, frame_size: int = 960,
                  max_payload: int = 384, device="cuda"):
         self.tabs = dec_tabs(fs, frame_size)
-        if self.tabs.lm < 2:
-            raise ValueError(f"KernelCeltDecoder: {_LM_MSG}")
         self.batch = batch
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

@@ -28,9 +28,10 @@ normal decode parses in-band FEC (LBRR) payloads through
 (dec_API.c:258-283); ``lbrr=`` lanes decode them in place of the regular
 frame, and lost frames are concealed (``fused_silk_conceal``, the
 classic concealment and comfort noise of ``silk_plc.py``, scalar-exact,
-so far at 16 kHz 20 ms).  Streams needing a third pulse escape, or whose
-LPC is still unstable after two bandwidth expansions, are flagged in the
-``error`` lane.
+so far at 16 kHz 20 ms).  Streams whose LPC is still unstable after two
+bandwidth expansions are flagged in the ``error`` lane (the JAX twin also
+flags a third LSB escape round; the port decodes every round, as the
+scalar decoder).
 
 Reference: silk/dec_API.c:135, decode_indices.c, decode_pulses.c,
 shell_coder.c, code_signs.c, decode_parameters.c, NLSF_decode.c,
@@ -253,9 +254,12 @@ def _lpc_inverse_pred_gain(a_q12, order: int, q30: bool = False):
         tmp2 = a_qa[:, k - nhalf:k].flip(1)       # a_qa[k-n-1]
         rc = rc_q31[:, None]
         m2, q2 = rc_mult2[:, None], mult2q[:, None]
-        t1 = F.sat32(tmp1 - ((tmp2 * rc) >> 31))
+        # MUL32_FRAC_Q(a, b, 31) is a rounded 64-bit shift (silk/macros.h;
+        # the scalar decoder's lpc_inverse_pred_gain): truncating moves the
+        # PLC's unvoiced noise gain
+        t1 = F.sat32(tmp1 - F.rshift_round64_checked(tmp2 * rc, 31)[0])
         new1, fit1 = F.rshift_round64_checked(t1 * m2, q2)
-        t2 = F.sat32(tmp2 - ((tmp1 * rc) >> 31))
+        t2 = F.sat32(tmp2 - F.rshift_round64_checked(tmp1 * rc, 31)[0])
         new2, fit2 = F.rshift_round64_checked(t2 * m2, q2)
         ok = ok & fit1.all(dim=1) & fit2.all(dim=1)
         # scatter back: positions [0..nhalf) and [k-1 .. k-nhalf]
@@ -535,19 +539,27 @@ def _frame_symbols(d, ctx: _Ctx, active, type_ix, error, nb_subfr: int,
                             active)
     ppb = ctx.t("ppb_icdf")
     ppb_rows = ppb[rate_level]
-    nblocks = L // 16
+    # a 10 ms frame at 12 kHz (120 samples) codes a last half block: 8
+    # shell blocks (decode_pulses.c:64-67)
+    nblocks = (L + 15) // 16
     sum_pulses, nshifts = [], []
+    # the escape's table, and at the 10th escape the same table less its
+    # first entry (decode_pulses.c:76-82)
+    esc_tabs = (ppb[9], torch.cat([ppb[9][1:], ppb[9][:1] * 0]))
     for _ in range(nblocks):
         sp, d = ctx.dec(d, ppb_rows, active)
-        # up to two LSB escape rounds are decoded natively; a third
-        # (>= 3 rounds, vanishingly rare) -> the error lane
+        # LSB escapes: each further round, while a lane's symbol is 17
         esc = active & (sp == 17)
-        sp2, d = ctx.dec(d, ppb[9], esc, skip_if_idle=True)
-        esc2 = esc & (sp2 == 17)
-        sp3, d = ctx.dec(d, ppb[9], esc2, skip_if_idle=True)
-        error = error | (esc2 & (sp3 == 17))
-        sum_pulses.append(torch.where(esc2, sp3, torch.where(esc, sp2, sp)))
-        nshifts.append(esc.to(torch.int64) + esc2.to(torch.int64))
+        ns = torch.zeros_like(sp)
+        for r in range(1, 11):
+            if not _any(esc):
+                break
+            sp_r, d = ctx.dec(d, esc_tabs[r == 10], esc)
+            ns = ns + esc.to(torch.int64)
+            sp = torch.where(esc, sp_r, sp)
+            esc = esc & (sp_r == 17)
+        sum_pulses.append(sp)
+        nshifts.append(ns)
     sum_pulses = torch.stack(sum_pulses, dim=1)          # [B, nblocks]
     nshifts = torch.stack(nshifts, dim=1)
 
@@ -560,12 +572,11 @@ def _frame_symbols(d, ctx: _Ctx, active, type_ix, error, nb_subfr: int,
             blk = torch.zeros((b, 16), dtype=torch.int64, device=dev)
         blocks.append(blk)
 
-    # LSB rounds (decode_pulses.c:94-110): up to two native rounds,
-    # sample-major with the per-sample shift loop innermost like the
-    # reference (k outer, j inner)
+    # LSB rounds (decode_pulses.c:94-110), sample-major with the
+    # per-sample shift loop innermost like the reference (k outer, j
+    # inner); a block runs as many rounds as its active lanes need
     lsb_tab = ctx.t("lsb")
-    rounds = (active[:, None] & (nshifts > 0)).any(dim=0).to(torch.int64) \
-        + (active[:, None] & (nshifts > 1)).any(dim=0).to(torch.int64)
+    rounds = torch.where(active[:, None], nshifts, 0).amax(dim=0)
     for k, nr in enumerate(rounds.tolist()):
         cols = list(blocks[k].unbind(1))
         for j in range(16 if nr else 0):
@@ -597,7 +608,7 @@ def _frame_symbols(d, ctx: _Ctx, active, type_ix, error, nb_subfr: int,
                 m = coded[:, k, j]
                 sgn, d = ctx.dec(d, table, m)
                 signs[:, k, j] = torch.where(m, 2 * sgn - 1, 1)
-    pulses = (blocks * signs).reshape(b, L)
+    pulses = (blocks * signs).reshape(b, 16 * nblocks)[:, :L]
     syms = dict(signal_type=signal_type, quant_offset_type=quant_offset_type,
                 gains_idx0=(g_hi << 3) + g_lo, gains_deltas=gains_deltas,
                 cb1=cb1, pred_q8=pred_q8, nlsf_idx=nlsf_idx,
@@ -885,8 +896,13 @@ def _good_frame_state(state, step_in, fr, carry, synth, xq, *, fs_khz,
     order = 16 if fs_khz >= 16 else 10
     pitch = step_in["pitch_l"]
     sig = fr["signal_type"]
+    # the excitation buffer keeps its width: a wider buffer (a lane whose
+    # frame length changes, as the scalar's 320-sample exc_Q14) keeps
+    # its samples past this frame's
+    exc = step_in["exc"]
+    exc = torch.cat([exc, state["exc_q14"][:, exc.shape[1]:]], dim=1)
     new = dict(state, **carry, first_frame=torch.zeros_like(
-        state["first_frame"]), synth=synth, exc_q14=step_in["exc"],
+        state["first_frame"]), synth=synth, exc_q14=exc,
         lag_prev=pitch[:, nb_subfr - 1], loss_cnt=torch.zeros_like(sig),
         prev_signal_type=sig, decoded_any=torch.ones_like(
             state["decoded_any"]))

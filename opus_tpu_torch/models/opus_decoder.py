@@ -1,0 +1,831 @@
+"""The top-level Opus decoder over B independent mono streams at 48 kHz.
+
+Port of ``opus_tpu/models/opus_decoder.py`` (``OpusDecoder``: the TOC,
+code 0-3 framing, mode dispatch, mode transitions and redundancy frames,
+loss and DTX, ``decode_int16``, ``OPUS_SET_GAIN``) for mono streams whose
+frames are at most 20 ms: CELT-only at 2.5-20 ms, SILK-only NB/MB/WB at
+10/20 ms and hybrid SWB/FB at 10/20 ms, in packets of any code.  Each
+lane gets its own packet (or None) at every call, and each lane's mode,
+bandwidth and frame size may change from packet to packet.
+
+How a call runs.  The packets are parsed on the host and each lane's
+work is laid out as a list of jobs: its frames, or the concealment of a
+lost packet in the pieces the reference conceals it in
+(opus_decoder.py:298-323).  Round r runs the r-th job of every lane.  A
+round follows ``_decode_frame`` (:280-488) stage by stage over the lanes
+that need each stage: the transition concealment, the SILK half, the
+redundancy signal, the CELT -> SILK redundant frame, the CELT frame (or
+a SILK frame's hybrid -> SILK fade), the SILK -> CELT redundant frame,
+then the splices, crossfades and gain lane by lane under masks.  Inside
+a stage the lanes are grouped by what fixes the code path -- (internal
+rate, SILK subframes) for SILK, (LM, start band, end band) for CELT --
+and each group runs on its own lanes, gathered out of the per-lane state
+and scattered back: a call costs its lanes' work, not B lanes' for
+every group.  The host reads the redundancy flags back once a round.
+
+State, one per lane: the CELT decoder's (``fused_celt_init_state``, the
+same for every frame size and band range, as libopus keeps one CELT
+decoder), the SILK decoder's at its widest (320-sample excitation and
+output buffers; a narrower rate reads a prefix, as the scalar's fixed
+buffers), the 48 kHz upsampler's, the two-sample SILK output buffer,
+and on the host the mode, bandwidth, redundancy and band-range fields
+of the scalar decoder (``prev_mode``, ``prev_redundancy``, the CELT
+decoder's ``start`` and ``end``, the SILK internal rate).  A change of
+SILK internal rate resets what ``silk/decoder.py:390`` ``set_fs`` and
+the PLC / CNG resets do.
+
+Kernels: K1 (every CELT frame, redundant frame and fade frame; LM 0-3),
+K2 (every CELT synthesis and concealment), K4 (every SILK frame and
+concealment) on the card, their plain versions on CPU tensors.  Errors:
+an invalid packet sets ``status`` on its lane for that call and leaves
+the lane's state untouched; a lane that K1 or the SILK symbol pass flags
+stays ``flagged``.  Out of scope (ValueError): SILK 40/60 ms frames
+(TOC configurations 2, 3, 6, 7, 10, 11) and stereo packets.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..bitstream import packet as pkt
+from ..celt.plc import decode_lost
+from ..ops import rc_kernel as K
+from ..ops.device_cache import const
+from ..ops.lanes import LaneOut
+from ..ops.mdct import _window
+from ..silk.resampler import input_delay, upsample_to_48k
+from ..utils.soft_clip import float2int16_lanes, soft_clip_lanes
+from .celt_dec_fused import fused_celt_init_state
+from .celt_dec_kernel import dec_tabs, kernel_celt_decode_to_pcm
+from .fused_silk_dec import fused_init_state, fused_silk_conceal, \
+    fused_silk_decode
+
+FS = 48000
+F20, F10, F5, F2_5 = 960, 480, 240, 120
+CELT, SILK, HYBRID = (int(pkt.Mode.CELT_ONLY), int(pkt.Mode.SILK_ONLY),
+                      int(pkt.Mode.HYBRID))
+# the CELT end band of each bandwidth (opus_decoder.py:413)
+END_BAND = {int(pkt.Bandwidth.NARROWBAND): 13,
+            int(pkt.Bandwidth.MEDIUMBAND): 17,
+            int(pkt.Bandwidth.WIDEBAND): 17,
+            int(pkt.Bandwidth.SUPERWIDEBAND): 19,
+            int(pkt.Bandwidth.FULLBAND): 21}
+SILK_LONG = (2, 3, 6, 7, 10, 11)     # SILK-only 40/60 ms configurations
+RS_DELAY = max(input_delay(k) for k in (8, 12, 16))
+HYBRID_START = 17
+HYBRID_CELT = -1     # a concealment of the CELT half alone (FEC frames)
+
+
+def _isr_khz(mode: int, bw: int) -> int:
+    """The SILK internal rate of a frame (opus_decoder.py:354-358)."""
+    if mode == SILK and bw == int(pkt.Bandwidth.NARROWBAND):
+        return 8
+    if mode == SILK and bw == int(pkt.Bandwidth.MEDIUMBAND):
+        return 12
+    return 16
+
+
+# ---- per-lane state trees: gather a group's lanes, scatter them back --
+
+def _take(tree, idx):
+    if isinstance(tree, dict):
+        return {k: _take(v, idx) for k, v in tree.items()}
+    return tree.index_select(0, idx)
+
+
+def _put(tree, idx, sub):
+    if isinstance(tree, dict):
+        return {k: _put(v, idx, sub[k]) for k, v in tree.items()}
+    return tree.index_copy(0, idx, sub.to(tree.dtype))
+
+
+def _silk_fresh(n: int, fs_khz: int, device) -> dict:
+    """A SILK lane as the scalar's after ``reset`` and its first
+    ``set_fs(fs_khz)``, at the widest buffers (the comfort noise's
+    smoothed NLSFs are those of the rate's LPC order)."""
+    st = fused_init_state(n, 16, device, 4)
+    order = 16 if fs_khz == 16 else 10
+    step = 32767 // (order + 1)
+    smth = [(i + 1) * step for i in range(order)] + [0] * (16 - order)
+    st["cng_smth_nlsf_q15"] = torch.tensor(
+        smth, dtype=torch.int64, device=device).repeat(n, 1)
+    return st
+
+
+def _rs_fresh(n: int, device) -> dict:
+    z = torch.zeros
+    return dict(s_iir=z((n, 6), dtype=torch.int64, device=device),
+                s_fir=z((n, 8), dtype=torch.int64, device=device),
+                delay=z((n, RS_DELAY), dtype=torch.int64, device=device))
+
+
+def _silk_view(st: dict, fs_khz: int) -> dict:
+    """The SILK state of lanes at ``fs_khz``: the LTP memory is the
+    first 20 ms of the stored output buffer."""
+    return dict(st, synth=dict(st["synth"], out_buf=st["synth"]["out_buf"]
+                               [:, :20 * fs_khz]))
+
+
+def _silk_unview(new: dict, old: dict) -> dict:
+    """``new`` (a ``_silk_view`` state after a frame) back at the stored
+    widths: buffers narrower than the store keep the store's tail."""
+    out = dict(new)
+    ob = new["synth"]["out_buf"]
+    old_ob = old["synth"]["out_buf"]
+    out["synth"] = dict(new["synth"], out_buf=torch.cat(
+        [ob, old_ob[:, ob.shape[1]:]], dim=1))
+    for k in ("exc_q14", "cng_exc_buf_q14"):
+        v = new[k]
+        out[k] = torch.cat([v, old[k][:, v.shape[1]:]], dim=1)
+    return out
+
+
+def _silk_48k(xq, smid, rs, fs_khz: int, frame_ms: int):
+    """The SILK API's output stage (silk/dec_API.c): the frame one sample
+    late through the 2-sample buffer, upsampled from fs_khz to 48 kHz.
+    rs: the stored upsampler state (its delay line at the widest)."""
+    d = input_delay(fs_khz)
+    seq = torch.cat([smid[:, 1:], xq[:, :-1]], dim=1)
+    out, st = upsample_to_48k(seq, dict(rs, delay=rs["delay"][:, :d]),
+                              fs_khz, frame_ms)
+    st["delay"] = torch.cat([st["delay"], rs["delay"][:, d:]], dim=1)
+    return out, st, xq[:, -2:]
+
+
+@lru_cache(maxsize=None)
+def _fade_gain(n: int) -> np.ndarray:
+    """smooth_fade's gains (src/opus_decoder.c:220): the squared CELT
+    window, float32."""
+    w = _window(n)
+    return (w * w).astype(np.float32)
+
+
+def _smooth_fade(in1, in2, dev):
+    """g * in2 + (1 - g) * in1 over 2.5 ms [., 120] (opus_decoder.py:235)."""
+    g = const(("opus_fade", F2_5), lambda: _fade_gain(F2_5), dev)
+    return g * in2 + (1.0 - g) * in1
+
+
+class BatchedOpusDecoder:
+    """B independent mono Opus streams decoded to 48 kHz float PCM on the
+    card (the default device: kernels K1, K2 and K4), or on the plain
+    versions with ``device="cpu"``.
+
+    ``decode(packets)``: one packet (bytes) or None (lost) a lane ->
+    (pcm [B, W] float32, n [B] numpy): lane i's output is pcm[i, :n[i]].
+    ``decode_int16`` adds the soft clip and FLOAT2INT16 (one
+    ``softclip_mem`` a lane).  ``final_range`` [B] is each lane's
+    ``rangeFinal``; ``status`` [B] (numpy) is 0, or OPUS_INVALID_PACKET on
+    a lane whose packet of this call was invalid (its state is
+    untouched); ``flagged`` [B] (numpy) holds for a lane that K1 or the
+    SILK symbol pass has flagged, for the rest of its stream.
+    ``set_gain(q8, lanes)`` is OPUS_SET_GAIN.  ``events`` counts the
+    frames of each kind that ran (for the tests and the card's report);
+    ``celt_used`` [B] (numpy) holds, after a call, on the lanes where a
+    CELT frame, redundant frame, fade frame or concealment contributed to
+    the output (elsewhere the output is SILK's int16 / 32768 exactly)."""
+
+    def __init__(self, batch: int, device="cuda", max_payload: int = 1275):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("BatchedOpusDecoder: no CUDA device (pass "
+                               "device='cpu' for the plain versions)")
+        self.batch = batch
+        self.P = max_payload
+        b, dev = batch, self.device
+        self.celt = self._celt_fresh(b)
+        self.silk = _silk_fresh(b, 16, dev)
+        self.rs = _rs_fresh(b, dev)
+        self.smid = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+        self.softclip_mem = torch.zeros(b, dtype=torch.float32, device=dev)
+        self.rng = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.prev_mode = np.zeros(b, np.int64)
+        self.prev_redundancy = np.zeros(b, bool)
+        self.mode = np.zeros(b, np.int64)
+        self.bandwidth = np.zeros(b, np.int64)
+        self.frame_size = np.full(b, FS // 400, np.int64)
+        self.last_packet_duration = np.zeros(b, np.int64)
+        self.celt_start = np.zeros(b, np.int64)
+        self.celt_end = np.full(b, 21, np.int64)
+        self.silk_fs = np.zeros(b, np.int64)      # 0: none since a reset
+        self.decode_gain = np.zeros(b, np.int64)
+        self.status = np.zeros(b, np.int64)
+        self.flagged = np.zeros(b, bool)
+        self.celt_used = np.zeros(b, bool)
+        self.events = {}
+
+    # ---- public API ---------------------------------------------------
+
+    HOST_KEYS = ("prev_mode", "prev_redundancy", "mode", "bandwidth",
+                 "frame_size", "last_packet_duration", "celt_start",
+                 "celt_end", "silk_fs", "decode_gain")
+
+    def get_state(self) -> dict:
+        """Every lane's state (device tensors and host arrays, copies):
+        what ``set_state`` takes, and ``convert.opus_decoder_state`` makes
+        from the JAX package's decoders."""
+        return dict(celt=self.celt, silk=self.silk, rs=self.rs,
+                    smid=self.smid, softclip_mem=self.softclip_mem,
+                    rng=self.rng, host={k: getattr(self, k).copy()
+                                        for k in self.HOST_KEYS})
+
+    def set_state(self, st: dict) -> None:
+        """Takes a ``get_state`` / ``convert.opus_decoder_state`` dict."""
+        dev = self.device
+
+        def to(t):
+            if isinstance(t, dict):
+                return {k: to(v) for k, v in t.items()}
+            return t.to(dev)
+        for k in ("celt", "silk", "rs", "smid", "softclip_mem", "rng"):
+            setattr(self, k, to(st[k]))
+        for k in self.HOST_KEYS:
+            setattr(self, k, np.array(st["host"][k]))
+
+    @property
+    def final_range(self):
+        return self.rng
+
+    def set_gain(self, gain_q8: int, lanes=None) -> None:
+        """OPUS_SET_GAIN (Q8 dB) on ``lanes`` ([B] bool, default all)."""
+        if not -32768 <= gain_q8 <= 32767:
+            raise ValueError("gain out of range")
+        m = np.ones(self.batch, bool) if lanes is None else np.asarray(
+            lanes, bool)
+        self.decode_gain = np.where(m, gain_q8, self.decode_gain)
+
+    def decode_int16(self, packets, decode_fec=None, frame_size=None):
+        """``decode``, then ``opus_pcm_soft_clip`` and FLOAT2INT16 per lane
+        (opus_decoder.py:177) -> (pcm int16 [B, W], n [B])."""
+        pcm, n = self.decode(packets, decode_fec, frame_size)
+        pcm, self.softclip_mem = soft_clip_lanes(pcm, self.softclip_mem,
+                                                 n=n)
+        return float2int16_lanes(pcm), n
+
+    def decode(self, packets, decode_fec=None, frame_size=None):
+        """packets: B entries, bytes (TOC included) or None (lost);
+        decode_fec ([B] bool): lanes that decode the packet's in-band FEC
+        (its LBRR frame) in place of the lost audio before it
+        (opus_decoder.py:134-160); frame_size ([B] samples, optional):
+        the audio a lost or FEC lane conceals or covers (default: the last
+        packet's duration, or the packet's frame size; an entry of 0
+        takes the default).  A refused packet (SILK 40/60 ms, stereo, an
+        FEC size off the 2.5 ms grid) raises ValueError before any lane
+        changes."""
+        b = self.batch
+        if len(packets) != b:
+            raise ValueError(f"decode: {len(packets)} packets for {b} lanes")
+        fec = np.zeros(b, bool) if decode_fec is None else np.asarray(
+            decode_fec, bool)
+        req = [None] * b if frame_size is None else [
+            int(v) or None for v in np.asarray(frame_size, np.int64)]
+        for i in range(b):
+            self._check(i, packets[i], bool(fec[i]), req[i])
+        self.status = np.zeros(b, np.int64)
+        self.celt_used = np.zeros(b, bool)
+        jobs = [self._plan(i, packets[i], bool(fec[i]), req[i])
+                for i in range(b)]
+        out = LaneOut(b, self.device, torch.float32)
+        depth = max((len(j) for j in jobs), default=0)
+        for r in range(depth):
+            self._round([j[r] if r < len(j) else None for j in jobs], out)
+        return out.build()
+
+    # ---- host planning -----------------------------------------------
+
+    def _conceal_jobs(self, i: int, n: int, jobs: list) -> None:
+        """The concealment of n samples on lane i in the reference's
+        pieces (opus_decoder.py:298-323), appended to ``jobs``; a lane
+        that has decoded nothing gets zeros."""
+        if self.prev_mode[i] == 0:
+            jobs.append(("zeros", n))
+            return
+        mode = CELT if self.prev_redundancy[i] else int(self.prev_mode[i])
+        done = 0
+        while done < n:
+            chunk = min(n - done, F20)
+            if chunk < F20:
+                if chunk > F10:
+                    chunk = F10
+                elif mode != SILK and F5 < chunk < F10:
+                    chunk = F5
+            jobs.append(("conceal", chunk, mode))
+            done += chunk
+
+    @staticmethod
+    def _check(i: int, data, fec: bool, req) -> None:
+        """The refusals of lane i's arguments, raised before any lane's
+        state or host field changes."""
+        if data is None or len(data) == 0:
+            return
+        config = data[0] >> 3
+        if config in SILK_LONG:
+            raise ValueError(f"BatchedOpusDecoder: TOC configuration "
+                             f"{config} (SILK-only 40/60 ms frames) is not "
+                             f"supported")
+        if data[0] & 4:
+            raise ValueError(f"BatchedOpusDecoder: lane {i}: stereo packets "
+                             f"are not supported")
+        if fec and req is not None and req % (FS // 400):
+            raise ValueError("FEC/PLC frame size must be a multiple of "
+                             "2.5 ms")
+
+    def _plan(self, i: int, data, fec: bool, req):
+        """Lane i's jobs for this call; sets the per-packet fields
+        (mode, bandwidth, frame size, last duration) as decode() does."""
+        jobs = []
+        if data is None or len(data) == 0:
+            n = req if req is not None else (
+                int(self.last_packet_duration[i]) or FS // 50)
+            self._conceal_jobs(i, n, jobs)
+            if self.prev_mode[i] != 0:
+                self.last_packet_duration[i] = n
+            return jobs
+        data = bytes(data)
+        parsed = pkt.packet_parse(data)
+        nfs = pkt.packet_get_samples_per_frame(data, FS)
+        if isinstance(parsed, int) or nfs * parsed.count * 25 > FS * 3 \
+                or max((len(f) for f in parsed.frames), default=0) > self.P:
+            self.status[i] = pkt.OPUS_INVALID_PACKET
+            return jobs
+        mode = int(pkt.packet_get_mode(data))
+        bw = int(pkt.packet_get_bandwidth(data))
+        if fec:
+            n = req if req is not None else nfs
+            if n < nfs or mode == CELT or self.mode[i] == CELT:
+                self._conceal_jobs(i, n, jobs)
+                if self.prev_mode[i] != 0:
+                    self.last_packet_duration[i] = n
+                return jobs
+            if n != nfs:
+                self._conceal_jobs(i, n - nfs, jobs)
+            self.mode[i], self.bandwidth[i], self.frame_size[i] = mode, bw, nfs
+            jobs.append(("frame", parsed.frames[0], nfs, mode, bw, True))
+            self.last_packet_duration[i] = n
+            return jobs
+        self.mode[i], self.bandwidth[i], self.frame_size[i] = mode, bw, nfs
+        for f in parsed.frames:
+            jobs.append(("frame", f, nfs, mode, bw, False))
+        self.last_packet_duration[i] = nfs * parsed.count
+        return jobs
+
+    # ---- one round -----------------------------------------------------
+
+    def _count(self, key: str, n: int) -> None:
+        if n:
+            self.events[key] = self.events.get(key, 0) + int(n)
+
+    def _idx(self, lanes) -> torch.Tensor:
+        return torch.as_tensor(np.nonzero(lanes)[0], device=self.device)
+
+    def _round(self, jobs, out: LaneOut) -> None:
+        b = self.batch
+        pcm = torch.zeros((b, F20), dtype=torch.float32, device=self.device)
+        n_out = np.zeros(b, np.int64)
+        zeros = np.array([j is not None and j[0] == "zeros" for j in jobs])
+        n_out[zeros] = [j[1] for j in jobs if j is not None
+                        and j[0] == "zeros"]
+        if zeros.any():
+            out.add(torch.zeros((b, int(n_out.max())), device=self.device),
+                    n_out)
+            n_out[:] = 0
+        conc = [(i, j) for i, j in enumerate(jobs)
+                if j is not None and j[0] == "conceal"]
+        frames = [(i, j) for i, j in enumerate(jobs)
+                  if j is not None and j[0] == "frame"]
+        for i, j in conc:
+            n_out[i] = j[1]
+        # a frame of 0-1 bytes is DTX: concealed, at most the TOC's
+        # duration (opus_decoder.py:292-297)
+        dtx = [(i, j) for i, j in frames if len(j[1]) <= 1]
+        if dtx:
+            sub = []
+            for i, j in dtx:
+                js = []
+                self._conceal_jobs(i, j[2], js)
+                n_out[i] = j[2]
+                if js[0][0] == "zeros":
+                    # no packet decoded yet: zeros, the range cleared
+                    self.rng[i] = 0
+                    continue
+                sub.append((i, js))
+            self._count("dtx", len(dtx))
+            for i, js in sub:
+                # a DTX frame of up to 20 ms is one piece
+                conc.append((i, js[0]))
+        if conc:
+            self._run_conceal(conc, pcm)
+        frames = [(i, j) for i, j in frames if len(j[1]) > 1]
+        if frames:
+            for i, j in frames:
+                n_out[i] = j[2]
+            self._run_frames(frames, pcm)
+        if n_out.any():
+            out.add(pcm, n_out)
+
+    # ---- concealment -------------------------------------------------
+
+    def _run_conceal(self, conc, pcm) -> None:
+        """The concealment pieces ``conc`` ((lane, ("conceal", chunk,
+        mode))) into pcm rows (opus_decoder.py:248-278, :318-323)."""
+        lanes = np.zeros(self.batch, bool)
+        for i, j in conc:
+            lanes[i] = True
+        self._conceal_into(conc, pcm)
+        for i, j in conc:
+            self.prev_mode[i] = j[2]
+        self.prev_redundancy[lanes] = False
+        idx = self._idx(lanes)
+        self.rng = self.rng.index_fill(0, idx, 0)
+        self._count("concealed", len(conc))
+
+    def _conceal_into(self, conc, dst) -> None:
+        """Runs the pieces ``conc`` and writes each lane's piece into
+        ``dst`` (a [B, >= chunk] f32 tensor) from sample 0; the CELT half
+        of a hybrid piece (or of an FEC frame, mode HYBRID_CELT) is added
+        on top (opus_decoder.py:248-278)."""
+        b = self.batch
+        silk = {}
+        celt = {}
+        for i, (_k, chunk, mode) in conc:
+            if mode in (SILK, HYBRID):
+                fs = int(self.silk_fs[i]) or 16
+                nb = 2 if max(10, 1000 * chunk // FS) == 10 else 4
+                silk.setdefault((fs, nb), []).append((i, chunk))
+            if mode != SILK:
+                n = min(F20, chunk)
+                if mode == HYBRID:
+                    self.celt_start[i] = HYBRID_START
+                key = (n, int(self.celt_start[i]), int(self.celt_end[i]),
+                       mode in (HYBRID, HYBRID_CELT))
+                celt.setdefault(key, []).append(i)
+        for (fs, nb), items in silk.items():
+            lanes = np.zeros(b, bool)
+            lanes[[i for i, _c in items]] = True
+            idx = self._idx(lanes)
+            st = _take(self.silk, idx)
+            xq, new = fused_silk_conceal(_silk_view(st, fs), fs_khz=fs,
+                                         nb_subfr=nb)
+            new["last_gain_index"] = torch.full_like(
+                new["last_gain_index"], 10)
+            out48, rs, smid = _silk_48k(xq, _take(self.smid, idx),
+                                        _take(self.rs, idx), fs, 5 * nb)
+            self.silk = _put(self.silk, idx, _silk_unview(new, st))
+            self.rs = _put(self.rs, idx, rs)
+            self.smid = _put(self.smid, idx, smid)
+            x = out48.to(torch.float32) * (1.0 / 32768.0)
+            w = min(x.shape[1], dst.shape[1])
+            dst[idx, :w] = x[:, :w]
+            self._count(f"silk_conceal_{fs}k_{5 * nb}ms", len(items))
+        for (n, start, end, accum), lanes_i in celt.items():
+            lanes = np.zeros(b, bool)
+            lanes[lanes_i] = True
+            idx = self._idx(lanes)
+            tabs = dec_tabs(FS, n, start, end)
+            st = _take(self.celt, idx)
+            one = torch.ones(len(lanes_i), dtype=torch.bool,
+                             device=self.device)
+            y, new, _tr = decode_lost(st, tabs, one)
+            self.celt = _put(self.celt, idx, new)
+            self.celt_used[lanes] = True
+            y = y[:, 0, :]
+            if accum:
+                dst[idx, :n] = dst[idx, :n] + y
+            else:
+                dst[idx, :n] = y
+            self._count(f"celt_conceal_lm{tabs.lm}", len(lanes_i))
+
+    # ---- decoded frames ----------------------------------------------
+
+    def _celt_fresh(self, n: int) -> dict:
+        st = fused_celt_init_state(n, dec_tabs(FS, F20), self.device)
+        st["decoded_any"] = torch.ones_like(st["decoded_any"])
+        return st
+
+    def _celt_reset(self, lanes) -> None:
+        if lanes.any():
+            idx = self._idx(lanes)
+            self.celt = _put(self.celt, idx, self._celt_fresh(len(idx)))
+            self._count("celt_reset", int(lanes.sum()))
+
+    def _silk_reset(self, lanes) -> None:
+        """silk.reset() (opus_decoder.py:346): a fresh SILK decoder, its
+        stereo state (the 2-sample buffer) and resampler included."""
+        if lanes.any():
+            idx = self._idx(lanes)
+            n = len(idx)
+            self.silk = _put(self.silk, idx, _silk_fresh(n, 16, self.device))
+            self.rs = _put(self.rs, idx, _rs_fresh(n, self.device))
+            self.smid = self.smid.index_fill(0, idx, 0)
+            self.silk_fs[lanes] = 0
+
+    def _set_fs(self, lanes, fs: int, length) -> None:
+        """The resets of a change of internal rate on ``lanes``
+        (silk/decoder.py:390-427 set_fs, and the PLC and CNG resets their
+        next use makes): LPC order, LTP memory and synthesis taps, lag,
+        gain index, signal type and the first-frame flag; the PLC's pitch,
+        gains and subframe shape; the comfort noise's smoothed NLSFs, gain
+        and seed; a new resampler.  length [B]: each lane's frame length
+        at the new rate (the PLC's reset pitch)."""
+        idx = self._idx(lanes)
+        n = len(idx)
+        old = _take(self.silk, idx)
+        fresh = _silk_fresh(n, fs, self.device)
+        keep = ("prev_nlsf", "prev_gain_q16", "exc_q14", "loss_cnt",
+                "plc_ltp_coef_q14", "plc_prev_lpc_q12",
+                "plc_prev_ltp_scale_q14", "plc_rand_scale_q14",
+                "plc_rand_seed", "plc_conc_energy", "plc_conc_energy_shift",
+                "plc_last_frame_lost", "cng_exc_buf_q14", "cng_synth_state",
+                "decoded_any")
+        new = dict(fresh, **{k: old[k] for k in keep})
+        new["plc_pitch_l_q8"] = torch.as_tensor(length[lanes] << 7,
+                                                device=self.device)
+        self.silk = _put(self.silk, idx, new)
+        self.rs = _put(self.rs, idx, _rs_fresh(n, self.device))
+        self.silk_fs[lanes] = fs
+
+    def _pack(self, frames):
+        """The round's frames -> (buf [B, P] u8, lens [B]) on the device."""
+        width = max(len(j[1]) for _i, j in frames)
+        buf = np.zeros((self.batch, width), np.uint8)
+        lens = np.zeros(self.batch, np.int64)
+        for i, j in frames:
+            buf[i, :len(j[1])] = np.frombuffer(j[1], np.uint8)
+            lens[i] = len(j[1])
+        return (torch.from_numpy(buf).to(self.device),
+                torch.from_numpy(lens).to(self.device))
+
+    def _celt_decode(self, groups, buf, lens, d, dst, accum_lanes=None):
+        """CELT frames by group: groups {(n, start, end): lanes [B] bool}
+        over buf/lens (full B rows), continuing from d (full-B range
+        decoder dict) where given.  Writes (or, on ``accum_lanes``, adds)
+        the PCM into dst rows; returns (rng [B], err [B]) on the device
+        (zeros outside the groups)."""
+        rng = torch.zeros(self.batch, dtype=torch.int64, device=self.device)
+        err = torch.zeros(self.batch, dtype=torch.bool, device=self.device)
+        for (n, start, end), lanes in groups.items():
+            idx = self._idx(lanes)
+            tabs = dec_tabs(FS, n, start, end)
+            st = _take(self.celt, idx)
+            d0 = None if d is None else _take(d, idx)
+            y, new, e = kernel_celt_decode_to_pcm(
+                buf.index_select(0, idx), lens.index_select(0, idx), st, tabs,
+                d0=d0)
+            self.celt = _put(self.celt, idx, new)
+            self.celt_used[lanes] = True
+            y = y[:, 0, :]
+            if accum_lanes is not None:
+                acc = torch.as_tensor(accum_lanes[lanes], device=self.device)
+                y = torch.where(acc[:, None], dst[idx, :n] + y, y)
+            dst[idx, :n] = y
+            rng = rng.index_copy(0, idx, new["rng_final"])
+            err = err.index_copy(0, idx, e)
+            self._count(f"celt_lm{tabs.lm}_start{start}", len(idx))
+        return rng, err
+
+    def _run_frames(self, frames, pcm) -> None:
+        """``_decode_frame`` (opus_decoder.py:280-488) for the lanes of
+        ``frames`` ((lane, ("frame", bytes, n, mode, bw, fec)))."""
+        b, dev = self.batch, self.device
+        on = np.zeros(b, bool)
+        mode = np.zeros(b, np.int64)
+        bw = np.zeros(b, np.int64)
+        size = np.zeros(b, np.int64)
+        fec = np.zeros(b, bool)
+        for i, j in frames:
+            on[i] = True
+            size[i], mode[i], bw[i], fec[i] = j[2], j[3], j[4], j[5]
+        self._count("fec_frames", int(fec.sum()))
+        prev = self.prev_mode.copy()
+        prev_red = self.prev_redundancy.copy()
+        is_celt = on & (mode == CELT)
+        transition = on & (prev > 0) & (
+            (is_celt & (prev != CELT) & ~prev_red)
+            | (~is_celt & (prev == CELT)))
+        buf, lens = self._pack(frames)
+        pcm_tr = torch.zeros((b, F5), dtype=torch.float32, device=dev)
+
+        # (a) the transition into CELT: conceal up to 5 ms in the old mode
+        # first (:330-342)
+        ta = transition & is_celt
+        if ta.any():
+            self._conceal_into([(i, ("conceal", min(F5, int(size[i])),
+                                     int(prev[i])))
+                                for i in np.nonzero(ta)[0]], pcm_tr)
+            self._count("transition_conceal", int(ta.sum()))
+
+        # (b) the SILK half (:344-370)
+        silk_on = on & ~is_celt
+        d_full = None
+        sil_err = torch.zeros(b, dtype=torch.bool, device=dev)
+        if silk_on.any():
+            self._silk_reset(silk_on & (prev == CELT))
+            isr = np.array([_isr_khz(int(mode[i]), int(bw[i])) if silk_on[i]
+                            else 0 for i in range(b)])
+            change = silk_on & (isr != self.silk_fs)
+            for fs in (8, 12, 16):
+                if (change & (isr == fs)).any():
+                    self._set_fs(change & (isr == fs), fs,
+                                 fs * np.where(size == F10, 10, 20))
+            d_full = K.rk_init(buf, lens)
+            for fs in (8, 12, 16):
+                for nb in (2, 4):
+                    g = silk_on & (isr == fs) & ((size == F10) == (nb == 2))
+                    if not g.any():
+                        continue
+                    idx = self._idx(g)
+                    st = _take(self.silk, idx)
+                    fl = torch.as_tensor(fec[g], device=dev)
+                    xq, new, e, d = fused_silk_decode(
+                        buf.index_select(0, idx), lens.index_select(0, idx),
+                        _silk_view(st, fs), fs_khz=fs, nb_subfr=nb,
+                        return_rc=True, lbrr=fl if fec[g].any() else None)
+                    out48, rs, smid = _silk_48k(
+                        xq, _take(self.smid, idx), _take(self.rs, idx), fs,
+                        5 * nb)
+                    self.silk = _put(self.silk, idx, _silk_unview(new, st))
+                    self.rs = _put(self.rs, idx, rs)
+                    self.smid = _put(self.smid, idx, smid)
+                    d_full = _put(d_full, idx, d)
+                    sil_err = sil_err.index_copy(0, idx, e)
+                    w = out48.shape[1]
+                    pcm[idx, :w] = out48.to(torch.float32) * (1.0 / 32768.0)
+                    self._count(f"silk_{fs}k_{5 * nb}ms", len(idx))
+
+        # (c) the redundancy signal (:372-398)
+        red = np.zeros(b, bool)
+        c2s = np.zeros(b, bool)
+        red_bytes = np.zeros(b, np.int64)
+        lens2 = lens
+        if silk_on.any():
+            hyb = torch.as_tensor(mode == HYBRID, device=dev)
+            can = torch.as_tensor(silk_on & ~fec, device=dev) & (
+                K.rk_tell(d_full) + 17 + torch.where(hyb, 20, 0) <= 8 * lens)
+            d = d_full
+            bit, d = K.rk_dec_bit_logp(d, buf, lens, 12, can & hyb)
+            r = can & (~hyb | (bit != 0))
+            cbit, d = K.rk_dec_bit_logp(d, buf, lens, 1, r)
+            ub, d = K.rk_dec_uint(d, buf, lens, 256, r & hyb)
+            rb = torch.where(hyb, ub + 2, lens - ((K.rk_tell(d) + 7) >> 3))
+            rb = torch.where(r, rb, 0)
+            l2 = lens - rb
+            bad = r & (l2 * 8 < K.rk_tell(d))
+            r = r & ~bad
+            rb = torch.where(bad, 0, rb)
+            l2 = torch.where(bad, 0, l2)
+            d_full = d
+            lens2 = torch.where(r | bad, l2, lens)
+            red = r.cpu().numpy()
+            c2s = red & (cbit.cpu().numpy() != 0)
+            red_bytes = rb.cpu().numpy()
+        transition = transition & ~red
+        endband = np.array([END_BAND.get(int(v), 21) for v in bw])
+        l2_np = lens2.cpu().numpy() if silk_on.any() else None
+
+        # (d) the transition out of CELT without redundancy (:400-403)
+        td = transition & ~is_celt
+        if td.any():
+            self._conceal_into([(i, ("conceal", min(F5, int(size[i])),
+                                     int(prev[i])))
+                                for i in np.nonzero(td)[0]], pcm_tr)
+            self._count("transition_conceal", int(td.sum()))
+        self.celt_end[on] = endband[on]
+
+        # the redundant frames' bytes (frame[len2:len2 + red_bytes])
+        red_rng = torch.zeros(b, dtype=torch.int64, device=dev)
+        red_pcm = torch.zeros((b, F20), dtype=torch.float32, device=dev)
+        rbuf = rlens = None
+        if red.any():
+            rows = []
+            for i, j in frames:
+                if red[i]:
+                    a = int(l2_np[i])
+                    rows.append((i, (None, j[1][a:a + int(red_bytes[i])])))
+            rbuf, rlens = self._pack(rows)
+
+        # (e) the 5 ms CELT -> SILK redundant frame (:421-427)
+        e_lanes = red & c2s
+        if e_lanes.any():
+            self.celt_start[e_lanes] = 0
+            rr, re = self._celt_decode(
+                self._groups(e_lanes, np.full(b, F5), endband, 0),
+                rbuf, rlens, None, red_pcm)
+            red_rng = torch.where(torch.as_tensor(e_lanes, device=dev), rr,
+                                  red_rng)
+            self._count("redundancy_celt_to_silk", int(e_lanes.sum()))
+        start_band = np.where(is_celt, 0, HYBRID_START)
+        self.celt_start[on] = start_band[on]
+
+        # (f) the CELT frame, or a SILK frame's fade (:429-448)
+        rng = torch.where(torch.as_tensor(silk_on, device=dev),
+                          d_full["rng"] if d_full is not None else 0,
+                          torch.zeros(b, dtype=torch.int64, device=dev))
+        k1_err = torch.zeros(b, dtype=torch.bool, device=dev)
+        celt_on = on & (mode != SILK)
+        if celt_on.any():
+            self._celt_reset(celt_on & (mode != prev) & (prev > 0)
+                             & ~prev_red)
+            reg = celt_on & ~fec
+            if reg.any():
+                hyb_reg = reg & (mode == HYBRID)
+                rr, k1_err = self._celt_decode(
+                    self._groups(reg, np.minimum(F20, size), endband,
+                                 start_band),
+                    buf, lens2, d_full if hyb_reg.any() else None, pcm,
+                    accum_lanes=hyb_reg)
+                rng = torch.where(torch.as_tensor(reg, device=dev), rr, rng)
+            fc = celt_on & fec
+            if fc.any():
+                # in-band FEC: the CELT half concealed (:429-436)
+                self._conceal_into([(i, ("conceal", min(F20, int(size[i])),
+                                         HYBRID_CELT))
+                                    for i in np.nonzero(fc)[0]], pcm)
+                rng = torch.where(torch.as_tensor(fc, device=dev),
+                                  self.celt["seed"], rng)
+        fade = on & (mode == SILK) & (prev == HYBRID) & ~(
+            red & c2s & prev_red)
+        if fade.any():
+            self.celt_start[fade] = 0
+            fbuf = torch.full((b, 2), 0xFF, dtype=torch.uint8, device=dev)
+            flen = torch.as_tensor(np.where(fade, 2, 0), device=dev)
+            tmp = torch.zeros((b, F20), dtype=torch.float32, device=dev)
+            self._celt_decode(self._groups(fade, np.full(b, F2_5), endband,
+                                           0), fbuf, flen, None, tmp)
+            fl = torch.as_tensor(fade, device=dev)[:, None]
+            pcm[:, :F2_5] = torch.where(fl, pcm[:, :F2_5] + tmp[:, :F2_5],
+                                        pcm[:, :F2_5])
+            self._count("fade_hybrid_to_silk", int(fade.sum()))
+
+        # (g) the 5 ms SILK -> CELT redundant frame and its fade (:451-460)
+        g_lanes = red & ~c2s
+        if g_lanes.any():
+            self._celt_reset(g_lanes)
+            self.celt_start[g_lanes] = 0
+            rr, _re = self._celt_decode(
+                self._groups(g_lanes, np.full(b, F5), endband, 0),
+                rbuf, rlens, None, red_pcm)
+            red_rng = torch.where(torch.as_tensor(g_lanes, device=dev), rr,
+                                  red_rng)
+            for n in np.unique(size[g_lanes]):
+                m = torch.as_tensor(g_lanes & (size == n), device=dev)
+                a = int(n) - F2_5
+                faded = _smooth_fade(pcm[:, a:a + F2_5],
+                                     red_pcm[:, F2_5:F5], dev)
+                pcm[:, a:a + F2_5] = torch.where(m[:, None], faded,
+                                                 pcm[:, a:a + F2_5])
+            self._count("redundancy_silk_to_celt", int(g_lanes.sum()))
+
+        # (h) CELT -> SILK: the redundant audio spliced in (:461-468)
+        h_lanes = red & c2s & ((prev != SILK) | prev_red)
+        if h_lanes.any():
+            m = torch.as_tensor(h_lanes, device=dev)[:, None]
+            head = torch.where(m, red_pcm[:, :F2_5], pcm[:, :F2_5])
+            mid = torch.where(m, _smooth_fade(red_pcm[:, F2_5:F5],
+                                              pcm[:, F2_5:F5], dev),
+                              pcm[:, F2_5:F5])
+            pcm[:, :F2_5] = head
+            pcm[:, F2_5:F5] = mid
+
+        # (i) the transition crossfade (:469-479)
+        if transition.any():
+            long_ = torch.as_tensor(transition & (size >= F5), device=dev)
+            short = torch.as_tensor(transition & (size < F5), device=dev)
+            head = torch.where(long_[:, None], pcm_tr[:, :F2_5],
+                               pcm[:, :F2_5])
+            head = torch.where(short[:, None], _smooth_fade(
+                pcm_tr[:, :F2_5], pcm[:, :F2_5], dev), head)
+            mid = torch.where(long_[:, None], _smooth_fade(
+                pcm_tr[:, F2_5:F5], pcm[:, F2_5:F5], dev), pcm[:, F2_5:F5])
+            pcm[:, :F2_5] = head
+            pcm[:, F2_5:F5] = mid
+            self._count("transition", int(transition.sum()))
+
+        # (j) the gain, the final range, the mode memory (:481-488)
+        gl = on & (self.decode_gain != 0)
+        if gl.any():
+            g = torch.as_tensor(np.where(gl, 2.0 ** (
+                6.48814081e-4 * self.decode_gain), 1.0), dtype=torch.float32,
+                device=dev)
+            pcm.mul_(g[:, None])
+        self.rng = torch.where(torch.as_tensor(on, device=dev),
+                               rng ^ red_rng, self.rng)
+        bad = (k1_err | sil_err).cpu().numpy() & on
+        self.flagged |= bad
+        self.prev_mode[on] = mode[on]
+        self.prev_redundancy[on] = (red & ~c2s)[on]
+        self._count("frames", int(on.sum()))
+
+    def _groups(self, lanes, n, endband, start):
+        """{(n, start, end): lanes [B] bool} over ``lanes``."""
+        start = np.broadcast_to(np.asarray(start), lanes.shape)
+        out = {}
+        for i in np.nonzero(lanes)[0]:
+            key = (int(n[i]), int(start[i]), int(endband[i]))
+            if key not in out:
+                out[key] = np.zeros(self.batch, bool)
+            out[key][i] = True
+        return out
+

@@ -1,8 +1,10 @@
 """Per-lane selection over a state tree: the one operation behind every
-per-lane reset, update and conceal of the batched decoders."""
+per-lane reset, update and conceal of the batched decoders; and the
+per-lane output a call assembles piece by piece."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -34,3 +36,35 @@ def select_lanes(mask: torch.Tensor, new, old):
     if isinstance(old, (tuple, list)):
         return type(old)(select_lanes(mask, n, o) for n, o in zip(new, old))
     raise TypeError(f"select_lanes: unexpected leaf {type(old)}")
+
+
+class LaneOut:
+    """A call's output over B lanes, assembled piece by piece: lane i's
+    pieces follow each other from sample 0 (``dtype`` of the result)."""
+
+    def __init__(self, batch: int, device, dtype=torch.int16):
+        self.parts = []
+        self.pos = np.zeros(batch, np.int64)
+        self.device = device
+        self.dtype = dtype
+
+    def add(self, seg, n):
+        """seg [B, L]: lane i appends its first n[i] samples."""
+        n = np.asarray(n, np.int64)
+        if n.any():
+            self.parts.append((seg, self.pos.copy(), n))
+            self.pos = self.pos + n
+
+    def build(self):
+        """-> (out [B, W], n [B] numpy): lane i's output is out[i, :n[i]]."""
+        b = len(self.pos)
+        width = int(self.pos.max(initial=0))
+        out = torch.zeros((b, width + 1), dtype=self.dtype,
+                          device=self.device)
+        for seg, pos, n in self.parts:
+            k = torch.arange(seg.shape[1], device=self.device)[None, :]
+            ln = torch.as_tensor(n, device=self.device)[:, None]
+            idx = torch.where(k < ln, torch.as_tensor(
+                pos, device=self.device)[:, None] + k, width)
+            out.scatter_(1, idx, seg.to(self.dtype))
+        return out[:, :width], self.pos.copy()

@@ -4,13 +4,26 @@ CUDA events around back-to-back Python calls time the calls: for a kernel
 of a few microseconds the wrapper's host work (checks, allocations, the
 ctypes call) is most of that.  The profiler's kernel records hold each
 launch's own start and end on the card, so their mean is the kernel's
-device time, whatever the host does between launches.
+device time, whatever the host does between launches.  The records are
+read from the profiler's raw results: building its ``key_averages`` costs
+~0.15 ms of host a record for the same counts and sums (21001 records:
+3.2 s against 0.2 s on an NVIDIA H100 80GB HBM3 host, 700.00 W).
 """
 
 from __future__ import annotations
 
 # profiles taken by device_ms before it gives up on the profiler
 PROFILE_ATTEMPTS = 3
+
+
+def card_records(prof):
+    """(name, device us) of every card record of a finished
+    ``torch.profiler.profile``: kernels, copies and fills."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
 
 
 def device_ms(fn, kernel: str, reps: int = 50) -> float:
@@ -32,14 +45,8 @@ def device_ms(fn, kernel: str, reps: int = 50) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us, count = 0.0, 0
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA \
-                    or kernel not in e.key:
-                continue
-            dt = getattr(e, "device_time_total", None)
-            total_us += e.cuda_time_total if dt is None else dt
-            count += e.count
+        times = [us for name, us in card_records(prof) if kernel in name]
+        total_us, count = sum(times), len(times)
         if count > reps:
             break
         if count >= reps // 2:
@@ -67,11 +74,5 @@ def device_profile(fn, reps: int = 3, warmup: bool = True) -> tuple:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = getattr(e, "device_time_total", None)
-        total_us += e.cuda_time_total if dt is None else dt
-        count += e.count
-    return count / reps, total_us / reps / 1e3
+    times = [us for _name, us in card_records(prof)]
+    return len(times) / reps, sum(times) / reps / 1e3

@@ -59,6 +59,7 @@ from ..models.celt_dec_kernel import KernelCeltDecoder
 from ..models.deep_plc import BatchedDeepPLC
 from ..models.fused_silk_dec import FusedSilkDecoder
 from ..models.hybrid_dec_fused import FusedHybridDecoder
+from ..ops.lanes import LaneOut
 
 FS = 48000
 FRAME = 960
@@ -92,36 +93,6 @@ def to_int16(pcm) -> torch.Tensor:
     """Float PCM -> int16 as opus_demo writes it."""
     return torch.clamp(torch.floor(pcm.to(torch.float64) * 32768 + 0.5),
                        -32768, 32767).to(torch.int16)
-
-
-class _Out:
-    """A tick's int16 output, assembled segment by segment: lane i's
-    segments follow each other from sample 0."""
-
-    def __init__(self, batch: int, device):
-        self.parts = []
-        self.pos = np.zeros(batch, np.int64)
-        self.device = device
-
-    def add(self, seg, n):
-        """seg [B, L] int16: lane i contributes its first n[i] samples."""
-        n = np.asarray(n, np.int64)
-        if n.any():
-            self.parts.append((seg, self.pos.copy(), n))
-            self.pos = self.pos + n
-
-    def build(self):
-        b = len(self.pos)
-        width = int(self.pos.max(initial=0))
-        out = torch.zeros((b, width + 1), dtype=torch.int16,
-                          device=self.device)
-        for seg, pos, n in self.parts:
-            k = torch.arange(seg.shape[1], device=self.device)[None, :]
-            ln = torch.as_tensor(n, device=self.device)[:, None]
-            idx = torch.where(k < ln, torch.as_tensor(
-                pos, device=self.device)[:, None] + k, width)
-            out.scatter_(1, idx, seg)
-        return out[:, :width], self.pos.copy()
 
 
 class BatchedLossDecoder:
@@ -217,7 +188,7 @@ class BatchedLossDecoder:
         self.events.append(ev)
         out.add(pcm16, np.where(m, FRAME, 0))
 
-    def _conceal_call(self, m: np.ndarray, kind: int, out: _Out):
+    def _conceal_call(self, m: np.ndarray, kind: int, out: LaneOut):
         """One 20 ms concealment on the lanes of m ([B] bool numpy); a lane
         that has decoded nothing emits zeros (kind ZEROS)."""
         mt = torch.as_tensor(m, device=self.device)
@@ -233,13 +204,13 @@ class BatchedLossDecoder:
         self._event("conceal", m, np.where(had, kind, ZEROS), torch.zeros_like(
             self._rng), out, pcm16)
 
-    def _conceal(self, frames: np.ndarray, out: _Out, kind=CONCEALED):
+    def _conceal(self, frames: np.ndarray, out: LaneOut, kind=CONCEALED):
         """Conceals frames[i] 20 ms frames of lane i, one call a frame over
         the lanes that still have one, into ``out``."""
         for p in range(int(frames.max(initial=0))):
             self._conceal_call(frames > p, kind, out)
 
-    def _fec(self, lanes, frames, dtx, out: _Out):
+    def _fec(self, lanes, frames, dtx, out: LaneOut):
         """The in-band FEC frame of the resuming lanes (``lanes`` [B] bool
         numpy): the LBRR frame of their packet decoded in place of the last
         lost 20 ms (or concealed where it carries none), a DTX packet's
@@ -277,7 +248,7 @@ class BatchedLossDecoder:
         good = recv & ~dtx
         fecl = self._fec_lanes
         defer = fecl | self.use_dred
-        out = _Out(b, self.device)
+        out = LaneOut(b, self.device)
         resume = recv & (self._pending > 0)
         span = np.where(resume, self._pending, 0)
         self.dred_lanes = np.zeros(b, bool)
@@ -334,7 +305,7 @@ class BatchedLossDecoder:
         """The stream's end: conceals every lane's pending span classically
         (opus_demo.py:175-176) -> (pcm int16 [B, W], n [B]) as ``tick``;
         ``pending()`` is zero after it."""
-        out = _Out(self.batch, self.device)
+        out = LaneOut(self.batch, self.device)
         self._conceal(self._pending // FRAME, out)
         self._pending = np.zeros(self.batch, np.int64)
         return out.build()

@@ -10,7 +10,7 @@ versions of kernels K1 and K2) over chained 20 ms frames, against
   de-emphasis add a few u);
 - a state handoff mid-stream (convert.state_from_jax / state_to_numpy);
 
-and refusing 2.5/5 ms frames as the reference's kernel decoder does.
+and decoding 2.5/5 ms frames, which the reference's kernel decoder refuses.
 """
 
 import numpy as np
@@ -133,30 +133,26 @@ def test_torch_decoder_chain():
 @pytest.mark.parametrize("frame_size", [120, 240])
 def test_torch_kernel_decoder_refuses_lm_0_and_1(frame_size):
     """2.5 and 5 ms frames (LM 0/1): the reference's KernelCeltDecoder
-    refuses them (KTabs asserts LM >= 2) and so do the port's decoder and
-    its K1 launcher, with ValueError on any device; the plain symbol pass
-    and the tables stay available."""
+    still refuses them (KTabs asserts LM >= 2); the port's decoder takes
+    them on the plain versions of K1 and K2, and its chain of 6 frames
+    gives the scalar OpusDecoder's final ranges and PCM within 1e-4."""
     from opus_tpu.models.celt_dec_kernel import \
         KernelCeltDecoder as JaxKernelCeltDecoder
-    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu.models.opus_decoder import OpusDecoder
 
     with pytest.raises(AssertionError):
         JaxKernelCeltDecoder(1024, frame_size=frame_size)
-    with pytest.raises(ValueError):
-        KernelCeltDecoder(2, frame_size=frame_size, device="cpu")
-    with pytest.raises(ValueError):
-        KernelCeltDecoder(2, frame_size=frame_size)
-    tabs = CK.dec_tabs(48000, frame_size)
-    assert tabs.lm == {120: 0, 240: 1}[frame_size]
-    for dev in ("cpu", "meta"):
-        with pytest.raises(ValueError, match="LM >= 2"):
-            CK.decode_frame(torch.zeros((2, 8), dtype=torch.uint8,
-                                        device=dev),
-                            torch.zeros(2, dtype=torch.int64, device=dev),
-                            torch.zeros((2, tabs.nb), device=dev),
-                            torch.zeros((2, tabs.nb), device=dev),
-                            torch.zeros(2, dtype=torch.int64, device=dev),
-                            tabs)
+    dec = KernelCeltDecoder(2, frame_size=frame_size, device="cpu")
+    assert dec.tabs.lm == {120: 0, 240: 1}[frame_size]
+    frames = _encode_frames(frame_size, nframes=NFRAMES, bitrate=64000)
+    toc = bytes([(28 + dec.tabs.lm) << 3])        # CELT-only fullband
+    ref = OpusDecoder(48000, 1)
+    for f in frames:
+        want = np.asarray(ref.decode(toc + f)).reshape(-1)
+        pcm, err = dec.decode([f, f])
+        assert not err.any()
+        assert dec.final_range().tolist() == [ref.rangeFinal] * 2
+        assert np.abs(pcm[:, 0].numpy() - want).max() <= 1e-4
 
 
 @pytest.mark.parametrize("frame_size", [480, 960])

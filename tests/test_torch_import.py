@@ -46,7 +46,10 @@ for name in ("opus_tpu_torch.models.hybrid_dec_fused",
              "opus_tpu_torch.models.fused_silk_dec",
              "opus_tpu_torch.models.batched_silk",
              "opus_tpu_torch.ops.silk_fixed", "opus_tpu_torch.ops.lpc",
-             "opus_tpu_torch.convert"):
+             "opus_tpu_torch.convert",
+             "opus_tpu_torch.models.opus_decoder",
+             "opus_tpu_torch.utils.soft_clip",
+             "opus_tpu_torch.tools.opus_demo"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",

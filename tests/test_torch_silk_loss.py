@@ -31,17 +31,15 @@ def sfx():
     return dict(np.load(os.path.join(DATA, "torch_silk_plc.npz")))
 
 
-@pytest.mark.parametrize("mode,ticks", [("silk", 16), ("hybrid", 12)])
+@pytest.mark.parametrize("mode,ticks", [("silk", 16), ("hybrid", 16)])
 def test_plain_and_inbandfec_loops_match_opus_demo(sfx, mode, ticks):
     """The plain loop conceals each lost packet in its own tick (a DTX
     packet too); -inbandfec conceals a run's pending span less 20 ms when
     it ends, decodes the resuming packet's LBRR frame into the last 20 ms
     (or conceals it where the packet has none) and then the packet;
-    flush() conceals a run open at the end.  SILK over all 16 frames;
-    hybrid over the first 12, which keeps these tests within a minute on
-    one core (chip_smoke.py's silk_plc phase holds the card to all 16);
-    the -inbandfec runs still open at the cut are not held
-    (``silk_plc_fixture``)."""
+    flush() conceals a run open at the end.  Both modes over all 16
+    frames of the fixture (chip_smoke.py's silk_plc phase holds the card
+    to the first SILK_PLC_TICKS of them)."""
     pk = CS.silk_plc_packets(sfx, mode)
     lost = sfx[f"{CS.SILK_PLC_KEY[mode]}_lost"][:, :ticks]
     dec = BatchedLossDecoder(16, device="cpu", dred=False, mode=mode,
