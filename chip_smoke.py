@@ -160,7 +160,31 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    hybrid int16 within ``CLASSIC_LSB``; CUDA event times of a SILK-WB tick
    with no lost lane, with a tenth of the lanes' first and second loss
    and with their resume through LBRR, with device operations and busy
-   share.
+   share;
+20. the top-level decoder (``BatchedOpusDecoder``, opus_api) over 1024
+   lanes of ``tests/data/torch_opus_api.npz``'s mixed mono traffic at two
+   packet offsets with losses and in-band FEC, API_TICKS calls: K1 (LM
+   0-3), K2 and K4 counted, held to the port's CPU run and the JAX
+   decoder; K1 at LM 0/1 against its plain version; the soft clip;
+21. stereo and 40/60 ms SILK (opus_stereo): ``BatchedOpusDecoder(
+   channels=2)`` over 1024 lanes and ``channels=1`` over 256 of
+   ``tests/data/torch_opus_stereo.npz``'s streams (mono SILK at 40/60
+   ms, stereo CELT, SILK and hybrid, a stereo <-> mono stream; losses and
+   FEC), every other group of 8 lanes from a later step of each stream,
+   STEREO_TICKS calls (the first timed, the last traced: operations,
+   device time, busy share) and STEREO_MONO_TICKS calls, the counters of
+   K1's mono and stereo instantiations, K2 and K4 reset around each, held
+   to the port's CPU runs and the JAX decoder at one and two channels,
+   with the fixture test's events (the stereo -> mono switch and the
+   stereo SILK concealment among them); K1's stereo instantiation
+   against its plain version on the inputs the run gave it (LM 0-3,
+   start 0 and 17) tiled to 4096 + 32 lanes, disable_inv 0 and 1; K1
+   stereo's time, bound and geometry beside the mono instantiation's.
+
+The script's host, not its card, sets its pace: a second process on the
+card runs items 4 and 5 (the encoder and duplex), 7 (SILK), 8 and 9
+(both hybrids) and 14 (10 ms CELT) while this one runs the others, and every timing phase runs after both
+have finished, alone on the card.
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is the result JSON; any failed check
@@ -298,29 +322,32 @@ def make_lanes(fx, rng, b_main=B_MAIN):
     return out, stream
 
 
-def compare_k1(got, ref, tabs):
-    """Integer outputs identical; X and energies within tolerance."""
+def compare_k1(got, ref, tabs, what=""):
+    """Integer outputs identical; X (each channel's, at two channels) and
+    energies within tolerance."""
     import torch
     from opus_tpu_torch.models.celt_dec_kernel import INT_KEYS
     for k in INT_KEYS:
         if not torch.equal(got[k], ref[k]):
             bad = (got[k] != ref[k]).nonzero()[:5, 0].tolist()
-            fail(f"K1 vs plain: {k} differs at lanes {bad}")
+            fail(f"K1 vs plain{what}: {k} differs at lanes {bad}")
     e_err = (got["energies"] - ref["energies"]).abs().max().item()
     if not e_err <= E_ABS_TOL:
-        fail(f"K1 vs plain: energies err {e_err}")
+        fail(f"K1 vs plain{what}: energies err {e_err}")
     if not torch.equal(got["pf_gain"], ref["pf_gain"]):
-        fail("K1 vs plain: pf_gain differs")
+        fail(f"K1 vs plain{what}: pf_gain differs")
     x_err = 0.0
     m, eb = tabs.M, tabs.eBands
+    nx = ref["X"].shape[-1]
     for i in range(tabs.nb):
         a, c = m * int(eb[i]), m * int(eb[i + 1])
-        xr, xg = ref["X"][:, a:c], got["X"][:, a:c]
+        xr = ref["X"].reshape(-1, nx)[:, a:c]
+        xg = got["X"].reshape(-1, nx)[:, a:c]
         scale = xr.abs().amax(dim=1)
         diff = (xg - xr).abs().amax(dim=1)
         if not bool((diff <= X_REL_TOL * scale).all()):
             lane = int((diff - X_REL_TOL * scale).argmax())
-            fail(f"K1 vs plain: X band {i} lane {lane} err "
+            fail(f"K1 vs plain{what}: X band {i} row {lane} err "
                  f"{diff[lane].item()} (band max {scale[lane].item()})")
         x_err = max(x_err, diff.max().item())
     return x_err, e_err
@@ -742,15 +769,16 @@ def k1_bound(tabs, args, out) -> tuple:
     """K1's bound on ``decode_frame(*args)`` -> out.  Bytes: each input
     read once (packets, lens, energy memories, seeds, table), each output
     written once (X, energies, 9 int lanes, gain); operations: ~20 f32
-    operations per coefficient (rotation, haar, renormalise), an estimate
-    from the source that stays below the bytes bound."""
+    operations per coefficient (rotation, haar, renormalise; each
+    channel's at two channels), an estimate from the source that stays
+    below the bytes bound."""
     from opus_tpu_torch.models import celt_dec_kernel as CK
     buf, _ln, old_e, pm, seed = args[:5]
     b = buf.shape[0]
     tab = CK.k1_table(tabs, buf.device)
     nbytes = nbytes_of(buf, old_e, pm, seed, tab, out["X"], out["energies"],
                        out["pf_gain"]) + b * 4 * (1 + 9)
-    return bound(nbytes, 20.0 * tabs.nx * b)
+    return bound(nbytes, 20.0 * out["X"].numel())
 
 
 def k3_bound(tabs, X, out) -> tuple:
@@ -4842,6 +4870,7 @@ def silk_plc_times(dev, smi, inp):
 
 API_FIXTURE = os.path.join(REPO, "tests", "data", "torch_opus_api.npz")
 API_TICKS = 12          # of the fixture streams' 20-27 packets
+API_TIME_TICKS = 4      # of those, timed alone: 3 with CUDA events, 1 traced
 API_FX = tuple(range(8))    # lanes carrying the fixture streams from packet 0
 API_CPU_EXTRA = 48      # other lanes the card is held to the CPU run on
 API_LOSS_SEED = 1600
@@ -4911,34 +4940,45 @@ def opus_api_inputs(dev, afx):
 
 
 def opus_api_run(packets, device, keep=None, timed=False, fec=None,
-                 size=None):
-    """``BatchedOpusDecoder`` over len(packets) lanes, one call a tick
-    (``fec`` / ``size`` [B, T]: the lanes' ``decode_fec`` and
+                 size=None, channels=1, trace_last=False):
+    """``BatchedOpusDecoder(channels=...)`` over len(packets) lanes, one
+    call a tick (``fec`` / ``size`` [B, T]: the lanes' ``decode_fec`` and
     ``frame_size``), and the int16 of ``decode_int16`` (the soft clip with
-    each lane's memory).  Per tick and kept lane (``keep``, default all): float PCM,
-    int16, sample count, final range, celt_used; the decoder's events and
-    flags; with timed=True each tick's CUDA event time."""
+    each lane's and channel's memory).  Per tick and kept lane (``keep``,
+    default all): float PCM ([L, W], or [L, W, 2] at two channels), int16,
+    sample count, final range, celt_used; the decoder's events and flags;
+    with timed=True each tick's CUDA event time; with trace_last=True the
+    last tick traced instead (``trace``: its device operations and device
+    ms; its time is left out of tick_ms, the profiler's host cost in it)."""
     import numpy as np
     import torch
     from opus_tpu_torch.models.opus_decoder import BatchedOpusDecoder
-    from opus_tpu_torch.utils.soft_clip import (float2int16_lanes,
-                                                soft_clip_lanes)
     b = len(packets)
     keep = np.arange(b) if keep is None else np.asarray(keep)
-    dec = BatchedOpusDecoder(b, device=device)
+    dec = BatchedOpusDecoder(b, channels=channels, device=device)
     out = dict(pcm=[], pcm16=[], n=[], rng=[], celt=[], tick_ms=[])
-    for t in range(len(packets[0])):
-        if timed:
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-        pcm, n = dec.decode([row[t] for row in packets],
-                            None if fec is None else fec[:, t],
-                            None if size is None else size[:, t])
-        clipped, dec.softclip_mem = soft_clip_lanes(pcm, dec.softclip_mem,
-                                                    n=n)
-        pcm16 = float2int16_lanes(clipped)
-        if timed:
+    nt = len(packets[0])
+    for t in range(nt):
+        args = ([row[t] for row in packets],
+                None if fec is None else fec[:, t],
+                None if size is None else size[:, t])
+        if trace_last and t == nt - 1:
+            from opus_tpu_torch.tools.device_time import device_profile
+            got = {}
+
+            def tick():
+                got["r"] = dec.decode(*args)
+                got["c"] = dec.soft_clip_int16(*got["r"])
+            out["trace"] = device_profile(tick, reps=1, warmup=False)
+            (pcm, n), (pcm16, _n) = got["r"], got["c"]
+        else:
+            if timed:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            pcm, n = dec.decode(*args)
+            pcm16, _n = dec.soft_clip_int16(pcm, n)
+        if timed and not (trace_last and t == nt - 1):
             e1.record()
             torch.cuda.synchronize()
             out["tick_ms"].append(e0.elapsed_time(e1))
@@ -4953,12 +4993,12 @@ def opus_api_run(packets, device, keep=None, timed=False, fec=None,
     return out
 
 
-def cpu_opus_api(packets, fec, size, lanes):
-    """The opus_api run on the CPU over ``lanes``, in a worker process
-    while the card runs."""
+def cpu_opus_api(packets, fec, size, lanes, channels=1):
+    """The opus_api (or opus_stereo) run on the CPU over ``lanes``, in a
+    worker process while the card runs."""
     t0 = time.time()
     out = opus_api_run([packets[i] for i in lanes], "cpu", fec=fec[lanes],
-                       size=size[lanes])
+                       size=size[lanes], channels=channels)
     del out["decoder"]
     out["seconds"] = time.time() - t0
     return out
@@ -4968,18 +5008,22 @@ def api_compare(got, ref, what, gl=None, rl=None, silk_exact=None):
     """Per tick and lane (got's rows gl, ref's rows rl): sample counts and
     final ranges equal; int16 equal where ``silk_exact`` [T, L] holds (no
     CELT contribution); elsewhere float PCM within PCM_ABS_TOL, or, on a
-    concealed packet (``concealed`` [T, L]), int16 within CLASSIC_LSB.
-    Returns (max float err, max int16 err) over the checked packets."""
+    concealed packet (``concealed`` [T, L]), int16 within CLASSIC_LSB; a
+    row whose check is "skip" (a fixture stream past its end) is not
+    compared.  Returns (max float err, max int16 err) over the checked
+    packets."""
     import numpy as np
     e_f, e_i = 0.0, 0
     for t in range(len(ref["n"])):
         ga = slice(None) if gl is None else gl
         ra = slice(None) if rl is None else rl
+        on = np.asarray([k != "skip" for k in ref["kind"][t]])
         n_g, n_r = got["n"][t][ga], ref["n"][t][ra]
-        if not np.array_equal(n_g, n_r):
+        if not np.array_equal(n_g[on], n_r[on]):
             fail(f"opus_api {what}: tick {t}: sample counts differ")
-        if not np.array_equal(got["rng"][t][ga], ref["rng"][t][ra]):
-            bad = np.nonzero(got["rng"][t][ga] != ref["rng"][t][ra])[0]
+        rg, rr = got["rng"][t][ga], ref["rng"][t][ra]
+        if not np.array_equal(rg[on], rr[on]):
+            bad = np.nonzero((rg != rr) & on)[0]
             fail(f"opus_api {what}: tick {t}: final ranges differ on "
                  f"rows {bad[:8].tolist()}")
         pg, pr = got["pcm"][t][ga], ref["pcm"][t][ra]
@@ -5080,12 +5124,17 @@ def soft_clip_inputs(rng, b: int, w: int):
 
 
 def k1_short_lanes(captured, rng):
-    """K1's LM 0/1 inputs captured on the card (per (lm, start, end)):
-    their rows tiled to B_MAIN lanes plus N_BAD garbage lanes (half the
-    captured packets truncated, half random bytes), and the same bytes at
+    """K1's inputs captured on the card (per (lm, start, end): rows of
+    (buf, lens, old_e, prevmin, seed) and, from the stereo instantiation,
+    the coder state d0 or None): their rows tiled to B_MAIN lanes plus
+    N_BAD garbage lanes (half the captured packets truncated, half random
+    bytes), as (tabs, args, d0) with d0 None for mono rows and, for
+    stereo rows, a coder state on every lane (a coder started on its
+    packet where none was given); and the LM 0/1 start-0 bytes again at
     start 17 (a hybrid range at LM 0/1, which no decoder path reaches)."""
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.ops import rc_kernel as K
     cases = {}
     for key, rows in captured.items():
         p = max(r[0].shape[1] for r in rows)
@@ -5093,9 +5142,16 @@ def k1_short_lanes(captured, rng):
                          for r in rows])
         lens, old_e, pm, seed = (torch.cat([r[i] for r in rows])
                                  for i in range(1, 5))
+        d0 = None
+        if len(rows[0]) > 5:
+            d0s = [r[5] if r[5] is not None else K.rk_init(
+                r[0], r[1].clamp(0, r[0].shape[1])) for r in rows]
+            d0 = {k: torch.cat([d[k] for d in d0s]) for k in d0s[0]}
         reps = -(-B_MAIN // buf.shape[0])
-        t = [x.repeat((reps,) + (1,) * (x.dim() - 1))[:B_MAIN]
-             for x in (buf, lens, old_e, pm, seed)]
+
+        def tile(x):
+            return x.repeat((reps,) + (1,) * (x.dim() - 1))[:B_MAIN]
+        t = [tile(x) for x in (buf, lens, old_e, pm, seed)]
         bad_buf = torch.zeros((N_BAD, p), dtype=torch.uint8,
                               device=buf.device)
         bad_len = torch.zeros(N_BAD, dtype=torch.int64, device=buf.device)
@@ -5113,25 +5169,29 @@ def k1_short_lanes(captured, rng):
                 torch.cat([t[2], t[2][:N_BAD]]),
                 torch.cat([t[3], t[3][:N_BAD]]),
                 torch.cat([t[4], t[4][:N_BAD]]))
+        if d0 is not None:
+            d0 = {k: torch.cat([tile(v), tile(v)[:N_BAD]])
+                  for k, v in d0.items()}
         lm, start, end = key
-        cases[key] = (CK.dec_tabs(48000, 120 << lm, start, end), args)
-        if start == 0:
+        cases[key] = (CK.dec_tabs(48000, 120 << lm, start, end), args, d0)
+        if start == 0 and lm <= 1:
             k17 = (lm, 17, 21)
             cases.setdefault(k17, (CK.dec_tabs(48000, 120 << lm, 17, 21),
-                                   args))
+                                   args, d0))
     return cases
 
 
-def phase_opus_api(dev, afx, inp, job):
-    """The port's top-level decoder as a user drives it on the card:
+def opus_api_card(dev, inp) -> dict:
+    """The port's top-level decoder as a user drives it on the card (the
+    second process runs this while the first runs the loss phases):
     ``BatchedOpusDecoder`` over B_DNN lanes of mixed traffic for
     API_TICKS calls, the K1 / K2 / K4 counters reset just before and read
-    just after; held to the CPU run (``job``: a future of cpu_opus_api on
-    ``cpu_lanes``) and, on the fixture lanes, to the JAX scalar decoder's
-    stored outputs.  Then (a): K1 at LM 0/1 against its plain version on
-    the LM 0/1 inputs the run gave it (2.5 and 5 ms CELT frames, the
-    redundant frames, the 2.5 ms fade frames), tiled to B_MAIN lanes with
-    N_BAD garbage lanes, and the same bytes at start 17."""
+    just after; the kept lanes' outputs for ``phase_opus_api``'s checks.
+    Then (a): K1 at LM 0/1 against its plain version on the LM 0/1 inputs
+    the run gave it (2.5 and 5 ms CELT frames, the redundant frames, the
+    2.5 ms fade frames), tiled to B_MAIN lanes with N_BAD garbage lanes,
+    and the same bytes at start 17; (b) the soft clip on loud lanes
+    against its scalar copy.  Returns numpy and CPU tensors only."""
     import numpy as np
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
@@ -5153,11 +5213,12 @@ def phase_opus_api(dev, afx, inp, job):
         torch.cuda.synchronize()
         CK.launches = iir.launches = lpc.launches = 0
         card = opus_api_run(inp["packets"], dev, keep=inp["cpu_lanes"],
-                            timed=True, fec=inp["fec"], size=inp["size"])
+                            fec=inp["fec"], size=inp["size"])
         torch.cuda.synchronize()
         counts = {"K1": CK.launches, "K2": iir.launches, "K4": lpc.launches}
     finally:
         CK.decode_frame = orig
+    del card["decoder"]
     card_s = time.time() - t0
     for k, v in counts.items():
         if v == 0:
@@ -5165,30 +5226,11 @@ def phase_opus_api(dev, afx, inp, job):
     if card["flagged"].any():
         fail(f"opus_api: lanes flagged: "
              f"{np.nonzero(card['flagged'])[0].tolist()}")
-    lanes = inp["cpu_lanes"]
-    rows = [inp["packets"][i] for i in lanes]
-    cpu = job.result()
-    cpu["kind"] = api_kinds(cpu, rows, inp["fec"][lanes])
-    card_kind = api_kinds(card, rows, inp["fec"][lanes])
-    if card_kind != cpu["kind"]:
-        t, j = next((t, j) for t in range(len(card_kind))
-                    for j in range(len(rows))
-                    if card_kind[t][j] != cpu["kind"][t][j])
-        fail(f"opus_api: tick {t} lane {int(lanes[j])}: the card's CELT "
-             f"use ({card_kind[t][j]}) differs from the CPU run's "
-             f"({cpu['kind'][t][j]})")
-    e_cpu = api_compare(card, cpu, "card vs the CPU run")
-    ref = api_fixture_ref(afx, API_TICKS)
-    fx_rows = [int(np.nonzero(lanes == i)[0][0]) for i in API_FX]
-    e_jax = api_compare(card, ref, "fixture lanes: card vs JAX", gl=fx_rows)
-    ev = card["events"]
-    if not ev.get("fec_frames"):
-        fail("opus_api: no lane decoded an in-band FEC frame")
 
     # (a) K1 at LM 0/1 against its plain version
     cases = k1_short_lanes(captured, np.random.default_rng(25))
     x_err, n_short = 0.0, {}
-    for key, (tabs, args) in sorted(cases.items()):
+    for key, (tabs, args, _d0) in sorted(cases.items()):
         got = CK._decode_frame_cuda(*args, tabs)
         ref_k = CK.decode_frame_plain(*args, tabs)
         xe, _ee = compare_k1(got, ref_k, tabs)
@@ -5216,6 +5258,46 @@ def phase_opus_api(dev, afx, inp, job):
                      f"from the scalar")
         if not np.array_equal(mem.cpu().numpy(), ref_mem[:, 0]):
             fail(f"opus_api: soft clip memory differs on call {call}")
+    return dict(card=card, counts=counts, card_s=card_s, x_err=x_err,
+                n_short=n_short, k1_key=key1,
+                k1_args=to_cpu(cases[key1][1]))
+
+
+def phase_opus_api(dev, afx, inp, job, cr):
+    """The checks of ``opus_api_card``'s run (``cr``): held to the CPU run
+    (``job``: a future of cpu_opus_api on ``cpu_lanes``) and, on the
+    fixture lanes, to the JAX scalar decoder's stored outputs.  Then its
+    timing, alone on the card: a fresh decoder over the traffic's first
+    API_TIME_TICKS ticks, CUDA events around each but the last, which is
+    traced."""
+    import numpy as np
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+
+    card, counts = cr["card"], cr["counts"]
+    lanes = inp["cpu_lanes"]
+    rows = [inp["packets"][i] for i in lanes]
+    cpu = job.result()
+    cpu["kind"] = api_kinds(cpu, rows, inp["fec"][lanes])
+    card_kind = api_kinds(card, rows, inp["fec"][lanes])
+    if card_kind != cpu["kind"]:
+        t, j = next((t, j) for t in range(len(card_kind))
+                    for j in range(len(rows))
+                    if card_kind[t][j] != cpu["kind"][t][j])
+        fail(f"opus_api: tick {t} lane {int(lanes[j])}: the card's CELT "
+             f"use ({card_kind[t][j]}) differs from the CPU run's "
+             f"({cpu['kind'][t][j]})")
+    e_cpu = api_compare(card, cpu, "card vs the CPU run")
+    ref = api_fixture_ref(afx, API_TICKS)
+    fx_rows = [int(np.nonzero(lanes == i)[0][0]) for i in API_FX]
+    e_jax = api_compare(card, ref, "fixture lanes: card vs JAX", gl=fx_rows)
+    ev = card["events"]
+    if not ev.get("fec_frames"):
+        fail("opus_api: no lane decoded an in-band FEC frame")
+    nt = API_TIME_TICKS
+    timing = opus_api_run([row[:nt] for row in inp["packets"]], dev,
+                          keep=np.zeros(0, np.int64), timed=True,
+                          fec=inp["fec"][:, :nt], size=inp["size"][:, :nt],
+                          trace_last=True)
     print(f"opus_api at B={B_DNN} over {API_TICKS} ticks (lanes at packet "
           f"offsets 0 and {API_OFFSET}; {100 * inp['lost_share']:.1f}% of "
           f"packets lost, {100 * inp['fec_share']:.1f}% of calls in-band "
@@ -5224,61 +5306,568 @@ def phase_opus_api(dev, afx, inp, job):
           f"{e_cpu[0]:.3g}, int16 within {e_cpu[1]} LSB (SILK-only "
           f"exact); fixture lanes vs JAX: ranges equal, PCM within "
           f"{e_jax[0]:.3g}, int16 within {e_jax[1]} LSB; card run "
-          f"{card_s:.1f} s (ticks {min(card['tick_ms']):.0f}-"
-          f"{max(card['tick_ms']):.0f} ms), the CPU run "
+          f"{cr['card_s']:.1f} s (the second process), the CPU run "
           f"{cpu['seconds']:.1f} s (worker process); K1 at LM 0/1 vs plain "
-          f"(integers exact, X within {x_err:.3g}) on "
-          f"{ {str(k): v for k, v in n_short.items()} } lanes; the soft "
-          f"clip on {API_CLIP_LANES} loud lanes x 3 calls bit for bit with "
-          f"the scalar")
-    return dict(counts=counts, x_err=x_err, e_cpu=e_cpu, e_jax=e_jax,
-                events=ev, decoder=card["decoder"], tick_ms=card["tick_ms"],
-                k1_case=cases[key1])
+          f"(integers exact, X within {cr['x_err']:.3g}) on "
+          f"{ {str(k): v for k, v in cr['n_short'].items()} } lanes; the "
+          f"soft clip on {API_CLIP_LANES} loud lanes x 3 calls bit for bit "
+          f"with the scalar")
+    lm, start, end = cr["k1_key"]
+    k1_case = (CK.dec_tabs(48000, 120 << lm, start, end),
+               to_device(cr["k1_args"], dev), None)
+    return dict(counts=counts, x_err=cr["x_err"], e_cpu=e_cpu, e_jax=e_jax,
+                events=ev, tick_ms=timing["tick_ms"], trace=timing["trace"],
+                k1_case=k1_case)
 
 
-def opus_api_times(dev, smi, inp, api):
-    """A tick of the opus_api traffic at B_DNN, timed with CUDA events and
-    traced (device operations, device time, busy share) on a copy of the
-    decoder; and K1 at LM 1 (the 5 ms frames and redundant frames) at
-    B_MAIN + N_BAD lanes: its time, its plain version's and its bound."""
-    import copy
+def opus_api_times(dev, smi, api):
+    """The opus_api timing run's ticks at B_DNN (CUDA events) and its last
+    tick traced (device operations and time; the busy share over the
+    median tick); K1 at LM 1 (the 5 ms frames and redundant frames) at B_MAIN +
+    N_BAD lanes: its time, its plain version's and its bound; the soft
+    clip on loud lanes."""
+    import numpy as np
     import torch
     from opus_tpu_torch.models import celt_dec_kernel as CK
-    from opus_tpu_torch.tools.device_time import device_profile
+    from opus_tpu_torch.utils.soft_clip import soft_clip_lanes
 
-    dec = api["decoder"]
-    pk = [row[0] for row in inp["packets"]]
-    twin = copy.deepcopy(dec)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    dec.decode(pk)
-    e1.record()
-    torch.cuda.synchronize()
-    ms = e0.elapsed_time(e1)
-    ops, dms = device_profile(lambda: twin.decode(pk), reps=1, warmup=False)
-    tabs, args = api["k1_case"]
+    ms = float(np.median(api["tick_ms"]))
+    ops, dms = api["trace"]
+    tabs, args, _d0 = api["k1_case"]
     k1 = cuda_ms(lambda: CK._decode_frame_cuda(*args, tabs), 20)
     k1p = cuda_ms(lambda: CK.decode_frame_plain(*args, tabs), 1)
     out = CK._decode_frame_cuda(*args, tabs)
     bnd = k1_bound(tabs, args, out)
     b = args[0].shape[0]
-    import numpy as np
-    from opus_tpu_torch.utils.soft_clip import soft_clip_lanes
     loud = torch.from_numpy(soft_clip_inputs(np.random.default_rng(27),
                                              B_DNN, 960)).to(dev)
     mem = torch.zeros(B_DNN, dtype=torch.float32, device=dev)
     clip = cuda_ms(lambda: soft_clip_lanes(loud, mem), 5)
-    print(f"opus_api times [{smi}]: a tick at B={B_DNN} (the traffic's "
-          f"first packets again) {ms:.1f} ms, {ops:.0f} device operations, "
-          f"{dms:.2f} ms device (busy {100 * dms / ms:.1f}%); ticks of the "
-          f"run {min(api['tick_ms']):.0f}-{max(api['tick_ms']):.0f} ms; K1 at "
-          f"LM 1 (start 0, end {tabs.end_band}) at B={b}: {k1:.4f} ms, plain "
-          f"{k1p:.2f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}); the soft clip "
-          f"on {B_DNN} loud lanes x 960 {clip:.3f} ms")
+    print(f"opus_api times [{smi}]: ticks at B={B_DNN} "
+          f"{', '.join(f'{v:.0f}' for v in api['tick_ms'])} ms (median "
+          f"{ms:.1f}); the last tick traced: {ops:.0f} device operations, "
+          f"{dms:.2f} ms device (busy {100 * dms / ms:.1f}% of the median "
+          f"tick); K1 at LM 1 (start 0, end {tabs.end_band}) at B={b}: "
+          f"{k1:.4f} ms, plain {k1p:.2f} ms, bound {bnd[0]:.6f} ms "
+          f"({bnd[1]}); the soft clip on {B_DNN} loud lanes x 960 "
+          f"{clip:.3f} ms")
     return dict(tick_ms=ms, ops=ops, dev_ms=dms, k1_lm1=k1, k1_lm1p=k1p,
                 k1_lm1_bound=bnd, soft_clip_ms=clip)
+
+
+STEREO_FIXTURE = os.path.join(REPO, "tests", "data", "torch_opus_stereo.npz")
+STEREO_TICKS = 4        # of the fixture streams' 7-21 steps: 3 timed, 1 traced
+STEREO_MONO_TICKS = 1   # of those, the one-channel decoder's
+# the step each fixture stream starts at in every other group of 8 lanes,
+# so that the ticks hold 8 kHz SILK at 60 ms, 16 kHz mono SILK at 60 ms,
+# CELT stereo at LM 0 and 1, stereo SILK at 40 and 60 ms, the hybrid at 10
+# ms and the switch from stereo to mono SILK (steps 4-9); the groups from
+# step 0 hold the rest (LM 2-3 CELT, mono CELT, the stereo SILK
+# concealment)
+STEREO_OFFSETS = (4, 3, 4, 6, 5, 6, 4, 6)
+STEREO_CPU_EXTRA = 24   # other lanes the card is held to the CPU run on
+STEREO_MONO_LANES = 256     # the one-channel decoder's lanes
+# the two-channel run's events, as tests/test_torch_opus_stereo.py's over
+# the whole fixture, and the stereo SILK concealment
+STEREO_EVENTS = ("celt_lm0_start0_stereo", "celt_lm1_start0_stereo",
+                 "celt_lm2_start0_stereo", "celt_lm3_start0_stereo",
+                 "celt_lm3_start17_stereo", "silk_16k_60ms_stereo",
+                 "silk_16k_40ms_stereo", "silk_8k_40ms", "silk_8k_60ms",
+                 "silk_12k_60ms", "silk_16k_60ms", "celt_lm3_start0",
+                 "silk_stereo_to_mono", "fec_frames",
+                 "silk_conceal_16k_20ms_stereo")
+# the one-channel run's: the downmix of stereo CELT and stereo SILK
+STEREO_MONO_EVENTS = ("celt_lm3_start0_stereo", "silk_16k_20ms_stereo",
+                      "celt_lm3_start17_stereo")
+
+
+def stereo_steps(sfx):
+    """The fixture's 8 streams: steps (packet or None, fec, frame_size)."""
+    plen, buf = sfx["plen"], sfx["packets"]
+    return [[(None if plen[s, t] == -1 else bytes(buf[s, t, :plen[s, t]]),
+              bool(sfx["fec"][s, t]), int(sfx["fsize"][s, t]))
+             for t in range(plen.shape[1]) if plen[s, t] != -2]
+            for s in range(plen.shape[0])]
+
+
+def stereo_ticks(c: int) -> int:
+    """The opus_stereo run's calls at c output channels."""
+    return STEREO_TICKS if c == 2 else STEREO_MONO_TICKS
+
+
+def opus_stereo_inputs(sfx, b: int):
+    """b lanes over STEREO_TICKS: lane i carries stream i % 8 from step 0
+    or, in every other group of 8 lanes, from its STEREO_OFFSETS step (a
+    stream's steps wrap), with the fixture's losses and in-band FEC calls;
+    ``cpu_lanes``: the fixture lanes and STEREO_CPU_EXTRA others."""
+    import numpy as np
+    streams = stereo_steps(sfx)
+    nt = STEREO_TICKS
+    packets = []
+    fec = np.zeros((b, nt), bool)
+    size = np.zeros((b, nt), np.int64)
+    for i in range(b):
+        st = streams[i % len(streams)]
+        off = STEREO_OFFSETS[i % len(streams)] * ((i // len(streams)) % 2)
+        row = [st[(off + t) % len(st)] for t in range(nt)]
+        packets.append([p for p, _f, _z in row])
+        fec[i] = [f for _p, f, _z in row]
+        size[i] = [z for _p, _f, z in row]
+    others = list(range(8, b))
+    pick = others[::max(1, len(others) // STEREO_CPU_EXTRA)][
+        :STEREO_CPU_EXTRA]
+    return dict(packets=packets, fec=fec, size=size,
+                cpu_lanes=np.asarray(sorted(list(range(8)) + pick)))
+
+
+def stereo_fixture_ref(sfx, ticks: int, c: int):
+    """The JAX scalar decoder's outputs at c output channels on the
+    fixture lanes (stored float PCM, its int16 through the port's copy of
+    the soft clip, per channel), per tick, with each step's check."""
+    import numpy as np
+    from opus_tpu_torch.utils.soft_clip import float2int16, pcm_soft_clip
+    s_n = sfx["plen"].shape[0]
+    mem = np.zeros((s_n, c), np.float32)
+    out = dict(pcm=[], pcm16=[], n=[], rng=[], kind=[])
+    w = int(sfx[f"nsamp{c}"].max())
+    for t in range(ticks):
+        pcm = np.zeros((s_n, w, c), np.float32)
+        pcm16 = np.zeros((s_n, w, c), np.int16)
+        kinds = []
+        for s in range(s_n):
+            n = int(sfx[f"nsamp{c}"][s, t])
+            o = int(sfx[f"off{c}"][s, t])
+            x = sfx[f"pcm{c}"][o:o + n * c].astype(np.float32).copy()
+            pcm[s, :n] = x.reshape(n, c)
+            pcm_soft_clip(x, c, mem[s])
+            pcm16[s, :n] = float2int16(x).reshape(n, c)
+            celt = sfx[f"celt{c}"][s, t]
+            lossy = sfx["plen"][s, t] == -1 or sfx["fec"][s, t]
+            kinds.append("skip" if sfx["plen"][s, t] == -2 else (
+                "silk" if celt == 0 else (
+                    "concealed" if lossy else "celt")))
+        out["pcm"].append(pcm if c == 2 else pcm[:, :, 0])
+        out["pcm16"].append(pcm16 if c == 2 else pcm16[:, :, 0])
+        out["n"].append(sfx[f"nsamp{c}"][:, t].copy())
+        out["rng"].append(sfx[f"rng{c}"][:, t].copy())
+        out["kind"].append(kinds)
+    return out
+
+
+def stereo_kinds(run, packets_rows, fec_rows):
+    """Each tick and row's check, as api_kinds, but a step whose output no
+    CELT frame touched is SILK's whatever it was."""
+    return [["silk" if not run["celt"][t][j] else (
+        "concealed" if packets_rows[j][t] is None or fec_rows[j, t]
+        else "celt") for j in range(len(packets_rows))]
+        for t in range(len(run["n"]))]
+
+
+def cpu_k1_stereo(key, args, d0, invs):
+    """K1 stereo's plain version on the CPU, in a worker process while the
+    card runs: the case ``key`` (lm, start, end) on ``args`` and ``d0``
+    (CPU tensors), once for each disable_inv of ``invs``."""
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    lm, start, end = key
+    tabs = CK.dec_tabs(48000, 120 << lm, start, end)
+    return {inv: CK.decode_frame2_plain(*args, tabs, d0, inv)
+            for inv in invs}
+
+
+def stereo_card_run(dev, inp, c: int) -> dict:
+    """opus_stereo's decoder at c output channels on the card: over
+    B_DNN lanes for STEREO_TICKS calls, the first timed and the last
+    traced, at two channels; over STEREO_MONO_LANES for
+    STEREO_MONO_TICKS, untimed (the second process runs it), at one.
+    Returns the run (numpy), the K1 mono and stereo, K2 and K4 counters
+    reset just before it and read just after, and its seconds."""
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.ops import iir, lpc
+
+    lanes_n = B_DNN if c == 2 else STEREO_MONO_LANES
+    nt = stereo_ticks(c)
+    keep = inp["cpu_lanes"][inp["cpu_lanes"] < lanes_n]
+    torch.cuda.synchronize()
+    CK.launches = CK.launches_stereo = iir.launches = lpc.launches = 0
+    t0 = time.time()
+    run = opus_api_run([row[:nt] for row in inp["packets"][:lanes_n]], dev,
+                       keep=keep, timed=c == 2,
+                       fec=inp["fec"][:lanes_n, :nt],
+                       size=inp["size"][:lanes_n, :nt], channels=c,
+                       trace_last=c == 2)
+    torch.cuda.synchronize()
+    del run["decoder"]
+    return dict(run=run, seconds=time.time() - t0,
+                counts={"K1": CK.launches, "K1 stereo": CK.launches_stereo,
+                        "K2": iir.launches, "K4": lpc.launches})
+
+
+def phase_opus_stereo(dev, sfx, inp, jobs, pool, one):
+    """Stereo and 40/60 ms SILK through the top-level decoder on the card:
+    ``BatchedOpusDecoder(channels=2)`` over B_DNN lanes of the stereo
+    fixture's streams for STEREO_TICKS calls (the first ones timed, the
+    last traced), the K1 (mono and stereo instantiations), K2 and K4
+    counters reset just before and read just after, held to the CPU run
+    (``jobs[2]``) and on the fixture lanes to the JAX scalar decoder's
+    stored outputs, with STEREO_EVENTS among its events; ``channels=1``
+    over STEREO_MONO_LANES of the same traffic (the downmix and
+    disable_inv paths; ``one``, the second process's ``stereo_card_run``),
+    held the same way (``jobs[1]``).  Then (a): K1's
+    stereo instantiation against its plain version on the inputs the
+    two-channel run gave it, one band range a (LM, start), tiled to B_MAIN
+    lanes with N_BAD garbage lanes, with disable_inv 0 and 1: the plain
+    version runs in the CPU workers of ``pool`` while the card runs,
+    except on the 20 ms start-0 case, which the card runs twice (the
+    reference, then its timed call)."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+
+    captured = {}
+    orig = CK.decode_frame2
+
+    def spy(buf, lens, old_e, prevmin, seed, tabs, d0=None,
+            disable_inv=False):
+        captured.setdefault((tabs.lm, tabs.start, tabs.end_band), []).append(
+            tuple(x.clone() for x in (buf, lens, old_e, prevmin, seed))
+            + (None if d0 is None else {k: v.clone()
+                                        for k, v in d0.items()},))
+        return orig(buf, lens, old_e, prevmin, seed, tabs, d0, disable_inv)
+
+    CK.decode_frame2 = spy
+    try:
+        two = stereo_card_run(dev, inp, 2)
+    finally:
+        CK.decode_frame2 = orig
+    runs = {2: two["run"], 1: one["run"]}
+    counts = {2: two["counts"], 1: one["counts"]}
+    run_s = {2: two["seconds"], 1: one["seconds"]}
+
+    # (a)'s cases: the run's inputs, and the fixture's stereo CELT-only
+    # frames for an LM the run gave none; one band range a (LM, start),
+    # the widest; their plain versions go to the CPU workers now
+    for lm in range(4):
+        if not any(k[:2] == (lm, 0) for k in captured):
+            captured.update(fixture_k1_rows(sfx, lm, dev))
+    cases = k1_short_lanes(captured, np.random.default_rng(28))
+    widest = {}
+    for key in sorted(cases):
+        widest[key[:2]] = key
+    cases = {k: cases[k] for k in widest.values()}
+    for lm in range(4):
+        for start in (0, 17):
+            if (lm, start) not in widest:
+                fail(f"opus_stereo: K1 stereo has no LM {lm} case at start "
+                     f"{start}: {sorted(cases)}")
+    timed_key = widest[(3, 0)]
+    ref_jobs = {key: pool.submit(cpu_k1_stereo, key, to_cpu(args),
+                                 to_cpu(d0), (True,) if key == timed_key
+                                 else (False, True))
+                for key, (_tabs, args, d0) in cases.items()}
+
+    errs = {}
+    for c, want in ((2, STEREO_EVENTS), (1, STEREO_MONO_EVENTS)):
+        for k, v in counts[c].items():
+            # the runs' few ticks need hold no mono CELT frame (every
+            # other phase drives K1's mono instantiation)
+            if v == 0 and k != "K1":
+                fail(f"opus_stereo channels={c}: kernel {k} launched no "
+                     f"time")
+        run_c = runs[c]
+        if run_c["flagged"].any():
+            fail(f"opus_stereo channels={c}: lanes flagged")
+        for k in want:
+            if not run_c["events"].get(k):
+                fail(f"opus_stereo channels={c}: no {k} in the run: "
+                     f"{run_c['events']}")
+        lanes_n = B_DNN if c == 2 else STEREO_MONO_LANES
+        keep = inp["cpu_lanes"][inp["cpu_lanes"] < lanes_n]
+        rows = [inp["packets"][i] for i in keep]
+        cpu = jobs[c].result()
+        cpu["kind"] = stereo_kinds(cpu, rows, inp["fec"][keep])
+        if stereo_kinds(run_c, rows, inp["fec"][keep]) != cpu["kind"]:
+            fail(f"opus_stereo channels={c}: the card's CELT use differs "
+                 f"from the CPU run's")
+        e_cpu = api_compare(run_c, cpu, f"stereo c={c}: card vs the CPU run")
+        ref = stereo_fixture_ref(sfx, stereo_ticks(c), c)
+        fx_rows = [int(np.nonzero(keep == i)[0][0]) for i in range(8)]
+        e_jax = api_compare(run_c, ref, f"stereo c={c}: fixture lanes: card "
+                            f"vs JAX", gl=fx_rows)
+        errs[c] = (e_cpu, e_jax, cpu["seconds"])
+    ev = runs[2]["events"]
+
+    # (a) K1 stereo against its plain version: the timed case's reference
+    # on the card (also the warm-up of its timed call), the others' from
+    # the CPU workers
+    t1 = time.time()
+    x_err, n_cases = 0.0, {}
+    for key, (tabs, args, d0) in sorted(cases.items()):
+        refs = ref_jobs[key].result()
+        if key == timed_key:
+            refs[False] = CK.decode_frame2_plain(*args, tabs, d0, False)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            CK.decode_frame2_plain(*args, tabs, d0, False)
+            e1.record()
+            torch.cuda.synchronize()
+            k1sp = e0.elapsed_time(e1)
+            got = CK._decode_frame_cuda(*args, tabs, d0, channels=2)
+            bnd = k1_bound(tabs, args, got)
+            k1s = cuda_ms(lambda: CK._decode_frame_cuda(
+                *args, tabs, d0, channels=2), 20)
+        for inv, ref_k in sorted(refs.items()):
+            got = CK._decode_frame_cuda(*args, tabs, d0, channels=2,
+                                        disable_inv=inv)
+            if ref_k["X"].device != got["X"].device:
+                got = to_cpu(got)
+            xe, _ee = compare_k1(got, ref_k, tabs, f" (stereo {key}, "
+                                 f"disable_inv {int(inv)})")
+            x_err = max(x_err, xe)
+        n_cases[key] = int(args[0].shape[0])
+    k1_s = time.time() - t1
+    ops, dms = runs[2]["trace"]
+    tick = float(np.median(runs[2]["tick_ms"]))
+    g1, g2 = CK.geometry(160), CK.geometry(160, channels=2)
+    print(f"opus_stereo at B={B_DNN} (two channels, {STEREO_TICKS} ticks) "
+          f"and {STEREO_MONO_LANES} (one, {STEREO_MONO_TICKS} tick) (lanes "
+          f"at step 0 and at steps {STEREO_OFFSETS}): launches {counts}; "
+          f"frames {ev}; one channel's frames {runs[1]['events']}; "
+          + "; ".join(
+              f"channels={c}: card vs the CPU run on its lanes: ranges "
+              f"equal, PCM within {e[0][0]:.3g}, int16 within {e[0][1]} LSB "
+              f"(SILK-only exact); fixture lanes vs JAX: ranges equal, PCM "
+              f"within {e[1][0]:.3g}, int16 within {e[1][1]} LSB; the CPU "
+              f"run {e[2]:.1f} s" for c, e in errs.items())
+          + f"; card runs {run_s[2]:.1f} s two channels, {run_s[1]:.1f} s "
+          f"one (the second process); K1 stereo vs plain with disable_inv 0 "
+          f"and 1 (integers exact, X within {x_err:.3g}) on "
+          f"{ {str(k): v for k, v in n_cases.items()} } lanes, the plain "
+          f"versions but the timed case's in CPU workers ({k1_s:.1f} s)")
+    b = cases[timed_key][1][0].shape[0]
+    print(f"opus_stereo times [{smi_line()}]: two-channel ticks at "
+          f"B={B_DNN} {', '.join(f'{v:.1f}' for v in runs[2]['tick_ms'])} "
+          f"ms (median {tick:.1f}); the last tick traced: {ops:.0f} device "
+          f"operations, {dms:.2f} ms device (busy {100 * dms / tick:.1f}% "
+          f"of the median tick); K1 stereo at 20 ms, start 0 {timed_key}, "
+          f"B={b}: {k1s:.4f} ms, plain {k1sp:.2f} ms (its second call), "
+          f"bound {bnd[0]:.6f} ms ({bnd[1]}); geometry at P=160: mono "
+          f"{g1['registers']} registers, {g1['local_bytes']} bytes local, "
+          f"{g1['smem_per_block']} bytes shared per block of "
+          f"{g1['warps_per_block']} warps, {g1['warps_per_sm']} resident "
+          f"warps per SM; stereo {g2['registers']} registers, "
+          f"{g2['local_bytes']} bytes local, {g2['smem_per_block']} bytes "
+          f"shared per block of {g2['warps_per_block']} warps, "
+          f"{g2['warps_per_sm']} resident warps per SM")
+    return dict(counts=counts, x_err=x_err, errs=errs, events=ev,
+                tick_ms=tick, ops=ops, dev_ms=dms, k1s=k1s, k1sp=k1sp,
+                k1s_bound=bnd)
+
+
+def fixture_k1_rows(sfx, lm: int, dev) -> dict:
+    """K1 stereo inputs from the stereo fixture's CELT-only stereo packets
+    at LM ``lm`` (each frame of each packet, a fresh decoder's energy
+    memory, seed 0, a coder started on the frame), keyed as the run's
+    captures: {(lm, 0, end): [(buf, lens, old_e, prevmin, seed, None)]}."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.bitstream import packet as pkt
+    from opus_tpu_torch.models.opus_decoder import END_BAND
+    frames = {}
+    for p, _f, _z in (st for row in stereo_steps(sfx) for st in row):
+        if p is None or not p[0] & 4 or p[0] >> 3 < 16:
+            continue
+        if pkt.packet_get_samples_per_frame(p, 48000) != 120 << lm:
+            continue
+        end = END_BAND[int(pkt.packet_get_bandwidth(p))]
+        for f in pkt.packet_parse(p).frames:
+            if len(f) > 1:
+                frames.setdefault(end, []).append(f)
+    out = {}
+    for end, fs in frames.items():
+        n = len(fs)
+        w = max(len(f) for f in fs)
+        buf = np.zeros((n, w), np.uint8)
+        for i, f in enumerate(fs):
+            buf[i, :len(f)] = np.frombuffer(f, np.uint8)
+        lens = torch.tensor([len(f) for f in fs], device=dev)
+        e = torch.zeros((n, 2, 21), dtype=torch.float32, device=dev)
+        out[(lm, 0, end)] = [(torch.from_numpy(buf).to(dev), lens, e,
+                              e - 28.0, torch.zeros(n, dtype=torch.int64,
+                                                    device=dev), None)]
+    return out
+
+
+def phase_done(phase_s: dict, name: str, t0: float, t_start: float,
+               where: str = "") -> None:
+    """Record phase ``name``'s seconds since t0 and print them with the
+    seconds since t_start."""
+    phase_s[name] = time.time() - t0
+    print(f"phase {name}: {phase_s[name]:.1f} s, "
+          f"{time.time() - t_start:.0f} s in{where}", flush=True)
+
+
+def to_cpu(tree):
+    """Tensors of a tree of tuples, lists and dicts moved to the CPU (to
+    pass between processes)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree
+
+
+def to_device(tree, dev):
+    """``to_cpu``'s inverse: the tree's tensors on ``dev``."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree
+
+
+def second_process():
+    """One more process on the card, for the phases of ``second_phases``
+    (the script is host-bound: its card is busy a few percent of a
+    phase, so two processes share it)."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_second_init)
+
+
+def _second_init():
+    sys.path.insert(0, REPO)
+
+
+def _second(body, *args) -> dict:
+    """``body(dev, res, *args)`` in the second process, its printed log
+    captured: returns ``res`` with ``phase_s`` (the seconds of each phase
+    it ran), ``log`` and ``fail`` (None, or the failed check's message)."""
+    import contextlib
+    import io
+    import traceback
+    import torch
+
+    log = io.StringIO()
+    res = dict(phase_s={}, fail=None)
+    try:
+        with contextlib.redirect_stdout(log):
+            from opus_tpu_torch import cuda_build
+            cuda_build.library()
+            body(torch.device("cuda", 0), res, *args)
+    except SystemExit as e:
+        res["fail"] = str(e)
+    except Exception:
+        res["fail"] = traceback.format_exc()
+    res["log"] = log.getvalue()
+    return res
+
+
+def second_phases() -> dict:
+    """The phases the second process runs while the first runs its early
+    ones: the encoder and duplex (K3), 10 ms CELT, SILK (K4) and the FB
+    and SWB hybrid decodes, each as the first process would run it.  None
+    of them times anything; their timing phases run later in the first
+    process, alone on the card, on the lanes and kernel inputs returned
+    here (numpy, numbers, CPU tensors)."""
+    return _second(_early_phases)
+
+
+def _early_phases(dev, res):
+    import numpy as np
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+
+    t_start = time.time()
+    where = " (second process)"
+    ps = res["phase_s"]
+    t0 = time.time()
+    efx = dict(np.load(ENC_FIXTURE))
+    enc_lanes = make_enc_lanes(efx, np.random.default_rng(21))
+    k3_err = phase_k3_vs_plain(enc_lanes, dev)
+    ecounts, enc_outs = phase_encode(enc_lanes, dev)
+    dcounts = phase_duplex(enc_lanes, efx, dev, enc_outs)
+    k3_err = max(k3_err, phase_encode_rate(enc_lanes, dev, 320)[0])
+    res.update(k3_err=k3_err, ecounts=ecounts, dcounts=dcounts,
+               enc_lanes=enc_lanes)
+    phase_done(ps, "celt_encode_duplex", t0, t_start, where)
+
+    t0 = time.time()
+    c10 = phase_celt10ms(dev)
+    c10["tabs"] = None
+    res["c10"] = c10
+    phase_done(ps, "celt_10ms", t0, t_start, where)
+
+    t0 = time.time()
+    sfx = dict(np.load(SILK_FIXTURE))
+    slanes, sstream = make_lanes(sfx, np.random.default_rng(22))
+    phase_silk_fixed(dev)
+    splain, k4_in, scov, k4_err = phase_silk_k4_vs_plain(slanes,
+                                                         dev)
+    print(f"SILK coverage (lane-frames of {B_MAIN * NFRAMES}): "
+          f"{scov}")
+    k4_count = phase_silk_end_to_end(slanes, sstream, sfx, dev,
+                                     splain)
+    res.update(slanes=slanes, k4_in=to_cpu(k4_in), k4_err=k4_err,
+               k4_count=k4_count)
+    phase_done(ps, "silk", t0, t_start, where)
+
+    t0 = time.time()
+    htabs = CK.dec_tabs(48000, 960, 17, 21)
+    hfx = dict(np.load(HYB_FIXTURE))
+    hlanes, hstream = make_lanes(hfx, np.random.default_rng(23))
+    hplain, k1h_in, hcov, k1h_err = phase_hybrid_k1_vs_plain(
+        hlanes, dev, htabs)
+    print(f"hybrid coverage (lane-frames of {B_MAIN * NFRAMES}; "
+          f"bands 18-20 with no bits are band-lane-frames, filled "
+          f"by folding or noise): {hcov}")
+    hpcm_err, hcounts = phase_hybrid_end_to_end(hlanes, hstream,
+                                                hfx, dev, hplain)
+    res.update(hlanes=hlanes, k1h_err=k1h_err, hpcm_err=hpcm_err,
+               hcounts=hcounts,
+               k1h_in=to_cpu(k1h_in[:5] + (None,) + k1h_in[6:]))
+    phase_done(ps, "hybrid", t0, t_start, where)
+
+    t0 = time.time()
+    stabs = CK.dec_tabs(48000, 960, 17, 19)
+    swfx = dict(np.load(SWB_FIXTURE))
+    swlanes, swstream = make_lanes(swfx, np.random.default_rng(24))
+    swplain, _k1s_in, swcov, k1s_err = phase_hybrid_k1_vs_plain(
+        swlanes, dev, stabs)
+    print(f"SWB hybrid coverage (lane-frames of "
+          f"{B_MAIN * NFRAMES}): {swcov}")
+    swpcm_err, swcounts = phase_hybrid_end_to_end(
+        swlanes, swstream, swfx, dev, swplain, end=19)
+    res.update(k1s_err=k1s_err, swpcm_err=swpcm_err,
+               swcounts=swcounts)
+    phase_done(ps, "hybrid_swb", t0, t_start, where)
+
+def second_late(api_in, st_in) -> dict:
+    """The phases the second process runs while the first runs the loss
+    phases: opus_api's card run (``opus_api_card``) and opus_stereo's
+    one-channel run (``stereo_card_run``), untimed; the first process
+    checks them (``phase_opus_api``, ``phase_opus_stereo``)."""
+    return _second(_late_phases, api_in, st_in)
+
+
+def _late_phases(dev, res, api_in, st_in):
+    t_start = time.time()
+    where = " (second process)"
+    t0 = time.time()
+    res["api"] = opus_api_card(dev, api_in)
+    phase_done(res["phase_s"], "opus_api_card", t0, t_start, where)
+    t0 = time.time()
+    res["stereo_one"] = stereo_card_run(dev, st_in, 1)
+    phase_done(res["phase_s"], "opus_stereo_one_channel", t0, t_start,
+               where)
 
 
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd):
@@ -5298,7 +5887,7 @@ def main() -> int:
                  SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE,
                  FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE, BBWE_FIXTURE,
                  SIM_FIXTURE, CELT_PLC_FIXTURE, SILK_PLC_FIXTURE,
-                 API_FIXTURE):
+                 API_FIXTURE, STEREO_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -5307,6 +5896,7 @@ def main() -> int:
     from opus_tpu_torch.models import celt_dec_kernel as CK
     from opus_tpu_torch.models import celt_enc_kernel as EK
 
+    t_main = time.time()
     smi = smi_line()
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -5318,12 +5908,14 @@ def main() -> int:
     for line in cuda_build.ptxas_log.splitlines():
         if "Compiling" in line or "Used" in line or "stack frame" in line:
             print("ptxas:", line.strip())
-    g = CK.geometry(160)
-    print(f"ptxas: K1 celt_dec_frame_kernel at P=160: {g['registers']} "
-          f"registers, {g['local_bytes']} bytes local memory per thread; "
-          f"{g['smem_per_block']} bytes dynamic shared memory per block of "
-          f"{g['warps_per_block']} warps; {g['blocks_per_sm']} blocks = "
-          f"{g['warps_per_sm']} resident warps per SM")
+    for c in (1, 2):
+        g = CK.geometry(160, channels=c)
+        print(f"ptxas: K1 celt_dec_frame_kernel<{c}> ({c} channel"
+              f"{'s' if c == 2 else ''}) at P=160: {g['registers']} "
+              f"registers, {g['local_bytes']} bytes local memory per thread; "
+              f"{g['smem_per_block']} bytes dynamic shared memory per block "
+              f"of {g['warps_per_block']} warps; {g['blocks_per_sm']} blocks "
+              f"= {g['warps_per_sm']} resident warps per SM")
 
     for nbytes in (160, 320):
         g = EK.geometry(nbytes)
@@ -5341,131 +5933,137 @@ def main() -> int:
     fx = dict(np.load(FIXTURE))
     lanes, stream = make_lanes(fx, np.random.default_rng(20))
 
-    t0 = time.time()
-    plain_outs, x_err, e_err, k2_err, k2_in = phase_kernel_vs_plain(
-        lanes, dev, tabs)
-    pcm_err, counts = phase_end_to_end(lanes, stream, fx, dev, plain_outs)
-    phase_s["celt_decode"] = time.time() - t0
-
-    t0 = time.time()
-    efx = dict(np.load(ENC_FIXTURE))
-    enc_lanes = make_enc_lanes(efx, np.random.default_rng(21))
-    k3_err = phase_k3_vs_plain(enc_lanes, dev)
-    ecounts, enc_outs = phase_encode(enc_lanes, dev)
-    dcounts = phase_duplex(enc_lanes, efx, dev, enc_outs)
-    k3_err = max(k3_err, phase_encode_rate(enc_lanes, dev, 320)[0])
-    phase_s["celt_encode_duplex"] = time.time() - t0
-
-    t0 = time.time()
-    c10 = phase_celt10ms(dev)
-    phase_s["celt_10ms"] = time.time() - t0
-
-    t0 = time.time()
-    sfx = dict(np.load(SILK_FIXTURE))
-    slanes, sstream = make_lanes(sfx, np.random.default_rng(22))
-    phase_silk_fixed(dev)
-    splain, k4_in, scov, k4_err = phase_silk_k4_vs_plain(slanes, dev)
-    print(f"SILK coverage (lane-frames of {B_MAIN * NFRAMES}): {scov}")
-    k4_count = phase_silk_end_to_end(slanes, sstream, sfx, dev, splain)
-    phase_s["silk"] = time.time() - t0
-
-    t0 = time.time()
-    htabs = CK.dec_tabs(48000, 960, 17, 21)
-    hfx = dict(np.load(HYB_FIXTURE))
-    hlanes, hstream = make_lanes(hfx, np.random.default_rng(23))
-    hplain, k1h_in, hcov, k1h_err = phase_hybrid_k1_vs_plain(hlanes, dev,
-                                                             htabs)
-    print(f"hybrid coverage (lane-frames of {B_MAIN * NFRAMES}; bands 18-20 "
-          f"with no bits are band-lane-frames, filled by folding or "
-          f"noise): {hcov}")
-    hpcm_err, hcounts = phase_hybrid_end_to_end(hlanes, hstream, hfx, dev,
-                                                hplain)
-    phase_s["hybrid"] = time.time() - t0
-
-    t0 = time.time()
-    stabs = CK.dec_tabs(48000, 960, 17, 19)
-    swfx = dict(np.load(SWB_FIXTURE))
-    swlanes, swstream = make_lanes(swfx, np.random.default_rng(24))
-    swplain, _k1s_in, swcov, k1s_err = phase_hybrid_k1_vs_plain(
-        swlanes, dev, stabs)
-    print(f"SWB hybrid coverage (lane-frames of {B_MAIN * NFRAMES}): "
-          f"{swcov}")
-    swpcm_err, swcounts = phase_hybrid_end_to_end(
-        swlanes, swstream, swfx, dev, swplain, end=19)
-    phase_s["hybrid_swb"] = time.time() - t0
-
-    t0 = time.time()
-    dred = phase_dred(dev, dict(np.load(DRED_FIXTURE)))
-    phase_s["dred"] = time.time() - t0
-
-    t0 = time.time()
-    plc = phase_deep_plc(dev, dict(np.load(DRED_FIXTURE)),
-                         dict(np.load(PLC_FIXTURE)), dred)
-    phase_s["deep_plc"] = time.time() - t0
-
-    t0 = time.time()
-    ofx = dict(np.load(OSCE_FIXTURE))
-    osce = phase_osce(dev, sfx, ofx)
-    phase_s["osce"] = time.time() - t0
-
-    t0 = time.time()
-    bfx = dict(np.load(BBWE_FIXTURE))
-    bb = phase_bbwe(dev, sfx, bfx, ofx)
-    phase_s["bbwe"] = time.time() - t0
-    t0 = time.time()
-    oh = phase_osce_hybrid(dev, bfx)
-    phase_s["osce_hybrid"] = time.time() - t0
-
-    t0 = time.time()
-    chain = phase_dred_chain(dev, dict(np.load(DRED_ENC_FIXTURE)))
-    phase_s["dred_chain"] = time.time() - t0
-
-    # the loss phases: their CPU reference runs go to worker processes as
-    # soon as their inputs exist and run while the card works
-    simfx = dict(np.load(SIM_FIXTURE))
-    t0 = time.time()
-    with cpu_pool() as pool:
-        pl_in = plc_lanes_inputs(dev, simfx)
-        pr_job = pool.submit(cpu_plc_rates, plc["cpu_dreds"], plc["hist"],
-                             plc["off48"])
-        sl_in = sim_loss_inputs(dev, simfx)
-        sl_job = pool.submit(cpu_sim_loss, sl_in["packets"], sl_in["lost"])
-        phase_s["loss_inputs"] = time.time() - t0
+    # a second process on the card runs the encoder, 10 ms CELT, SILK and
+    # both hybrid phases while this one runs the others, then opus_api's
+    # and opus_stereo's untimed card runs while this one runs the loss
+    # phases; every timing phase runs after both have finished, alone on
+    # the card
+    with second_process() as second:
+        second_job = second.submit(second_phases)
         t0 = time.time()
-        pl = phase_plc_lanes(dev, simfx, pl_in, pool)
-        phase_s["plc_lanes"] = time.time() - t0
-        # the classic loops' CPU references queue behind plc_lanes' own
-        cfx = dict(np.load(CELT_PLC_FIXTURE))
-        cl_in = classic_inputs(sl_in, cfx)
-        cl_jobs = {"plain": pool.submit(cpu_classic, cl_in["packets"],
-                                        cl_in["lost"], False),
-                   "dred": pool.submit(cpu_classic, cl_in["dred_packets"],
-                                       cl_in["dred_lost"], True)}
-        spfx = dict(np.load(SILK_PLC_FIXTURE))
-        sp_in = silk_plc_inputs(sl_in, spfx)
-        sp_jobs = {m: pool.submit(cpu_silk_plc, m, sp_in[m]["packets"],
-                                  sp_in[m]["lost"], sp_in["cpu_lanes"])
-                   for m in ("silk", "hybrid")}
-        afx = dict(np.load(API_FIXTURE))
-        api_in = opus_api_inputs(dev, afx)
-        api_job = pool.submit(cpu_opus_api, api_in["packets"],
-                              api_in["fec"], api_in["size"],
-                              api_in["cpu_lanes"])
+        plain_outs, x_err, e_err, k2_err, k2_in = phase_kernel_vs_plain(
+            lanes, dev, tabs)
+        pcm_err, counts = phase_end_to_end(lanes, stream, fx, dev,
+                                           plain_outs)
+        phase_done(phase_s, "celt_decode", t0, t_main)
+
         t0 = time.time()
-        sl = phase_sim_loss(dev, simfx, sl_in, sl_job)
-        phase_s["sim_loss"] = time.time() - t0
+        dred = phase_dred(dev, dict(np.load(DRED_FIXTURE)))
+        phase_done(phase_s, "dred", t0, t_main)
+
         t0 = time.time()
-        pr = phase_plc_rates(dev, simfx, plc, pr_job)
-        phase_s["plc_rates"] = time.time() - t0
+        plc = phase_deep_plc(dev, dict(np.load(DRED_FIXTURE)),
+                             dict(np.load(PLC_FIXTURE)), dred)
+        phase_done(phase_s, "deep_plc", t0, t_main)
+
         t0 = time.time()
-        cl = phase_celt_plc(dev, cfx, cl_in, cl_jobs)
-        phase_s["celt_plc"] = time.time() - t0
+        sfx = dict(np.load(SILK_FIXTURE))
+        ofx = dict(np.load(OSCE_FIXTURE))
+        osce = phase_osce(dev, sfx, ofx)
+        phase_done(phase_s, "osce", t0, t_main)
+
         t0 = time.time()
-        sp = phase_silk_plc(dev, spfx, sp_in, sp_jobs)
-        phase_s["silk_plc"] = time.time() - t0
+        bfx = dict(np.load(BBWE_FIXTURE))
+        bb = phase_bbwe(dev, sfx, bfx, ofx)
+        phase_done(phase_s, "bbwe", t0, t_main)
         t0 = time.time()
-        api = phase_opus_api(dev, afx, api_in, api_job)
-        phase_s["opus_api"] = time.time() - t0
+        oh = phase_osce_hybrid(dev, bfx)
+        phase_done(phase_s, "osce_hybrid", t0, t_main)
+
+        t0 = time.time()
+        chain = phase_dred_chain(dev, dict(np.load(DRED_ENC_FIXTURE)))
+        phase_done(phase_s, "dred_chain", t0, t_main)
+
+        t0 = time.time()
+        sp2 = second_job.result()
+        print(sp2["log"], end="")
+        if sp2["fail"]:
+            fail(f"the second process: {sp2['fail']}")
+        phase_s.update(sp2["phase_s"])
+        phase_done(phase_s, "second_process_wait", t0, t_main)
+        k3_err, ecounts, dcounts = (sp2["k3_err"], sp2["ecounts"],
+                                    sp2["dcounts"])
+        enc_lanes, c10 = sp2["enc_lanes"], sp2["c10"]
+        c10["tabs"] = CK.dec_tabs(48000, 480)
+        slanes, k4_count, k4_err = (sp2["slanes"], sp2["k4_count"],
+                                    sp2["k4_err"])
+        k4_in = to_device(sp2["k4_in"], dev)
+        htabs = CK.dec_tabs(48000, 960, 17, 21)
+        hlanes, k1h_err = sp2["hlanes"], sp2["k1h_err"]
+        k1h_in = to_device(sp2["k1h_in"], dev)
+        hpcm_err, hcounts = sp2["hpcm_err"], sp2["hcounts"]
+        k1s_err, swpcm_err, swcounts = (sp2["k1s_err"], sp2["swpcm_err"],
+                                        sp2["swcounts"])
+
+        # the loss phases: their CPU reference runs go to worker processes
+        # as soon as their inputs exist and run while the card works
+        simfx = dict(np.load(SIM_FIXTURE))
+        t0 = time.time()
+        with cpu_pool() as pool:
+            pl_in = plc_lanes_inputs(dev, simfx)
+            pr_job = pool.submit(cpu_plc_rates, plc["cpu_dreds"],
+                                 plc["hist"], plc["off48"])
+            sl_in = sim_loss_inputs(dev, simfx)
+            sl_job = pool.submit(cpu_sim_loss, sl_in["packets"],
+                                 sl_in["lost"])
+            afx = dict(np.load(API_FIXTURE))
+            api_in = opus_api_inputs(dev, afx)
+            stfx = dict(np.load(STEREO_FIXTURE))
+            st_in = opus_stereo_inputs(stfx, B_DNN)
+            late_job = second.submit(second_late, api_in, st_in)
+            phase_done(phase_s, "loss_inputs", t0, t_main)
+            t0 = time.time()
+            pl = phase_plc_lanes(dev, simfx, pl_in, pool)
+            phase_done(phase_s, "plc_lanes", t0, t_main)
+            # the classic loops' CPU references queue behind plc_lanes' own
+            cfx = dict(np.load(CELT_PLC_FIXTURE))
+            cl_in = classic_inputs(sl_in, cfx)
+            cl_jobs = {"plain": pool.submit(cpu_classic, cl_in["packets"],
+                                            cl_in["lost"], False),
+                       "dred": pool.submit(cpu_classic, cl_in["dred_packets"],
+                                           cl_in["dred_lost"], True)}
+            spfx = dict(np.load(SILK_PLC_FIXTURE))
+            sp_in = silk_plc_inputs(sl_in, spfx)
+            sp_jobs = {m: pool.submit(cpu_silk_plc, m, sp_in[m]["packets"],
+                                      sp_in[m]["lost"], sp_in["cpu_lanes"])
+                       for m in ("silk", "hybrid")}
+            api_job = pool.submit(cpu_opus_api, api_in["packets"],
+                                  api_in["fec"], api_in["size"],
+                                  api_in["cpu_lanes"])
+            st_jobs = {}
+            for c, n_l in ((2, B_DNN), (1, STEREO_MONO_LANES)):
+                keep = st_in["cpu_lanes"][st_in["cpu_lanes"] < n_l]
+                nt = stereo_ticks(c)
+                st_jobs[c] = pool.submit(
+                    cpu_opus_api, [row[:nt] for row in st_in["packets"]],
+                    st_in["fec"][:, :nt], st_in["size"][:, :nt], keep, c)
+            t0 = time.time()
+            sl = phase_sim_loss(dev, simfx, sl_in, sl_job)
+            phase_done(phase_s, "sim_loss", t0, t_main)
+            t0 = time.time()
+            pr = phase_plc_rates(dev, simfx, plc, pr_job)
+            phase_done(phase_s, "plc_rates", t0, t_main)
+            t0 = time.time()
+            cl = phase_celt_plc(dev, cfx, cl_in, cl_jobs)
+            phase_done(phase_s, "celt_plc", t0, t_main)
+            t0 = time.time()
+            sp = phase_silk_plc(dev, spfx, sp_in, sp_jobs)
+            phase_done(phase_s, "silk_plc", t0, t_main)
+
+            t0 = time.time()
+            late = late_job.result()
+            print(late["log"], end="")
+            if late["fail"]:
+                fail(f"the second process: {late['fail']}")
+            phase_s.update(late["phase_s"])
+            phase_done(phase_s, "second_process_wait_late", t0, t_main)
+            t0 = time.time()
+            api = phase_opus_api(dev, afx, api_in, api_job, late["api"])
+            phase_done(phase_s, "opus_api", t0, t_main)
+            t0 = time.time()
+            st = phase_opus_stereo(dev, stfx, st_in, st_jobs, pool,
+                                   late["stereo_one"])
+            phase_done(phase_s, "opus_stereo", t0, t_main)
 
     t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
@@ -5475,32 +6073,32 @@ def main() -> int:
     t.update(phase_dnn_times(dev, smi, dred))
     t.update(phase_plc_times(dev, smi, plc))
     t.update(phase_celt10ms_times(dev, smi, c10))
-    phase_s["times"] = time.time() - t0
+    phase_done(phase_s, "times", t0, t_main)
     t0 = time.time()
     t.update(phase_osce_times(dev, smi, osce))
-    phase_s["osce_times"] = time.time() - t0
+    phase_done(phase_s, "osce_times", t0, t_main)
     t0 = time.time()
     t.update(phase_bbwe_times(dev, smi, bb, oh))
-    phase_s["bbwe_times"] = time.time() - t0
+    phase_done(phase_s, "bbwe_times", t0, t_main)
     t0 = time.time()
     t.update(phase_dred_chain_times(dev, smi, chain))
-    phase_s["dred_chain_times"] = time.time() - t0
+    phase_done(phase_s, "dred_chain_times", t0, t_main)
     t0 = time.time()
     lt = loss_times(dev, smi, sl, pl, plc)
-    phase_s["loss_times"] = time.time() - t0
+    phase_done(phase_s, "loss_times", t0, t_main)
     t0 = time.time()
     ct = celt_plc_times(dev, smi, cl_in)
-    phase_s["celt_plc_times"] = time.time() - t0
+    phase_done(phase_s, "celt_plc_times", t0, t_main)
     t0 = time.time()
     spt = silk_plc_times(dev, smi, sp_in)
-    phase_s["silk_plc_times"] = time.time() - t0
+    phase_done(phase_s, "silk_plc_times", t0, t_main)
     t0 = time.time()
-    apt = opus_api_times(dev, smi, api_in, api)
-    phase_s["opus_api_times"] = time.time() - t0
+    apt = opus_api_times(dev, smi, api)
+    phase_done(phase_s, "opus_api_times", t0, t_main)
 
     t0 = time.time()
     k5 = phase_k5(dev, smi)
-    phase_s["k5"] = time.time() - t0
+    phase_done(phase_s, "k5", t0, t_main)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -5526,7 +6124,9 @@ def main() -> int:
                 "celt plc dred": cl["dred"]["counts"],
                 "silk plc silk": sp["silk"]["counts"],
                 "silk plc hybrid": sp["hybrid"]["counts"],
-                "opus api": api["counts"]}
+                "opus api": api["counts"],
+                "opus stereo two channels": st["counts"][2],
+                "opus stereo one channel": st["counts"][1]}
     print(f"launches per path ({NFRAMES} frames; the DRED chain "
           f"{CHAIN_FRAMES}): {per_path}")
 
@@ -5540,6 +6140,11 @@ def main() -> int:
                         api["x_err"]), t["k1"],
                     t["k1p"],
                     t["k1_bound"]),
+        kernel_line("celt_dec_frame_stereo",
+                    "opus_tpu_torch/csrc/celt_dec_frame.cu",
+                    "opus_tpu/models/celt_dec_kernel.py:656",
+                    total("K1 stereo"), st["x_err"], st["k1s"],
+                    st["k1sp"], st["k1s_bound"]),
         kernel_line("deemphasis", "opus_tpu_torch/csrc/deemphasis.cu",
                     "opus_tpu/ops/iir_pallas.py:47", total("K2"),
                     max(k2_err, dred["k2_err"], plc["k2_err"],
@@ -5599,7 +6204,11 @@ def main() -> int:
                                      spt.items()) + f"; opus_api tick at "
           f"B={B_DNN} {apt['tick_ms']:.1f} ms (busy "
           f"{100 * apt['dev_ms'] / apt['tick_ms']:.1f}%), K1 at LM 1 "
-          f"{apt['k1_lm1']:.4f} ms (bound {apt['k1_lm1_bound'][0]:.6f} ms)")
+          f"{apt['k1_lm1']:.4f} ms (bound {apt['k1_lm1_bound'][0]:.6f} ms); "
+          f"opus_stereo two-channel tick at B={B_DNN} {st['tick_ms']:.1f} "
+          f"ms (busy {100 * st['dev_ms'] / st['tick_ms']:.1f}%), K1 stereo "
+          f"at 20 ms {st['k1s']:.4f} ms (bound {st['k1s_bound'][0]:.6f} "
+          f"ms) beside the mono instantiation's {t['k1']:.4f} ms")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -61,14 +61,19 @@ def fir5(x, num):
     return y
 
 
-def pitch_downsample(x, length: int):
+def pitch_downsample(x, length: int, x2=None):
     """2x downsample + LPC flattening (reference: pitch.c:140, factor
-    2) of one channel x [B, >= 2 length] -> [B, length]."""
+    2) of one channel x [B, >= 2 length] (or of x and x2 summed, the
+    second channel's terms added after the first's) -> [B, length]."""
     lp = torch.empty((x.shape[0], length), dtype=f64, device=x.device)
     i = torch.arange(1, length, device=x.device)
     lp[:, 1:] = .25 * x[:, 2 * i - 1] + .25 * x[:, 2 * i + 1] \
         + .5 * x[:, 2 * i]
     lp[:, 0] = .25 * x[:, 1] + .5 * x[:, 0]
+    if x2 is not None:
+        lp[:, 1:] += .25 * x2[:, 2 * i - 1] + .25 * x2[:, 2 * i + 1] \
+            + .5 * x2[:, 2 * i]
+        lp[:, 0] += .25 * x2[:, 1] + .5 * x2[:, 0]
     ac = celt_autocorr(lp, 4)
     # ac[0] *= 1.0001; ac[k] -= ac[k] * (.008 k) * (.008 k), left to right
     ac = torch.stack([ac[:, 0] * 1.0001] + [

@@ -98,11 +98,12 @@ def celt_iir(x, den, mem):
     return y[:, order:]
 
 
-def plc_pitch_search(hist, margin=None):
+def plc_pitch_search(hist, margin=None, hist2=None):
     """(reference: celt_plc_pitch_search celt_decoder.c:555) the period
-    [B] int64 of the last DECODE_BUFFER_SIZE samples hist [B, 2048] f64;
-    ``margin``: see ``pitch.pitch_search``."""
-    lp = pitch_downsample(hist, DECODE_BUFFER_SIZE >> 1)
+    [B] int64 of the last DECODE_BUFFER_SIZE samples hist [B, 2048] f64
+    (and of a second channel's, hist2: the search runs on their
+    downmix); ``margin``: see ``pitch.pitch_search``."""
+    lp = pitch_downsample(hist, DECODE_BUFFER_SIZE >> 1, hist2)
     idx = pitch_search(lp[:, PLC_PITCH_LAG_MAX >> 1:], lp,
                        DECODE_BUFFER_SIZE - PLC_PITCH_LAG_MAX,
                        PLC_PITCH_LAG_MAX - PLC_PITCH_LAG_MIN, margin)
@@ -184,11 +185,14 @@ def renormalise(x, ebands, lm: int, lo: int, hi: int):
     return out
 
 
-def _periodic(st, dsp, tabs, n: int, lanes):
-    """The periodic branch on every lane (the pitch search and the LPC
-    only where a lane of ``lanes`` [B] needs them): (signal [B, N +
-    overlap] f64, pitch [B], lpc [B, 24], zeroed [B] bool, the relative
-    distances of the pitch and of the zeroing decision from a tie [B])."""
+def _periodic(st, dsp, tabs, n: int, lanes, hist2=None, pitch_in=None):
+    """The periodic branch of one channel on every lane (the pitch search
+    and the LPC only where a lane of ``lanes`` [B] needs them): (signal
+    [B, N + overlap] f64, pitch [B], lpc [B, 24], zeroed [B] bool, the
+    relative distances of the pitch and of the zeroing decision from a tie
+    [B]).  hist2: the other channel's history, which the pitch search
+    reads too; pitch_in: the period another channel's call found (the
+    search runs once a frame)."""
     overlap = tabs.mode.overlap
     dev = dsp["hist"].device
     hist = dsp["hist"].to(f64)
@@ -198,10 +202,14 @@ def _periodic(st, dsp, tabs, n: int, lanes):
     exc = hist[:, DECODE_BUFFER_SIZE - MAX_PERIOD - CELT_LPC_ORDER:]
     pitch, lpc = st["last_pitch_index"], st["plc_lpc"]
     m_pitch = torch.ones_like(fade)
+    if pitch_in is not None:
+        pitch = pitch_in
     if bool((search & lanes).any()):
-        margin = {}
-        pitch = torch.where(search, plc_pitch_search(hist, margin), pitch)
-        m_pitch = torch.where(search, margin["pitch"], m_pitch)
+        if pitch_in is None:
+            margin = {}
+            pitch = torch.where(search, plc_pitch_search(hist, margin, hist2),
+                                pitch)
+            m_pitch = torch.where(search, margin["pitch"], m_pitch)
         ac = windowed_autocorr(exc[:, CELT_LPC_ORDER:], w, overlap,
                                CELT_LPC_ORDER)
         ac = torch.stack([ac[:, 0] * 1.0001] + [
@@ -253,27 +261,55 @@ def _periodic(st, dsp, tabs, n: int, lanes):
     return y, pitch, lpc, zeroed, m_pitch, m_zero
 
 
-def _noise(st, dsp, tabs, n: int):
-    """The noise branch on every lane: (postfiltered signal [B, N] f32,
-    new tail and hist, decayed energies [B, nb] f32, the LCG state)."""
+def channel_state(state: dict, k: int) -> dict:
+    """Channel k's view of a two-channel decoder state (fused_celt_init_
+    state with out_channels=2): its synthesis state, concealment LPC,
+    fold, energies and background under the mono keys."""
+    if k == 0:
+        return state
+    return dict(state, dsp=state["dsp_1"], fold=state["fold_1"],
+                plc_lpc=state["plc_lpc_1"], old_e=state["e_copy"],
+                background=state["background_1"])
+
+
+def to_rows(dicts):
+    """Per-channel dicts of [B, ...] tensors -> one of [B * C, ...] rows
+    (lane-major, as the synthesis state), and back (``from_rows``)."""
+    return {k: torch.stack([d[k] for d in dicts], 1).flatten(0, 1)
+            for k in dicts[0]}
+
+
+def from_rows(d, c: int):
+    return [{k: v.unflatten(0, (-1, c))[:, i] for k, v in d.items()}
+            for i in range(c)]
+
+
+def _noise(st, tabs, n: int, cc: int = 1):
+    """The noise branch on every lane, over cc output channels: (the
+    postfiltered signal of each channel [B, N] f32, each channel's new
+    tail and hist, decayed energies [B, nb] f32, the LCG state).  The
+    LCG runs on from one channel's bins to the next's."""
     mode = tabs.mode
     lm, start, end = tabs.lm, tabs.start, tabs.end_band
     overlap = mode.overlap
-    dev = dsp["hist"].device
-    b = dsp["hist"].shape[0]
+    chans = [channel_state(st, k) for k in range(cc)]
+    dev = st["dsp"]["hist"].device
+    b = st["dsp"]["hist"].shape[0]
     eff_end = max(start, min(end, mode.effEBands))
-    tail = fold_tails(st, overlap)
     decay = torch.where(st["loss_duration"] == 0, 1.5, 0.5).to(f64)
     inside = torch.zeros(tabs.nb, dtype=torch.bool, device=dev)
     inside[start:end] = True
-    old = st["old_e"].to(f64)
-    e = torch.where(inside, torch.maximum(st["background"].to(f64),
-                                          old - decay[:, None]), old)
-    e = e.to(torch.float32)
     eb = mode.eBands
     lo, hi = int(eb[start]) << lm, int(eb[eff_end]) << lm
-    x, seed = lcg_noise(st["seed"], lo, hi, n)
-    x = renormalise(x, eb, lm, start, eff_end)
+    es, xs = [], []
+    seed = st["seed"]
+    for ch in chans:
+        old = ch["old_e"].to(f64)
+        e = torch.where(inside, torch.maximum(ch["background"].to(f64),
+                                              old - decay[:, None]), old)
+        es.append(e.to(torch.float32))
+        x, seed = lcg_noise(seed, lo, hi, n)
+        xs.append(renormalise(x, eb, lm, start, eff_end).to(torch.float32))
     minp = COMBFILTER_MINPERIOD
     pp = st["pf_period"].clamp_min(minp)
     periods = torch.stack([st["pf_period_old"].clamp_min(minp), pp, pp], 1)
@@ -284,30 +320,38 @@ def _noise(st, dsp, tabs, n: int):
     taps3 = torch.stack([st["pf_tapset_old"], st["pf_tapset"],
                          st["pf_tapset"]], dim=-1)
     false = torch.zeros(b, dtype=torch.bool, device=dev)
-    filt, syn = synth_step(x.to(torch.float32)[:, None, :], e[:, None, :],
-                           false, false, periods, gains3[..., None]
-                           * comb[taps3], dict(dsp, tail=tail),
+    dsps = [dict(ch["dsp"], tail=fold_tails(ch, overlap)) for ch in chans]
+    filt, syn = synth_step(torch.stack(xs, 1), torch.stack(es, 1), false,
+                           false, periods, gains3[..., None] * comb[taps3],
+                           dsps[0] if cc == 1 else to_rows(dsps),
                            fs=mode.Fs, frame_size=n, lm=lm)
-    return filt, syn, e, seed
+    filts = list(filt.unflatten(0, (b, cc)).unbind(1))
+    syns = [syn] if cc == 1 else from_rows(syn, cc)
+    return filts, syns, es, seed
 
 
-def decode_lost(state: dict, tabs, lanes):
+def decode_lost(state: dict, tabs, lanes, out_channels: int = 1):
     """One concealed frame (reference: celt_decode_lost) on the lanes of
     ``lanes`` [B] bool that have decoded a packet before
-    (``decoded_any``): the state dict of ``fused_celt_init_state`` -> (pcm
-    [B, 1, N] f32, zeros on the other lanes, the new state, which the
-    other lanes keep bit for bit, and the trace: each lane's ``branch``
-    (FRAME_PLC_*, FRAME_NORMAL where it did not conceal), ``pitch`` and
-    ``zeroed`` of a periodic frame, and the relative distances of the
-    pitch search's and the zeroing's decisions from a tie,
-    ``pitch_margin`` (1 where the period was not searched) and
-    ``zero_margin``)."""
+    (``decoded_any``), over ``out_channels`` channels (2: the state of
+    fused_celt_init_state with out_channels=2; the pitch search runs once
+    on the two channels' downmix, the rest per channel): the state dict
+    of ``fused_celt_init_state`` -> (pcm [B, CC, N] f32, zeros on the
+    other lanes, the new state, which the other lanes keep bit for bit,
+    and the trace: each lane's ``branch`` (FRAME_PLC_*, FRAME_NORMAL where
+    it did not conceal), ``pitch`` and ``zeroed`` (on any channel) of a
+    periodic frame, and the relative distances of the pitch search's and
+    the zeroing's decisions from a tie, ``pitch_margin`` (1 where the
+    period was not searched) and ``zero_margin`` (the least over the
+    channels))."""
+    cc = out_channels
     mode = tabs.mode
     lm, m = tabs.lm, tabs.M
     n = mode.shortMdctSize << lm
     overlap = mode.overlap
-    dsp = state["dsp"]
-    dev = dsp["hist"].device
+    chans = [channel_state(state, k) for k in range(cc)]
+    dsps = [ch["dsp"] for ch in chans]
+    dev = dsps[0]["hist"].device
     conc = lanes & state["decoded_any"]
     noise = (state["plc_duration"] >= PLC_NOISE_AFTER) \
         | (state["skip_plc"] != 0)
@@ -316,38 +360,51 @@ def decode_lost(state: dict, tabs, lanes):
     per = conc & ~noise
     noi = conc & noise
     b = conc.shape[0]
-    filt = torch.zeros((b, n), dtype=torch.float32, device=dev)
+    filt = [torch.zeros((b, n), dtype=torch.float32, device=dev)] * cc
     new = dict(state)
-    ndsp = dict(dsp)
+    ndsp = [dict(d) for d in dsps]
+    suffix = ("", "_1")
     pitch = torch.zeros(b, dtype=torch.int64, device=dev)
     zeroed = torch.zeros(b, dtype=torch.bool, device=dev)
     m_pitch = torch.ones(b, dtype=f64, device=dev)
     m_zero = m_pitch
     any_per, any_noi = bool(per.any()), bool(noi.any())
     if any_per:
-        y, pitch, lpc, zeroed, m_pitch, m_zero = _periodic(state, dsp, tabs,
-                                                           n, per)
-        y32 = y.to(torch.float32)
         sel = per[:, None]
-        filt = torch.where(sel, y32[:, :n], filt)
-        ndsp["hist"] = torch.where(sel, torch.cat(
-            [dsp["hist"][:, n:], y32[:, :n]], dim=1), dsp["hist"])
+        for k, ch in enumerate(chans):
+            if k == 0:
+                hist2 = dsps[1]["hist"].to(f64) if cc == 2 else None
+                y, pitch, lpc, z, m_pitch, mz = _periodic(
+                    ch, dsps[0], tabs, n, per, hist2=hist2)
+                zeroed, m_zero = z, mz
+            else:
+                y, _p, lpc, z, _mp, mz = _periodic(ch, dsps[k], tabs, n, per,
+                                                   pitch_in=pitch)
+                zeroed = zeroed | z
+                m_zero = torch.minimum(m_zero, mz)
+            y32 = y.to(torch.float32)
+            filt[k] = torch.where(sel, y32[:, :n], filt[k])
+            ndsp[k]["hist"] = torch.where(sel, torch.cat(
+                [dsps[k]["hist"][:, n:], y32[:, :n]], dim=1), dsps[k]["hist"])
+            new["fold" + suffix[k]] = torch.where(
+                sel, y32[:, n:n + overlap], ch["fold"])
+            new["plc_lpc" + suffix[k]] = torch.where(sel, lpc, ch["plc_lpc"])
         new.update(
-            fold=torch.where(sel, y32[:, n:n + overlap], state["fold"]),
-            plc_lpc=torch.where(sel, lpc, state["plc_lpc"]),
             last_pitch_index=torch.where(per, pitch,
                                          state["last_pitch_index"]),
             prefilter_and_fold=torch.where(per, 1,
                                            state["prefilter_and_fold"]))
     if any_noi:
-        f_n, syn, e, seed = _noise(state, dsp, tabs, n)
+        f_n, syns, es, seed = _noise(state, tabs, n, cc)
         sel = noi[:, None]
-        filt = torch.where(sel, f_n, filt)
-        ndsp.update(tail=torch.where(sel, syn["tail"], ndsp["tail"]),
-                    hist=torch.where(sel, syn["hist"], ndsp["hist"]))
+        for k in range(cc):
+            filt[k] = torch.where(sel, f_n[k], filt[k])
+            ndsp[k].update(
+                tail=torch.where(sel, syns[k]["tail"], ndsp[k]["tail"]),
+                hist=torch.where(sel, syns[k]["hist"], ndsp[k]["hist"]))
         pp = state["pf_period"].clamp_min(COMBFILTER_MINPERIOD)
         new.update(
-            old_e=torch.where(sel, e, state["old_e"]),
+            old_e=torch.where(sel, es[0], state["old_e"]),
             seed=torch.where(noi, seed, state["seed"]),
             pf_period=torch.where(noi, pp, state["pf_period"]),
             pf_period_old=torch.where(noi, pp, state["pf_period_old"]),
@@ -358,12 +415,20 @@ def decode_lost(state: dict, tabs, lanes):
             prefilter_and_fold=torch.where(noi, 0,
                                            new["prefilter_and_fold"]),
             skip_plc=torch.where(noi, 1, state["skip_plc"]))
-    pcm = torch.zeros((b, 1, n), dtype=torch.float32, device=dev)
+        if cc == 2:
+            new["e_copy"] = torch.where(sel, es[1], state["e_copy"])
+    pcm = torch.zeros((b, cc, n), dtype=torch.float32, device=dev)
     if any_per or any_noi:
-        y, deemph = deemphasize(filt, dsp["deemph"], mode.Fs, n)
-        ndsp["deemph"] = torch.where(conc, deemph, dsp["deemph"])
-        pcm = torch.where(conc[:, None, None], y[:, None, :], pcm)
-    new["dsp"] = ndsp
+        mem = torch.stack([d["deemph"] for d in dsps], 1).flatten()
+        y, deemph = deemphasize(torch.stack(filt, 1).flatten(0, 1), mem,
+                                mode.Fs, n)
+        y, deemph = y.unflatten(0, (b, cc)), deemph.unflatten(0, (b, cc))
+        for k in range(cc):
+            ndsp[k]["deemph"] = torch.where(conc, deemph[:, k],
+                                            dsps[k]["deemph"])
+        pcm = torch.where(conc[:, None, None], y, pcm)
+    for k in range(cc):
+        new["dsp" + suffix[k]] = ndsp[k]
     new.update(
         loss_duration=torch.clamp(state["loss_duration"] + m,
                                   max=DURATION_CAP),

@@ -94,7 +94,8 @@ def _loss_defaults(out: dict, device) -> dict:
     decoded = (out["old_e"] != 0).any(1) | (out["prev1"] != -28.0).any(1) \
         | (out["prev2"] != -28.0).any(1)
     fresh.update(out)
-    fresh.update(e_copy=out["old_e"].clone(), rng_final=out["seed"].clone(),
+    fresh.update(e_copy=out["old_e"].clone(), prev1_1=out["prev1"].clone(),
+                 prev2_1=out["prev2"].clone(), rng_final=out["seed"].clone(),
                  decoded_any=decoded,
                  skip_plc=torch.where(decoded, 0, fresh["skip_plc"]))
     return fresh
@@ -166,15 +167,18 @@ def _scalar_get(d, k):
     return d[k] if isinstance(d, dict) else getattr(d, k)
 
 
-def celt_state_from_scalar(decoders, device="cpu", decoded_any=True) -> dict:
+def celt_state_from_scalar(decoders, device="cpu", decoded_any=True,
+                           out_channels: int = 1) -> dict:
     """Mono 48 kHz states of the scalar tier's ``CeltDecoder`` (objects, or
     dicts of their fields as numpy arrays and numbers; ``SCALAR_KEYS``),
     one a lane -> the port's per-lane state (``fused_celt_init_state``'s
     layout): decode_mem[0, :2048] is the history, [2048:2108] the IMDCT
     tail and [2048:2168] the extrapolated overlap a fold reads; the
     energies' first nb entries are old_e / prev1 / prev2 / background
-    and oldEBands[nb:2nb] is e_copy; ``rng`` is both the next frame's seed
-    and the final range."""
+    and [nb:2nb] the second channel's (e_copy, prev1_1, prev2_1,
+    background_1); ``rng`` is both the next frame's seed and the final
+    range.  out_channels=2: the second output channel's synthesis state
+    from decode_mem[1], as ``fused_celt_init_state`` with that flag."""
     def col(k, dtype):
         return torch.as_tensor(np.array([np.asarray(_scalar_get(d, k))
                                          for d in decoders]),
@@ -203,6 +207,18 @@ def celt_state_from_scalar(decoders, device="cpu", decoded_any=True) -> dict:
     out["rng_final"] = out["seed"].clone()
     out["decoded_any"] = torch.full((len(decoders),), bool(decoded_any),
                                     device=device)
+    out.update(prev1_1=e["oldLogE"][:, nb:2 * nb].to(f32),
+               prev2_1=e["oldLogE2"][:, nb:2 * nb].to(f32),
+               background_1=e["backgroundLogE"][:, nb:2 * nb].to(f32))
+    if out_channels == 2:
+        mem1 = col("decode_mem", torch.float64)[:, 1]
+        out.update(
+            plc_lpc_1=col("plc_lpc", torch.float64)[:, 1],
+            fold_1=mem1[:, h:].to(f32),
+            dsp_1=dict(hist=mem1[:, :h].to(f32),
+                       tail=mem1[:, h:h + (mem1.shape[1] - h) // 2].to(f32),
+                       deemph=(col("preemph_memD", torch.float64)[:, 1]
+                               / _preemph()).to(f32)))
     return out
 
 
@@ -229,7 +245,7 @@ def celt_state_to_numpy(state: dict) -> list:
         for k, name in (("old_e", "oldEBands"), ("prev1", "oldLogE"),
                         ("prev2", "oldLogE2"),
                         ("background", "backgroundLogE")):
-            second = state["e_copy"][i] if k == "old_e" else state[k][i]
+            second = state["e_copy" if k == "old_e" else k + "_1"][i]
             lane[name] = np.concatenate([n(state[k][i]), n(second)]
                                         ).astype(np.float64)
         lane.update({name: int(state[p][i]) for p, name in
@@ -661,62 +677,101 @@ def dred_enc_state_from_jax(jax_encs, device="cpu"):
 
 
 def opus_decoder_state(jax_decoders, device="cpu") -> dict:
-    """B scalar ``OpusDecoder``s of the JAX package (48 kHz mono), taken
-    mid-stream -> the port's per-lane ``BatchedOpusDecoder`` state
-    (``BatchedOpusDecoder.set_state``): the CELT decoder
-    (``celt_state_from_scalar``; the Opus level gates its concealment, so
-    every lane counts as having decoded), the SILK channel at its rate at
-    the port's widest buffers (the first 320 samples of the scalar's
-    outBuf, exc_Q14 and CNG buffer), its 48 kHz resampler (IIR state, the
-    FIR's 8 taps, the delay line padded to the widest), the 2-sample
-    buffer, the soft clip memory, the final range and the host fields:
-    prev_mode, prev_redundancy, mode, bandwidth, frame size, last packet
-    duration, the CELT decoder's start and end, the SILK rate (0 before
-    its first frame or after a reset), the gain."""
-    from .models.opus_decoder import RS_DELAY, BatchedOpusDecoder, \
-        _silk_fresh
+    """B scalar ``OpusDecoder``s of the JAX package (48 kHz, all with one
+    output channel count), taken mid-stream -> the port's per-lane
+    ``BatchedOpusDecoder`` state (``BatchedOpusDecoder.set_state``): the
+    CELT decoder (``celt_state_from_scalar`` with both channels' energy
+    memory, and the second output channel's synthesis state on a
+    two-channel decoder; the Opus level gates its concealment, so every
+    lane counts as having decoded), the SILK side (``silk_api.SilkLanes``:
+    both channel states at their rates at the port's widest buffers, the
+    first 320 samples of the scalar's outBuf, exc_Q14 and CNG buffer,
+    their packet flags and conditional-coding memory; both 48 kHz
+    resamplers: IIR state, the FIR's 8 taps, the delay line padded to the
+    widest; the stereo state: the 2-sample mid and side buffers and the
+    last predictor; on the host each channel's rate (0 before its first
+    frame or after a reset), the internal channel count and
+    prev_decode_only_middle), the soft clip memories, the final range and
+    the host fields: prev_mode, prev_redundancy, mode, bandwidth, coded
+    channels, frame size, last packet duration, the CELT decoder's start
+    and end, the gain."""
+    from .models.opus_decoder import BatchedOpusDecoder
+    from .models.silk_api import RS_DELAY, silk_fresh
     decs = list(jax_decoders)
     b = len(decs)
-    celt = celt_state_from_scalar([d.celt for d in decs], device)
-    fields = {}
-    for k in SILK_SCALAR_KEYS:
-        rows = []
-        for d in decs:
-            v = np.asarray(getattr(d.silk.channel_state[0], k), np.int64)
-            rows.append(v.reshape(-1)[:320] if v.ndim else v)
-        fields[k] = np.stack(rows)
-    silk = silk_state_from_scalar(fields, device)
-    fresh = [d.silk.channel_state[0].fs_kHz == 0 for d in decs]
-    if any(fresh):
-        m = torch.as_tensor(fresh, device=device)
-        silk = select_lanes(m, _silk_fresh(b, 16, device), silk)
-    rs = dict(s_iir=np.zeros((b, 6), np.int64),
-              s_fir=np.zeros((b, 8), np.int64),
-              delay=np.zeros((b, RS_DELAY), np.int64))
-    for i, d in enumerate(decs):
-        r = d.silk.channel_state[0].resampler
-        if r is not None:
-            rs["s_iir"][i] = r.s_iir[:6]
-            rs["s_fir"][i] = r.s_fir[:8]
-            rs["delay"][i, :r.input_delay] = r.delay_buf[:r.input_delay]
+    cc = decs[0].channels
+    celt = celt_state_from_scalar([d.celt for d in decs], device,
+                                  out_channels=cc)
+    chans, rss = [], []
+    for k in range(2):
+        fields = {}
+        for key in SILK_SCALAR_KEYS:
+            rows = []
+            for d in decs:
+                v = np.asarray(getattr(d.silk.channel_state[k], key),
+                               np.int64)
+                rows.append(v.reshape(-1)[:320] if v.ndim else v)
+            fields[key] = np.stack(rows)
+        st = silk_state_from_scalar(fields, device)
+        cs = [d.silk.channel_state[k] for d in decs]
+        st.update(
+            vad_flags=torch.as_tensor(np.array([c.VAD_flags for c in cs],
+                                               bool), device=device),
+            lbrr_flags=torch.as_tensor(np.array([c.LBRR_flags for c in cs],
+                                                bool), device=device),
+            ec_prev_type=torch.as_tensor(np.array(
+                [c.ec_prevSignalType for c in cs], np.int64), device=device),
+            ec_prev_lag=torch.as_tensor(np.array(
+                [c.ec_prevLagIndex for c in cs], np.int64), device=device))
+        fresh = [c.fs_kHz == 0 for c in cs]
+        if any(fresh):
+            m = torch.as_tensor(fresh, device=device)
+            st = select_lanes(m, silk_fresh(b, 16, device), st)
+        chans.append(st)
+        rs = dict(s_iir=np.zeros((b, 6), np.int64),
+                  s_fir=np.zeros((b, 8), np.int64),
+                  delay=np.zeros((b, RS_DELAY), np.int64))
+        for i, c in enumerate(cs):
+            r = c.resampler
+            if r is not None:
+                rs["s_iir"][i] = r.s_iir[:6]
+                rs["s_fir"][i] = r.s_fir[:8]
+                rs["delay"][i, :r.input_delay] = r.delay_buf[:r.input_delay]
+        rss.append({key: torch.from_numpy(v).to(device)
+                    for key, v in rs.items()})
+
+    def stereo(key):
+        return torch.as_tensor(np.array([getattr(d.silk.sStereo, key)
+                                         for d in decs], np.int64),
+                               device=device)
+    silk = dict(
+        ch0=chans[0], ch1=chans[1], rs0=rss[0], rs1=rss[1],
+        smid=stereo("sMid"), sside=stereo("sSide"),
+        pred_prev=stereo("pred_prev_Q13"),
+        host=dict(fs0=np.array([d.silk.channel_state[0].fs_kHz
+                                for d in decs], np.int64),
+                  fs1=np.array([d.silk.channel_state[1].fs_kHz
+                                for d in decs], np.int64),
+                  n_int=np.array([d.silk.nChannelsInternal for d in decs],
+                                 np.int64),
+                  prev_dom=np.array([bool(d.silk.prev_decode_only_middle)
+                                     for d in decs])))
     scalar = dict(
         prev_mode=lambda d: d.prev_mode,
         prev_redundancy=lambda d: bool(d.prev_redundancy),
         mode=lambda d: int(d.mode), bandwidth=lambda d: int(d.bandwidth),
+        stream_channels=lambda d: d.stream_channels,
         frame_size=lambda d: d.frame_size,
         last_packet_duration=lambda d: d.last_packet_duration,
         celt_start=lambda d: d.celt.start, celt_end=lambda d: d.celt.end,
-        silk_fs=lambda d: d.silk.channel_state[0].fs_kHz,
         decode_gain=lambda d: d.decode_gain)
     host = {k: [scalar[k](d) for d in decs]
             for k in BatchedOpusDecoder.HOST_KEYS}
     return dict(
         celt=celt, silk=silk,
-        rs={k: torch.from_numpy(v).to(device) for k, v in rs.items()},
-        smid=torch.as_tensor(np.array([d.silk.sStereo.sMid for d in decs],
-                                      np.int64), device=device),
         softclip_mem=torch.as_tensor(np.array(
-            [d.softclip_mem[0] for d in decs], np.float32), device=device),
+            [np.asarray(d.softclip_mem[:cc]) for d in decs], np.float32),
+            device=device).reshape((b, cc)[:cc]),
         rng=torch.as_tensor(np.array([d.rangeFinal for d in decs],
                                      np.int64), device=device),
         host={k: np.asarray(v, bool if k == "prev_redundancy" else np.int64)

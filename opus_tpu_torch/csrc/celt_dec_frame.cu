@@ -103,6 +103,7 @@ constexpr int BITRES = 3;
 constexpr int MAX_FINE_BITS = 8;
 constexpr int FINE_OFFSET = 21;
 constexpr int QTHETA_OFFSET = 4;
+constexpr int QTHETA_OFFSET_TWOPHASE = 16;
 constexpr int ALLOC_STEPS = 6;
 constexpr int LAPLACE_CAP = 40;
 constexpr int NB_MAX = 21;
@@ -120,6 +121,9 @@ __constant__ int SMALL_ENERGY_ICDF[3] = {2, 1, 0};
 __constant__ int TRIM_ICDF[11] = {126, 124, 119, 109, 87, 41, 19, 9, 4, 2, 0};
 __constant__ int SPREAD_ICDF[4] = {25, 23, 2, 0};
 __constant__ int TAPSET_ICDF[3] = {2, 1, 0};
+__constant__ int LOG2_FRAC_TABLE[24] = {0, 8, 13, 16, 19, 21, 23, 24, 26,
+                                        27, 28, 29, 30, 31, 32, 32, 33, 34,
+                                        34, 35, 36, 36, 37, 37};
 __constant__ int TF_SELECT_TABLE[4][8] = {{0, -1, 0, -1, 0, -1, 0, -1},
                                           {0, -1, 0, -2, 1, 0, 1, -1},
                                           {0, -2, 0, -3, 2, 0, 1, -1},
@@ -244,7 +248,8 @@ __device__ __forceinline__ uint32_t lcg_fill(uint32_t seed, int n,
 // the sum.  Integer, so the order of the sum does not matter.
 template <typename F>
 __device__ __forceinline__ int alloc_sum(int start, int end,
-                                         const int32_t *caps, F bits_of) {
+                                         const int32_t *caps, F bits_of,
+                                         int floor = 1 << BITRES) {
     const int lane = lane_id();
     int psum = 0, done_hi = 0;
     for (int s = BSLOTS - 1; s >= 0; s--) {
@@ -255,7 +260,7 @@ __device__ __forceinline__ int alloc_sum(int start, int end,
         unsigned m = __ballot_sync(FULL, in && v >= thr);
         int done = done_hi || (m >> lane) != 0;
         if (in) psum += done ? (v < caps[j] ? v : caps[j])
-                             : (v >= 1 << BITRES ? 1 << BITRES : 0);
+                             : (v >= floor ? floor : 0);
         done_hi |= m != 0;
     }
     return warp_sum(psum);
@@ -274,7 +279,7 @@ struct __align__(16) BlockMem {
 struct Tabs {
     int nb, lm, nv, urows, ucols, start, end;
     const int32_t *eBands, *logN, *caps, *allocV, *eprob;  // shared memory
-    const int32_t *rowoff, *rows;                          // device memory
+    const int32_t *rowoff, *rows, *caps2;                  // device memory
     const uint32_t *u;
 };
 
@@ -300,6 +305,7 @@ __device__ Tabs load_tabs(const int32_t *t, int32_t *stage) {
     T.rowoff = t + t[12];
     T.rows = t + t[13];
     T.u = reinterpret_cast<const uint32_t *>(t + t[14]);
+    T.caps2 = t + t[15];
     return T;
 }
 
@@ -525,8 +531,9 @@ __device__ int laplace_decode(RD &d, int fs0, int decay) {
     return val;
 }
 
-__device__ int compute_qn(int n2, int b, int offset, int pulse_cap) {
-    int n2x = 2 * n2 - 1;
+// compute_qn (bands.c) for N2 = n2x: 2N - 1 for a split of N (mono), and
+// for a stereo band of N, 2N - 1 or 2 at N = 2
+__device__ int compute_qn_n2(int n2x, int b, int offset, int pulse_cap) {
     int qb = (b + n2x * offset) / n2x;   // C truncating division
     if (qb > b - pulse_cap - (4 << BITRES)) qb = b - pulse_cap - (4 << BITRES);
     if (qb > 8 << BITRES) qb = 8 << BITRES;
@@ -534,6 +541,11 @@ __device__ int compute_qn(int n2, int b, int offset, int pulse_cap) {
     int sh = 14 - (qb >> BITRES);
     sh = sh < 0 ? 0 : (sh > 31 ? 31 : sh);
     return ((EXP2_TABLE8[qb & 7] >> sh) + 1) >> 1 << 1;
+}
+
+__device__ __forceinline__ int compute_qn(int n2, int b, int offset,
+                                          int pulse_cap) {
+    return compute_qn_n2(2 * n2 - 1, b, offset, pulse_cap);
 }
 
 __device__ __forceinline__ int frac_mul16(int a, int b) {
@@ -714,6 +726,28 @@ struct __align__(16) WarpMem {
     Leaf leaves[MAX_LEAVES];
 };
 
+// what a two-channel frame adds to a warp's WarpMem: the second channel's
+// spectrum, the fold memories (norm: sqrt(N) times the first channel's
+// or the mid's shape as quant_band left it, before the stereo merge;
+// norm2: the second channel's, kept while dual stereo lasts) and the
+// second channel's folding source
+struct __align__(16) StereoMem {
+    float Y[NX_MAX];
+    float norm[NX_MAX];
+    float norm2[NX_MAX];
+    float lb2[NMAX];
+};
+
+template <int C>
+__host__ __device__ constexpr int warps_of() {
+    return C == 1 || WARPS == 1 ? WARPS : WARPS / 2;
+}
+
+template <int C>
+__host__ __device__ constexpr size_t warp_bytes() {
+    return sizeof(WarpMem) + (C == 2 ? sizeof(StereoMem) : 0);
+}
+
 struct Ctx {
     RD d;
     int rb;
@@ -844,7 +878,7 @@ __device__ Leaf decode_leaf(const Tabs &T, Ctx &c, const QPFrame &f,
 // band's split tree and records its leaves in c.w->leaves; returns their
 // number.  A node's second child replaces it on the stack.
 __device__ int quant_partition(const Tabs &T, Ctx &c, int band, int n,
-                               int lm, int b, int bb, int fill) {
+                               int lm, int b, int bb, int fill, float gain) {
     QPFrame *st = c.w->st;
     Leaf *leaves = c.w->leaves;
     const int lane = lane_id();
@@ -856,7 +890,7 @@ __device__ int quant_partition(const Tabs &T, Ctx &c, int band, int n,
         st[0].b = b;
         st[0].bb = bb;
         st[0].fill = fill;
-        st[0].gain = 1.0f;
+        st[0].gain = gain;
         st[0].xo = 0;
         st[0].cs = 0;
         st[0].phase = 0;
@@ -1064,10 +1098,11 @@ __device__ int build_leaves(const Tabs &T, Ctx &c, float *x, const float *lb,
 }
 
 // quant_band, mono decode (bands.c:1245): tf/hadamard wrappers around
-// quant_partition.  lb: the band's folding source (n floats, modified).
+// quant_partition.  lb: the band's folding source (n floats, modified when
+// lb_has); gain: 1, or a stereo band's side gain.
 __device__ int quant_band(const Tabs &T, Ctx &c, int band, float *x,
                           float *lb, int lb_has, int n, int b, int tr,
-                          int tf_change, int fill) {
+                          int tf_change, int fill, float gain = 1.0f) {
     float *tmp = c.w->tmp;
     if (n == 1) {
         int sign = 0;
@@ -1094,23 +1129,23 @@ __device__ int quant_band(const Tabs &T, Ctx &c, int band, float *x,
     int b0f = bb, n_b0 = n_b, longb = B0 == 1;
     // input side: lowband + fill
     for (int k = 0; k < recombine; k++) {
-        haar1(lb, n >> k, 1 << k);
+        if (lb_has) haar1(lb, n >> k, 1 << k);
         fill = BIT_INTERLEAVE_TABLE[fill & 0xF]
             | BIT_INTERLEAVE_TABLE[(fill >> 4) & 0xF] << 2;
     }
     bb = B0 >> recombine;
     n_b = (n / B0) << recombine;
     for (int t = 0; t < tdiv; t++) {
-        haar1(lb, n_b, bb);
+        if (lb_has) haar1(lb, n_b, bb);
         fill |= fill << bb;
         bb <<= 1;
         n_b >>= 1;
     }
-    if (b0f > 1)
+    if (b0f > 1 && lb_has)
         deinterleave_hadamard(lb, tmp, n_b0 >> recombine, b0f << recombine,
                               longb);
     PROF_T(t_qp);
-    int nl = quant_partition(T, c, band, n, lm, b, b0f, fill);
+    int nl = quant_partition(T, c, band, n, lm, b, b0f, fill, gain);
     PROF_T(t_build);
     int cm = build_leaves(T, c, x, lb, lb_has, nl);
     PROF_ADD(8, t_build);
@@ -1135,9 +1170,300 @@ __device__ int quant_band(const Tabs &T, Ctx &c, int band, float *x,
     return cm & ((1 << bb) - 1);
 }
 
+// ------------------------------------------------------- two-channel bands
+// stereo_merge (bands.c): the mid and side shapes back to left and right
+__device__ void stereo_merge(float *x, float *y, float mid, int n) {
+    float xp = 0.f, side = 0.f;
+    for (int j = lane_id(); j < n; j += LANES) {
+        xp += y[j] * x[j];
+        side += y[j] * y[j];
+    }
+    xp = warp_sum(xp);
+    side = warp_sum(side);
+    xp = mid * xp;
+    const float mm = mid * mid;
+    const float el = mm + side - 2 * xp;
+    const float er = mm + side + 2 * xp;
+    if (er < 6e-4f || el < 6e-4f) {
+        for (int j = lane_id(); j < n; j += LANES) y[j] = x[j];
+    } else {
+        const float lg = 1.0f / sqrtf(el), rg = 1.0f / sqrtf(er);
+        for (int j = lane_id(); j < n; j += LANES) {
+            float l = mid * x[j], r = y[j];
+            x[j] = lg * (l - r);
+            y[j] = rg * (l + r);
+        }
+    }
+    __syncwarp();
+}
+
+// quant_band_stereo, decode (bands.c:1387) for N > 1: compute_theta's
+// stereo branch, then the N = 2 rotation or the mid and side bands in the
+// order of their bits, the merge and the inversion.  nrm_out: where the
+// band's fold memory goes (sqrt(N) times the mid's shape as quant_band
+// left it), or null for the last band.  Returns the collapse mask.
+__device__ int band_stereo(const Tabs &T, Ctx &c, int band, float *xs,
+                           float *ys, float *lb, int lb_has, int n, int b,
+                           int tr, int tf_change, int fill, int intensity,
+                           int disable_inv, float *nrm_out, float nrm) {
+    const int lane = lane_id();
+    const int lm = T.lm;
+    const int bb = tr ? 1 << lm : 1;
+    const int orig_fill = fill;
+    // ---- compute_theta, stereo decode (bands.c:700)
+    int pulse_cap = T.logN[band] + lm * (1 << BITRES);
+    int offset = (pulse_cap >> 1) - (n == 2 ? QTHETA_OFFSET_TWOPHASE
+                                            : QTHETA_OFFSET);
+    int qn = compute_qn_n2(2 * n - 1 - (n == 2), b, offset, pulse_cap);
+    if (band >= intensity) qn = 1;
+    int tell0 = rd_tell_frac(c.d);
+    int itheta = 0, inv = 0;
+    if (qn != 1) {
+        int th;
+        if (n > 2) {                     // the step pdf
+            int x0 = qn >> 1;
+            int ft = 3 * (x0 + 1) + x0;
+            int fs = (int)rd_decode(c.d, (uint32_t)ft);
+            int xq = fs < (x0 + 1) * 3 ? fs / 3 : x0 + 1 + (fs - (x0 + 1) * 3);
+            int fl = xq <= x0 ? 3 * xq : (xq - 1 - x0) + (x0 + 1) * 3;
+            int fh = xq <= x0 ? 3 * (xq + 1) : (xq - x0) + (x0 + 1) * 3;
+            rd_update(c.d, (uint32_t)fl, (uint32_t)fh, (uint32_t)ft);
+            th = xq;
+        } else {
+            th = (int)rd_uint(c.d, (uint32_t)(qn + 1));
+        }
+        itheta = th * 16384 / qn;
+    } else {
+        if (b > 2 << BITRES && c.rb > 2 << BITRES) inv = rd_bit_logp(c.d, 2);
+        if (disable_inv) inv = 0;
+    }
+    int qalloc = rd_tell_frac(c.d) - tell0;
+    b -= qalloc;
+    int imid, iside, delta;
+    if (itheta == 0) {
+        imid = 32767;
+        iside = 0;
+        delta = -16384;
+        fill &= (1 << bb) - 1;
+    } else if (itheta == 16384) {
+        imid = 0;
+        iside = 32767;
+        delta = 16384;
+        fill &= ((1 << bb) - 1) << bb;
+    } else {
+        imid = bitexact_cos(itheta);
+        iside = bitexact_cos(16384 - itheta);
+        delta = frac_mul16((n - 1) << 7, bitexact_log2tan(iside, imid));
+    }
+    const float mid = (float)imid * (1.0f / 32768.0f);
+    const float side = (float)iside * (1.0f / 32768.0f);
+    int cm;
+    if (n == 2) {
+        int sbits = (itheta != 0 && itheta != 16384) ? 1 << BITRES : 0;
+        int mbits = b - sbits;
+        int flip = itheta > 8192;
+        c.rb -= qalloc + sbits;
+        int sign = sbits ? (int)rd_bits(c.d, 1) : 0;
+        float sg = (float)(1 - 2 * sign);
+        float *x2 = flip ? ys : xs, *y2 = flip ? xs : ys;
+        cm = quant_band(T, c, band, x2, lb, lb_has, 2, mbits, tr, tf_change,
+                        orig_fill);
+        if (lane == 0) {
+            if (nrm_out) {
+                nrm_out[0] = nrm * x2[0];
+                nrm_out[1] = nrm * x2[1];
+            }
+            y2[0] = -sg * x2[1];
+            y2[1] = sg * x2[0];
+            float a0 = xs[0] * mid, a1 = xs[1] * mid;
+            float b0 = ys[0] * side, b1 = ys[1] * side;
+            xs[0] = a0 - b0;
+            ys[0] = a0 + b0;
+            xs[1] = a1 - b1;
+            ys[1] = a1 + b1;
+        }
+        __syncwarp();
+    } else {
+        int mbits = (b - delta) >> 1;          // floor division by 2
+        if (mbits > b) mbits = b;
+        if (mbits < 0) mbits = 0;
+        int sbits = b - mbits;
+        c.rb -= qalloc;
+        const int rb0 = c.rb;
+        if (mbits >= sbits) {
+            cm = quant_band(T, c, band, xs, lb, lb_has, n, mbits, tr,
+                            tf_change, fill);
+            int reb = mbits - (rb0 - c.rb);
+            if (reb > 3 << BITRES && itheta != 0) sbits += reb - (3 << BITRES);
+            cm |= quant_band(T, c, band, ys, lb, 0, n, sbits, tr, tf_change,
+                             fill >> bb, side);
+        } else {
+            cm = quant_band(T, c, band, ys, lb, 0, n, sbits, tr, tf_change,
+                            fill >> bb, side);
+            int reb = sbits - (rb0 - c.rb);
+            if (reb > 3 << BITRES && itheta != 16384)
+                mbits += reb - (3 << BITRES);
+            cm |= quant_band(T, c, band, xs, lb, lb_has, n, mbits, tr,
+                             tf_change, fill);
+        }
+        if (nrm_out) {
+            for (int j = lane; j < n; j += LANES) nrm_out[j] = nrm * xs[j];
+            __syncwarp();
+        }
+        stereo_merge(xs, ys, mid, n);
+    }
+    if (inv) {
+        for (int j = lane; j < n; j += LANES) ys[j] = -ys[j];
+        __syncwarp();
+    }
+    return cm;
+}
+
+// quant_all_bands with C = 2 (bands.c:1589), decode: dual stereo (the two
+// channels as two mono bands, each folding from its own memory, until the
+// intensity band averages the memories) or mid/side stereo; collapse
+// masks per channel
+__device__ void bands_stereo(const Tabs &T, Ctx &c, const BlockMem &bm,
+                             StereoMem *sm, float *Xs, float *lb,
+                             const Band<int> &pulses, const Band<int> &tf_res,
+                             Band<int> *collapse, int coded_bands,
+                             int balance, int tb8, int is_transient,
+                             int spread, int intensity, int dual,
+                             int disable_inv) {
+    const int lane = lane_id();
+    const int nb = T.nb, M = 1 << T.lm;
+    const int start = T.start, end = T.end;
+    const int32_t *eB = T.eBands;
+    const int norm_offset = M * eB[start];
+    const int norm_total = M * eB[nb - 1];
+    float *Ys = sm->Y, *norm = sm->norm, *norm2 = sm->norm2, *lb2 = sm->lb2;
+    const int B_l = is_transient ? M : 1;
+    int lowband_offset = 0, update_lowband = 1;
+    for (int i = start; i < end; i++) {
+        int n = M * (eB[i + 1] - eB[i]);
+        int tl = rd_tell_frac(c.d);
+        if (i != start) balance -= tl;
+        int remaining = tb8 - tl - 1;
+        c.rb = remaining;
+        int b = 0;
+        int pi = bget(pulses, i);
+        if (i <= coded_bands - 1) {
+            int den = coded_bands - i;
+            den = den < 1 ? 1 : (den > 3 ? 3 : den);
+            int curr_balance = balance / den;   // truncating
+            b = remaining + 1 < pi + curr_balance
+                ? remaining + 1 : pi + curr_balance;
+            b = b < 0 ? 0 : (b > 16383 ? 16383 : b);
+        }
+        if (M * eB[i] - n >= norm_offset || i == start + 1)
+            if (update_lowband || lowband_offset == 0) lowband_offset = i;
+        if (i == start + 1) {
+            // special_hybrid_folding: both fold memories
+            const int n1 = M * (eB[start + 1] - eB[start]);
+            const int n2 = M * (eB[start + 2] - eB[start + 1]);
+            for (int j = lane; j < n2 - n1; j += LANES) {
+                norm[norm_offset + n1 + j] = norm[norm_offset + 2 * n1 - n2 + j];
+                norm2[norm_offset + n1 + j] =
+                    norm2[norm_offset + 2 * n1 - n2 + j];
+            }
+            __syncwarp();
+        }
+        int tf_change = bget(tf_res, i);
+        int fold = lowband_offset != 0
+            && (spread != 3 || B_l > 1 || tf_change < 0);
+        if (dual && i == intensity) {
+            dual = 0;
+            for (int j = norm_offset + lane; j < M * eB[i]; j += LANES)
+                norm[j] = 0.5f * (norm[j] + norm2[j]);
+            __syncwarp();
+        }
+        int x_cm = fold ? 0 : (1 << B_l) - 1, y_cm = x_cm;
+        if (fold) {
+            int lo = lowband_offset;
+            int eff = M * eB[lo] - n;
+            if (eff < norm_offset) eff = norm_offset;
+            int fs_ = lo;
+            do {
+                fs_--;
+            } while (M * eB[fs_] > eff);
+            int fe_ = lo - 1;
+            do {
+                fe_++;
+            } while (fe_ < i && M * eB[fe_] < eff + n);
+            int cx = 0, cy = 0, fi = fs_;
+            do {
+                cx |= bget(collapse[0], fi);
+                cy |= bget(collapse[1], fi);
+            } while (++fi < fe_);
+            x_cm = cx;
+            y_cm = cy;
+            for (int j = lane; j < n; j += LANES) {
+                int p = eff + j;
+                lb[j] = p < norm_total ? norm[p] : 0.f;
+                lb2[j] = p < norm_total ? norm2[p] : 0.f;
+            }
+        } else {
+            for (int j = lane; j < n; j += LANES) lb[j] = lb2[j] = 0.f;
+        }
+        __syncwarp();
+        const int base = M * eB[i];
+        float *xs = Xs + base, *ys = Ys + base;
+        const int last = i == end - 1;
+        const float nrm = bm.nrm[i];
+        int cmx, cmy;
+        if (n == 1) {
+            // quant_band_n1 on both channels
+            int sx = 0, sy = 0;
+            if (c.rb >= 1 << BITRES) {
+                sx = (int)rd_bits(c.d, 1);
+                c.rb -= 1 << BITRES;
+            }
+            if (c.rb >= 1 << BITRES) {
+                sy = (int)rd_bits(c.d, 1);
+                c.rb -= 1 << BITRES;
+            }
+            if (lane == 0) {
+                xs[0] = sx ? -1.0f : 1.0f;
+                ys[0] = sy ? -1.0f : 1.0f;
+                if (!last) {
+                    norm[base] = xs[0];
+                    if (dual) norm2[base] = ys[0];
+                }
+            }
+            __syncwarp();
+            cmx = cmy = 1;
+        } else if (dual) {
+            cmx = quant_band(T, c, i, xs, lb, fold, n, b >> 1, is_transient,
+                             tf_change, x_cm);
+            cmy = quant_band(T, c, i, ys, lb2, fold, n, b >> 1, is_transient,
+                             tf_change, y_cm);
+            if (!last) {
+                for (int j = lane; j < n; j += LANES) {
+                    norm[base + j] = nrm * xs[j];
+                    norm2[base + j] = nrm * ys[j];
+                }
+                __syncwarp();
+            }
+        } else {
+            cmx = cmy = band_stereo(T, c, i, xs, ys, lb, fold, n, b,
+                                    is_transient, tf_change, x_cm | y_cm,
+                                    intensity, disable_inv,
+                                    last ? nullptr : norm + base, nrm);
+        }
+        bset(collapse[0], i, cmx & 0xFF);
+        bset(collapse[1], i, cmy & 0xFF);
+        balance = balance + pi + tl;
+        update_lowband = b > (n << BITRES);
+    }
+}
+
 // ---------------------------------------------------------------- the frame
-// one resident block per SM asked of ptxas: up to 128 registers a thread
-__global__ void __launch_bounds__(WARPS * LANES, 1)
+// C coded channels (1 or 2); old_e, prevmin, energies: [B, C, nb], X:
+// [B, C, nx].  The mono instantiation keeps the mono code: each C == 2
+// step is a branch the compiler drops for C == 1.  One resident block per
+// SM asked of ptxas: up to 128 registers a thread at C == 1.
+template <int C>
+__global__ void __launch_bounds__(warps_of<C>() * LANES, 1)
 celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                       const int32_t *__restrict__ lens,
                       const float *__restrict__ old_e,
@@ -1146,7 +1472,8 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                       const int32_t *__restrict__ rc_in,
                       const int32_t *__restrict__ tab, float *X,
                       float *energies, int32_t *ints, float *pf_gain_out,
-                      int B, int nx) {
+                      int B, int nx, int disable_inv) {
+    constexpr int NW = warps_of<C>();
     PROF_T(t_start);
     BlockMem &bm = *reinterpret_cast<BlockMem *>(k1_smem);
     const Tabs T = load_tabs(tab, bm.tab);
@@ -1154,15 +1481,18 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
     band_tables(T, bm, nx);
     __syncthreads();
     const int lane = lane_id(), warp = threadIdx.x / LANES;
-    const int stream = blockIdx.x * WARPS + warp;
+    const int stream = blockIdx.x * NW + warp;
     if (stream >= B) return;
     const int nb = T.nb, lm = T.lm, M = 1 << lm;
     const int start = T.start, end = T.end;
     const int32_t *eB = T.eBands;
-    const size_t per_warp = sizeof(WarpMem) + ((P + 15) & ~15);
+    const int32_t *caps = C == 2 ? T.caps2 : T.caps;
+    const size_t per_warp = warp_bytes<C>() + ((P + 15) & ~15);
     WarpMem *w = reinterpret_cast<WarpMem *>(
         k1_smem + sizeof(BlockMem) + warp * per_warp);
-    uint8_t *pkt = reinterpret_cast<uint8_t *>(w + 1);
+    StereoMem *sm = reinterpret_cast<StereoMem *>(w + 1);
+    uint8_t *pkt = reinterpret_cast<uint8_t *>(w + 1)
+        + (C == 2 ? sizeof(StereoMem) : 0);
     float *const Xs = w->X;
     float *const lb = w->lb;
 
@@ -1177,6 +1507,9 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
         for (int k = lane; k < len; k += LANES) pkt[k] = src[k];
     }
     for (int j = lane; j < nx; j += LANES) Xs[j] = 0.f;  // uncoded bands: 0
+    if constexpr (C == 2)
+        for (int j = lane; j < nx; j += LANES)
+            sm->Y[j] = sm->norm[j] = sm->norm2[j] = 0.f;
     __syncwarp();
 
     Ctx c;
@@ -1186,16 +1519,20 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
         rd_load(c.d, pkt, len, rc_in + stream * 10);
     else
         rd_init(c.d, pkt, len);
-    Band<float> e;
+    Band<float> e[C];
     Band<int> tf_res, offsets, bits1, bits2, pulses, ebits, fine_priority,
-        thresh, collapse, trim_off;
+        thresh, collapse[C], trim_off;
     for (int s = 0; s < BSLOTS; s++) {
         int j = s * LANES + lane;
-        e.v[s] = j < nb ? old_e[stream * nb + j] : 0.f;
+        for (int ch = 0; ch < C; ch++) {
+            e[ch].v[s] = j < nb ? old_e[(stream * C + ch) * nb + j] : 0.f;
+            collapse[ch].v[s] = 0;
+        }
         tf_res.v[s] = offsets.v[s] = bits1.v[s] = bits2.v[s] = 0;
         pulses.v[s] = ebits.v[s] = fine_priority.v[s] = thresh.v[s] = 0;
-        collapse.v[s] = trim_off.v[s] = 0;
+        trim_off.v[s] = 0;
     }
+    int intensity = 0, dual = 0;
 
     PROF_ADD(0, t_start);
     PROF_T(t_head);
@@ -1231,26 +1568,29 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             float coef = intra ? 0.f : PRED_COEF[lm];
             float beta = intra ? 4915 / 32768.f : BETA_COEF[lm];
             const int32_t *prob = T.eprob + (intra ? 42 : 0);
-            float prev = 0.f;
+            float prev[C] = {};
             for (int i = start; i < end; i++) {
-                int t = rd_tell(c.d);
-                int qi;
-                if (total_bits - t >= 15) {
-                    int pi = 2 * (i < 20 ? i : 20);
-                    qi = laplace_decode(c.d, prob[pi] << 7, prob[pi + 1] << 6);
-                } else if (total_bits - t >= 2) {
-                    int s = rd_icdf(c.d, SMALL_ENERGY_ICDF, 3, 2);
-                    qi = (s >> 1) ^ -(s & 1);
-                } else if (total_bits - t >= 1) {
-                    qi = -rd_bit_logp(c.d, 1);
-                } else {
-                    qi = -1;
+                for (int ch = 0; ch < C; ch++) {
+                    int t = rd_tell(c.d);
+                    int qi;
+                    if (total_bits - t >= 15) {
+                        int pi = 2 * (i < 20 ? i : 20);
+                        qi = laplace_decode(c.d, prob[pi] << 7,
+                                            prob[pi + 1] << 6);
+                    } else if (total_bits - t >= 2) {
+                        int s = rd_icdf(c.d, SMALL_ENERGY_ICDF, 3, 2);
+                        qi = (s >> 1) ^ -(s & 1);
+                    } else if (total_bits - t >= 1) {
+                        qi = -rd_bit_logp(c.d, 1);
+                    } else {
+                        qi = -1;
+                    }
+                    float q = (float)qi;
+                    float ei = bget(e[ch], i);
+                    float old = ei > -9.0f ? ei : -9.0f;
+                    bset(e[ch], i, coef * old + prev[ch] + q);
+                    prev[ch] = prev[ch] + q - beta * q;
                 }
-                float q = (float)qi;
-                float ei = bget(e, i);
-                float old = ei > -9.0f ? ei : -9.0f;
-                bset(e, i, coef * old + prev + q);
-                prev = prev + q - beta * q;
             }
         }
         PROF_ADD(1, t_head);
@@ -1294,13 +1634,13 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             int tellf = rd_tell_frac(c.d);
             int dyn_logp = 6;
             for (int i = start; i < end; i++) {
-                int width = (eB[i + 1] - eB[i]) << lm;
+                int width = C * ((eB[i + 1] - eB[i]) << lm);
                 int qa = width << BITRES;
                 int qb = (6 << BITRES) > width ? (6 << BITRES) : width;
                 int quanta = qa < qb ? qa : qb;
                 int boost = 0, loop_logp = dyn_logp;
                 while (tellf + (loop_logp << BITRES) < total_bits8
-                       && boost < T.caps[i]) {
+                       && boost < caps[i]) {
                     int flag = rd_bit_logp(c.d, loop_logp);
                     tellf = rd_tell_frac(c.d);
                     if (!flag) break;
@@ -1327,15 +1667,27 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             int total = bits_left > 0 ? bits_left : 0;
             int skip_rsv = total >= (1 << BITRES) ? 1 << BITRES : 0;
             total -= skip_rsv;
+            // the intensity and dual-stereo reservations (rate.c)
+            int intensity_rsv = 0, dual_rsv = 0;
+            if constexpr (C == 2) {
+                intensity_rsv = LOG2_FRAC_TABLE[end - start];
+                if (intensity_rsv > total) {
+                    intensity_rsv = 0;
+                } else {
+                    total -= intensity_rsv;
+                    dual_rsv = total >= 1 << BITRES ? 1 << BITRES : 0;
+                    total -= dual_rsv;
+                }
+            }
             for (int s = 0; s < BSLOTS; s++) {
                 int j = s * LANES + lane;
                 if (j >= nb) continue;
                 int w = eB[j + 1] - eB[j];
                 int t = (3 * w << lm << BITRES) >> 4;
-                thresh.v[s] = t > (1 << BITRES) ? t : (1 << BITRES);
-                int to = (w * (trim - 5 - lm) * (end - 1 - j)
+                thresh.v[s] = t > (C << BITRES) ? t : (C << BITRES);
+                int to = (C * w * (trim - 5 - lm) * (end - 1 - j)
                           * (1 << (lm + BITRES))) >> 6;
-                if ((w << lm) == 1) to -= 1 << BITRES;
+                if ((w << lm) == 1) to -= C << BITRES;
                 trim_off.v[s] = to;
             }
             const int nv = T.nv;
@@ -1343,17 +1695,17 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             for (int it = 0; it < 6; it++) {
                 if (lo > hi) continue;
                 int mid = (lo + hi) >> 1;
-                int psum = alloc_sum(start, end, T.caps,
+                int psum = alloc_sum(start, end, caps,
                                      [&](int s, int j, int &thr) {
-                    int bj = ((eB[j + 1] - eB[j]) * T.allocV[mid * nb + j])
-                        << lm >> 2;
+                    int bj = (C * (eB[j + 1] - eB[j])
+                              * T.allocV[mid * nb + j]) << lm >> 2;
                     if (bj > 0) {
                         bj += trim_off.v[s];
                         if (bj < 0) bj = 0;
                     }
                     thr = thresh.v[s];
                     return bj + offsets.v[s];
-                });
+                }, C << BITRES);
                 if (psum > total) hi = mid - 1;
                 else lo = mid + 1;
             }
@@ -1375,9 +1727,9 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int w = eB[j + 1] - eB[j];
                 int lc = lo_f < 0 ? 0 : (lo_f > nv - 1 ? nv - 1 : lo_f);
                 int hc = hi_f < 0 ? 0 : (hi_f > nv - 1 ? nv - 1 : hi_f);
-                int b1 = (w * T.allocV[lc * nb + j]) << lm >> 2;
-                int b2 = hi_f >= nv ? T.caps[j]
-                    : (w * T.allocV[hc * nb + j]) << lm >> 2;
+                int b1 = (C * w * T.allocV[lc * nb + j]) << lm >> 2;
+                int b2 = hi_f >= nv ? caps[j]
+                    : (C * w * T.allocV[hc * nb + j]) << lm >> 2;
                 if (b1 > 0) {
                     b1 += trim_off.v[s];
                     if (b1 < 0) b1 = 0;
@@ -1392,16 +1744,16 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 bits2.v[s] = b2 - b1 > 0 ? b2 - b1 : 0;
             }
             // ---- interp_bits2pulses (rate.c:249), mono decode
-            const int alloc_floor = 1 << BITRES;
+            const int alloc_floor = C << BITRES;
             lo = 0;
             hi = 1 << ALLOC_STEPS;
             for (int it = 0; it < ALLOC_STEPS; it++) {
                 int mid = (lo + hi) >> 1;
-                int psum = alloc_sum(start, end, T.caps,
+                int psum = alloc_sum(start, end, caps,
                                      [&](int s, int, int &thr) {
                     thr = thresh.v[s];
                     return bits1.v[s] + ((mid * bits2.v[s]) >> ALLOC_STEPS);
-                });
+                }, alloc_floor);
                 if (psum > total) hi = mid;
                 else lo = mid;
             }
@@ -1416,7 +1768,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int done = done_hi || (m >> lane) != 0;
                 if (!done) tmp = tmp >= alloc_floor ? alloc_floor : 0;
                 if (in) {
-                    if (tmp > T.caps[j]) tmp = T.caps[j];
+                    if (tmp > caps[j]) tmp = caps[j];
                     pulses.v[s] = tmp;
                     psum += tmp;
                 }
@@ -1450,10 +1802,27 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 }
                 int keep = band_bits >= alloc_floor ? alloc_floor : 0;
                 psum = psum - pj + keep;
+                if constexpr (C == 2) {
+                    psum -= intensity_rsv;
+                    if (intensity_rsv > 0)
+                        intensity_rsv = LOG2_FRAC_TABLE[j - start];
+                    psum += intensity_rsv;
+                }
                 bset(pulses, j, keep);
                 coded_bands--;
             }
             if (forced_stop) total += skip_rsv;
+            if constexpr (C == 2) {
+                // the intensity band and the dual-stereo flag
+                if (intensity_rsv > 0)
+                    intensity = start + (int)rd_uint(
+                        c.d, (uint32_t)(coded_bands + 1 - start));
+                if (intensity <= start) {
+                    total += dual_rsv;
+                    dual_rsv = 0;
+                }
+                if (dual_rsv > 0) dual = rd_bit_logp(c.d, 1);
+            }
             int left = total - psum;
             int cb = coded_bands < 0 ? 0 : (coded_bands > nb ? nb : coded_bands);
             int den = eB[cb] - eB[start];
@@ -1481,38 +1850,43 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int bitj = pj + balance;
                 int excess, bj, eb, fp;
                 if (n > 1) {
-                    excess = bitj - T.caps[j] > 0 ? bitj - T.caps[j] : 0;
+                    excess = bitj - caps[j] > 0 ? bitj - caps[j] : 0;
                     bj = bitj - excess;
-                    int nclogn = n * (T.logN[j] + log_m);
-                    int offset = (nclogn >> 1) - n * FINE_OFFSET;
-                    if (n == 2) offset += n << BITRES >> 2;
-                    int off1 = bj + offset < (n * 2 << BITRES)
+                    // a mid/side band below the intensity band codes one
+                    // more dimension (rate.c)
+                    int den = C * n;
+                    if (C == 2 && n > 2 && !dual && j < intensity) den++;
+                    int nclogn = den * (T.logN[j] + log_m);
+                    int offset = (nclogn >> 1) - den * FINE_OFFSET;
+                    if (n == 2) offset += den << BITRES >> 2;
+                    int off1 = bj + offset < (den * 2 << BITRES)
                         ? offset + (nclogn >> 2)
-                        : (bj + offset < (n * 3 << BITRES)
+                        : (bj + offset < (den * 3 << BITRES)
                                ? offset + (nclogn >> 3) : offset);
-                    eb = bj + off1 + (n << (BITRES - 1));
+                    eb = bj + off1 + (den << (BITRES - 1));
                     if (eb < 0) eb = 0;
-                    eb = (eb / n) >> BITRES;
-                    if (eb > (bj >> BITRES)) eb = bj >> BITRES;
+                    eb = (eb / den) >> BITRES;
+                    if (C * eb > (bj >> BITRES)) eb = bj >> (C - 1) >> BITRES;
                     if (eb > MAX_FINE_BITS) eb = MAX_FINE_BITS;
-                    fp = eb * (n << BITRES) >= bj + off1;
-                    bj -= eb << BITRES;
+                    fp = eb * (den << BITRES) >= bj + off1;
+                    bj -= C * eb << BITRES;
                 } else {
-                    excess = bitj - (1 << BITRES) > 0 ? bitj - (1 << BITRES) : 0;
+                    excess = bitj - (C << BITRES) > 0 ? bitj - (C << BITRES)
+                                                      : 0;
                     bj = bitj - excess;
                     eb = 0;
                     fp = 1;
                 }
-                int extra_fine = excess >> BITRES;
+                int extra_fine = excess >> (C - 1 + BITRES);
                 if (extra_fine > MAX_FINE_BITS - eb) extra_fine = MAX_FINE_BITS - eb;
-                int extra_bits = extra_fine << BITRES;
+                int extra_bits = extra_fine * C << BITRES;
                 int eb2 = eb, excess2 = excess;
                 if (excess > 0) {
                     eb2 = eb + extra_fine;
                     fp = extra_bits >= excess - balance;
                     excess2 = excess - extra_bits;
                 }
-                int unc_eb = pj >> BITRES;
+                int unc_eb = pj >> (C - 1) >> BITRES;
                 bset(ebits, j, in_c ? eb2 : unc_eb);
                 bset(fine_priority, j, in_c ? fp : (int)(unc_eb < 1));
                 bset(pulses, j, in_c ? bj : 0);
@@ -1525,9 +1899,12 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
         for (int i = start; i < end; i++) {
             int fq = bget(ebits, i);
             if (fq <= 0) continue;
-            int q2 = (int)rd_bits(c.d, fq);
-            bset(e, i, bget(e, i)
-                 + (((float)q2 + 0.5f) * ldexpf(1.0f, -fq) - 0.5f));
+            if (C == 2 && rd_tell(c.d) + C * fq > total_bits) continue;
+            for (int ch = 0; ch < C; ch++) {
+                int q2 = (int)rd_bits(c.d, fq);
+                bset(e[ch], i, bget(e[ch], i)
+                     + (((float)q2 + 0.5f) * ldexpf(1.0f, -fq) - 0.5f));
+            }
         }
 
         PROF_ADD(4, t_fine);
@@ -1537,7 +1914,13 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
         // elsewhere), so folds read X; only band start+1 sees something
         // else: the top of band start copied to the bottom of its own
         // window (special_hybrid_folding, bands.c)
-        {
+        if constexpr (C == 2) {
+            c.seed = (uint32_t)seed_in[stream];
+            c.spread = spread;
+            bands_stereo(T, c, bm, sm, Xs, lb, pulses, tf_res, collapse,
+                         coded_bands, balance, (len * 8 << BITRES) - ac_rsv,
+                         is_transient, spread, intensity, dual, disable_inv);
+        } else {
             const int norm_offset = M * eB[start];
             const int norm_total = M * eB[nb - 1];
             const int n1 = M * (eB[start + 1] - eB[start]);
@@ -1583,7 +1966,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                     } while (fe_ < i && M * eB[fe_] < eff + n);
                     int cmv = 0, fi = fs_;
                     do {
-                        cmv |= bget(collapse, fi);
+                        cmv |= bget(collapse[0], fi);
                     } while (++fi < fe_);
                     x_cm = cmv;
                     // the copied span of special_hybrid_folding
@@ -1602,7 +1985,7 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int base = M * eB[i];
                 int cm = quant_band(T, c, i, Xs + base, lb, fold, n, b,
                                     is_transient, tf_change, x_cm);
-                bset(collapse, i, cm & 0xFF);
+                bset(collapse[0], i, cm & 0xFF);
                 balance = balance + pi + tl;
                 update_lowband = b > (n << BITRES);
             }
@@ -1616,13 +1999,15 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
             for (int prio = 0; prio < 2; prio++)
                 for (int i = start; i < end; i++) {
                     int ebi = bget(ebits, i);
-                    if (!(bl >= 1 && ebi < MAX_FINE_BITS
+                    if (!(bl >= C && ebi < MAX_FINE_BITS
                           && bget(fine_priority, i) == prio))
                         continue;
-                    int q2 = (int)rd_bits(c.d, 1);
-                    bset(e, i, bget(e, i)
-                         + ((float)q2 - 0.5f) * ldexpf(1.0f, -(ebi + 1)));
-                    bl--;
+                    for (int ch = 0; ch < C; ch++) {
+                        int q2 = (int)rd_bits(c.d, 1);
+                        bset(e[ch], i, bget(e[ch], i)
+                             + ((float)q2 - 0.5f) * ldexpf(1.0f, -(ebi + 1)));
+                        bl--;
+                    }
                 }
         }
         // ---- anti-collapse (bands.c:259)
@@ -1632,23 +2017,27 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
                 int n0 = eB[i + 1] - eB[i];
                 int depth = floordiv(1 + bget(pulses, i), n0) >> lm;
                 float th = 0.5f * exp2f(-0.125f * (float)depth);
-                float ediff = bget(e, i) - prevmin[stream * nb + i];
-                ediff = ediff > 0.f ? ediff : 0.f;
-                float r = 2.0f * exp2f(-ediff);
-                if (lm == 3) r = r * 1.41421356f;
-                r = (th < r ? th : r) * bm.isq[i];
-                float *xs = Xs + (eB[i] << lm);
-                int coll = bget(collapse, i);
-                int any = 0;
-                for (int k = 0; k < kk; k++) {
-                    if ((coll >> k) & 1) continue;
-                    c.seed = lcg_fill(c.seed, n0, c.J, [&](int j, uint32_t s) {
-                        xs[j * kk + k] = (s & 0x8000) ? r : -r;
-                    });
-                    any = 1;
+                for (int ch = 0; ch < C; ch++) {
+                    float ediff = bget(e[ch], i)
+                        - prevmin[(stream * C + ch) * nb + i];
+                    ediff = ediff > 0.f ? ediff : 0.f;
+                    float r = 2.0f * exp2f(-ediff);
+                    if (lm == 3) r = r * 1.41421356f;
+                    r = (th < r ? th : r) * bm.isq[i];
+                    float *xs = (ch ? sm->Y : Xs) + (eB[i] << lm);
+                    int coll = bget(collapse[ch], i);
+                    int any = 0;
+                    for (int k = 0; k < kk; k++) {
+                        if ((coll >> k) & 1) continue;
+                        c.seed = lcg_fill(c.seed, n0, c.J,
+                                          [&](int j, uint32_t s) {
+                            xs[j * kk + k] = (s & 0x8000) ? r : -r;
+                        });
+                        any = 1;
+                    }
+                    __syncwarp();
+                    if (any) renormalise(xs, n0 << lm, 1.0f);
                 }
-                __syncwarp();
-                if (any) renormalise(xs, n0 << lm, 1.0f);
             }
         }
         PROF_ADD(6, t_fin);
@@ -1656,17 +2045,20 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
 
     // ---- outputs: X row-major [B, nx], the stream's row from shared memory
     PROF_T(t_out);
-    float *xo = X + (size_t)stream * nx;
-    if ((nx & 3) == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0) {
-        for (int k = lane; k < nx >> 2; k += LANES)
-            reinterpret_cast<float4 *>(xo)[k] =
-                reinterpret_cast<const float4 *>(Xs)[k];
-    } else {
-        for (int j = lane; j < nx; j += LANES) xo[j] = Xs[j];
-    }
-    for (int s = 0; s < BSLOTS; s++) {
-        int j = s * LANES + lane;
-        if (j < nb) energies[stream * nb + j] = e.v[s];
+    for (int ch = 0; ch < C; ch++) {
+        float *xo = X + ((size_t)stream * C + ch) * nx;
+        const float *xsrc = ch ? sm->Y : Xs;
+        if ((nx & 3) == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0) {
+            for (int k = lane; k < nx >> 2; k += LANES)
+                reinterpret_cast<float4 *>(xo)[k] =
+                    reinterpret_cast<const float4 *>(xsrc)[k];
+        } else {
+            for (int j = lane; j < nx; j += LANES) xo[j] = xsrc[j];
+        }
+        for (int s = 0; s < BSLOTS; s++) {
+            int j = s * LANES + lane;
+            if (j < nb) energies[(stream * C + ch) * nb + j] = e[ch].v[s];
+        }
     }
     if (lane == 0) {
         int32_t *o = ints + stream * 9;
@@ -1690,17 +2082,60 @@ celt_dec_frame_kernel(const uint8_t *__restrict__ buf, int P,
 namespace {
 
 // dynamic shared memory of a block: the staged tables and each warp's
-// WarpMem with its packet bytes; above 48 KB the kernel must opt in
+// WarpMem (and StereoMem at C = 2) with its packet bytes; above 48 KB the
+// kernel must opt in
+template <int C>
 size_t block_smem(int P) {
     return sizeof(BlockMem)
-        + WARPS * (sizeof(WarpMem) + ((P + 15) & ~15));
+        + warps_of<C>() * (warp_bytes<C>() + ((P + 15) & ~15));
 }
 
+template <int C>
 cudaError_t opt_in_smem(size_t smem) {
     if (smem <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(celt_dec_frame_kernel,
+    return cudaFuncSetAttribute(celt_dec_frame_kernel<C>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem);
+}
+
+template <int C>
+int launch(const void *buf, int P, const void *lens, const void *old_e,
+           const void *prevmin, const void *seed, const void *rc_in,
+           const void *tab, void *X, void *energies, void *ints,
+           void *pf_gain, int B, int nx, int disable_inv, void *stream) {
+    if (B <= 0) return 0;
+    if (nx > NX_MAX || P < 0) return (int)cudaErrorInvalidValue;
+    constexpr int NW = warps_of<C>();
+    const size_t smem = block_smem<C>(P);
+    cudaError_t e = opt_in_smem<C>(smem);
+    if (e != cudaSuccess) return (int)e;
+    celt_dec_frame_kernel<C><<<(B + NW - 1) / NW, NW * LANES, smem,
+                               (cudaStream_t)stream>>>(
+        (const uint8_t *)buf, P, (const int32_t *)lens,
+        (const float *)old_e, (const float *)prevmin, (const int64_t *)seed,
+        (const int32_t *)rc_in, (const int32_t *)tab, (float *)X,
+        (float *)energies, (int32_t *)ints, (float *)pf_gain, B, nx,
+        disable_inv);
+    return (int)cudaGetLastError();
+}
+
+template <int C>
+int occupancy(int P, int *info) {
+    const size_t smem = block_smem<C>(P);
+    cudaError_t e = opt_in_smem<C>(smem);
+    int blocks = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, celt_dec_frame_kernel<C>, warps_of<C>() * LANES, smem);
+    cudaFuncAttributes a = {};
+    if (e == cudaSuccess)
+        e = cudaFuncGetAttributes(&a, celt_dec_frame_kernel<C>);
+    info[0] = (int)smem;
+    info[1] = warps_of<C>();
+    info[2] = blocks;
+    info[3] = a.numRegs;
+    info[4] = (int)a.localSizeBytes;
+    return (int)e;
 }
 
 }  // namespace
@@ -1712,20 +2147,20 @@ extern "C" int opus_celt_dec_frame_launch(
     const void *prevmin, const void *seed, const void *rc_in,
     const void *tab, void *X, void *energies, void *ints, void *pf_gain,
     int B, int nx, void *stream) {
-    if (B <= 0) return 0;
-    if (nx > NX_MAX || P < 0) return (int)cudaErrorInvalidValue;
-    const int threads = WARPS * LANES;
-    const size_t smem = block_smem(P);
-    cudaError_t e = opt_in_smem(smem);
-    if (e != cudaSuccess) return (int)e;
-    celt_dec_frame_kernel<<<(B + WARPS - 1) / WARPS, threads, smem,
-                            (cudaStream_t)stream>>>(
-        (const uint8_t *)buf, P, (const int32_t *)lens,
-        (const float *)old_e, (const float *)prevmin, (const int64_t *)seed,
-        (const int32_t *)rc_in, (const int32_t *)tab, (float *)X,
-        (float *)energies,
-        (int32_t *)ints, (float *)pf_gain, B, nx);
-    return (int)cudaGetLastError();
+    return launch<1>(buf, P, lens, old_e, prevmin, seed, rc_in, tab, X,
+                     energies, ints, pf_gain, B, nx, 0, stream);
+}
+
+// the two-channel instantiation: old_e, prevmin, energies [B, 2, nb], X
+// [B, 2, nx]; disable_inv: the decoder's flag (1 on a decoder with one
+// output channel)
+extern "C" int opus_celt_dec_frame2_launch(
+    const void *buf, int P, const void *lens, const void *old_e,
+    const void *prevmin, const void *seed, const void *rc_in,
+    const void *tab, void *X, void *energies, void *ints, void *pf_gain,
+    int B, int nx, int disable_inv, void *stream) {
+    return launch<2>(buf, P, lens, old_e, prevmin, seed, rc_in, tab, X,
+                     energies, ints, pf_gain, B, nx, disable_inv, stream);
 }
 
 #ifdef K1_PROFILE
@@ -1742,20 +2177,11 @@ extern "C" int opus_celt_dec_frame_profile(unsigned long long *out) {
 // bytes per block, warps per block, resident blocks per SM, registers per
 // thread, local memory bytes per thread]
 extern "C" int opus_celt_dec_frame_occupancy(int P, int *info) {
-    const size_t smem = block_smem(P);
-    cudaError_t e = opt_in_smem(smem);
-    int blocks = 0;
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, celt_dec_frame_kernel, WARPS * LANES, smem);
-    cudaFuncAttributes a = {};
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, celt_dec_frame_kernel);
-    info[0] = (int)smem;
-    info[1] = WARPS;
-    info[2] = blocks;
-    info[3] = a.numRegs;
-    info[4] = (int)a.localSizeBytes;
-    return (int)e;
+    return occupancy<1>(P, info);
+}
+
+extern "C" int opus_celt_dec_frame2_occupancy(int P, int *info) {
+    return occupancy<2>(P, info);
 }
 
 extern "C" const char *opus_cuda_error_string(int code) {

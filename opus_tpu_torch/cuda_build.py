@@ -94,6 +94,11 @@ def bind_celt_dec_frame(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.opus_celt_dec_frame_launch.restype = ci
     lib.opus_celt_dec_frame_occupancy.argtypes = [ci, vp]
     lib.opus_celt_dec_frame_occupancy.restype = ci
+    lib.opus_celt_dec_frame2_launch.argtypes = [
+        vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.opus_celt_dec_frame2_launch.restype = ci
+    lib.opus_celt_dec_frame2_occupancy.argtypes = [ci, vp]
+    lib.opus_celt_dec_frame2_occupancy.restype = ci
     return lib
 
 

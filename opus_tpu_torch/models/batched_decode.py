@@ -101,7 +101,7 @@ def _taps_at(ybuf, s0: int, t, g):
 
 def decode_step(x, band_log_e, transient, silence, periods, tap_gains,
                 state: dict, *, fs: int = 48000, frame_size: int = 960,
-                lm: int = 3, channels: int = 1):
+                lm: int = 3, channels: int = 1, downmix: bool = False):
     """One frame of batched CELT decode DSP.
 
     x:          [B, C, N] normalized band shapes
@@ -110,13 +110,17 @@ def decode_step(x, band_log_e, transient, silence, periods, tap_gains,
     periods:    [B, 3] int comb lags for phases (old, current, new)
     tap_gains:  [B, 3, 3] f32 per-phase tap gains (gain*COMB_GAINS[tapset])
     state:      init_state dict with leading dim B*C
-    returns (pcm [B, C, N] float in [-1, 1], new state)
+    downmix:    C = 2 coded channels to one output channel, the average of
+                the two denormalised spectra (celt_decoder.c:413
+                celt_synthesis with CC = 1, C = 2); state then has B rows
+    returns (pcm [B, C, N] float in [-1, 1] ([B, 1, N] with downmix), new
+    state)
     """
     filt, dsp = synth_step(x, band_log_e, transient, silence, periods,
                            tap_gains, state, fs=fs, frame_size=frame_size,
-                           lm=lm)
+                           lm=lm, downmix=downmix)
     pcm, deemph = deemphasize(filt, state["deemph"], fs, frame_size)
-    return pcm.reshape(x.shape), dict(dsp, deemph=deemph)
+    return pcm.reshape(x.shape[0], -1, x.shape[2]), dict(dsp, deemph=deemph)
 
 
 def deemphasize(filt, mem, fs: int = 48000, frame_size: int = 960):
@@ -129,7 +133,7 @@ def deemphasize(filt, mem, fs: int = 48000, frame_size: int = 960):
 
 def synth_step(x, band_log_e, transient, silence, periods, tap_gains,
                state: dict, *, fs: int = 48000, frame_size: int = 960,
-               lm: int = 3):
+               lm: int = 3, downmix: bool = False):
     """``decode_step`` up to the de-emphasis: returns (the postfiltered
     signal [BC, N] f32, the new ``tail`` and ``hist``)."""
     mode = mode_create(fs, frame_size)
@@ -149,6 +153,9 @@ def synth_step(x, band_log_e, transient, silence, periods, tap_gains,
     gains = torch.exp2(torch.clamp(band_log_e + e_means, max=32.0))
     gains = torch.cat([gains, torch.zeros_like(gains[..., :1])], dim=-1)
     freq = x * gains[..., bm]
+    if downmix:
+        freq = 0.5 * (freq[:, :1] + freq[:, 1:])
+        c, bc = 1, b
     freq = torch.where(silence[:, None, None], 0.0, freq).reshape(bc, n)
 
     # --- IMDCT: long and short paths, select per stream ---

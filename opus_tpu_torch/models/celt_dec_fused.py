@@ -1,10 +1,20 @@
-"""Mono CELT decode symbol pass on [B] lanes in plain torch: the plain
-version of kernel K1 (``opus_tpu_torch/csrc/celt_dec_frame.cu``).
+"""CELT decode symbol pass on [B] lanes in plain torch, mono or with two
+coded channels: the plain version of kernel K1
+(``opus_tpu_torch/csrc/celt_dec_frame.cu``, its C = 1 and C = 2
+instantiations).
 
 Port of ``opus_tpu/models/celt_dec_fused.py`` (tables and helpers, the
-plan, the band tree, anti-collapse and the frame driver).  Every lane is
-one stream; integer state is int64 tensors holding int32/uint32 values
-(uint32 wrap emulated with ``& 0xFFFFFFFF``), float state is float32.
+plan, the band tree, anti-collapse and the frame driver), with the C = 2
+paths of the JAX package's scalar tier, which alone decodes stereo: the
+energies interleaved over the channels (``opus_tpu/celt/decoder.py:67``,
+:98, :114), the allocation's caps, thresholds, intensity and dual-stereo
+reservations (``opus_tpu/celt/alloc.py``), and ``compute_theta``'s
+stereo branch, ``quant_band_stereo``, ``stereo_merge`` and dual stereo
+(``opus_tpu/celt/bands.py``).  The channel count changes the plan's
+arithmetic and the band loop's body; everything else is one path.
+Every lane is one stream; integer state is int64 tensors holding
+int32/uint32 values (uint32 wrap emulated with ``& 0xFFFFFFFF``), float
+state is float32.
 
 The band-split recursion walks the same static binary tree as the JAX
 twin: whether a lane splits at a node is a per-lane mask, and the mid/
@@ -13,9 +23,9 @@ traced JAX graph, eager torch can skip a node, a leaf kind or a rotation
 variant that no lane takes, which leaves every lane's result unchanged
 because all range-coder and context updates are masked per lane.
 
-Scope: mono, any coded band range [start, end) (start 0 for CELT-only
-frames, 17 for the CELT half of a hybrid frame, which continues from
-SILK's range decoder), no loss handling, no QEXT payload.
+Scope: any coded band range [start, end) (start 0 for CELT-only frames,
+17 for the CELT half of a hybrid frame, which continues from SILK's
+range decoder), no loss handling, no QEXT payload.
 Reference: celt/celt_decoder.c:1209-1560, bands.c, rate.c, cwrs.c, vq.c.
 """
 
@@ -29,7 +39,7 @@ import torch
 
 from ..celt import cwrs
 from ..celt.modes import mode_create, get_pulses
-from ..celt.tables import E_PROB_MODEL
+from ..celt.tables import E_PROB_MODEL, LOG2_FRAC_TABLE
 from ..ops import rc_kernel as K
 from ..ops.device_cache import const
 from ..ops.rc_kernel import M32, ilog
@@ -38,6 +48,7 @@ BITRES = 3
 MAX_FINE_BITS = 8
 FINE_OFFSET = 21
 QTHETA_OFFSET = 4
+QTHETA_OFFSET_TWOPHASE = 16
 ALLOC_STEPS = 6
 SPREAD_NONE = 0
 SPREAD_NORMAL = 2
@@ -302,6 +313,10 @@ class DecTabs:
         self.caps = [
             (int(caps8[lm * 2 * nb + i]) + 64) * int(self.width[i]) >> 2
             for i in range(nb)]
+        # the caps of a two-channel frame (celt.c init_caps with C = 2)
+        self.caps2 = [
+            (int(caps8[(2 * lm + 1) * nb + i]) + 64) * 2 * int(self.width[i])
+            >> 2 for i in range(nb)]
         idx = np.asarray(mode.cache.index, np.int16).reshape(-1, nb)
         bits_tab = np.asarray(mode.cache.bits, np.uint8)
         self.cache_rows = {}
@@ -320,8 +335,9 @@ class DecTabs:
     def kernel_table(self) -> np.ndarray:
         """Flat int32 table for kernel K1: a header [nb, lm, nv, urows,
         ucols, start, end] and the offsets of eBands, logN, caps, allocV,
-        e_prob, the cache row offsets, the cache rows and the CWRS U table
-        (read by load_tabs in csrc/celt_dec_frame.cu).  U is stored
+        e_prob, the cache row offsets, the cache rows, the CWRS U table
+        and the two-channel caps (read by load_tabs in
+        csrc/celt_dec_frame.cu).  U is stored
         column by column ([ucols][urows], U(k, n) at n * urows + k), so a
         warp's search over consecutive k reads consecutive words.  uint32
         entries are stored as their int32 bits."""
@@ -347,6 +363,7 @@ class DecTabs:
             ("rowoff", np.asarray(row_off, np.int64)),
             ("rows", np.asarray(rows, np.int64)),
             ("u", u.T.reshape(-1)),
+            ("caps2", np.asarray(self.caps2, np.int64)),
         ]
         header = [nb, lm, nv, _MAX_K + 2, ucols + 1, self.start,
                   self.end_band]
@@ -397,37 +414,44 @@ def _laplace_decode(d, buf, lens, fs0, decay, active):
     return val, d
 
 
+def _caps(tabs: DecTabs, C: int):
+    """The band caps of a frame with C coded channels (celt.c init_caps)."""
+    return tabs.caps if C == 1 else tabs.caps2
+
+
 def _coarse_energy(d, buf, lens, tabs: DecTabs, old_e, intra, total_bits,
                    active):
-    """unquant_coarse_energy (quant_bands.c), mono.  old_e: list of nb
-    [B] f32 lanes; returns the updated list."""
+    """unquant_coarse_energy (quant_bands.c) over C = len(old_e) channels:
+    band by band, channel 0 then 1, each with its own running prediction.
+    old_e: per channel a list of nb [B] f32 lanes; returns the updated
+    lists."""
     lm = tabs.lm
     intra_b = intra != 0
     coef = torch.where(intra_b, 0.0, PRED_COEF[lm]).to(f32)
     beta = torch.where(intra_b, BETA_INTRA, BETA_COEF[lm]).to(f32)
-    old_e = list(old_e)
-    prev = torch.zeros_like(old_e[0])
+    old_e = [list(o) for o in old_e]
+    prev = [torch.zeros_like(old_e[0][0]) for _ in old_e]
     for i in range(tabs.start, tabs.end_band):
-        tell = K.rk_tell(d)
-        big = active & (total_bits - tell >= 15)
-        med = active & ~big & (total_bits - tell >= 2)
-        tiny = active & ~big & ~med & (total_bits - tell >= 1)
         pi = 2 * min(i, 20)
         fs0 = torch.where(intra_b, tabs.e_prob[1][pi] << 7,
                           tabs.e_prob[0][pi] << 7)
         decay = torch.where(intra_b, tabs.e_prob[1][pi + 1] << 6,
                             tabs.e_prob[0][pi + 1] << 6)
-        qi_l, d = _laplace_decode(d, buf, lens, fs0, decay, big)
-        s_m, d = K.rk_dec_icdf(d, buf, lens, SMALL_ENERGY_ICDF, 2, med)
-        qi_m = (s_m >> 1) ^ -(s_m & 1)
-        b_t, d = K.rk_dec_bit_logp(d, buf, lens, 1, tiny)
-        qi = torch.where(big, qi_l, torch.where(
-            med, qi_m, torch.where(tiny, -b_t, -1)))
-        q = qi.to(f32)
-        old = torch.clamp(old_e[i], min=-9.0)
-        new_e = coef * old + prev + q
-        old_e[i] = torch.where(active, new_e, old_e[i])
-        prev = torch.where(active, prev + q - beta * q, prev)
+        for c, oe in enumerate(old_e):
+            tell = K.rk_tell(d)
+            big = active & (total_bits - tell >= 15)
+            med = active & ~big & (total_bits - tell >= 2)
+            tiny = active & ~big & ~med & (total_bits - tell >= 1)
+            qi_l, d = _laplace_decode(d, buf, lens, fs0, decay, big)
+            s_m, d = K.rk_dec_icdf(d, buf, lens, SMALL_ENERGY_ICDF, 2, med)
+            qi_m = (s_m >> 1) ^ -(s_m & 1)
+            b_t, d = K.rk_dec_bit_logp(d, buf, lens, 1, tiny)
+            qi = torch.where(big, qi_l, torch.where(
+                med, qi_m, torch.where(tiny, -b_t, -1)))
+            q = qi.to(f32)
+            old = torch.clamp(oe[i], min=-9.0)
+            oe[i] = torch.where(active, coef * old + prev[c] + q, oe[i])
+            prev[c] = torch.where(active, prev[c] + q - beta * q, prev[c])
     return old_e, d
 
 
@@ -465,16 +489,19 @@ def _tf_decode(d, buf, lens, tabs: DecTabs, is_transient, total_bits,
     return out, d
 
 
-def _dynalloc(d, buf, lens, tabs: DecTabs, total_bits, active):
-    """dynalloc boost decode; returns (offsets list[nb], trim, state)."""
+def _dynalloc(d, buf, lens, tabs: DecTabs, total_bits, active, C: int = 1):
+    """dynalloc boost decode with C coded channels (the quanta over every
+    channel's coefficients, the caps of C); returns (offsets list[nb],
+    trim, state)."""
     total_bits8 = total_bits << BITRES
     tellf = K.rk_tell_frac(d)
     dynalloc_logp = torch.full_like(tellf, 6)
     offsets = [torch.zeros_like(tellf) for _ in range(tabs.start)]
+    caps = _caps(tabs, C)
     for i in range(tabs.start, tabs.end_band):
-        width = int(tabs.width[i])
+        width = C * int(tabs.width[i])
         quanta = min(width << BITRES, max(6 << BITRES, width))
-        cap_i = int(tabs.caps[i])
+        cap_i = int(caps[i])
         boost = torch.zeros_like(tellf)
         loop_logp = dynalloc_logp
         running = active
@@ -504,29 +531,40 @@ def _dynalloc(d, buf, lens, tabs: DecTabs, total_bits, active):
 
 
 def _compute_allocation(d, buf, lens, tabs: DecTabs, offsets, trim, total,
-                        active):
-    """compute_allocation, mono decode (rate.c:535)."""
+                        active, C: int = 1):
+    """compute_allocation, decode (rate.c:535; alloc.py:195) with C coded
+    channels: at C = 2 the intensity and dual-stereo reservations."""
     nb = tabs.nb
     start, end = tabs.start, tabs.end_band
     eB = tabs.eBands
     total = torch.clamp(total, min=0)
     skip_rsv = torch.where(total >= (1 << BITRES), 1 << BITRES, 0)
     total = total - skip_rsv
+    intensity_rsv = dual_rsv = None
+    if C == 2:
+        i_rsv0 = LOG2_FRAC_TABLE[end - start]
+        has_i = total >= i_rsv0
+        intensity_rsv = torch.where(has_i, i_rsv0, 0)
+        total = total - intensity_rsv
+        dual_rsv = torch.where(has_i & (total >= (1 << BITRES)),
+                               1 << BITRES, 0)
+        total = total - dual_rsv
     widths = [int(v) for v in (eB[1:] - eB[:-1])]
-    thresh = [max((3 * widths[j] << tabs.lm << BITRES) >> 4, 1 << BITRES)
+    thresh = [max((3 * widths[j] << tabs.lm << BITRES) >> 4, C << BITRES)
               for j in range(nb)]
     trim_off = []
     for j in range(nb):
-        t = (widths[j] * (trim - 5 - tabs.lm) * (end - 1 - j)
+        t = (C * widths[j] * (trim - 5 - tabs.lm) * (end - 1 - j)
              * (1 << (tabs.lm + BITRES))) >> 6
         if (widths[j] << tabs.lm) == 1:
-            t = t - (1 << BITRES)
+            t = t - (C << BITRES)
         trim_off.append(t)
-    caps = tabs.caps
+    caps = _caps(tabs, C)
     allocV = tabs.allocV
     nv = allocV.shape[0]
-    cols = [[int(widths[j] * allocV[v, j]) << tabs.lm >> 2
+    cols = [[C * widths[j] * int(allocV[v, j]) << tabs.lm >> 2
              for v in range(nv)] for j in range(nb)]
+    alloc_floor = C << BITRES
 
     lo = torch.ones_like(total)
     hi = torch.full_like(total, nv - 1)
@@ -544,7 +582,7 @@ def _compute_allocation(d, buf, lens, tabs: DecTabs, offsets, trim, total,
             use = (bitsj >= thresh[j]) | done
             psum = psum + torch.where(
                 use, torch.clamp(bitsj, max=caps[j]),
-                torch.where(bitsj >= (1 << BITRES), 1 << BITRES, 0))
+                torch.where(bitsj >= alloc_floor, alloc_floor, 0))
             done = done | use
         over = psum > total
         hi = torch.where(go & over, mid - 1, hi)
@@ -569,17 +607,24 @@ def _compute_allocation(d, buf, lens, tabs: DecTabs, offsets, trim, total,
     bits1 += [zt for _ in range(nb - end)]
     bits2 += [zt for _ in range(nb - end)]
     return _interp_bits2pulses(d, buf, lens, tabs, bits1, bits2, thresh,
-                               total, skip_rsv, skip_start, active)
+                               total, skip_rsv, skip_start, active, C,
+                               intensity_rsv, dual_rsv)
 
 
 def _interp_bits2pulses(d, buf, lens, tabs: DecTabs, bits1, bits2, thresh,
-                        total, skip_rsv, skip_start, active):
-    """interp_bits2pulses, mono decode (rate.c:249)."""
+                        total, skip_rsv, skip_start, active, C: int = 1,
+                        intensity_rsv=None, dual_rsv=None):
+    """interp_bits2pulses, decode (rate.c:249; alloc.py:27) with C coded
+    channels: at C = 2 the intensity band and the dual-stereo flag coded
+    after the skip loop, and the fine bits of a band shared by both
+    channels.  Returns (coded_bands, balance, pulses, ebits,
+    fine_priority, intensity, dual_stereo, state); intensity and
+    dual_stereo are None at C = 1."""
     nb = tabs.nb
     start, end = tabs.start, tabs.end_band
-    alloc_floor = 1 << BITRES
+    alloc_floor = C << BITRES
     eB = [int(v) for v in tabs.eBands]
-    caps = tabs.caps
+    caps = _caps(tabs, C)
     lo = torch.zeros_like(total)
     hi = torch.full_like(total, 1 << ALLOC_STEPS)
     for _ in range(ALLOC_STEPS):
@@ -636,12 +681,33 @@ def _interp_bits2pulses(d, buf, lens, tabs: DecTabs, bits1, bits2, thresh,
         band_bits = torch.where(adj, band_bits - (1 << BITRES), band_bits)
         cont = is_cur & ~stop
         keep = torch.where(band_bits >= alloc_floor, alloc_floor, 0)
-        psum = torch.where(cont, psum - bits[j] + keep, psum)
+        reclaimed = psum - bits[j] + keep
+        if C == 2:
+            # the intensity reservation shrinks with the coded bands
+            new_rsv = torch.where(intensity_rsv > 0,
+                                  LOG2_FRAC_TABLE[j - start], intensity_rsv)
+            reclaimed = reclaimed - intensity_rsv + new_rsv
+            intensity_rsv = torch.where(cont, new_rsv, intensity_rsv)
+        psum = torch.where(cont, reclaimed, psum)
         bits[j] = torch.where(cont, keep, bits[j])
         coded_bands = torch.where(cont, coded_bands - 1, coded_bands)
     # the skip-bit reservation returns to the pool only when skipping
     # stopped at skip_start without coding a stop bit (rate.c:331)
     total = total + torch.where(forced_stop, skip_rsv, 0)
+
+    intensity = dual = None
+    if C == 2:
+        # the intensity band and the dual-stereo flag (alloc.py:119-136)
+        rd_i = active & (intensity_rsv > 0)
+        iv, d = K.rk_dec_uint(d, buf, lens, torch.where(
+            rd_i, coded_bands + 1 - start, 2), rd_i)
+        intensity = torch.where(rd_i, start + iv, 0)
+        no_i = intensity <= start
+        total = total + torch.where(no_i, dual_rsv, 0)
+        dual_rsv = torch.where(no_i, 0, dual_rsv)
+        rd_d = active & (dual_rsv > 0)
+        dv, d = K.rk_dec_bit_logp(d, buf, lens, 1, rd_d)
+        dual = rd_d & (dv != 0)
 
     left = total - psum
     den = _lut([max(eB[c] - eB[start], 0) for c in range(nb + 1)],
@@ -670,40 +736,46 @@ def _interp_bits2pulses(d, buf, lens, tabs: DecTabs, bits1, bits2, thresh,
         in_c = in_coded[j]
         bitj = bits[j] + balance
         if n > 1:
-            excess = torch.clamp(bitj - tabs.caps[j], min=0)
+            excess = torch.clamp(bitj - caps[j], min=0)
             bj = bitj - excess
-            nclogn = n * (tabs.logN[j] + log_m)
-            offset = (nclogn >> 1) - n * FINE_OFFSET
+            # N * C, plus one where a stereo band codes its angle
+            den = n if C == 1 else 2 * n + (
+                (~dual) & (j < intensity) & (n > 2)).to(i64)
+            nclogn = den * (tabs.logN[j] + log_m)
+            offset = (nclogn >> 1) - den * FINE_OFFSET
             if n == 2:
-                offset += n << BITRES >> 2
+                offset = offset + (den << BITRES >> 2)
             off1 = torch.where(
-                bj + offset < (n * 2 << BITRES), offset + (nclogn >> 2),
-                torch.where(bj + offset < (n * 3 << BITRES),
+                bj + offset < (den * 2 << BITRES), offset + (nclogn >> 2),
+                torch.where(bj + offset < (den * 3 << BITRES),
                             offset + (nclogn >> 3), offset))
-            eb_ = torch.clamp(bj + off1 + (n << (BITRES - 1)), min=0)
-            eb_ = torch.div(eb_, n, rounding_mode="floor") >> BITRES
-            eb_ = torch.where(eb_ > (bj >> BITRES), bj >> BITRES, eb_)
+            eb_ = torch.clamp(bj + off1 + (den << (BITRES - 1)), min=0)
+            eb_ = torch.div(eb_, den, rounding_mode="floor") >> BITRES
+            eb_ = torch.where(C * eb_ > (bj >> BITRES),
+                              bj >> (C - 1) >> BITRES, eb_)
             eb_ = torch.clamp(eb_, max=MAX_FINE_BITS)
-            fp = (eb_ * (n << BITRES) >= bj + off1).to(i64)
-            bj = bj - (eb_ << BITRES)
+            fp = (eb_ * (den << BITRES) >= bj + off1).to(i64)
+            bj = bj - (C * eb_ << BITRES)
         else:
-            excess = torch.clamp(bitj - (1 << BITRES), min=0)
+            excess = torch.clamp(bitj - (C << BITRES), min=0)
             bj = bitj - excess
             eb_ = torch.zeros_like(total)
             fp = torch.ones_like(total)
         has_ex = excess > 0
-        extra_fine = torch.minimum(excess >> BITRES, MAX_FINE_BITS - eb_)
+        extra_fine = torch.minimum(excess >> (C - 1 + BITRES),
+                                   MAX_FINE_BITS - eb_)
         eb2 = eb_ + torch.where(has_ex, extra_fine, 0)
-        extra_bits = extra_fine << BITRES
+        extra_bits = extra_fine * C << BITRES
         fp = torch.where(has_ex, (extra_bits >= excess - balance).to(i64),
                          fp)
         excess2 = torch.where(has_ex, excess - extra_bits, excess)
-        unc_eb = bits[j] >> BITRES
+        unc_eb = bits[j] >> (C - 1) >> BITRES
         ebits[j] = torch.where(in_c, eb2, unc_eb)
         fine_priority[j] = torch.where(in_c, fp, (unc_eb < 1).to(i64))
         bits[j] = torch.where(in_c, bj, 0)
         balance = torch.where(in_c, excess2, balance)
-    return coded_bands, balance, bits, ebits, fine_priority, d
+    return (coded_bands, balance, bits, ebits, fine_priority, intensity,
+            dual, d)
 
 
 def _postfilter(d, buf, lens, total_bits, live):
@@ -725,9 +797,13 @@ def _postfilter(d, buf, lens, total_bits, live):
 
 
 def fused_plan(d, buf, lens, tabs: DecTabs, old_e, active):
-    """Header through fine energy (celt_decoder.c:1209-1462), mono.
+    """Header through fine energy (celt_decoder.c:1209-1462) with C =
+    len(old_e) coded channels.
 
-    old_e: list of nb [B] f32 lanes.  Returns (plan dict, state)."""
+    old_e: per channel a list of nb [B] f32 lanes.  Returns (plan dict,
+    state); the plan's energies are per channel lists, and at C = 2 it
+    holds the intensity band and the dual-stereo flag."""
+    C = len(old_e)
     total_bits = lens * 8
 
     tell = K.rk_tell(d)
@@ -770,23 +846,27 @@ def fused_plan(d, buf, lens, tabs: DecTabs, old_e, active):
     spread = torch.where(sp_read, spv, SPREAD_NORMAL)
 
     # ---- dynalloc + trim + allocation ----
-    offsets, trim, d = _dynalloc(d, buf, lens, tabs, total_bits, live)
+    offsets, trim, d = _dynalloc(d, buf, lens, tabs, total_bits, live, C)
     bits_left = (lens * 8 << BITRES) - K.rk_tell_frac(d) - 1
     ac_rsv = torch.where((is_transient != 0) & (tabs.lm >= 2)
                          & (bits_left >= ((tabs.lm + 2) << BITRES)),
                          1 << BITRES, 0)
     bits_left = bits_left - ac_rsv
-    (coded_bands, balance, pulses, ebits, fine_priority, d) = \
-        _compute_allocation(d, buf, lens, tabs, offsets, trim, bits_left,
-                            live)
+    (coded_bands, balance, pulses, ebits, fine_priority, intensity, dual,
+     d) = _compute_allocation(d, buf, lens, tabs, offsets, trim, bits_left,
+                              live, C)
 
-    # ---- fine energy ----
+    # ---- fine energy: every channel of a band (at C = 2 only while both
+    # fit, decoder.py:98) ----
     for i in range(tabs.start, tabs.end_band):
         fq = ebits[i]
         has = live & (fq > 0)
-        q2, d = K.rk_dec_bits(d, buf, lens, torch.where(has, fq, 0), has)
-        offs = (q2.to(f32) + 0.5) * torch.exp2(-fq.to(f32)) - 0.5
-        old_e[i] = torch.where(has, old_e[i] + offs, old_e[i])
+        if C == 2:
+            has = has & (K.rk_tell(d) + C * fq <= total_bits)
+        for oe in old_e:
+            q2, d = K.rk_dec_bits(d, buf, lens, torch.where(has, fq, 0), has)
+            offs = (q2.to(f32) + 0.5) * torch.exp2(-fq.to(f32)) - 0.5
+            oe[i] = torch.where(has, oe[i] + offs, oe[i])
 
     return dict(silence=silence, pf_pitch=pf_pitch, pf_gain=pf_gain,
                 pf_tapset=pf_tapset, is_transient=is_transient,
@@ -794,6 +874,7 @@ def fused_plan(d, buf, lens, tabs: DecTabs, old_e, active):
                 spread=spread, offsets=offsets, trim=trim,
                 coded_bands=coded_bands, balance=balance, pulses=pulses,
                 ebits=ebits, fine_priority=fine_priority,
+                intensity=intensity, dual_stereo=dual,
                 anti_collapse_rsv=ac_rsv, live=live), d
 
 
@@ -866,7 +947,13 @@ def _decode_pulses(d, buf, lens, n: int, k, kcap: int, active):
 # ===================================================================== #
 
 def _compute_qn_vec(n2: int, b, offset: int, pulse_cap: int):
-    n2x = 2 * n2 - 1
+    """compute_qn (bands.c) for a split into halves of n2."""
+    return compute_qn_n2(2 * n2 - 1, b, offset, pulse_cap)
+
+
+def compute_qn_n2(n2x: int, b, offset: int, pulse_cap: int):
+    """compute_qn with N2 = n2x (2N - 1 for a split of N; a stereo band of
+    N takes 2N - 1, and 2 at N = 2)."""
     qb = _sudiv(b + n2x * offset, n2x)
     qb = torch.minimum(b - pulse_cap - (4 << BITRES), qb)
     qb = torch.clamp(qb, max=8 << BITRES)
@@ -1099,8 +1186,10 @@ def _band_variants(lm: int, n: int):
 
 
 def _quant_band_mono(d, buf, lens, ctx, tabs: DecTabs, band: int, n: int,
-                     b, transient, tf_change, lb, lb_has, fill, active):
-    """quant_band, mono decode (bands.c:1245).  lb: [B, n].  Returns (cm,
+                     b, transient, tf_change, lb, lb_has, fill, active,
+                     gain=None):
+    """quant_band, mono decode (bands.c:1245).  lb: [B, n]; gain: [B]
+    f32 (1 by default; a stereo band's side takes its own).  Returns (cm,
     x [B, n], d, ctx)."""
     if n == 1:
         return _quant_band_n1(d, buf, lens, ctx, active)
@@ -1141,7 +1230,8 @@ def _quant_band_mono(d, buf, lens, ctx, tabs: DecTabs, band: int, n: int,
     cm, x, d, ctx = _quant_partition(
         d, buf, lens, ctx, tabs, band, n, tabs.lm, b, bb_lanes,
         tuple(sorted(bb_vals)), lb_f, lb_has,
-        torch.ones_like(b, dtype=f32), fill_f, active)
+        torch.ones_like(b, dtype=f32) if gain is None else gain, fill_f,
+        active)
 
     # ---- resynth-side transforms (x + cm) ----
     x_out = x
@@ -1218,11 +1308,197 @@ def _hybrid_fold(norm, tabs: DecTabs):
     return norm
 
 
-def quant_all_bands_mono(d, buf, lens, tabs: DecTabs, plan, total_bits8,
-                         balance, seed, active):
-    """bands.c:1589, mono decode over bands [start, end).  total_bits8:
-    per-lane 8th-bits budget (len*8*8 - anti_collapse_rsv).  Returns (X
-    [B, nx], zero outside the coded bands, collapse list[nb], seed, d)."""
+def _compute_theta_stereo(d, buf, lens, ctx, tabs: DecTabs, band: int,
+                          n: int, b, bb, fill, intensity, disable_inv: bool,
+                          active):
+    """compute_theta's stereo branch, decode (bands.py:588-749): the step
+    pdf for N > 2, a uniform angle for N = 2, the inversion bit where the
+    intensity band is reached.  Returns (b, fill, inv, itheta, imid,
+    iside, delta, qalloc, d)."""
+    lm = tabs.lm
+    pulse_cap = tabs.logN[band] + lm * (1 << BITRES)
+    offset = (pulse_cap >> 1) - (QTHETA_OFFSET_TWOPHASE if n == 2
+                                 else QTHETA_OFFSET)
+    # compute_qn with stereo: N2 = 2N - 1, less one at N = 2
+    qn = compute_qn_n2(2 * n - 1 - (1 if n == 2 else 0), b, offset,
+                       pulse_cap)
+    qn = torch.where(band >= intensity, 1, qn)
+    tell0 = K.rk_tell_frac(d)
+    has = active & (qn != 1)
+    if n > 2:
+        # the step pdf (bands.py:640-656)
+        x0 = qn >> 1
+        ft = 3 * (x0 + 1) + x0
+        fs, d = K.rk_decode(d, torch.where(has, ft, 1), has)
+        low = fs < (x0 + 1) * 3
+        xq = torch.where(low, torch.div(fs, 3, rounding_mode="floor"),
+                         x0 + 1 + (fs - (x0 + 1) * 3))
+        fl = torch.where(xq <= x0, 3 * xq, (xq - 1 - x0) + (x0 + 1) * 3)
+        fh = torch.where(xq <= x0, 3 * (xq + 1), (xq - x0) + (x0 + 1) * 3)
+        d = K.rk_update(d, buf, lens, fl, fh, ft, has)
+        th = xq
+    else:
+        th, d = K.rk_dec_uint(d, buf, lens, qn + 1, has)
+    itheta = torch.where(has, torch.div(th * 16384, torch.clamp(qn, min=1),
+                                        rounding_mode="floor"), 0)
+    # qn == 1: the inversion flag (bands.py:712-719)
+    one = active & (qn == 1)
+    inv_rd = one & (b > (2 << BITRES)) & (ctx["rb"] > (2 << BITRES))
+    inv_bit, d = K.rk_dec_bit_logp(d, buf, lens, 2, inv_rd)
+    inv = inv_rd & (inv_bit != 0) & (not disable_inv)
+    qalloc = K.rk_tell_frac(d) - tell0
+    b = b - qalloc
+    th0 = itheta == 0
+    th1 = itheta == 16384
+    imid = torch.where(th0, 32767,
+                       torch.where(th1, 0, _bitexact_cos(itheta)))
+    iside = torch.where(th0, 0, torch.where(
+        th1, 32767, _bitexact_cos(16384 - itheta)))
+    delta_m = _frac_mul16((n - 1) << 7, _bitexact_log2tan(iside, imid))
+    delta = torch.where(th0, -16384, torch.where(th1, 16384, delta_m))
+    fill = torch.where(active & th0, fill & ((1 << bb) - 1), fill)
+    fill = torch.where(active & th1, fill & (((1 << bb) - 1) << bb), fill)
+    return b, fill, inv, itheta, imid, iside, delta, qalloc, d
+
+
+def _stereo_merge(x, y, mid, active):
+    """stereo_merge (bands.py:538) on lanes: mid [B] f32."""
+    xp = (y * x).sum(dim=1)
+    side = (y * y).sum(dim=1)
+    xp = mid * xp
+    mm = mid * mid
+    el = mm + side - 2 * xp
+    er = mm + side + 2 * xp
+    copy = (er < 6e-4) | (el < 6e-4)
+    lgain = 1.0 / torch.sqrt(torch.where(copy, 1.0, el))
+    rgain = 1.0 / torch.sqrt(torch.where(copy, 1.0, er))
+    l_ = mid[:, None] * x
+    xm = lgain[:, None] * (l_ - y)
+    ym = rgain[:, None] * (l_ + y)
+    xm = torch.where(copy[:, None], x, xm)
+    ym = torch.where(copy[:, None], x, ym)
+    a = active[:, None]
+    return torch.where(a, xm, x), torch.where(a, ym, y)
+
+
+def _quant_band_stereo(d, buf, lens, ctx, tabs: DecTabs, band: int, n: int,
+                       b, transient, tf_change, lb, lb_has, fill, intensity,
+                       disable_inv: bool, active):
+    """quant_band_stereo, decode (bands.py:1084) for N > 1: the angle, then
+    mid and side as mono bands (the larger first), the N = 2 rotation,
+    the merge, the inversion.  Returns (cm, x [B, n], y [B, n], mid_out
+    [B, n] (the vector lowband_out holds, before the merge), d, ctx)."""
+    bb = torch.where(transient != 0, tabs.M, 1)
+    orig_fill = fill
+    b, fill, inv, itheta, imid, iside, delta, qalloc, d = \
+        _compute_theta_stereo(d, buf, lens, ctx, tabs, band, n, b, bb, fill,
+                              intensity, disable_inv, active)
+    mid = imid.to(f32) * (1.0 / 32768.0)
+    side = iside.to(f32) * (1.0 / 32768.0)
+    ctx = dict(ctx)
+    if n == 2:
+        sbits = torch.where((itheta != 0) & (itheta != 16384),
+                            1 << BITRES, 0)
+        mbits = b - sbits
+        cflip = itheta > 8192
+        ctx["rb"] = ctx["rb"] - torch.where(active, qalloc + sbits, 0)
+        srd = active & (sbits != 0)
+        sgn, d = K.rk_dec_bits(d, buf, lens, torch.where(srd, 1, 0), srd)
+        sign = (1 - 2 * torch.where(srd, sgn, 0)).to(f32)
+        cm, v, d, ctx = _quant_band_mono(
+            d, buf, lens, ctx, tabs, band, 2, mbits, transient, tf_change,
+            lb, lb_has, orig_fill, active)
+        r = torch.stack([-sign * v[:, 1], sign * v[:, 0]], dim=1)
+        cf = cflip[:, None]
+        x = torch.where(cf, r, v) * mid[:, None]
+        y = torch.where(cf, v, r) * side[:, None]
+        xo = torch.stack([x[:, 0] - y[:, 0], x[:, 1] - y[:, 1]], dim=1)
+        yo = torch.stack([x[:, 0] + y[:, 0], x[:, 1] + y[:, 1]], dim=1)
+        mid_out = v
+    else:
+        mbits = torch.clamp(torch.minimum(
+            b, torch.div(b - delta, 2, rounding_mode="floor")), min=0)
+        sbits = b - mbits
+        ctx["rb"] = ctx["rb"] - torch.where(active, qalloc, 0)
+        rb0 = ctx["rb"]
+        swap = mbits < sbits           # the side first
+        sw = swap[:, None]
+        one = torch.ones_like(mid)
+        bb_fill = fill >> bb
+        b1 = torch.where(swap, sbits, mbits)
+        cm1, v1, d, ctx = _quant_band_mono(
+            d, buf, lens, ctx, tabs, band, n, b1, transient, tf_change,
+            lb, lb_has & ~swap, torch.where(swap, bb_fill, fill), active,
+            gain=torch.where(swap, side, one))
+        reb = b1 - (rb0 - ctx["rb"])
+        anchor = torch.where(swap, 16384, 0)
+        extra = torch.where((reb > (3 << BITRES)) & (itheta != anchor),
+                            reb - (3 << BITRES), 0)
+        b2 = torch.where(swap, mbits, sbits) + extra
+        cm2, v2, d, ctx = _quant_band_mono(
+            d, buf, lens, ctx, tabs, band, n, b2, transient, tf_change,
+            lb, lb_has & swap, torch.where(swap, fill, bb_fill), active,
+            gain=torch.where(swap, one, side))
+        cm = cm1 | cm2
+        x = torch.where(sw, v2, v1)
+        y = torch.where(sw, v1, v2)
+        mid_out = x
+        xo, yo = _stereo_merge(x, y, mid, active)
+    yo = torch.where(inv[:, None], -yo, yo)
+    return cm, xo, yo, mid_out, d, ctx
+
+
+def _quant_band_two(d, buf, lens, ctx, tabs: DecTabs, band: int, n: int, b,
+                    transient, tf_change, lbs, lb_has, cms, dual, intensity,
+                    disable_inv: bool, active):
+    """One band of a two-channel frame (bands.py:1287-1345): N = 1 (a sign
+    each), dual stereo (each channel a mono band on half the bits, from
+    its own fold) or mid/side.  Returns ([x, y], [cm_x, cm_y], the vector
+    the fold memory keeps, d, ctx)."""
+    xb = torch.zeros((b.shape[0], n), dtype=f32, device=b.device)
+    yb = torch.zeros_like(xb)
+    out1 = xb
+    cmx = torch.zeros_like(cms[0])
+    cmy = torch.zeros_like(cms[0])
+    if n == 1:
+        cmx, xb, d, ctx = _quant_band_n1(d, buf, lens, ctx, active)
+        cmy, yb, d, ctx = _quant_band_n1(d, buf, lens, ctx, active)
+        return [xb, yb], [cmx, cmy], xb, d, ctx
+    if bool(dual.any()):
+        half = b >> 1
+        c1, v1, d, ctx = _quant_band_mono(
+            d, buf, lens, ctx, tabs, band, n, half, transient, tf_change,
+            lbs[0], lb_has, cms[0], dual)
+        c2, v2, d, ctx = _quant_band_mono(
+            d, buf, lens, ctx, tabs, band, n, half, transient, tf_change,
+            lbs[1], lb_has, cms[1], dual)
+        dm = dual[:, None]
+        xb = torch.where(dm, v1, xb)
+        yb = torch.where(dm, v2, yb)
+        out1 = torch.where(dm, v1, out1)
+        cmx = torch.where(dual, c1, cmx)
+        cmy = torch.where(dual, c2, cmy)
+    ms = active & ~dual
+    if bool(ms.any()):
+        c, xs, ys, mo, d, ctx = _quant_band_stereo(
+            d, buf, lens, ctx, tabs, band, n, b, transient, tf_change,
+            lbs[0], lb_has, cms[0] | cms[1], intensity, disable_inv, ms)
+        mm = ms[:, None]
+        xb = torch.where(mm, xs, xb)
+        yb = torch.where(mm, ys, yb)
+        out1 = torch.where(mm, mo, out1)
+        cmx = torch.where(ms, c, cmx)
+        cmy = torch.where(ms, c, cmy)
+    return [xb, yb], [cmx, cmy], out1, d, ctx
+
+
+def quant_all_bands(d, buf, lens, tabs: DecTabs, plan, total_bits8, balance,
+                    seed, active, C: int = 1, disable_inv: bool = False):
+    """bands.c:1589 (bands.py:1210), decode over bands [start, end) with C
+    coded channels.  total_bits8: per-lane 8th-bits budget (len*8*8 -
+    anti_collapse_rsv); disable_inv: the decoder's flag (C = 2).  Returns
+    (X, per channel [B, nx], zero outside the coded bands; collapse, per
+    channel list[nb]; seed, d)."""
     nb = tabs.nb
     start, end = tabs.start, tabs.end_band
     M = tabs.M
@@ -1231,14 +1507,21 @@ def quant_all_bands_mono(d, buf, lens, tabs: DecTabs, plan, total_bits8,
     norm_total = M * eB[nb - 1]
     bsz = balance.shape[0]
     dev = balance.device
-    norm = torch.zeros((bsz, norm_total), dtype=f32, device=dev)
-    collapse = [torch.zeros_like(balance) for _ in range(nb)]
-    X = [torch.zeros((bsz, norm_offset), dtype=f32, device=dev)]
+    # the fold memory of each channel (the second one only dual stereo
+    # writes)
+    norms = [torch.zeros((bsz, norm_total), dtype=f32, device=dev)
+             for _ in range(C)]
+    collapse = [[torch.zeros_like(balance) for _ in range(nb)]
+                for _ in range(C)]
+    X = [[torch.zeros((bsz, norm_offset), dtype=f32, device=dev)]
+         for _ in range(C)]
     transient = plan["is_transient"]
     B_lanes = torch.where(transient != 0, M, 1)
     spread = plan["spread"]
     coded_bands = plan["coded_bands"]
     pulses = plan["pulses"]
+    intensity = plan["intensity"]
+    dual = plan["dual_stereo"] & active if C == 2 else None
     ctx = dict(rb=torch.zeros_like(balance), seed=seed, spread=spread)
     lowband_offset = torch.zeros_like(balance)
     update_lowband = torch.ones_like(balance, dtype=torch.bool)
@@ -1262,47 +1545,70 @@ def quant_all_bands_mono(d, buf, lens, tabs: DecTabs, plan, total_bits8,
             upd = active & (update_lowband | (lowband_offset == 0))
             lowband_offset = torch.where(upd, i, lowband_offset)
         if i == start + 1:
-            norm = _hybrid_fold(norm, tabs)
+            norms = [_hybrid_fold(nm, tabs) for nm in norms]
 
         tf_change = plan["tf_res"][i]
         # folding source selection
         fold_cond = active & (lowband_offset != 0) \
             & ((spread != SPREAD_AGGRESSIVE) | (B_lanes > 1)
                | (tf_change < 0))
-        lb = torch.zeros((bsz, n), dtype=f32, device=dev)
-        x_cm = torch.where(fold_cond, 0, (1 << B_lanes) - 1)
+        if C == 2:
+            # dual stereo ends at the intensity band: the fold memory
+            # becomes the average of the two (bands.py:1305-1309)
+            stop = dual & (intensity == i)
+            if bool(stop.any()):
+                a, z = norm_offset, M * eB[i]
+                avg = 0.5 * (norms[0][:, a:z] + norms[1][:, a:z])
+                norms[0] = norms[0].clone()
+                norms[0][:, a:z] = torch.where(stop[:, None], avg,
+                                               norms[0][:, a:z])
+                dual = dual & ~stop
+        lbs = [torch.zeros((bsz, n), dtype=f32, device=dev)] * C
+        cms = [torch.where(fold_cond, 0, (1 << B_lanes) - 1)] * C
         for lo, eff, fs_, fe_ in folds[i]:
             mv = fold_cond & (lowband_offset == lo)
-            cmv = torch.zeros_like(x_cm)
-            for fi in range(fs_, fe_):
-                cmv = cmv | collapse[fi]
-            # norm window [eff, eff+n) (zero-padded past norm_total)
-            if eff + n <= norm_total:
-                win = norm[:, eff:eff + n]
-            else:
-                win = torch.cat([norm[:, eff:], torch.zeros(
-                    (bsz, eff + n - norm_total), dtype=f32, device=dev)],
-                    dim=1)
-            lb = torch.where(mv[:, None], win, lb)
-            x_cm = torch.where(mv, cmv, x_cm)
+            for c in range(C):
+                cmv = torch.zeros_like(cms[c])
+                for fi in range(fs_, fe_):
+                    cmv = cmv | collapse[c][fi]
+                # norm window [eff, eff+n) (zero-padded past norm_total)
+                if eff + n <= norm_total:
+                    win = norms[c][:, eff:eff + n]
+                else:
+                    win = torch.cat([norms[c][:, eff:], torch.zeros(
+                        (bsz, eff + n - norm_total), dtype=f32,
+                        device=dev)], dim=1)
+                lbs[c] = torch.where(mv[:, None], win, lbs[c])
+                cms[c] = torch.where(mv, cmv, cms[c])
 
-        cm_out, x_band, d, ctx = _quant_band_mono(
-            d, buf, lens, ctx, tabs, i, n, b, transient, tf_change,
-            lb, fold_cond, x_cm, active)
-        collapse[i] = torch.where(active, cm_out & 0xFF, 0)
-        X.append(x_band)
+        if C == 1:
+            cm, x_band, d, ctx = _quant_band_mono(
+                d, buf, lens, ctx, tabs, i, n, b, transient, tf_change,
+                lbs[0], fold_cond, cms[0], active)
+            xs, cm_c, out1 = [x_band], [cm], x_band
+        else:
+            xs, cm_c, out1, d, ctx = _quant_band_two(
+                d, buf, lens, ctx, tabs, i, n, b, transient, tf_change, lbs,
+                fold_cond, cms, dual, intensity, disable_inv, active)
+        for c in range(C):
+            collapse[c][i] = torch.where(active, cm_c[c] & 0xFF, 0)
+            X[c].append(xs[c])
         if i != end - 1:
             base = M * eB[i]
-            norm = norm.clone()
-            norm[:, base:base + n] = torch.where(
-                active[:, None], math.sqrt(n) * x_band,
-                norm[:, base:base + n])
+            nrm = math.sqrt(n)
+            norms[0] = norms[0].clone()
+            norms[0][:, base:base + n] = torch.where(
+                active[:, None], nrm * out1, norms[0][:, base:base + n])
+            if C == 2:
+                norms[1] = norms[1].clone()
+                norms[1][:, base:base + n] = torch.where(
+                    dual[:, None], nrm * xs[1], norms[1][:, base:base + n])
         balance = balance + pulses[i] + tell
         update_lowband = b > (n << BITRES)
 
-    X.append(torch.zeros((bsz, tabs.nx - M * eB[end]), dtype=f32,
-                         device=dev))
-    return torch.cat(X, dim=1), collapse, ctx["seed"], d
+    tail = torch.zeros((bsz, tabs.nx - M * eB[end]), dtype=f32, device=dev)
+    return ([torch.cat(x + [tail], dim=1) for x in X], collapse,
+            ctx["seed"], d)
 
 
 # ===================================================================== #
@@ -1310,19 +1616,22 @@ def quant_all_bands_mono(d, buf, lens, tabs: DecTabs, plan, total_bits8,
 # ===================================================================== #
 
 def _anti_collapse(tabs: DecTabs, X, collapse, pulses, energies, prevmin,
-                   seed, active):
+                   seed, active, bands=None):
     """anti_collapse (bands.c:259), mono decode.  energies: the finalised
     band energies (as libopus, the scalar decoder and the Pallas kernel
     use them; celt_dec_fused passes the pre-finalise ones); prevmin: list
-    of nb [B] f32, min(prev1, prev2) per band."""
+    of nb [B] f32, min(prev1, prev2) per band; bands: the (lo, hi) range
+    to fill (default the coded bands; a stereo frame runs one band of
+    one channel at a time)."""
     lm = tabs.lm
     kk = 1 << lm
     eB = [int(v) for v in tabs.eBands]
     bsz = seed.shape[0]
     dev = seed.device
-    segs = [X[:, :eB[tabs.start] << lm]]
+    lo_b, hi_b = (tabs.start, tabs.end_band) if bands is None else bands
+    segs = [X[:, :eB[lo_b] << lm]]
     kb = torch.arange(kk, device=dev)
-    for i in range(tabs.start, tabs.end_band):
+    for i in range(lo_b, hi_b):
         n0 = eB[i + 1] - eB[i]
         depth = torch.div(1 + pulses[i], n0,
                           rounding_mode="floor") >> lm
@@ -1354,81 +1663,109 @@ def _anti_collapse(tabs: DecTabs, X, collapse, pulses, energies, prevmin,
         seed = (ap[sidx] * seed + cs[sidx]) & M32
         seg = _renormalise_arr(seg, torch.ones_like(r), miss.any(dim=1))
         segs.append(seg)
-    segs.append(X[:, eB[tabs.end_band] << lm:])
+    segs.append(X[:, eB[hi_b] << lm:])
     return torch.cat(segs, dim=1), seed
 
 
 def fused_celt_decode_frame(buf, lens, old_e, prevmin, seed,
-                            tabs: DecTabs, active, d0=None):
-    """Full mono CELT frame symbol decode: plan + bands + anti-collapse
-    + energy finalise (celt_decoder.c:1209-1560 below packet parse).
+                            tabs: DecTabs, active, d0=None,
+                            disable_inv: bool = False):
+    """Full CELT frame symbol decode: plan + bands + anti-collapse +
+    energy finalise (celt_decoder.c:1209-1560 below packet parse), mono
+    or with two coded channels.
 
     buf: [B, P] packet bytes; lens/seed: [B]; old_e/prevmin: lists of nb
-    [B] f32.  d0: optional live range-decoder state to continue from in
-    place of ``rk_init`` (a hybrid frame's CELT half continues SILK's
-    coder, src/opus_decoder.c:432).  Returns (out dict, final
-    range-decoder state)."""
+    [B] f32, one list for a mono frame or a list of two (one a channel)
+    for a two-channel frame.  d0: optional live range-decoder state to
+    continue from in place of ``rk_init`` (a hybrid frame's CELT half
+    continues SILK's coder, src/opus_decoder.c:432); disable_inv: the
+    decoder's flag (set on a decoder with one output channel,
+    opus_decoder.py:42).  Returns (out dict, final range-decoder state);
+    out's X is [B, nx] (mono) or [B, 2, nx], its energies and collapse
+    masks are laid out as old_e."""
+    C = 2 if isinstance(old_e[0], (list, tuple)) else 1
+    old_e, prevmin = (old_e, prevmin) if C == 2 else ([old_e], [prevmin])
     d = K.rk_init(buf, lens) if d0 is None else d0
     plan, d = fused_plan(d, buf, lens, tabs, old_e, active)
     live = plan["live"]
     total_bits8 = (lens * 8 << BITRES) - plan["anti_collapse_rsv"]
-    X, collapse, seed, d = quant_all_bands_mono(
-        d, buf, lens, tabs, plan, total_bits8, plan["balance"], seed, live)
+    Xs, collapse, seed, d = quant_all_bands(
+        d, buf, lens, tabs, plan, total_bits8, plan["balance"], seed, live,
+        C, disable_inv)
     # anti-collapse flag
     ac_read = live & (plan["anti_collapse_rsv"] > 0)
     ac_on, d = K.rk_dec_bits(d, buf, lens, torch.where(ac_read, 1, 0),
                              ac_read)
-    # energy finalise (quant_bands.c unquant_energy_finalise)
-    energies = list(plan["energies"])
+    # energy finalise (quant_bands.c unquant_energy_finalise): a band takes
+    # one bit a channel while C bits are left
+    energies = [list(e) for e in plan["energies"]]
     bits_left = lens * 8 - K.rk_tell(d)
     for prio in (0, 1):
         for i in range(tabs.start, tabs.end_band):
-            can = live & (bits_left >= 1) \
+            can = live & (bits_left >= C) \
                 & (plan["ebits"][i] < MAX_FINE_BITS) \
                 & (plan["fine_priority"][i] == prio)
-            q2, d = K.rk_dec_bits(d, buf, lens, torch.where(can, 1, 0), can)
-            off = (q2.to(f32) - 0.5) \
-                * torch.exp2(-(plan["ebits"][i] + 1).to(f32))
-            energies[i] = torch.where(can, energies[i] + off, energies[i])
-            bits_left = bits_left - can.to(i64)
-    # anti-collapse application
+            for e in energies:
+                q2, d = K.rk_dec_bits(d, buf, lens, torch.where(can, 1, 0),
+                                      can)
+                off = (q2.to(f32) - 0.5) \
+                    * torch.exp2(-(plan["ebits"][i] + 1).to(f32))
+                e[i] = torch.where(can, e[i] + off, e[i])
+            bits_left = bits_left - C * can.to(i64)
+    # anti-collapse application: one LCG, band by band and channel by
+    # channel (at C = 1 all bands in one call)
     do_ac = live & (ac_on != 0)
-    Xa, seed = _anti_collapse(tabs, X, collapse, plan["pulses"], energies,
-                              prevmin, seed, do_ac)
-    X = torch.where(do_ac[:, None], Xa, X)
+    spans = [(tabs.start, tabs.end_band)] if C == 1 else [
+        (i, i + 1) for i in range(tabs.start, tabs.end_band)]
+    for span in spans:
+        for c in range(C):
+            xa, seed = _anti_collapse(tabs, Xs[c], collapse[c],
+                                      plan["pulses"], energies[c],
+                                      prevmin[c], seed, do_ac, bands=span)
+            Xs[c] = torch.where(do_ac[:, None], xa, Xs[c])
+    if C == 1:
+        X, collapse, energies = Xs[0], collapse[0], energies[0]
+    else:
+        X = torch.stack(Xs, dim=1)
     out = dict(plan, X=X, collapse=collapse, energies=energies,
                anti_collapse_on=ac_on, seed=seed)
     return out, d
 
 
-def fused_celt_init_state(batch: int, tabs: DecTabs, device="cpu"):
+def fused_celt_init_state(batch: int, tabs: DecTabs, device="cpu",
+                          out_channels: int = 1):
     """Per-stream decoder state (celt_decoder.c reset values) as a dict
     of tensors: old_e/prev1/prev2 [B, nb], seed [B], the postfilter
     phases, the synthesis state ``dsp``, and the loss state of the
     packet-loss concealment (``celt/plc.py``): the background energies
-    and the second copy of old_e that mono keeps (``e_copy``) [B, nb],
-    the loss counters (2.5 ms units), ``skip_plc``, the last frame's
-    type, the fold flag and the extrapolated overlap it folds (``fold``
-    [B, overlap]), the last PLC period and LPC ([B, 24] f64), the final
-    range of the last decoded packet and whether the lane has decoded
-    one."""
+    [B, nb], the loss counters (2.5 ms units), ``skip_plc``, the last
+    frame's type, the fold flag and the extrapolated overlap it folds
+    (``fold`` [B, overlap]), the last PLC period and LPC ([B, 24] f64),
+    the final range of the last decoded packet and whether the lane has
+    decoded one.  Both channels' energy memory is kept, as libopus keeps
+    2 x nbEBands, so a stream may switch between mono and stereo packets:
+    the second channel's old_e (``e_copy``), ``prev1_1``, ``prev2_1`` and
+    ``background_1`` (a mono frame copies its energies there).
+    out_channels=2: the second output channel's synthesis state,
+    concealment LPC and fold (``dsp_1``, ``plc_lpc_1``, ``fold_1``)."""
     from .batched_decode import init_state as dsp_init
 
     nb = tabs.nb
     zf = torch.zeros(batch, dtype=f32, device=device)
     zi = torch.zeros(batch, dtype=i64, device=device)
-    return dict(
+    low = torch.full((batch, nb), -28.0, dtype=f32, device=device)
+    st = dict(
         old_e=torch.zeros((batch, nb), dtype=f32, device=device),
-        prev1=torch.full((batch, nb), -28.0, dtype=f32, device=device),
-        prev2=torch.full((batch, nb), -28.0, dtype=f32, device=device),
+        prev1=low.clone(), prev2=low.clone(),
         seed=zi.clone(),
         pf_period=torch.full((batch,), 15, dtype=i64, device=device),
         pf_period_old=torch.full((batch,), 15, dtype=i64, device=device),
         pf_gain=zf.clone(), pf_gain_old=zf.clone(),
         pf_tapset=zi.clone(), pf_tapset_old=zi.clone(),
         dsp=dsp_init(batch, tabs.mode.overlap, device=device),
-        background=torch.full((batch, nb), -28.0, dtype=f32, device=device),
+        background=low.clone(),
         e_copy=torch.zeros((batch, nb), dtype=f32, device=device),
+        prev1_1=low.clone(), prev2_1=low.clone(), background_1=low.clone(),
         loss_duration=zi.clone(), plc_duration=zi.clone(),
         skip_plc=torch.ones(batch, dtype=i64, device=device),
         last_frame_type=zi.clone(), prefilter_and_fold=zi.clone(),
@@ -1439,3 +1776,7 @@ def fused_celt_init_state(batch: int, tabs: DecTabs, device="cpu"):
                          device=device),
         rng_final=zi.clone(),
         decoded_any=torch.zeros(batch, dtype=torch.bool, device=device))
+    if out_channels == 2:
+        st.update(dsp_1=dsp_init(batch, tabs.mode.overlap, device=device),
+                  plc_lpc_1=st["plc_lpc"].clone(), fold_1=st["fold"].clone())
+    return st

@@ -111,6 +111,13 @@ class _SilkTabs:
         self.nlsf_interp = np.asarray(TD.NLSF_INTERPOLATION_FACTOR_ICDF,
                                       np.uint8)
         self.pitch_lag = np.asarray(TD.PITCH_LAG_ICDF, np.uint8)
+        self.pitch_delta = np.asarray(TD.PITCH_DELTA_ICDF, np.uint8)
+        self.lbrr_flags2 = np.asarray(TD.LBRR_FLAGS_2_ICDF, np.uint8)
+        self.lbrr_flags3 = np.asarray(TD.LBRR_FLAGS_3_ICDF, np.uint8)
+        self.stereo_joint = np.asarray(TD.STEREO_PRED_JOINT_ICDF, np.uint8)
+        self.uniform3 = np.asarray(TD.UNIFORM3_ICDF, np.uint8)
+        self.uniform5 = np.asarray(TD.UNIFORM5_ICDF, np.uint8)
+        self.mid_only = np.asarray(TD.STEREO_ONLY_CODE_MID_ICDF, np.uint8)
         self.contour = np.asarray(
             (TD.PITCH_CONTOUR_ICDF if nb_subfr == 4
              else TD.PITCH_CONTOUR_10_MS_ICDF) if fs_khz != 8 else
@@ -468,20 +475,36 @@ def _shell_block(d, ctx: _Ctx, sp, active):
     return d, torch.stack(p0, dim=1)
 
 
+# the frame's coding of its indices relative to the frame before it in the
+# packet (silk/define.h)
+CODE_INDEPENDENTLY = 0
+CODE_INDEPENDENTLY_NO_LTP_SCALING = 1
+CODE_CONDITIONALLY = 2
+
+
 def _frame_symbols(d, ctx: _Ctx, active, type_ix, error, nb_subfr: int,
-                   fs_khz: int):
+                   fs_khz: int, cond=None, prev=None):
     """The indices after the signal type, then the pulses, of one frame
-    (decode_indices.c, CODE_INDEPENDENTLY; decode_pulses.c).  Returns (d,
-    error, symbols dict)."""
+    (decode_indices.c; decode_pulses.c).  cond [B] (CODE_*, default
+    independent): a conditionally coded frame (a later frame of a 40/60 ms
+    packet) codes its first gain as a delta and its pitch lag as a delta
+    from the frame before (``prev``: that frame's (signal type, lag
+    index) [B] lanes) where that one was voiced, and no LTP scale (nor
+    does CODE_INDEPENDENTLY_NO_LTP_SCALING).  Returns (d, error, symbols
+    dict)."""
     tabs = ctx.tabs
     b = d["rng"].shape[0]
     dev = ctx.dev
     L = nb_subfr * 5 * fs_khz
     order = tabs.order
     signal_type = type_ix >> 1
+    if cond is None:
+        cond = torch.zeros_like(type_ix)
+    delta_g = active & (cond == CODE_CONDITIONALLY)
 
-    g_hi, d = ctx.dec(d, ctx.t("gain_icdf")[signal_type], active)
-    g_lo, d = ctx.dec(d, "uniform8", active)
+    g_hi, d = ctx.dec(d, ctx.t("gain_icdf")[signal_type], active & ~delta_g)
+    g_lo, d = ctx.dec(d, "uniform8", active & ~delta_g)
+    g_d, d = ctx.dec(d, "delta_gain", delta_g, skip_if_idle=True)
     gains_deltas = []
     for _ in range(nb_subfr - 1):
         gd, d = ctx.dec(d, "delta_gain", active)
@@ -519,8 +542,13 @@ def _frame_symbols(d, ctx: _Ctx, active, type_ix, error, nb_subfr: int,
         interp_q2 = torch.full_like(cb1, 4)
 
     voiced = active & (signal_type == 2)
-    lag_hi, d = ctx.dec(d, "pitch_lag", voiced, skip_if_idle=True)
-    lag_lo, d = ctx.dec(d, "lag_low", voiced, skip_if_idle=True)
+    # a conditional frame after a voiced one: a lag delta, 0 = absolute
+    rel = voiced & delta_g & (prev[0] == 2) if prev is not None \
+        else torch.zeros_like(voiced)
+    dl, d = ctx.dec(d, "pitch_delta", rel, skip_if_idle=True)
+    rel = rel & (dl > 0)
+    lag_hi, d = ctx.dec(d, "pitch_lag", voiced & ~rel, skip_if_idle=True)
+    lag_lo, d = ctx.dec(d, "lag_low", voiced & ~rel, skip_if_idle=True)
     contour, d = ctx.dec(d, "contour", voiced, skip_if_idle=True)
     per_index, d = ctx.dec(d, "per_index", voiced, skip_if_idle=True)
     ltp_rows = ctx.t("ltp_gain")[per_index]
@@ -528,7 +556,9 @@ def _frame_symbols(d, ctx: _Ctx, active, type_ix, error, nb_subfr: int,
     for _ in range(nb_subfr):
         li, d = ctx.dec(d, ltp_rows, voiced, skip_if_idle=True)
         ltp_idx.append(li)
-    scale_ix, d = ctx.dec(d, "ltp_scale_icdf", voiced, skip_if_idle=True)
+    scale_ix, d = ctx.dec(d, "ltp_scale_icdf",
+                          voiced & (cond == CODE_INDEPENDENTLY),
+                          skip_if_idle=True)
     seed, d = ctx.dec(d, "uniform4", active)
 
     # --- decode_pulses (decode_pulses.c) ---
@@ -609,25 +639,113 @@ def _frame_symbols(d, ctx: _Ctx, active, type_ix, error, nb_subfr: int,
                 sgn, d = ctx.dec(d, table, m)
                 signs[:, k, j] = torch.where(m, 2 * sgn - 1, 1)
     pulses = (blocks * signs).reshape(b, 16 * nblocks)[:, :L]
+    lag_index = lag_hi * (fs_khz >> 1) + lag_lo
+    if prev is not None:
+        lag_index = torch.where(rel, prev[1] + dl - 9, lag_index)
     syms = dict(signal_type=signal_type, quant_offset_type=quant_offset_type,
-                gains_idx0=(g_hi << 3) + g_lo, gains_deltas=gains_deltas,
+                gains_idx0=torch.where(delta_g, g_d, (g_hi << 3) + g_lo),
+                gains_deltas=gains_deltas, gain_delta0=delta_g,
                 cb1=cb1, pred_q8=pred_q8, nlsf_idx=nlsf_idx,
-                interp_q2=interp_q2,
-                lag_index=lag_hi * (fs_khz >> 1) + lag_lo, contour=contour,
+                interp_q2=interp_q2, lag_index=lag_index, contour=contour,
                 per_index=per_index, ltp_idx=ltp_idx, scale_ix=scale_ix,
                 seed=seed, pulses=pulses)
     return d, error, syms
 
 
 def _lbrr_symbols(d, ctx: _Ctx, active, error, nb_subfr: int,
-                  fs_khz: int):
+                  fs_khz: int, cond=None, prev=None):
     """One LBRR frame's indices + pulses (silk_decode_indices with
-    decode_LBRR=1, i.e. the VAD type table, CODE_INDEPENDENTLY, then
-    silk_decode_pulses; dec_API.c:258-283 parses them through on a normal
-    decode, decode_frame.c decodes them in place of a lost frame).
-    Returns (d, error, symbols dict)."""
+    decode_LBRR=1, i.e. the VAD type table, then silk_decode_pulses;
+    dec_API.c:258-283 parses them through on a normal decode,
+    decode_frame.c decodes them in place of a lost frame).  cond, prev:
+    as ``_frame_symbols`` (an LBRR frame after an LBRR frame is coded
+    conditionally).  Returns (d, error, symbols dict)."""
     t_ix, d = ctx.dec(d, "type_vad", active)
-    return _frame_symbols(d, ctx, active, t_ix + 2, error, nb_subfr, fs_khz)
+    return _frame_symbols(d, ctx, active, t_ix + 2, error, nb_subfr, fs_khz,
+                          cond, prev)
+
+
+def _zero_lanes(b: int, dev):
+    return torch.zeros((b,), dtype=torch.int64, device=dev)
+
+
+def silk_header(d, ctx: _Ctx, nframes: int, nch: int, active):
+    """A SILK packet's header (dec_API.c:252-270): each channel's VAD flag
+    per frame and LBRR flag, then each channel's per-frame LBRR flags (one
+    symbol of LBRR_FLAGS_{2,3}_ICDF for a packet of 2-3 frames).  Returns
+    (d, vad [nch][nframes] bool lanes, lbrr [nch][nframes] bool lanes)."""
+    vad, has = [], []
+    for _n in range(nch):
+        row = []
+        for _i in range(nframes):
+            v, d = rk_dec_bit_logp(d, ctx.buf, ctx.lens, 1, active)
+            row.append(active & (v != 0))
+        vad.append(row)
+        f, d = rk_dec_bit_logp(d, ctx.buf, ctx.lens, 1, active)
+        has.append(active & (f != 0))
+    lbrr = []
+    for n in range(nch):
+        if nframes == 1:
+            lbrr.append([has[n]])
+            continue
+        sym, d = ctx.dec(d, f"lbrr_flags{nframes}", has[n],
+                         skip_if_idle=True)
+        sym = torch.where(has[n], sym + 1, 0)
+        lbrr.append([has[n] & (((sym >> i) & 1) != 0)
+                     for i in range(nframes)])
+    return d, vad, lbrr
+
+
+def stereo_pred_symbols(d, ctx: _Ctx, active, mid_only_read):
+    """stereo_decode_pred and stereo_decode_mid_only (silk/stereo.py:12,
+    :32): the joint index, then per channel a 3- and a 5-level index;
+    then, on ``mid_only_read`` lanes, the mid-only flag.  Returns (d,
+    (n0, [ix0, ix1] x 2 channels), mid_only [B])."""
+    n, d = ctx.dec(d, "stereo_joint", active)
+    ix = []
+    for _ch in range(2):
+        a, d = ctx.dec(d, "uniform3", active)
+        c, d = ctx.dec(d, "uniform5", active)
+        ix.append((a, c))
+    mo, d = ctx.dec(d, "mid_only", mid_only_read, skip_if_idle=True)
+    return d, (n, ix), mo
+
+
+def skip_lbrr(d, ctx: _Ctx, lbrr, nframes: int, nb_subfr: int,
+              fs_khz: int, active, error):
+    """A normal decode's parse-through of every LBRR frame of the packet
+    (dec_API.c:271-296), frame by frame and channel by channel: a mid
+    channel's frame is preceded by the stereo prediction (and the
+    mid-only flag where the side carries no LBRR frame); a frame after an
+    LBRR frame of its channel is coded conditionally.  Returns (d,
+    error)."""
+    nch = len(lbrr)
+    b = d["rng"].shape[0]
+    prev = [(_zero_lanes(b, ctx.dev), _zero_lanes(b, ctx.dev))
+            for _ in range(nch)]
+    for i in range(nframes):
+        for n in range(nch):
+            m = active & lbrr[n][i]
+            if not _any(m):
+                continue
+            if nch == 2 and n == 0:
+                d, _p, _mo = stereo_pred_symbols(d, ctx, m, m & ~lbrr[1][i])
+            cond = torch.where(lbrr[n][i - 1], CODE_CONDITIONALLY,
+                               CODE_INDEPENDENTLY) if i > 0 else None
+            d, error, sy = _lbrr_symbols(d, ctx, m, error, nb_subfr,
+                                         fs_khz, cond, prev[n])
+            prev[n] = _next_prev(prev[n], sy, m)
+    return d, error
+
+
+def _next_prev(prev, sy, m):
+    """The (signal type, lag index) a conditionally coded next frame reads:
+    the type always, the lag where the frame was voiced (decode_indices.c
+    ec_prevSignalType / ec_prevLagIndex)."""
+    sig = torch.where(m, sy["signal_type"], prev[0])
+    lag = torch.where(m & (sy["signal_type"] == 2), sy["lag_index"],
+                      prev[1])
+    return sig, lag
 
 
 def _zero_symbols(b: int, order: int, nb_subfr: int, L: int, dev) -> dict:
@@ -635,7 +753,8 @@ def _zero_symbols(b: int, order: int, nb_subfr: int, L: int, dev) -> dict:
     conceal instead)."""
     z = torch.zeros((b,), dtype=torch.int64, device=dev)
     return dict(signal_type=z, quant_offset_type=z, gains_idx0=z,
-                gains_deltas=[z] * (nb_subfr - 1), cb1=z,
+                gains_deltas=[z] * (nb_subfr - 1),
+                gain_delta0=torch.zeros_like(z, dtype=torch.bool), cb1=z,
                 pred_q8=z.new_zeros((b, order)),
                 nlsf_idx=z.new_zeros((b, order)), interp_q2=z + 4,
                 lag_index=z, contour=z, per_index=z, ltp_idx=[z] * nb_subfr,
@@ -679,7 +798,8 @@ def _lcg_signs(pulses, seed):
 
 def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
                  nb_subfr: int = 4, osce: bool = False, lbrr=None,
-                 active=None):
+                 active=None, d0=None, frame: int = 0, nframes: int = 1,
+                 header: bool = True, cond=None):
     """The symbol pass of one frame: range decoding and decode_parameters.
     Returns (the ``silk_decode_step`` inputs as a dict, the carried state
     fields prev_nlsf / last_gain_index / prev_gain_q16 and under ``frame``
@@ -697,55 +817,91 @@ def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
     (tell after them less tell before them, the LBRR parse-through
     excluded), pred_coef_q12 [B, 2, order], pitch_lags [B, nb_subfr],
     ltp_coef_q14 [B, 5 * nb_subfr], gains_q16 [B, nb_subfr],
-    signal_type [B], and lpc_order, fs_khz and nb_subfr as ints."""
+    signal_type [B], and lpc_order, fs_khz and nb_subfr as ints.
+
+    Packets of 2-3 frames (40/60 ms, ``nframes``): frame ``frame`` of the
+    packet, the range decoder continuing from ``d0`` (the dict the call
+    for the frame before returned).  With ``header`` (on the packet's
+    first frame), the call parses the header (each frame's VAD flag, the
+    LBRR flags), and a normal decode parses every LBRR frame through;
+    the flags go into the state (``vad_flags``, ``lbrr_flags`` [B, 3]) for
+    the later frames.  Without it (a stereo packet, whose header the
+    caller parses), the state holds them already and d0 is where the
+    frame starts.  A later frame is coded conditionally (``cond`` [B]
+    overrides on every lane, for a stereo side channel), from
+    ``ec_prev_type`` / ``ec_prev_lag`` of the frame before; an FEC lane
+    decodes the packet's LBRR frame ``frame``, conditionally after an
+    LBRR frame."""
     tabs = silk_tabs(fs_khz, nb_subfr)
     b = buf.shape[0]
     dev = buf.device
     lens = lens.to(torch.int64).clamp(0, buf.shape[1])
     ctx = _Ctx(buf, lens, tabs)
     order = tabs.order
-    d = rk_init(buf, lens)
     active = lane_mask(active, b, dev)
     fec = torch.zeros_like(active) if lbrr is None else lane_mask(lbrr, b,
                                                                   dev)
     error = torch.zeros_like(active)
-
-    # --- header flags (dec_API.c:252) ---
-    vad, d = rk_dec_bit_logp(d, buf, lens, 1, active)
-    lbrr_bit, d = rk_dec_bit_logp(d, buf, lens, 1, active)
-    # LBRR present: the in-band FEC frame (indices + pulses with the VAD
-    # type table, dec_API.c:258-283); on a normal decode it is parsed
-    # through so the range decoder lands on the regular frame, and its
-    # values are discarded
-    has_lbrr = active & (lbrr_bit != 0)
-    ls = None
-    if _any(has_lbrr):
-        d, error, ls = _lbrr_symbols(d, ctx, has_lbrr, error, nb_subfr,
-                                     fs_khz)
-
-    # --- decode_indices (decode_indices.c), CODE_INDEPENDENTLY ---
-    ec_start = rk_tell(d) if osce else None
     reg = active & ~fec
-    if _any(reg):
-        t_vad, d = ctx.dec(d, "type_vad", reg & (vad != 0))
-        t_nv, d = ctx.dec(d, "type_novad", reg & (vad == 0))
-        type_ix = torch.where(vad != 0, t_vad + 2, t_nv)
-        d, error, s = _frame_symbols(d, ctx, reg, type_ix, error, nb_subfr,
-                                     fs_khz)
-        if ls is not None and _any(fec):
-            s = select_lanes(fec, ls, s)
+    multi = nframes > 1
+    flags = {}
+    if header:
+        # --- header flags (dec_API.c:252) ---
+        d = rk_init(buf, lens) if d0 is None else d0
+        d, vad_l, lbrr_l = silk_header(d, ctx, nframes, 1, active)
+        vadk, lbk = vad_l[0][frame], lbrr_l[0][frame]
+        # a normal decode parses the LBRR frames (in-band FEC: indices +
+        # pulses with the VAD type table, dec_API.c:258-283) through, so
+        # the range decoder lands on the regular frame
+        d, error = skip_lbrr(d, ctx, lbrr_l, nframes, nb_subfr, fs_khz,
+                             reg, error)
+        if multi:
+            pad = [torch.zeros_like(active)] * (3 - nframes)
+            flags = dict(vad_flags=torch.stack(vad_l[0] + pad, 1),
+                         lbrr_flags=torch.stack(lbrr_l[0] + pad, 1))
     else:
-        s = ls if ls is not None else _zero_symbols(
-            b, order, nb_subfr, nb_subfr * 5 * fs_khz, dev)
+        d = d0
+        vadk = state["vad_flags"][:, frame]
+        lbk = state["lbrr_flags"][:, frame]
+    prev = (state["ec_prev_type"], state["ec_prev_lag"]) if frame > 0 \
+        else None
+    if cond is None:
+        cond = torch.full_like(state["last_gain_index"],
+                               CODE_CONDITIONALLY if frame > 0
+                               else CODE_INDEPENDENTLY)
+        if frame > 0:
+            cond = torch.where(fec, torch.where(
+                state["lbrr_flags"][:, frame - 1], CODE_CONDITIONALLY,
+                CODE_INDEPENDENTLY), cond)
+
+    # --- decode_indices (decode_indices.c) ---
+    ec_start = rk_tell(d) if osce else None
+    fl = fec & active & lbk
+    on = reg | fl
+    if _any(on):
+        tv = (reg & vadk) | fl
+        t_vad, d = ctx.dec(d, "type_vad", tv)
+        t_nv, d = ctx.dec(d, "type_novad", reg & ~vadk)
+        type_ix = torch.where(tv, t_vad + 2, t_nv)
+        d, error, s = _frame_symbols(d, ctx, on, type_ix, error, nb_subfr,
+                                     fs_khz, cond, prev)
+    else:
+        s = _zero_symbols(b, order, nb_subfr, nb_subfr * 5 * fs_khz, dev)
     signal_type = s["signal_type"]
 
     # --- decode_parameters ---
-    # gains (gain_quant.c silk_gains_dequant, independent first gain)
+    # gains (gain_quant.c silk_gains_dequant; a conditional frame's first
+    # gain is a delta too)
     prev_ind = state["last_gain_index"]
     gains_q16 = []
     for k in range(nb_subfr):
         if k == 0:
-            prev_ind = torch.maximum(s["gains_idx0"], prev_ind - 16)
+            ind_tmp = s["gains_idx0"] - 4
+            dst = 2 * 36 - 64 + prev_ind
+            rel = prev_ind + torch.where(ind_tmp > dst, (ind_tmp << 1) - dst,
+                                         ind_tmp)
+            prev_ind = torch.where(s["gain_delta0"], rel, torch.maximum(
+                s["gains_idx0"], prev_ind - 16))
         else:
             ind_tmp = s["gains_deltas"][k - 1] - 4    # MIN_DELTA_GAIN_QUANT
             dst = 2 * 36 - 64 + prev_ind
@@ -830,7 +986,12 @@ def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
                  prev_gain_q16=gains_q16[:, -1],
                  frame=dict(signal_type=signal_type, gains_q16=gains_q16,
                             ltp_scale_q14=ltp_scale_q14,
-                            lbrr_flag=has_lbrr))
+                            lbrr_flag=lbk & active), **flags)
+    if multi:
+        pt, pl = _next_prev(
+            prev if prev is not None else (_zero_lanes(b, dev),
+                                           _zero_lanes(b, dev)), s, on)
+        carry.update(ec_prev_type=pt, ec_prev_lag=pl)
     error = error | (d["error"] != 0)
     if not osce:
         return step_in, carry, error, d
@@ -844,7 +1005,9 @@ def silk_symbols(buf, lens, state: dict, *, fs_khz: int = 16,
 
 def fused_silk_decode(buf, lens, state: dict, *, fs_khz: int = 16,
                       nb_subfr: int = 4, return_rc: bool = False,
-                      return_osce: bool = False, lbrr=None, active=None):
+                      return_osce: bool = False, lbrr=None, active=None,
+                      d0=None, frame: int = 0, nframes: int = 1,
+                      header: bool = True, cond=None):
     """One SILK frame per stream, all on the tensors' device, in
     decode_frame's order (silk/decoder.py:706-756): the symbol pass, the
     bandwidth expansion and LTP override of a first frame after a loss,
@@ -859,10 +1022,12 @@ def fused_silk_decode(buf, lens, state: dict, *, fs_khz: int = 16,
     (``silk_symbols``).  ``lbrr`` ([B] bool): lanes that decode the
     packet's LBRR frame instead (in-band FEC), or conceal the frame where
     the packet carries none (decode_frame.c's lost branch under
-    FLAG_DECODE_LBRR); ``active``: see ``silk_symbols``."""
+    FLAG_DECODE_LBRR); ``active``, ``d0``, ``frame``, ``nframes``,
+    ``header``, ``cond``: see ``silk_symbols``."""
     step_in, carry, error, d, *osce_in = silk_symbols(
         buf, lens, state, fs_khz=fs_khz, nb_subfr=nb_subfr,
-        osce=return_osce, lbrr=lbrr, active=active)
+        osce=return_osce, lbrr=lbrr, active=active, d0=d0, frame=frame,
+        nframes=nframes, header=header, cond=cond)
     fr = carry.pop("frame")
     order = 16 if fs_khz >= 16 else 10
     if _any(state["loss_cnt"] > 0):

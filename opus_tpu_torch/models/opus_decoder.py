@@ -1,46 +1,54 @@
-"""The top-level Opus decoder over B independent mono streams at 48 kHz.
+"""The top-level Opus decoder over B independent streams at 48 kHz, with
+one or two output channels.
 
-Port of ``opus_tpu/models/opus_decoder.py`` (``OpusDecoder``: the TOC,
-code 0-3 framing, mode dispatch, mode transitions and redundancy frames,
-loss and DTX, ``decode_int16``, ``OPUS_SET_GAIN``) for mono streams whose
-frames are at most 20 ms: CELT-only at 2.5-20 ms, SILK-only NB/MB/WB at
-10/20 ms and hybrid SWB/FB at 10/20 ms, in packets of any code.  Each
-lane gets its own packet (or None) at every call, and each lane's mode,
-bandwidth and frame size may change from packet to packet.
+Port of ``opus_tpu/models/opus_decoder.py`` (``OpusDecoder(48000,
+channels)``: the TOC, code 0-3 framing, mode dispatch, mode transitions
+and redundancy frames, loss and DTX, in-band FEC, ``decode_int16``,
+``OPUS_SET_GAIN``) for every packet of TOC configurations 0-31, mono or
+stereo: CELT-only at 2.5-20 ms, SILK-only NB/MB/WB at 10-60 ms (2-3
+frames in one SILK packet at 40/60 ms) and hybrid SWB/FB at 10/20 ms.
+Each lane gets its own packet (or None) at every call, and each lane's
+mode, bandwidth, frame size and coded channel count may change from
+packet to packet.  A stereo packet on a one-channel decoder is mixed
+down as libopus does (the SILK mid channel; CELT's two spectra averaged,
+with ``disable_inv``); a mono packet on a two-channel decoder is
+synthesised into both channels.
 
 How a call runs.  The packets are parsed on the host and each lane's
 work is laid out as a list of jobs: its frames, or the concealment of a
 lost packet in the pieces the reference conceals it in
 (opus_decoder.py:298-323).  Round r runs the r-th job of every lane.  A
 round follows ``_decode_frame`` (:280-488) stage by stage over the lanes
-that need each stage: the transition concealment, the SILK half, the
-redundancy signal, the CELT -> SILK redundant frame, the CELT frame (or
-a SILK frame's hybrid -> SILK fade), the SILK -> CELT redundant frame,
-then the splices, crossfades and gain lane by lane under masks.  Inside
-a stage the lanes are grouped by what fixes the code path -- (internal
-rate, SILK subframes) for SILK, (LM, start band, end band) for CELT --
-and each group runs on its own lanes, gathered out of the per-lane state
-and scattered back: a call costs its lanes' work, not B lanes' for
-every group.  The host reads the redundancy flags back once a round.
+that need each stage: the transition concealment, the SILK half
+(``silk_api.SilkLanes``: the header, the LBRR frames, the stereo
+predictor, each SILK frame of the packet, mid/side -> left/right, the
+upsamplers), the redundancy signal, the CELT -> SILK redundant frame,
+the CELT frame (or a SILK frame's hybrid -> SILK fade), the SILK -> CELT
+redundant frame, then the splices, crossfades and gain lane by lane under
+masks.  Inside a stage the lanes are grouped by what fixes the code path
+-- (internal rate, SILK subframes, frames, coded channels) for SILK, (LM,
+start band, end band, coded channels) for CELT -- and each group runs on
+its own lanes, gathered out of the per-lane state and scattered back: a
+call costs its lanes' work, not B lanes' for every group.  The host reads
+the redundancy flags back once a round.
 
-State, one per lane: the CELT decoder's (``fused_celt_init_state``, the
-same for every frame size and band range, as libopus keeps one CELT
-decoder), the SILK decoder's at its widest (320-sample excitation and
-output buffers; a narrower rate reads a prefix, as the scalar's fixed
-buffers), the 48 kHz upsampler's, the two-sample SILK output buffer,
-and on the host the mode, bandwidth, redundancy and band-range fields
-of the scalar decoder (``prev_mode``, ``prev_redundancy``, the CELT
-decoder's ``start`` and ``end``, the SILK internal rate).  A change of
-SILK internal rate resets what ``silk/decoder.py:390`` ``set_fs`` and
-the PLC / CNG resets do.
+State, one per lane: the CELT decoder's (``fused_celt_init_state`` with
+both channels' energy memory, and the second output channel's synthesis
+state on a two-channel decoder: the same for every frame size and band
+range, as libopus keeps one CELT decoder), the SILK side
+(``silk_api.SilkLanes``), and on the host the mode, bandwidth, coded
+channels, redundancy and band-range fields of the scalar decoder
+(``prev_mode``, ``prev_redundancy``, the CELT decoder's ``start`` and
+``end``).
 
-Kernels: K1 (every CELT frame, redundant frame and fade frame; LM 0-3),
-K2 (every CELT synthesis and concealment), K4 (every SILK frame and
-concealment) on the card, their plain versions on CPU tensors.  Errors:
-an invalid packet sets ``status`` on its lane for that call and leaves
-the lane's state untouched; a lane that K1 or the SILK symbol pass flags
-stays ``flagged``.  Out of scope (ValueError): SILK 40/60 ms frames
-(TOC configurations 2, 3, 6, 7, 10, 11) and stereo packets.
+Kernels: K1 (every CELT frame, redundant frame and fade frame; LM 0-3;
+its mono or its stereo instantiation by the frame's coded channels), K2
+(every CELT synthesis and concealment, one row per output channel), K4
+(every SILK frame and concealment of each coded channel) on the card,
+their plain versions on CPU tensors.  Errors: an invalid packet sets
+``status`` on its lane for that call and leaves the lane's state
+untouched; a lane that K1 or the SILK symbol pass flags stays
+``flagged``.
 """
 
 from __future__ import annotations
@@ -56,12 +64,10 @@ from ..ops import rc_kernel as K
 from ..ops.device_cache import const
 from ..ops.lanes import LaneOut
 from ..ops.mdct import _window
-from ..silk.resampler import input_delay, upsample_to_48k
 from ..utils.soft_clip import float2int16_lanes, soft_clip_lanes
 from .celt_dec_fused import fused_celt_init_state
 from .celt_dec_kernel import dec_tabs, kernel_celt_decode_to_pcm
-from .fused_silk_dec import fused_init_state, fused_silk_conceal, \
-    fused_silk_decode
+from .silk_api import SilkLanes, put as _put, take as _take
 
 FS = 48000
 F20, F10, F5, F2_5 = 960, 480, 240, 120
@@ -73,8 +79,6 @@ END_BAND = {int(pkt.Bandwidth.NARROWBAND): 13,
             int(pkt.Bandwidth.WIDEBAND): 17,
             int(pkt.Bandwidth.SUPERWIDEBAND): 19,
             int(pkt.Bandwidth.FULLBAND): 21}
-SILK_LONG = (2, 3, 6, 7, 10, 11)     # SILK-only 40/60 ms configurations
-RS_DELAY = max(input_delay(k) for k in (8, 12, 16))
 HYBRID_START = 17
 HYBRID_CELT = -1     # a concealment of the CELT half alone (FEC frames)
 
@@ -88,73 +92,6 @@ def _isr_khz(mode: int, bw: int) -> int:
     return 16
 
 
-# ---- per-lane state trees: gather a group's lanes, scatter them back --
-
-def _take(tree, idx):
-    if isinstance(tree, dict):
-        return {k: _take(v, idx) for k, v in tree.items()}
-    return tree.index_select(0, idx)
-
-
-def _put(tree, idx, sub):
-    if isinstance(tree, dict):
-        return {k: _put(v, idx, sub[k]) for k, v in tree.items()}
-    return tree.index_copy(0, idx, sub.to(tree.dtype))
-
-
-def _silk_fresh(n: int, fs_khz: int, device) -> dict:
-    """A SILK lane as the scalar's after ``reset`` and its first
-    ``set_fs(fs_khz)``, at the widest buffers (the comfort noise's
-    smoothed NLSFs are those of the rate's LPC order)."""
-    st = fused_init_state(n, 16, device, 4)
-    order = 16 if fs_khz == 16 else 10
-    step = 32767 // (order + 1)
-    smth = [(i + 1) * step for i in range(order)] + [0] * (16 - order)
-    st["cng_smth_nlsf_q15"] = torch.tensor(
-        smth, dtype=torch.int64, device=device).repeat(n, 1)
-    return st
-
-
-def _rs_fresh(n: int, device) -> dict:
-    z = torch.zeros
-    return dict(s_iir=z((n, 6), dtype=torch.int64, device=device),
-                s_fir=z((n, 8), dtype=torch.int64, device=device),
-                delay=z((n, RS_DELAY), dtype=torch.int64, device=device))
-
-
-def _silk_view(st: dict, fs_khz: int) -> dict:
-    """The SILK state of lanes at ``fs_khz``: the LTP memory is the
-    first 20 ms of the stored output buffer."""
-    return dict(st, synth=dict(st["synth"], out_buf=st["synth"]["out_buf"]
-                               [:, :20 * fs_khz]))
-
-
-def _silk_unview(new: dict, old: dict) -> dict:
-    """``new`` (a ``_silk_view`` state after a frame) back at the stored
-    widths: buffers narrower than the store keep the store's tail."""
-    out = dict(new)
-    ob = new["synth"]["out_buf"]
-    old_ob = old["synth"]["out_buf"]
-    out["synth"] = dict(new["synth"], out_buf=torch.cat(
-        [ob, old_ob[:, ob.shape[1]:]], dim=1))
-    for k in ("exc_q14", "cng_exc_buf_q14"):
-        v = new[k]
-        out[k] = torch.cat([v, old[k][:, v.shape[1]:]], dim=1)
-    return out
-
-
-def _silk_48k(xq, smid, rs, fs_khz: int, frame_ms: int):
-    """The SILK API's output stage (silk/dec_API.c): the frame one sample
-    late through the 2-sample buffer, upsampled from fs_khz to 48 kHz.
-    rs: the stored upsampler state (its delay line at the widest)."""
-    d = input_delay(fs_khz)
-    seq = torch.cat([smid[:, 1:], xq[:, :-1]], dim=1)
-    out, st = upsample_to_48k(seq, dict(rs, delay=rs["delay"][:, :d]),
-                              fs_khz, frame_ms)
-    st["delay"] = torch.cat([st["delay"], rs["delay"][:, d:]], dim=1)
-    return out, st, xq[:, -2:]
-
-
 @lru_cache(maxsize=None)
 def _fade_gain(n: int) -> np.ndarray:
     """smooth_fade's gains (src/opus_decoder.c:220): the squared CELT
@@ -164,73 +101,84 @@ def _fade_gain(n: int) -> np.ndarray:
 
 
 def _smooth_fade(in1, in2, dev):
-    """g * in2 + (1 - g) * in1 over 2.5 ms [., 120] (opus_decoder.py:235)."""
+    """g * in2 + (1 - g) * in1 over 2.5 ms [..., 120]
+    (opus_decoder.py:235)."""
     g = const(("opus_fade", F2_5), lambda: _fade_gain(F2_5), dev)
     return g * in2 + (1.0 - g) * in1
 
 
 class BatchedOpusDecoder:
-    """B independent mono Opus streams decoded to 48 kHz float PCM on the
-    card (the default device: kernels K1, K2 and K4), or on the plain
-    versions with ``device="cpu"``.
+    """B independent Opus streams decoded to 48 kHz float PCM with
+    ``channels`` (1 or 2) output channels on the card (the default
+    device: kernels K1, K2 and K4), or on the plain versions with
+    ``device="cpu"``.
 
     ``decode(packets)``: one packet (bytes) or None (lost) a lane ->
-    (pcm [B, W] float32, n [B] numpy): lane i's output is pcm[i, :n[i]].
-    ``decode_int16`` adds the soft clip and FLOAT2INT16 (one
-    ``softclip_mem`` a lane).  ``final_range`` [B] is each lane's
-    ``rangeFinal``; ``status`` [B] (numpy) is 0, or OPUS_INVALID_PACKET on
-    a lane whose packet of this call was invalid (its state is
-    untouched); ``flagged`` [B] (numpy) holds for a lane that K1 or the
-    SILK symbol pass has flagged, for the rest of its stream.
-    ``set_gain(q8, lanes)`` is OPUS_SET_GAIN.  ``events`` counts the
-    frames of each kind that ran (for the tests and the card's report);
-    ``celt_used`` [B] (numpy) holds, after a call, on the lanes where a
-    CELT frame, redundant frame, fade frame or concealment contributed to
-    the output (elsewhere the output is SILK's int16 / 32768 exactly)."""
+    (pcm float32 [B, W] with one channel, [B, W, 2] with two; n [B]
+    numpy): lane i's output is pcm[i, :n[i]] (n counts samples per
+    channel).  ``decode_int16`` adds
+    the soft clip (one memory per lane and channel) and FLOAT2INT16.
+    ``final_range`` [B] is each lane's ``rangeFinal``; ``status`` [B]
+    (numpy) is 0, or OPUS_INVALID_PACKET on a lane whose packet of this
+    call was invalid (its state is untouched); ``flagged`` [B] (numpy)
+    holds for a lane that K1 or the SILK symbol pass has flagged, for the
+    rest of its stream.  ``set_gain(q8, lanes)`` is OPUS_SET_GAIN.
+    ``events`` counts the frames of each kind that ran (for the tests and
+    the card's report); ``celt_used`` [B] (numpy) holds, after a call, on
+    the lanes where a CELT frame, redundant frame, fade frame or
+    concealment contributed to the output (elsewhere the output is SILK's
+    int16 / 32768 exactly)."""
 
-    def __init__(self, batch: int, device="cuda", max_payload: int = 1275):
+    def __init__(self, batch: int, channels: int = 1, device="cuda",
+                 max_payload: int = 1275):
+        if channels not in (1, 2):
+            raise ValueError("BatchedOpusDecoder: channels must be 1 or 2")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("BatchedOpusDecoder: no CUDA device (pass "
                                "device='cpu' for the plain versions)")
         self.batch = batch
+        self.channels = channels
+        # libopus sets disable_inv on a decoder with one output channel
+        # (opus_decoder.py:42)
+        self.disable_inv = channels == 1
         self.P = max_payload
         b, dev = batch, self.device
+        self.events = {}
         self.celt = self._celt_fresh(b)
-        self.silk = _silk_fresh(b, 16, dev)
-        self.rs = _rs_fresh(b, dev)
-        self.smid = torch.zeros((b, 2), dtype=torch.int64, device=dev)
-        self.softclip_mem = torch.zeros(b, dtype=torch.float32, device=dev)
+        self.silk = SilkLanes(b, channels, dev, self.events)
+        # one soft clip memory a lane ([B]) or a lane and channel ([B, 2])
+        self.softclip_mem = torch.zeros((b, channels)[:channels],
+                                        dtype=torch.float32, device=dev)
         self.rng = torch.zeros(b, dtype=torch.int64, device=dev)
         self.prev_mode = np.zeros(b, np.int64)
         self.prev_redundancy = np.zeros(b, bool)
         self.mode = np.zeros(b, np.int64)
         self.bandwidth = np.zeros(b, np.int64)
+        self.stream_channels = np.full(b, channels, np.int64)
         self.frame_size = np.full(b, FS // 400, np.int64)
         self.last_packet_duration = np.zeros(b, np.int64)
         self.celt_start = np.zeros(b, np.int64)
         self.celt_end = np.full(b, 21, np.int64)
-        self.silk_fs = np.zeros(b, np.int64)      # 0: none since a reset
         self.decode_gain = np.zeros(b, np.int64)
         self.status = np.zeros(b, np.int64)
         self.flagged = np.zeros(b, bool)
         self.celt_used = np.zeros(b, bool)
-        self.events = {}
 
     # ---- public API ---------------------------------------------------
 
     HOST_KEYS = ("prev_mode", "prev_redundancy", "mode", "bandwidth",
-                 "frame_size", "last_packet_duration", "celt_start",
-                 "celt_end", "silk_fs", "decode_gain")
+                 "stream_channels", "frame_size", "last_packet_duration",
+                 "celt_start", "celt_end", "decode_gain")
 
     def get_state(self) -> dict:
         """Every lane's state (device tensors and host arrays, copies):
         what ``set_state`` takes, and ``convert.opus_decoder_state`` makes
         from the JAX package's decoders."""
-        return dict(celt=self.celt, silk=self.silk, rs=self.rs,
-                    smid=self.smid, softclip_mem=self.softclip_mem,
-                    rng=self.rng, host={k: getattr(self, k).copy()
-                                        for k in self.HOST_KEYS})
+        return dict(celt=self.celt, silk=self.silk.get_state(),
+                    softclip_mem=self.softclip_mem, rng=self.rng,
+                    host={k: getattr(self, k).copy()
+                          for k in self.HOST_KEYS})
 
     def set_state(self, st: dict) -> None:
         """Takes a ``get_state`` / ``convert.opus_decoder_state`` dict."""
@@ -240,8 +188,10 @@ class BatchedOpusDecoder:
             if isinstance(t, dict):
                 return {k: to(v) for k, v in t.items()}
             return t.to(dev)
-        for k in ("celt", "silk", "rs", "smid", "softclip_mem", "rng"):
-            setattr(self, k, to(st[k]))
+        self.celt = to(st["celt"])
+        self.silk.set_state(st["silk"])
+        self.softclip_mem = to(st["softclip_mem"])
+        self.rng = to(st["rng"])
         for k in self.HOST_KEYS:
             setattr(self, k, np.array(st["host"][k]))
 
@@ -259,22 +209,33 @@ class BatchedOpusDecoder:
 
     def decode_int16(self, packets, decode_fec=None, frame_size=None):
         """``decode``, then ``opus_pcm_soft_clip`` and FLOAT2INT16 per lane
-        (opus_decoder.py:177) -> (pcm int16 [B, W], n [B])."""
+        and channel (opus_decoder.py:177) -> (pcm int16 [B, W] or [B, W,
+        2], n [B])."""
         pcm, n = self.decode(packets, decode_fec, frame_size)
-        pcm, self.softclip_mem = soft_clip_lanes(pcm, self.softclip_mem,
-                                                 n=n)
-        return float2int16_lanes(pcm), n
+        return self.soft_clip_int16(pcm, n)
+
+    def soft_clip_int16(self, pcm, n):
+        """The soft clip (each lane's and channel's memory) and FLOAT2INT16
+        of ``decode``'s output (pcm, n) -> (pcm int16, n)."""
+        if pcm.dim() == 2:
+            pcm = pcm[:, :, None]
+        b, w, c = pcm.shape
+        rows = pcm.permute(0, 2, 1).reshape(b * c, w)
+        rows, mem = soft_clip_lanes(rows, self.softclip_mem.reshape(-1),
+                                    n=np.repeat(n, c))
+        self.softclip_mem = mem.reshape(self.softclip_mem.shape)
+        out = float2int16_lanes(rows.reshape(b, c, w).permute(0, 2, 1))
+        return (out[:, :, 0] if c == 1 else out), n
 
     def decode(self, packets, decode_fec=None, frame_size=None):
         """packets: B entries, bytes (TOC included) or None (lost);
         decode_fec ([B] bool): lanes that decode the packet's in-band FEC
-        (its LBRR frame) in place of the lost audio before it
+        (its LBRR frames) in place of the lost audio before it
         (opus_decoder.py:134-160); frame_size ([B] samples, optional):
         the audio a lost or FEC lane conceals or covers (default: the last
         packet's duration, or the packet's frame size; an entry of 0
-        takes the default).  A refused packet (SILK 40/60 ms, stereo, an
-        FEC size off the 2.5 ms grid) raises ValueError before any lane
-        changes."""
+        takes the default).  An FEC size off the 2.5 ms grid raises
+        ValueError before any lane changes."""
         b = self.batch
         if len(packets) != b:
             raise ValueError(f"decode: {len(packets)} packets for {b} lanes")
@@ -283,7 +244,7 @@ class BatchedOpusDecoder:
         req = [None] * b if frame_size is None else [
             int(v) or None for v in np.asarray(frame_size, np.int64)]
         for i in range(b):
-            self._check(i, packets[i], bool(fec[i]), req[i])
+            self._check(packets[i], bool(fec[i]), req[i])
         self.status = np.zeros(b, np.int64)
         self.celt_used = np.zeros(b, bool)
         jobs = [self._plan(i, packets[i], bool(fec[i]), req[i])
@@ -292,7 +253,11 @@ class BatchedOpusDecoder:
         depth = max((len(j) for j in jobs), default=0)
         for r in range(depth):
             self._round([j[r] if r < len(j) else None for j in jobs], out)
-        return out.build()
+        pcm, n = out.build()
+        c = self.channels
+        if c == 1:
+            return pcm, n
+        return pcm.reshape(b, -1, c), n // c
 
     # ---- host planning -----------------------------------------------
 
@@ -316,26 +281,19 @@ class BatchedOpusDecoder:
             done += chunk
 
     @staticmethod
-    def _check(i: int, data, fec: bool, req) -> None:
-        """The refusals of lane i's arguments, raised before any lane's
+    def _check(data, fec: bool, req) -> None:
+        """The refusal of a lane's arguments, raised before any lane's
         state or host field changes."""
         if data is None or len(data) == 0:
             return
-        config = data[0] >> 3
-        if config in SILK_LONG:
-            raise ValueError(f"BatchedOpusDecoder: TOC configuration "
-                             f"{config} (SILK-only 40/60 ms frames) is not "
-                             f"supported")
-        if data[0] & 4:
-            raise ValueError(f"BatchedOpusDecoder: lane {i}: stereo packets "
-                             f"are not supported")
         if fec and req is not None and req % (FS // 400):
             raise ValueError("FEC/PLC frame size must be a multiple of "
                              "2.5 ms")
 
     def _plan(self, i: int, data, fec: bool, req):
         """Lane i's jobs for this call; sets the per-packet fields
-        (mode, bandwidth, frame size, last duration) as decode() does."""
+        (mode, bandwidth, coded channels, frame size, last duration) as
+        decode() does."""
         jobs = []
         if data is None or len(data) == 0:
             n = req if req is not None else (
@@ -353,6 +311,7 @@ class BatchedOpusDecoder:
             return jobs
         mode = int(pkt.packet_get_mode(data))
         bw = int(pkt.packet_get_bandwidth(data))
+        sc = int(pkt.packet_get_nb_channels(data))
         if fec:
             n = req if req is not None else nfs
             if n < nfs or mode == CELT or self.mode[i] == CELT:
@@ -363,12 +322,14 @@ class BatchedOpusDecoder:
             if n != nfs:
                 self._conceal_jobs(i, n - nfs, jobs)
             self.mode[i], self.bandwidth[i], self.frame_size[i] = mode, bw, nfs
-            jobs.append(("frame", parsed.frames[0], nfs, mode, bw, True))
+            self.stream_channels[i] = sc
+            jobs.append(("frame", parsed.frames[0], nfs, mode, bw, True, sc))
             self.last_packet_duration[i] = n
             return jobs
         self.mode[i], self.bandwidth[i], self.frame_size[i] = mode, bw, nfs
+        self.stream_channels[i] = sc
         for f in parsed.frames:
-            jobs.append(("frame", f, nfs, mode, bw, False))
+            jobs.append(("frame", f, nfs, mode, bw, False, sc))
         self.last_packet_duration[i] = nfs * parsed.count
         return jobs
 
@@ -382,15 +343,18 @@ class BatchedOpusDecoder:
         return torch.as_tensor(np.nonzero(lanes)[0], device=self.device)
 
     def _round(self, jobs, out: LaneOut) -> None:
-        b = self.batch
-        pcm = torch.zeros((b, F20), dtype=torch.float32, device=self.device)
+        b, c = self.batch, self.channels
+        width = max([F20] + [j[2] for j in jobs
+                             if j is not None and j[0] == "frame"])
+        pcm = torch.zeros((b, c, width), dtype=torch.float32,
+                          device=self.device)
         n_out = np.zeros(b, np.int64)
         zeros = np.array([j is not None and j[0] == "zeros" for j in jobs])
         n_out[zeros] = [j[1] for j in jobs if j is not None
                         and j[0] == "zeros"]
         if zeros.any():
-            out.add(torch.zeros((b, int(n_out.max())), device=self.device),
-                    n_out)
+            out.add(torch.zeros((b, int(n_out.max()) * c),
+                                device=self.device), n_out * c)
             n_out[:] = 0
         conc = [(i, j) for i, j in enumerate(jobs)
                 if j is not None and j[0] == "conceal"]
@@ -424,7 +388,8 @@ class BatchedOpusDecoder:
                 n_out[i] = j[2]
             self._run_frames(frames, pcm)
         if n_out.any():
-            out.add(pcm, n_out)
+            # interleaved: sample t of channel k at t * channels + k
+            out.add(pcm.permute(0, 2, 1).reshape(b, -1), n_out * c)
 
     # ---- concealment -------------------------------------------------
 
@@ -444,17 +409,18 @@ class BatchedOpusDecoder:
 
     def _conceal_into(self, conc, dst) -> None:
         """Runs the pieces ``conc`` and writes each lane's piece into
-        ``dst`` (a [B, >= chunk] f32 tensor) from sample 0; the CELT half
-        of a hybrid piece (or of an FEC frame, mode HYBRID_CELT) is added
-        on top (opus_decoder.py:248-278)."""
+        ``dst`` (a [B, CC, >= chunk] f32 tensor) from sample 0; the CELT
+        half of a hybrid piece (or of an FEC frame, mode HYBRID_CELT) is
+        added on top (opus_decoder.py:248-278)."""
         b = self.batch
         silk = {}
         celt = {}
         for i, (_k, chunk, mode) in conc:
             if mode in (SILK, HYBRID):
-                fs = int(self.silk_fs[i]) or 16
+                fs = int(self.silk.fs[0][i]) or 16
                 nb = 2 if max(10, 1000 * chunk // FS) == 10 else 4
-                silk.setdefault((fs, nb), []).append((i, chunk))
+                nch = int(self.silk.n_int[i]) or 1
+                silk.setdefault((fs, nb, nch), []).append(i)
             if mode != SILK:
                 n = min(F20, chunk)
                 if mode == HYBRID:
@@ -462,24 +428,14 @@ class BatchedOpusDecoder:
                 key = (n, int(self.celt_start[i]), int(self.celt_end[i]),
                        mode in (HYBRID, HYBRID_CELT))
                 celt.setdefault(key, []).append(i)
-        for (fs, nb), items in silk.items():
+        for (fs, nb, nch), items in silk.items():
             lanes = np.zeros(b, bool)
-            lanes[[i for i, _c in items]] = True
+            lanes[items] = True
             idx = self._idx(lanes)
-            st = _take(self.silk, idx)
-            xq, new = fused_silk_conceal(_silk_view(st, fs), fs_khz=fs,
-                                         nb_subfr=nb)
-            new["last_gain_index"] = torch.full_like(
-                new["last_gain_index"], 10)
-            out48, rs, smid = _silk_48k(xq, _take(self.smid, idx),
-                                        _take(self.rs, idx), fs, 5 * nb)
-            self.silk = _put(self.silk, idx, _silk_unview(new, st))
-            self.rs = _put(self.rs, idx, rs)
-            self.smid = _put(self.smid, idx, smid)
+            out48 = self.silk.conceal_group(lanes, fs, nb, nch)
             x = out48.to(torch.float32) * (1.0 / 32768.0)
-            w = min(x.shape[1], dst.shape[1])
-            dst[idx, :w] = x[:, :w]
-            self._count(f"silk_conceal_{fs}k_{5 * nb}ms", len(items))
+            w = min(x.shape[2], dst.shape[2])
+            dst[idx, :, :w] = x[:, :, :w]
         for (n, start, end, accum), lanes_i in celt.items():
             lanes = np.zeros(b, bool)
             lanes[lanes_i] = True
@@ -488,20 +444,21 @@ class BatchedOpusDecoder:
             st = _take(self.celt, idx)
             one = torch.ones(len(lanes_i), dtype=torch.bool,
                              device=self.device)
-            y, new, _tr = decode_lost(st, tabs, one)
+            y, new, _tr = decode_lost(st, tabs, one,
+                                      out_channels=self.channels)
             self.celt = _put(self.celt, idx, new)
             self.celt_used[lanes] = True
-            y = y[:, 0, :]
             if accum:
-                dst[idx, :n] = dst[idx, :n] + y
+                dst[idx, :, :n] = dst[idx, :, :n] + y
             else:
-                dst[idx, :n] = y
+                dst[idx, :, :n] = y
             self._count(f"celt_conceal_lm{tabs.lm}", len(lanes_i))
 
     # ---- decoded frames ----------------------------------------------
 
     def _celt_fresh(self, n: int) -> dict:
-        st = fused_celt_init_state(n, dec_tabs(FS, F20), self.device)
+        st = fused_celt_init_state(n, dec_tabs(FS, F20), self.device,
+                                   out_channels=self.channels)
         st["decoded_any"] = torch.ones_like(st["decoded_any"])
         return st
 
@@ -510,42 +467,6 @@ class BatchedOpusDecoder:
             idx = self._idx(lanes)
             self.celt = _put(self.celt, idx, self._celt_fresh(len(idx)))
             self._count("celt_reset", int(lanes.sum()))
-
-    def _silk_reset(self, lanes) -> None:
-        """silk.reset() (opus_decoder.py:346): a fresh SILK decoder, its
-        stereo state (the 2-sample buffer) and resampler included."""
-        if lanes.any():
-            idx = self._idx(lanes)
-            n = len(idx)
-            self.silk = _put(self.silk, idx, _silk_fresh(n, 16, self.device))
-            self.rs = _put(self.rs, idx, _rs_fresh(n, self.device))
-            self.smid = self.smid.index_fill(0, idx, 0)
-            self.silk_fs[lanes] = 0
-
-    def _set_fs(self, lanes, fs: int, length) -> None:
-        """The resets of a change of internal rate on ``lanes``
-        (silk/decoder.py:390-427 set_fs, and the PLC and CNG resets their
-        next use makes): LPC order, LTP memory and synthesis taps, lag,
-        gain index, signal type and the first-frame flag; the PLC's pitch,
-        gains and subframe shape; the comfort noise's smoothed NLSFs, gain
-        and seed; a new resampler.  length [B]: each lane's frame length
-        at the new rate (the PLC's reset pitch)."""
-        idx = self._idx(lanes)
-        n = len(idx)
-        old = _take(self.silk, idx)
-        fresh = _silk_fresh(n, fs, self.device)
-        keep = ("prev_nlsf", "prev_gain_q16", "exc_q14", "loss_cnt",
-                "plc_ltp_coef_q14", "plc_prev_lpc_q12",
-                "plc_prev_ltp_scale_q14", "plc_rand_scale_q14",
-                "plc_rand_seed", "plc_conc_energy", "plc_conc_energy_shift",
-                "plc_last_frame_lost", "cng_exc_buf_q14", "cng_synth_state",
-                "decoded_any")
-        new = dict(fresh, **{k: old[k] for k in keep})
-        new["plc_pitch_l_q8"] = torch.as_tensor(length[lanes] << 7,
-                                                device=self.device)
-        self.silk = _put(self.silk, idx, new)
-        self.rs = _put(self.rs, idx, _rs_fresh(n, self.device))
-        self.silk_fs[lanes] = fs
 
     def _pack(self, frames):
         """The round's frames -> (buf [B, P] u8, lens [B]) on the device."""
@@ -559,45 +480,54 @@ class BatchedOpusDecoder:
                 torch.from_numpy(lens).to(self.device))
 
     def _celt_decode(self, groups, buf, lens, d, dst, accum_lanes=None):
-        """CELT frames by group: groups {(n, start, end): lanes [B] bool}
-        over buf/lens (full B rows), continuing from d (full-B range
+        """CELT frames by group: groups {(n, start, end, C): lanes [B]
+        bool} over buf/lens (full B rows), continuing from d (full-B range
         decoder dict) where given.  Writes (or, on ``accum_lanes``, adds)
-        the PCM into dst rows; returns (rng [B], err [B]) on the device
-        (zeros outside the groups)."""
+        the PCM into dst rows [B, CC, >= n]; returns (rng [B], err [B]) on
+        the device (zeros outside the groups)."""
         rng = torch.zeros(self.batch, dtype=torch.int64, device=self.device)
         err = torch.zeros(self.batch, dtype=torch.bool, device=self.device)
-        for (n, start, end), lanes in groups.items():
+        for (n, start, end, c), lanes in groups.items():
             idx = self._idx(lanes)
             tabs = dec_tabs(FS, n, start, end)
             st = _take(self.celt, idx)
             d0 = None if d is None else _take(d, idx)
+            kw = {} if c == 1 and self.channels == 1 else dict(
+                channels=c, out_channels=self.channels,
+                disable_inv=self.disable_inv)
             y, new, e = kernel_celt_decode_to_pcm(
                 buf.index_select(0, idx), lens.index_select(0, idx), st, tabs,
-                d0=d0)
+                d0=d0, **kw)
+            if y.dim() == 2:
+                y = y[:, None]
             self.celt = _put(self.celt, idx, new)
             self.celt_used[lanes] = True
-            y = y[:, 0, :]
             if accum_lanes is not None:
                 acc = torch.as_tensor(accum_lanes[lanes], device=self.device)
-                y = torch.where(acc[:, None], dst[idx, :n] + y, y)
-            dst[idx, :n] = y
+                y = torch.where(acc[:, None, None], dst[idx, :, :n] + y, y)
+            dst[idx, :, :n] = y
             rng = rng.index_copy(0, idx, new["rng_final"])
             err = err.index_copy(0, idx, e)
-            self._count(f"celt_lm{tabs.lm}_start{start}", len(idx))
+            self._count(f"celt_lm{tabs.lm}_start{start}"
+                        + ("_stereo" if c == 2 else ""), len(idx))
         return rng, err
 
     def _run_frames(self, frames, pcm) -> None:
         """``_decode_frame`` (opus_decoder.py:280-488) for the lanes of
-        ``frames`` ((lane, ("frame", bytes, n, mode, bw, fec)))."""
+        ``frames`` ((lane, ("frame", bytes, n, mode, bw, fec, channels)))
+        into pcm [B, CC, >= n]."""
         b, dev = self.batch, self.device
+        cc = self.channels
         on = np.zeros(b, bool)
         mode = np.zeros(b, np.int64)
         bw = np.zeros(b, np.int64)
         size = np.zeros(b, np.int64)
+        sc = np.ones(b, np.int64)
         fec = np.zeros(b, bool)
         for i, j in frames:
             on[i] = True
-            size[i], mode[i], bw[i], fec[i] = j[2], j[3], j[4], j[5]
+            size[i], mode[i], bw[i], fec[i], sc[i] = j[2], j[3], j[4], j[5], \
+                j[6]
         self._count("fec_frames", int(fec.sum()))
         prev = self.prev_mode.copy()
         prev_red = self.prev_redundancy.copy()
@@ -606,7 +536,7 @@ class BatchedOpusDecoder:
             (is_celt & (prev != CELT) & ~prev_red)
             | (~is_celt & (prev == CELT)))
         buf, lens = self._pack(frames)
-        pcm_tr = torch.zeros((b, F5), dtype=torch.float32, device=dev)
+        pcm_tr = torch.zeros((b, cc, F5), dtype=torch.float32, device=dev)
 
         # (a) the transition into CELT: conceal up to 5 ms in the old mode
         # first (:330-342)
@@ -617,43 +547,31 @@ class BatchedOpusDecoder:
                                 for i in np.nonzero(ta)[0]], pcm_tr)
             self._count("transition_conceal", int(ta.sum()))
 
-        # (b) the SILK half (:344-370)
+        # (b) the SILK half (:344-370): every SILK frame of the packet
         silk_on = on & ~is_celt
         d_full = None
         sil_err = torch.zeros(b, dtype=torch.bool, device=dev)
         if silk_on.any():
-            self._silk_reset(silk_on & (prev == CELT))
+            self.silk.reset(silk_on & (prev == CELT))
             isr = np.array([_isr_khz(int(mode[i]), int(bw[i])) if silk_on[i]
                             else 0 for i in range(b)])
-            change = silk_on & (isr != self.silk_fs)
-            for fs in (8, 12, 16):
-                if (change & (isr == fs)).any():
-                    self._set_fs(change & (isr == fs), fs,
-                                 fs * np.where(size == F10, 10, 20))
+            nfr = np.where(size > F20, size // F20, 1)
+            nb = np.where(size == F10, 2, 4)
+            s2m = self.silk.prepare(silk_on, sc, isr,
+                                    isr * np.where(size == F10, 10, 20))
             d_full = K.rk_init(buf, lens)
-            for fs in (8, 12, 16):
-                for nb in (2, 4):
-                    g = silk_on & (isr == fs) & ((size == F10) == (nb == 2))
-                    if not g.any():
-                        continue
-                    idx = self._idx(g)
-                    st = _take(self.silk, idx)
-                    fl = torch.as_tensor(fec[g], device=dev)
-                    xq, new, e, d = fused_silk_decode(
-                        buf.index_select(0, idx), lens.index_select(0, idx),
-                        _silk_view(st, fs), fs_khz=fs, nb_subfr=nb,
-                        return_rc=True, lbrr=fl if fec[g].any() else None)
-                    out48, rs, smid = _silk_48k(
-                        xq, _take(self.smid, idx), _take(self.rs, idx), fs,
-                        5 * nb)
-                    self.silk = _put(self.silk, idx, _silk_unview(new, st))
-                    self.rs = _put(self.rs, idx, rs)
-                    self.smid = _put(self.smid, idx, smid)
-                    d_full = _put(d_full, idx, d)
-                    sil_err = sil_err.index_copy(0, idx, e)
-                    w = out48.shape[1]
-                    pcm[idx, :w] = out48.to(torch.float32) * (1.0 / 32768.0)
-                    self._count(f"silk_{fs}k_{5 * nb}ms", len(idx))
+            keys = sorted({(int(isr[i]), int(nb[i]), int(nfr[i]), int(sc[i]))
+                           for i in np.nonzero(silk_on)[0]})
+            for fs, nbk, nf, nch in keys:
+                g = silk_on & (isr == fs) & (nb == nbk) & (nfr == nf) \
+                    & (sc == nch)
+                idx = self._idx(g)
+                out48, d, e = self.silk.decode_group(g, fs, nbk, nf, nch,
+                                                     buf, lens, fec, s2m)
+                d_full = _put(d_full, idx, d)
+                sil_err = sil_err.index_copy(0, idx, e)
+                w = out48.shape[2]
+                pcm[idx, :, :w] = out48.to(torch.float32) * (1.0 / 32768.0)
 
         # (c) the redundancy signal (:372-398)
         red = np.zeros(b, bool)
@@ -696,7 +614,7 @@ class BatchedOpusDecoder:
 
         # the redundant frames' bytes (frame[len2:len2 + red_bytes])
         red_rng = torch.zeros(b, dtype=torch.int64, device=dev)
-        red_pcm = torch.zeros((b, F20), dtype=torch.float32, device=dev)
+        red_pcm = torch.zeros((b, cc, F20), dtype=torch.float32, device=dev)
         rbuf = rlens = None
         if red.any():
             rows = []
@@ -711,7 +629,7 @@ class BatchedOpusDecoder:
         if e_lanes.any():
             self.celt_start[e_lanes] = 0
             rr, re = self._celt_decode(
-                self._groups(e_lanes, np.full(b, F5), endband, 0),
+                self._groups(e_lanes, np.full(b, F5), endband, 0, sc),
                 rbuf, rlens, None, red_pcm)
             red_rng = torch.where(torch.as_tensor(e_lanes, device=dev), rr,
                                   red_rng)
@@ -733,7 +651,7 @@ class BatchedOpusDecoder:
                 hyb_reg = reg & (mode == HYBRID)
                 rr, k1_err = self._celt_decode(
                     self._groups(reg, np.minimum(F20, size), endband,
-                                 start_band),
+                                 start_band, sc),
                     buf, lens2, d_full if hyb_reg.any() else None, pcm,
                     accum_lanes=hyb_reg)
                 rng = torch.where(torch.as_tensor(reg, device=dev), rr, rng)
@@ -751,12 +669,12 @@ class BatchedOpusDecoder:
             self.celt_start[fade] = 0
             fbuf = torch.full((b, 2), 0xFF, dtype=torch.uint8, device=dev)
             flen = torch.as_tensor(np.where(fade, 2, 0), device=dev)
-            tmp = torch.zeros((b, F20), dtype=torch.float32, device=dev)
+            tmp = torch.zeros((b, cc, F20), dtype=torch.float32, device=dev)
             self._celt_decode(self._groups(fade, np.full(b, F2_5), endband,
-                                           0), fbuf, flen, None, tmp)
-            fl = torch.as_tensor(fade, device=dev)[:, None]
-            pcm[:, :F2_5] = torch.where(fl, pcm[:, :F2_5] + tmp[:, :F2_5],
-                                        pcm[:, :F2_5])
+                                           0, sc), fbuf, flen, None, tmp)
+            fl = torch.as_tensor(fade, device=dev)[:, None, None]
+            pcm[:, :, :F2_5] = torch.where(
+                fl, pcm[:, :, :F2_5] + tmp[:, :, :F2_5], pcm[:, :, :F2_5])
             self._count("fade_hybrid_to_silk", int(fade.sum()))
 
         # (g) the 5 ms SILK -> CELT redundant frame and its fade (:451-460)
@@ -765,42 +683,44 @@ class BatchedOpusDecoder:
             self._celt_reset(g_lanes)
             self.celt_start[g_lanes] = 0
             rr, _re = self._celt_decode(
-                self._groups(g_lanes, np.full(b, F5), endband, 0),
+                self._groups(g_lanes, np.full(b, F5), endband, 0, sc),
                 rbuf, rlens, None, red_pcm)
             red_rng = torch.where(torch.as_tensor(g_lanes, device=dev), rr,
                                   red_rng)
             for n in np.unique(size[g_lanes]):
                 m = torch.as_tensor(g_lanes & (size == n), device=dev)
                 a = int(n) - F2_5
-                faded = _smooth_fade(pcm[:, a:a + F2_5],
-                                     red_pcm[:, F2_5:F5], dev)
-                pcm[:, a:a + F2_5] = torch.where(m[:, None], faded,
-                                                 pcm[:, a:a + F2_5])
+                faded = _smooth_fade(pcm[:, :, a:a + F2_5],
+                                     red_pcm[:, :, F2_5:F5], dev)
+                pcm[:, :, a:a + F2_5] = torch.where(
+                    m[:, None, None], faded, pcm[:, :, a:a + F2_5])
             self._count("redundancy_silk_to_celt", int(g_lanes.sum()))
 
         # (h) CELT -> SILK: the redundant audio spliced in (:461-468)
         h_lanes = red & c2s & ((prev != SILK) | prev_red)
         if h_lanes.any():
-            m = torch.as_tensor(h_lanes, device=dev)[:, None]
-            head = torch.where(m, red_pcm[:, :F2_5], pcm[:, :F2_5])
-            mid = torch.where(m, _smooth_fade(red_pcm[:, F2_5:F5],
-                                              pcm[:, F2_5:F5], dev),
-                              pcm[:, F2_5:F5])
-            pcm[:, :F2_5] = head
-            pcm[:, F2_5:F5] = mid
+            m = torch.as_tensor(h_lanes, device=dev)[:, None, None]
+            head = torch.where(m, red_pcm[:, :, :F2_5], pcm[:, :, :F2_5])
+            mid = torch.where(m, _smooth_fade(red_pcm[:, :, F2_5:F5],
+                                              pcm[:, :, F2_5:F5], dev),
+                              pcm[:, :, F2_5:F5])
+            pcm[:, :, :F2_5] = head
+            pcm[:, :, F2_5:F5] = mid
 
         # (i) the transition crossfade (:469-479)
         if transition.any():
-            long_ = torch.as_tensor(transition & (size >= F5), device=dev)
-            short = torch.as_tensor(transition & (size < F5), device=dev)
-            head = torch.where(long_[:, None], pcm_tr[:, :F2_5],
-                               pcm[:, :F2_5])
-            head = torch.where(short[:, None], _smooth_fade(
-                pcm_tr[:, :F2_5], pcm[:, :F2_5], dev), head)
-            mid = torch.where(long_[:, None], _smooth_fade(
-                pcm_tr[:, F2_5:F5], pcm[:, F2_5:F5], dev), pcm[:, F2_5:F5])
-            pcm[:, :F2_5] = head
-            pcm[:, F2_5:F5] = mid
+            long_ = torch.as_tensor(transition & (size >= F5),
+                                    device=dev)[:, None, None]
+            short = torch.as_tensor(transition & (size < F5),
+                                    device=dev)[:, None, None]
+            head = torch.where(long_, pcm_tr[:, :, :F2_5], pcm[:, :, :F2_5])
+            head = torch.where(short, _smooth_fade(
+                pcm_tr[:, :, :F2_5], pcm[:, :, :F2_5], dev), head)
+            mid = torch.where(long_, _smooth_fade(
+                pcm_tr[:, :, F2_5:F5], pcm[:, :, F2_5:F5], dev),
+                pcm[:, :, F2_5:F5])
+            pcm[:, :, :F2_5] = head
+            pcm[:, :, F2_5:F5] = mid
             self._count("transition", int(transition.sum()))
 
         # (j) the gain, the final range, the mode memory (:481-488)
@@ -809,7 +729,7 @@ class BatchedOpusDecoder:
             g = torch.as_tensor(np.where(gl, 2.0 ** (
                 6.48814081e-4 * self.decode_gain), 1.0), dtype=torch.float32,
                 device=dev)
-            pcm.mul_(g[:, None])
+            pcm.mul_(g[:, None, None])
         self.rng = torch.where(torch.as_tensor(on, device=dev),
                                rng ^ red_rng, self.rng)
         bad = (k1_err | sil_err).cpu().numpy() & on
@@ -818,14 +738,14 @@ class BatchedOpusDecoder:
         self.prev_redundancy[on] = (red & ~c2s)[on]
         self._count("frames", int(on.sum()))
 
-    def _groups(self, lanes, n, endband, start):
-        """{(n, start, end): lanes [B] bool} over ``lanes``."""
+    def _groups(self, lanes, n, endband, start, channels):
+        """{(n, start, end, C): lanes [B] bool} over ``lanes``."""
         start = np.broadcast_to(np.asarray(start), lanes.shape)
         out = {}
         for i in np.nonzero(lanes)[0]:
-            key = (int(n[i]), int(start[i]), int(endband[i]))
+            key = (int(n[i]), int(start[i]), int(endband[i]),
+                   int(channels[i]))
             if key not in out:
                 out[key] = np.zeros(self.batch, bool)
             out[key][i] = True
         return out
-

@@ -5,7 +5,11 @@ fixture packets with random energy memory and seeds, truncated packets and
 random bytes; and at
 start = 17, continuing the range decoder that the SILK half leaves, on the
 CELT halves of the hybrid fixture's frames (the plain hybrid chain's inputs
-to K1, frame by frame) plus garbage lanes.
+to K1, frame by frame) plus garbage lanes.  Its stereo instantiation (C =
+2) against its plain version (decode_frame2_plain) on every stereo frame
+the port's decoder gives K1 over the stereo fixture's CELT and hybrid
+streams (LM 0-3, start 0 and 17), plus truncated and random-byte lanes,
+with disable_inv 0 and 1.
 
 K1 runs one warp per stream; its lane width is the macro K1_LANES (32 on
 the card).  The main build sets it to 1 (one warp of one lane per block,
@@ -42,6 +46,8 @@ SRC = os.path.join(REPO, "opus_tpu_torch", "csrc", "celt_dec_frame.cu")
 FIXTURES = {n: os.path.join(REPO, "tests", "data", f"torch_celt{ms}_64k.npz")
             for n, ms in ((960, "20ms"), (480, "10ms"))}
 HYB_FIXTURE = os.path.join(REPO, "tests", "data", "torch_hybrid_fb20ms.npz")
+STEREO_FIXTURE = os.path.join(REPO, "tests", "data",
+                              "torch_opus_stereo.npz")
 
 SHIM = r"""
 #pragma once
@@ -146,15 +152,17 @@ DRIVER = r"""
 #include "body.inc"
 }
 __attribute__((aligned(16))) unsigned char k1_smem[1 << 16];
-extern "C" void run_lanes(const void *buf, int P, const void *lens,
+template <int C>
+static void run_c(const void *buf, int P, const void *lens,
     const void *old_e, const void *prevmin, const void *seed,
     const void *rc_in, const void *tab, void *X, void *energies,
-    void *ints, void *pf_gain, int B, int nx) {
+    void *ints, void *pf_gain, int B, int nx, int disable_inv) {
   auto run = [=] {
-    celt_dec_frame_kernel((const uint8_t *)buf, P, (const int32_t *)lens,
+    celt_dec_frame_kernel<C>((const uint8_t *)buf, P, (const int32_t *)lens,
         (const float *)old_e, (const float *)prevmin, (const int64_t *)seed,
         (const int32_t *)rc_in, (const int32_t *)tab, (float *)X,
-        (float *)energies, (int32_t *)ints, (float *)pf_gain, B, nx);
+        (float *)energies, (int32_t *)ints, (float *)pf_gain, B, nx,
+        disable_inv);
   };
   blockDim.x = K1_LANES;
   for (int l = 0; l < B; l++) {
@@ -169,6 +177,20 @@ extern "C" void run_lanes(const void *buf, int P, const void *lens,
     for (auto &th : lanes) th.join();
 #endif
   }
+}
+extern "C" void run_lanes(const void *buf, int P, const void *lens,
+    const void *old_e, const void *prevmin, const void *seed,
+    const void *rc_in, const void *tab, void *X, void *energies,
+    void *ints, void *pf_gain, int B, int nx) {
+  run_c<1>(buf, P, lens, old_e, prevmin, seed, rc_in, tab, X, energies,
+           ints, pf_gain, B, nx, 0);
+}
+extern "C" void run_lanes2(const void *buf, int P, const void *lens,
+    const void *old_e, const void *prevmin, const void *seed,
+    const void *rc_in, const void *tab, void *X, void *energies,
+    void *ints, void *pf_gain, int B, int nx, int disable_inv) {
+  run_c<2>(buf, P, lens, old_e, prevmin, seed, rc_in, tab, X, energies,
+           ints, pf_gain, B, nx, disable_inv);
 }
 """
 
@@ -372,9 +394,9 @@ def test_torch_k1_lane_width_is_one_macro_the_shim_sets():
     assert src.count("#define K1_LANES") == 1
     assert "#ifndef K1_LANES\n#define K1_LANES 32" in src
     assert "constexpr int LANES = K1_LANES;" in src
-    assert "const int threads = WARPS * LANES;" in src
-    assert "(B + WARPS - 1) / WARPS" in src
-    assert "__launch_bounds__(WARPS * LANES, 1)" in src
+    assert "constexpr int NW = warps_of<C>();" in src
+    assert "<<<(B + NW - 1) / NW, NW * LANES, smem," in src
+    assert "__launch_bounds__(warps_of<C>() * LANES, 1)" in src
     body = src.replace("#define K1_LANES 32", "")
     lane_math = re.findall(r"(?:[%/&]|\+=)\s*(?:32|31|64)\b", body)
     assert not lane_math, lane_math
@@ -420,3 +442,189 @@ def test_torch_k1_source_on_host_threads_matches_plain(thread_libs, lanes,
     tabs17 = dec_tabs(48000, 960, 17, 21)
     for args, ref in _hybrid_k1_frames(tabs17, 2):
         _check(tabs17, _run_host(lib, tabs17, *args), ref)
+
+
+# ---- the stereo instantiation ------------------------------------------
+
+STEREO_STREAMS = (3, 4, 6)     # the fixture's stereo CELT and hybrid
+
+
+@pytest.fixture(scope="module")
+def stereo_k1_calls():
+    """Every call of K1's stereo instantiation that the port's two-channel
+    decoder makes over the stereo fixture's CELT and hybrid streams on the
+    CPU: the inputs, as numpy, by (frame size, start, end)."""
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.models.opus_decoder import BatchedOpusDecoder
+    from opus_tpu_torch.ops.rc_kernel import pack_state
+
+    fx = np.load(STEREO_FIXTURE)
+    plen, pkts = fx["plen"], fx["packets"]
+    calls = {}
+    real = CK.decode_frame2
+
+    def spy(buf, lens, old_e, prevmin, seed, tabs, d0=None,
+            disable_inv=False):
+        key = (tabs.mode.shortMdctSize << tabs.lm, tabs.start,
+               tabs.end_band)
+        rc_in = None
+        if d0 is not None:
+            rc = pack_state(d0).numpy()
+            rc_in = np.where(rc >= 1 << 31, rc - (1 << 32), rc).astype(
+                np.int32)
+        calls.setdefault(key, []).append(tuple(
+            a.numpy() for a in (buf, lens, old_e, prevmin, seed))
+            + (rc_in,))
+        return real(buf, lens, old_e, prevmin, seed, tabs, d0, disable_inv)
+
+    CK.decode_frame2 = spy
+    try:
+        dec = BatchedOpusDecoder(len(STEREO_STREAMS), channels=2,
+                                 device="cpu")
+        for t in range(plen.shape[1]):
+            row = [(None if plen[s, t] < 0 else
+                    bytes(pkts[s, t, :plen[s, t]]), bool(fx["fec"][s, t]),
+                    int(fx["fsize"][s, t])) for s in STEREO_STREAMS]
+            dec.decode([p for p, _f, _z in row],
+                       decode_fec=[f for _p, f, _z in row],
+                       frame_size=[z for _p, _f, z in row])
+    finally:
+        CK.decode_frame2 = real
+    return calls
+
+
+def _stereo_lanes(calls, rng):
+    """One group's calls as one batch of lanes, plus 4 truncated copies of
+    its first lanes and 4 lanes of random bytes (coder states and energy
+    memory taken from real lanes)."""
+    p = max(c[0].shape[1] for c in calls)
+    rows = [np.pad(c[0], ((0, 0), (0, p - c[0].shape[1]))) for c in calls]
+    buf = np.concatenate(rows)
+    ln, old_e, prevmin, seed = (np.concatenate([c[k] for c in calls])
+                                for k in range(1, 5))
+    rc_in = None
+    if any(c[5] is not None for c in calls):
+        # a CELT-only lane that shared a round with a hybrid lane got a
+        # coder at its packet's start: the same as none
+        rc_in = np.concatenate([_rc_rows(c[0], c[1]) if c[5] is None
+                                else c[5] for c in calls])
+    b = buf.shape[0]
+    pick = np.arange(8) % b
+    ext = buf[pick].copy()
+    ext_ln = ln[pick].copy()
+    for j in range(8):
+        cut = int(rng.integers(0, max(1, ext_ln[j]) if j < 4 else p + 1))
+        if j >= 4:
+            ext[j, :cut] = rng.integers(0, 256, cut)
+        ext[j, cut:] = 0
+        ext_ln[j] = cut
+    cat = np.concatenate
+    return (cat([buf, ext]), cat([ln, ext_ln]), cat([old_e, old_e[pick]]),
+            cat([prevmin, prevmin[pick]]), cat([seed, seed[pick]]),
+            None if rc_in is None else cat([rc_in, rc_in[pick]]))
+
+
+def _rc_rows(buf, ln):
+    """pack_state of a coder started on each lane's packet, as int32."""
+    from opus_tpu_torch.ops.rc_kernel import pack_state, rk_init
+    rc = pack_state(rk_init(torch.from_numpy(buf), torch.from_numpy(
+        ln).clamp(0, buf.shape[1]))).numpy()
+    return np.where(rc >= 1 << 31, rc - (1 << 32), rc).astype(np.int32)
+
+
+def _run_host2(lib, tabs, buf, ln, old_e, prevmin, seed, rc_in, inv):
+    b, p = buf.shape
+    nb, nx = tabs.nb, tabs.nx
+    buf, old_e, prevmin, seed = (np.ascontiguousarray(a) for a in
+                                 (buf, old_e, prevmin, seed))
+    tab = tabs.kernel_table()
+    lens32 = np.clip(ln, 0, p).astype(np.int32)
+    x = np.zeros((b, 2, nx), np.float32)
+    energies = np.zeros((b, 2, nb), np.float32)
+    ints = np.zeros((b, 9), np.int32)
+    pf_gain = np.zeros(b, np.float32)
+    ptr = lambda a: None if a is None else a.ctypes.data_as(  # noqa: E731
+        ctypes.c_void_p)
+    lib.run_lanes2(ptr(buf), p, ptr(lens32), ptr(old_e), ptr(prevmin),
+                   ptr(seed), ptr(rc_in), ptr(tab), ptr(x), ptr(energies),
+                   ptr(ints), ptr(pf_gain), b, nx, int(inv))
+    return x, energies, ints, pf_gain
+
+
+def _d0(rc_in):
+    """pack_state's rows back into the plain version's coder dict."""
+    from opus_tpu_torch.ops.rc_kernel import M32
+    keys = ("offs", "end_offs", "end_window", "nend_bits", "nbits_total",
+            "rng", "val", "ext", "rem", "error")
+    v = torch.from_numpy(rc_in.astype(np.int64))
+    return {k: (v[:, j] & M32 if k in ("end_window", "rng", "val", "ext")
+                else v[:, j]) for j, k in enumerate(keys)}
+
+
+@pytest.mark.parametrize("inv", [0, 1])
+def test_torch_k1_stereo_source_on_host_matches_plain(k1_lib,
+                                                      stereo_k1_calls, inv):
+    """K1's stereo instantiation on every stereo CELT frame of the
+    fixture's CELT and hybrid streams (LM 0-3 at start 0, start 17 with
+    the SILK half's coder state), plus truncated and random-byte lanes,
+    disable_inv 0 and 1: integers equal, X and energies within 1e-5."""
+    from opus_tpu_torch.models.celt_dec_kernel import decode_frame2_plain
+
+    rng = np.random.default_rng(23)
+    seen = set()
+    flags = dict(intensity=0, dual=0)
+    for (n, start, end), calls in sorted(stereo_k1_calls.items()):
+        tabs = dec_tabs(48000, n, start, end)
+        args = _stereo_lanes(calls, rng)
+        buf, ln, old_e, prevmin, seed, rc_in = args
+        ref = decode_frame2_plain(
+            *(torch.from_numpy(a) for a in (buf, ln, old_e, prevmin, seed)),
+            tabs, None if rc_in is None else _d0(rc_in), bool(inv))
+        got = _run_host2(k1_lib, tabs, *args, inv)
+        x, energies, ints, pf_gain = got
+        for j, key in enumerate(INT_KEYS):
+            v = ints[:, j].astype(np.int64)
+            if key == "rng":
+                v &= 0xFFFFFFFF
+            assert v.tolist() == ref[key].tolist(), (n, start, key)
+        assert np.array_equal(pf_gain, ref["pf_gain"].numpy())
+        assert np.abs(energies - ref["energies"].numpy()).max() <= 1e-5
+        xr = ref["X"].numpy()
+        m, eb = tabs.M, tabs.eBands
+        for i in range(tabs.nb):
+            a, c = m * int(eb[i]), m * int(eb[i + 1])
+            scale = np.abs(xr[:, :, a:c]).max(axis=2)
+            err = np.abs(x[:, :, a:c] - xr[:, :, a:c]).max(axis=2)
+            assert (err <= 1e-5 * scale).all(), (n, start, i, err.max())
+        seen.add((tabs.lm, start))
+        flags["intensity"] += int((ref["intensity"] > start).sum())
+        flags["dual"] += int(ref["dual_stereo"].sum())
+    assert {(lm, 0) for lm in range(4)} <= seen and (3, 17) in seen, seen
+    assert flags["intensity"] and flags["dual"], flags
+
+
+def test_torch_k1_stereo_source_on_host_threads_matches_plain(
+        thread_libs, stereo_k1_calls):
+    """The stereo instantiation at lane width 4 (the merge's butterfly
+    sums, the second fold buffer's strided fills): the 20 ms groups at
+    start 0 and 17, disable_inv 0, as ``_run_host2`` at width 1 gives."""
+    from opus_tpu_torch.models.celt_dec_kernel import decode_frame2_plain
+
+    lib = thread_libs(4)
+    rng = np.random.default_rng(29)
+    for start in (0, 17):
+        key = (960, start, 21)
+        tabs = dec_tabs(48000, 960, start, 21)
+        args = _stereo_lanes(stereo_k1_calls[key], rng)
+        buf, ln, old_e, prevmin, seed, rc_in = args
+        ref = decode_frame2_plain(
+            *(torch.from_numpy(a) for a in (buf, ln, old_e, prevmin, seed)),
+            tabs, None if rc_in is None else _d0(rc_in), False)
+        x, energies, ints, _pf = _run_host2(lib, tabs, *args, 0)
+        assert (ints[:, 8].astype(np.int64) & 0xFFFFFFFF).tolist() \
+            == ref["rng"].tolist()
+        assert ints[:, 6].tolist() == ref["error"].tolist()
+        assert np.abs(energies - ref["energies"].numpy()).max() <= 1e-5
+        xr = ref["X"].numpy()
+        scale = np.abs(xr).max(axis=2, keepdims=True)
+        assert (np.abs(x - xr) <= 1e-5 * np.maximum(scale, 1e-30)).all()

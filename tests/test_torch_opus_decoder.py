@@ -13,9 +13,12 @@
 - from the JAX decoders' state taken mid-stream just before a transition
   (``convert.opus_decoder_state``), and from its own state
   (``get_state`` / ``set_state``) bit for bit;
-- per-lane errors: SILK 40/60 ms and stereo packets refused, an invalid
-  packet flags its lane only and leaves its state alone, a flagged lane
-  stays flagged; OPUS_SET_GAIN; the batched soft clip bit for bit;
+- per-lane errors: an FEC size off the 2.5 ms grid refused before any
+  lane changes, an invalid packet flags its lane only and leaves its
+  state alone, a flagged lane stays flagged; SILK 40/60 ms and stereo
+  packets decode (tests/test_torch_opus_stereo.py holds them to the
+  scalar decoder over a whole fixture); OPUS_SET_GAIN; the batched soft
+  clip bit for bit;
 - against ``tools/sim_loss.BatchedLossDecoder`` on the single-mode loss
   traffic of tests/data/torch_sim_loss.npz and torch_silk_plc.npz;
 - in-band FEC (``decode_fec=``, ``frame_size=``) on torch_silk_plc.npz's
@@ -162,31 +165,82 @@ def test_torch_opus_api_continues_from_jax_state(fx, stream, which):
 
 
 def test_torch_opus_api_refusal_changes_no_lane(fx):
-    """A call that raises (lane 1's SILK 40 ms packet, or lane 1's FEC
-    request of 7 ms) leaves every lane's state and host fields as they
+    """A call that raises (lane 1's FEC request of 7 ms, or of 2.5 ms
+    plus one sample) leaves every lane's state and host fields as they
     were, lane 0's valid packet included."""
     pk = _packets(fx, 1)
     dec = BatchedOpusDecoder(2, device="cpu")
     dec.decode([pk[0], pk[0]])
     before = dec.get_state()
-    for bad, fec, size in ((bytes([2 << 3, 0, 0]), None, None),
-                           (pk[2], [False, True], [0, 336])):
-        with pytest.raises(ValueError):
-            dec.decode([pk[1], bad], decode_fec=fec, frame_size=size)
+    for size in (336, 121):
+        with pytest.raises(ValueError, match="2.5 ms"):
+            dec.decode([pk[1], pk[2]], decode_fec=[False, True],
+                       frame_size=[0, size])
         assert _same(before, dec.get_state())
+
+
+def _long_silk_packet(config: int):
+    """A SILK-only packet of TOC configuration ``config`` (40 or 60 ms;
+    NB, MB or WB) from the scalar encoder, and the scalar decoder's
+    (pcm, final range) of it."""
+    from opus_tpu.bitstream import packet as pkt
+    from opus_tpu.models.opus_decoder import OpusDecoder
+    from opus_tpu.models.opus_encoder import OpusEncoder
+
+    bw = (pkt.Bandwidth.NARROWBAND, pkt.Bandwidth.MEDIUMBAND,
+          pkt.Bandwidth.WIDEBAND)[config // 4]
+    n = 1920 if config % 4 == 2 else 2880
+    enc = OpusEncoder(48000, 1, application="voip")
+    enc.set_jax_nsq(False)
+    enc.set_force_mode(pkt.Mode.SILK_ONLY)
+    enc.set_bandwidth(bw)
+    enc.set_bitrate(12000)
+    t = np.arange(n) / 48000
+    p = bytes(enc.encode(0.3 * np.sin(2 * np.pi * 180 * t)
+                         * (1 + 0.5 * np.sin(2 * np.pi * 5 * t)), n))
+    assert p[0] >> 3 == config, (config, p[0] >> 3)
+    ref = OpusDecoder(48000, 1)
+    return p, np.asarray(ref.decode(p)), ref.rangeFinal
 
 
 @pytest.mark.parametrize("config", [2, 3, 6, 7, 10, 11])
 def test_torch_opus_api_refuses_silk_40_60_ms(config):
+    """No longer refused: a SILK-only packet of each 40/60 ms TOC
+    configuration decodes to the scalar decoder's final range and PCM
+    (SILK alone: exact), next to a lost lane (20 ms of zeros: it has
+    decoded nothing yet)."""
+    p, want, rng = _long_silk_packet(config)
     dec = BatchedOpusDecoder(2, device="cpu")
-    with pytest.raises(ValueError, match=f"configuration {config}"):
-        dec.decode([bytes([config << 3, 0, 0]), None])
+    pcm, n = dec.decode([p, None])
+    assert n.tolist() == [len(want), 960]
+    assert not pcm[1].any()
+    assert int(dec.final_range[0]) == rng
+    assert np.array_equal(pcm[0, :n[0]].numpy().astype(np.float64), want)
 
 
 def test_torch_opus_api_refuses_stereo_and_missing_card():
+    """A stereo packet (CELT FB 20 ms) decodes on a one-channel decoder,
+    to the scalar decoder's final range and within 1e-4 of its PCM; with
+    no card the default device is refused."""
+    from opus_tpu.bitstream import packet as pkt
+    from opus_tpu.models.opus_decoder import OpusDecoder
+    from opus_tpu.models.opus_encoder import OpusEncoder
+
+    enc = OpusEncoder(48000, 2)
+    enc.set_force_mode(pkt.Mode.CELT_ONLY)
+    enc.set_bitrate(96000)
+    t = np.arange(960) / 48000
+    x = np.stack([0.3 * np.sin(2 * np.pi * 440 * t),
+                  0.2 * np.sin(2 * np.pi * 660 * t)], 1)
+    p = bytes(enc.encode(x.reshape(-1), 960))
+    assert p[0] & 4, "a stereo packet"
+    ref = OpusDecoder(48000, 1)
+    want = np.asarray(ref.decode(p))
     dec = BatchedOpusDecoder(1, device="cpu")
-    with pytest.raises(ValueError, match="stereo"):
-        dec.decode([bytes([(31 << 3) | 4, 0, 0])])
+    pcm, n = dec.decode([p])
+    assert n[0] == len(want) and int(dec.final_range[0]) == ref.rangeFinal
+    assert np.abs(pcm[0, :n[0]].numpy() - want).max() <= PCM_TOL
+    assert dec.events.get("celt_lm3_start0_stereo", 0) == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             BatchedOpusDecoder(1)
