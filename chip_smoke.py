@@ -179,12 +179,31 @@ Drives the port's main path, 20 ms mono CELT at 48 kHz and 64 kb/s CBR
    stereo SILK concealment among them); K1's stereo instantiation
    against its plain version on the inputs the run gave it (LM 0-3,
    start 0 and 17) tiled to 4096 + 32 lanes, disable_inv 0 and 1; K1
-   stereo's time, bound and geometry beside the mono instantiation's.
+   stereo's time, bound and geometry beside the mono instantiation's;
+22. every output rate (opus_rates): ``BatchedOpusDecoder(fs=8000, 12000,
+   16000, 24000)`` over 256 lanes of the api fixture's traffic (losses,
+   in-band FEC) for RATES_TICKS calls a rate, and ``channels=2`` at 24
+   kHz over 256 lanes of the stereo fixture's; K1, K2 and K4 counted
+   around each, held to the port's CPU runs (int16 and decode24) and on
+   the fixture lanes to the JAX decoder at the same rate
+   (``tests/data/torch_opus_rates.npz``: ranges, SILK int16 and decode24
+   by digest, PCM within 1e-4); opus_api's 1024-lane traffic timed at 16
+   kHz (CUDA events, the last tick traced);
+23. multistream and projection (opus_ms): ``BatchedOpusMSDecoder`` over
+   256 5.1 streams (512 stereo and 512 mono elementary lanes) and
+   ``BatchedOpusProjectionDecoder`` over 256 first-order ambisonic
+   streams, MS_TICKS calls, the counters around each, held to the JAX
+   decoders (``tests/data/torch_opus_ms.npz``: the elementary ranges, PCM,
+   the SILK stream's channel exact, the Q15 demix of JAX's internal int16
+   equal to JAX's int16) and to the port's CPU run; the 5.1 cell timed.
 
 The script's host, not its card, sets its pace: a second process on the
 card runs items 4 and 5 (the encoder and duplex), 7 (SILK), 8 and 9
-(both hybrids) and 14 (10 ms CELT) while this one runs the others, and every timing phase runs after both
-have finished, alone on the card.
+(both hybrids) and 14 (10 ms CELT) while this one runs the others, then
+items 20 and 21's untimed runs beside the loss phases; a third runs
+items 22 and 23's untimed card runs from the start, their CPU references
+in two worker processes; every timing phase runs after all three have
+finished, alone on the card.
 
 Run from the repository root:  python3 chip_smoke.py
 The last line of standard output is the result JSON; any failed check
@@ -3958,13 +3977,14 @@ def phase_plc_rates(dev, sfx, plc, cpu_job):
     return dict(counts=counts)
 
 
-def cpu_pool():
-    """Worker processes for the CPU reference runs of the loss phases, so
-    that they run while the card does (2 torch threads each)."""
+def cpu_pool(workers: int = 4):
+    """Worker processes for the CPU reference runs of the loss phases (or,
+    with 2 workers, of opus_rates and opus_ms from the start), so that
+    they run while the card does (2 torch threads each)."""
     import concurrent.futures
     import multiprocessing
     return concurrent.futures.ProcessPoolExecutor(
-        max_workers=4, mp_context=multiprocessing.get_context("spawn"),
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"),
         initializer=_cpu_worker_init)
 
 
@@ -4887,11 +4907,13 @@ def api_streams(afx):
             for s in range(plen.shape[0])]
 
 
-def opus_api_inputs(dev, afx):
-    """B_DNN lanes of mixed traffic over API_TICKS: lane i carries stream
-    i % 8, from packet 0 or, in every other group of 8 lanes, from packet
-    API_OFFSET, so that each tick mixes CELT, SILK and hybrid lanes at two
-    points of each stream, some in mid-transition; lanes API_FX under the
+def opus_api_inputs(dev, afx, b=B_DNN, nt=API_TICKS, offset=API_OFFSET,
+                    extra=API_CPU_EXTRA):
+    """b (B_DNN) lanes of mixed traffic over nt (API_TICKS) ticks: lane i
+    carries stream i % 8, from packet 0 or, in every other group of 8
+    lanes, from packet ``offset`` (API_OFFSET), so that each tick mixes
+    CELT, SILK and hybrid lanes at two points of each stream, some in
+    mid-transition (offset 0: every lane from packet 0); lanes API_FX under the
     fixture's own losses, the others losing a packet also where
     ``tools/loss.py``'s ``-loss 10`` flags (each lane its own seed, on the
     card) say so, so that their states part.  Every API_FEC_EVERY-th lane
@@ -4901,13 +4923,12 @@ def opus_api_inputs(dev, afx):
     fixture lost it), and the next tick decodes it.  (More offsets put
     more (rate, 10/20 ms) groups in a tick, each a SILK symbol pass of
     ~1 s of host: 8 offsets took 9.8-13.4 s a tick on an NVIDIA H100
-    80GB HBM3 at 700 W.)  ``cpu_lanes``: the fixture lanes and
-    API_CPU_EXTRA others."""
+    80GB HBM3 at 700 W.)  ``cpu_lanes``: the fixture lanes and ``extra``
+    (API_CPU_EXTRA) others.  ``size`` is in 48 kHz samples."""
     import numpy as np
     from opus_tpu_torch.bitstream.packet import packet_get_nb_samples
     from opus_tpu_torch.tools.loss import loss_flags
     streams = api_streams(afx)
-    b, nt = B_DNN, API_TICKS
     lost = loss_flags(nt, API_LOSS_SEED + np.arange(b),
                       loss_perc=SIM_LOSS_PERC, device=dev).cpu().numpy()
     packets = []
@@ -4915,7 +4936,7 @@ def opus_api_inputs(dev, afx):
     size = np.zeros((b, nt), np.int64)
     for i in range(b):
         st = streams[i % len(streams)]
-        off = API_OFFSET * ((i // len(streams)) % 2)
+        off = offset * ((i // len(streams)) % 2)
         sent = [st[(off + t) % len(st)] for t in range(nt)]
         row = list(sent)
         if i not in API_FX:
@@ -4929,7 +4950,7 @@ def opus_api_inputs(dev, afx):
                                                                48000)
         packets.append(row)
     others = [i for i in range(b) if i not in API_FX]
-    pick = others[::len(others) // API_CPU_EXTRA][:API_CPU_EXTRA]
+    pick = others[::len(others) // extra][:extra]
     cpu_lanes = np.asarray(sorted(list(API_FX) + pick))
     if not fec[cpu_lanes].any() or not (cpu_lanes // 8 % 2).any():
         fail("opus_api: the CPU lanes hold no FEC call or no offset lane")
@@ -4940,23 +4961,27 @@ def opus_api_inputs(dev, afx):
 
 
 def opus_api_run(packets, device, keep=None, timed=False, fec=None,
-                 size=None, channels=1, trace_last=False):
-    """``BatchedOpusDecoder(channels=...)`` over len(packets) lanes, one
-    call a tick (``fec`` / ``size`` [B, T]: the lanes' ``decode_fec`` and
-    ``frame_size``), and the int16 of ``decode_int16`` (the soft clip with
-    each lane's and channel's memory).  Per tick and kept lane (``keep``,
-    default all): float PCM ([L, W], or [L, W, 2] at two channels), int16,
-    sample count, final range, celt_used; the decoder's events and flags;
+                 size=None, channels=1, trace_last=False, fs=48000):
+    """``BatchedOpusDecoder(fs=..., channels=...)`` over len(packets)
+    lanes, one call a tick (``fec`` / ``size`` [B, T]: the lanes'
+    ``decode_fec`` and ``frame_size`` at fs), and the int16 of
+    ``decode_int16`` (the soft clip with each lane's and channel's
+    memory).  Per tick and kept lane (``keep``, default all): float PCM
+    ([L, W], or [L, W, 2] at two channels), int16, decode24's int32
+    (below 48 kHz), sample count, final range, celt_used; the decoder's
+    events and flags;
     with timed=True each tick's CUDA event time; with trace_last=True the
     last tick traced instead (``trace``: its device operations and device
     ms; its time is left out of tick_ms, the profiler's host cost in it)."""
     import numpy as np
     import torch
-    from opus_tpu_torch.models.opus_decoder import BatchedOpusDecoder
+    from opus_tpu_torch.models.opus_decoder import (BatchedOpusDecoder,
+                                                    to_int24)
     b = len(packets)
     keep = np.arange(b) if keep is None else np.asarray(keep)
-    dec = BatchedOpusDecoder(b, channels=channels, device=device)
-    out = dict(pcm=[], pcm16=[], n=[], rng=[], celt=[], tick_ms=[])
+    dec = BatchedOpusDecoder(b, fs=fs, channels=channels, device=device)
+    out = dict(pcm=[], pcm16=[], pcm24=[], n=[], rng=[], celt=[],
+               tick_ms=[])
     nt = len(packets[0])
     for t in range(nt):
         args = ([row[t] for row in packets],
@@ -4985,6 +5010,9 @@ def opus_api_run(packets, device, keep=None, timed=False, fec=None,
         k = torch.as_tensor(keep, device=pcm.device)
         out["pcm"].append(pcm.index_select(0, k).cpu().numpy())
         out["pcm16"].append(pcm16.index_select(0, k).cpu().numpy())
+        if fs != 48000:
+            out["pcm24"].append(to_int24(pcm.index_select(0, k)).cpu()
+                                .numpy())
         out["n"].append(n[keep])
         out["rng"].append(dec.final_range.index_select(0, k).cpu().numpy())
         out["celt"].append(dec.celt_used[keep])
@@ -4993,12 +5021,12 @@ def opus_api_run(packets, device, keep=None, timed=False, fec=None,
     return out
 
 
-def cpu_opus_api(packets, fec, size, lanes, channels=1):
-    """The opus_api (or opus_stereo) run on the CPU over ``lanes``, in a
-    worker process while the card runs."""
+def cpu_opus_api(packets, fec, size, lanes, channels=1, fs=48000):
+    """The opus_api (or opus_stereo, or opus_rates) run on the CPU over
+    ``lanes``, in a worker process while the card runs."""
     t0 = time.time()
     out = opus_api_run([packets[i] for i in lanes], "cpu", fec=fec[lanes],
-                       size=size[lanes], channels=channels)
+                       size=size[lanes], channels=channels, fs=fs)
     del out["decoder"]
     out["seconds"] = time.time() - t0
     return out
@@ -5395,11 +5423,12 @@ def stereo_ticks(c: int) -> int:
     return STEREO_TICKS if c == 2 else STEREO_MONO_TICKS
 
 
-def opus_stereo_inputs(sfx, b: int):
+def opus_stereo_inputs(sfx, b: int, offsets=STEREO_OFFSETS):
     """b lanes over STEREO_TICKS: lane i carries stream i % 8 from step 0
-    or, in every other group of 8 lanes, from its STEREO_OFFSETS step (a
+    or, in every other group of 8 lanes, from its ``offsets`` step (a
     stream's steps wrap), with the fixture's losses and in-band FEC calls;
-    ``cpu_lanes``: the fixture lanes and STEREO_CPU_EXTRA others."""
+    ``cpu_lanes``: the fixture lanes and STEREO_CPU_EXTRA others.
+    ``size`` is in 48 kHz samples."""
     import numpy as np
     streams = stereo_steps(sfx)
     nt = STEREO_TICKS
@@ -5408,7 +5437,7 @@ def opus_stereo_inputs(sfx, b: int):
     size = np.zeros((b, nt), np.int64)
     for i in range(b):
         st = streams[i % len(streams)]
-        off = STEREO_OFFSETS[i % len(streams)] * ((i // len(streams)) % 2)
+        off = offsets[i % len(streams)] * ((i // len(streams)) % 2)
         row = [st[(off + t) % len(st)] for t in range(nt)]
         packets.append([p for p, _f, _z in row])
         fec[i] = [f for _p, f, _z in row]
@@ -5699,6 +5728,439 @@ def fixture_k1_rows(sfx, lm: int, dev) -> dict:
     return out
 
 
+RATES_FIXTURE = os.path.join(REPO, "tests", "data", "torch_opus_rates.npz")
+MS_FIXTURE = os.path.join(REPO, "tests", "data", "torch_opus_ms.npz")
+RATES_FS = (8000, 12000, 16000, 24000)
+RATES_LANES = 256       # the api traffic's lanes at each rate
+RATES_TICKS = 6         # of the api streams' 15-20 packets
+RATES_CPU_EXTRA = 48    # other lanes the card is held to the CPU run on
+RATES_STEREO_FS = 24000
+RATES_TIME_FS = 16000   # opus_api's traffic (B_DNN lanes) timed at this rate
+RATES_TIME_TICKS = 3    # of its ticks: 2 timed with CUDA events, 1 traced
+MS_LANES = 256          # 5.1 streams, and first-order ambisonic streams
+MS_TICKS = 6
+MS_KEEP = 32            # lanes whose outputs come back (all held to JAX)
+MS_CPU_LANES = 4        # of those, the ones held to the port's CPU run
+MS_TIME_TICKS = 3
+MS_CASES = ("hi", "foa")    # torch_opus_ms.npz's 5.1 at 256 kb/s, FOA
+
+
+def step_digest(x):
+    """A step's output as 16 BLAKE2b bytes (little-endian samples), as
+    tools/make_torch_opus_rates_fixture.py stores it."""
+    import hashlib
+    import numpy as np
+    h = hashlib.blake2b(np.ascontiguousarray(x).astype(
+        x.dtype.newbyteorder("<")).tobytes(), digest_size=16)
+    return np.frombuffer(h.digest(), np.uint8)
+
+
+def counted(fn):
+    """fn() on the card with the K1 (mono and stereo), K2 and K4 counters
+    reset just before and read just after -> (its result, the counts, its
+    seconds)."""
+    import torch
+    from opus_tpu_torch.models import celt_dec_kernel as CK
+    from opus_tpu_torch.ops import iir, lpc
+    torch.cuda.synchronize()
+    CK.launches = CK.launches_stereo = iir.launches = lpc.launches = 0
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"K1": CK.launches, "K1 stereo": CK.launches_stereo,
+                 "K2": iir.launches, "K4": lpc.launches}, time.time() - t0
+
+
+def rates_inputs(dev, afx, sfx):
+    """opus_rates' traffic (gateways and speech recognition decoding at
+    8-24 kHz): the api fixture's 8 streams over RATES_LANES lanes from
+    packet 0, the lanes past the fixture's with ``-loss 10`` and every
+    API_FEC_EVERY-th recovering by in-band FEC (``opus_api_inputs``); the
+    stereo fixture's 8 streams over RATES_LANES lanes from step 0
+    (``opus_stereo_inputs``).  Frame sizes in 48 kHz samples."""
+    return (opus_api_inputs(dev, afx, b=RATES_LANES, nt=RATES_TICKS,
+                            offset=0, extra=RATES_CPU_EXTRA),
+            opus_stereo_inputs(sfx, RATES_LANES, offsets=(0,) * 8))
+
+
+def rates_run(inp, device, fs, channels, lanes=None, **kw):
+    """``opus_api_run`` at fs over ``inp``'s traffic (``lanes``: the rows
+    it runs, default all), its frame sizes scaled to fs."""
+    import numpy as np
+    rows = np.arange(len(inp["packets"])) if lanes is None else lanes
+    return opus_api_run([inp["packets"][i] for i in rows], device,
+                        fec=inp["fec"][rows],
+                        size=inp["size"][rows] * fs // 48000,
+                        channels=channels, fs=fs, **kw)
+
+
+def cpu_rates(inp, fs, channels):
+    """A rates run on the CPU over ``inp``'s cpu_lanes, in a worker
+    process while the card runs."""
+    t0 = time.time()
+    out = rates_run(inp, "cpu", fs, channels, lanes=inp["cpu_lanes"])
+    del out["decoder"]
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def rates_card(dev, api, st) -> dict:
+    """opus_rates' card runs (the third process): the api traffic at each
+    rate of RATES_FS, one channel, RATES_TICKS calls; the stereo traffic
+    at RATES_STEREO_FS, two channels, STEREO_TICKS calls; each with the
+    kernel counters reset around it.  Returns numpy only."""
+    out = {}
+    for key, inp, fs, c in ([(fs, api, fs, 1) for fs in RATES_FS]
+                            + [("stereo", st, RATES_STEREO_FS, 2)]):
+        run, counts, sec = counted(lambda: rates_run(
+            inp, dev, fs, c, keep=inp["cpu_lanes"]))
+        del run["decoder"]
+        out[key] = dict(run=run, counts=counts, seconds=sec)
+    return out
+
+
+def rates_fixture_compare(got, rfx, key, rows, packets_rows, fec_rows,
+                          what):
+    """The card's run on the fixture lanes (got's rows ``rows``) against
+    the JAX scalar decoder at the case's rate (torch_opus_rates.npz
+    ``key``): per tick sample counts and final ranges equal; where the
+    scalar CELT decoder took no part, decode_int16's and decode24's
+    output equal by their digests; elsewhere float PCM within PCM_ABS_TOL
+    of decode24 / 2^23, or on a lost or FEC step within CLASSIC_LSB /
+    32768.  Returns (max float err, steps held exactly)."""
+    import numpy as np
+    e_f, exact = 0.0, 0
+    for t in range(len(got["n"])):
+        for s, j in enumerate(rows):
+            n = int(rfx[key + "_n"][s, t])
+            if n < 0:
+                continue
+            if got["n"][t][j] != n or got["rng"][t][j] != rfx[key + "_rng"][
+                    s, t]:
+                fail(f"{what}: tick {t} stream {s}: sample count or final "
+                     f"range differs from JAX")
+            x16 = got["pcm16"][t][j, :n].reshape(-1)
+            x24 = got["pcm24"][t][j, :n].reshape(-1)
+            if rfx[key + "_celt"][s, t] == 0:
+                if not (np.array_equal(step_digest(x16),
+                                       rfx[key + "_d16"][s, t])
+                        and np.array_equal(step_digest(x24),
+                                           rfx[key + "_d24"][s, t])):
+                    fail(f"{what}: tick {t} stream {s}: SILK int16 or "
+                         f"decode24 differs from JAX")
+                exact += 1
+                continue
+            o = rfx[key + "_off"][s, t]
+            ref = rfx[key + "_pcm24"][o:o + len(x24)] / 2.0 ** 23
+            e = float(np.abs(got["pcm"][t][j, :n].reshape(-1) - ref).max(
+                initial=0.0))
+            lossy = packets_rows[j][t] is None or fec_rows[j, t]
+            lim = (CLASSIC_LSB / 32768 if lossy else PCM_ABS_TOL) + 2.0 ** -24
+            if not e <= lim:
+                fail(f"{what}: tick {t} stream {s}: PCM err {e} > {lim}")
+            e_f = max(e_f, e)
+    return e_f, exact
+
+
+def d24_compare(got, ref, what):
+    """decode24 card vs the CPU run: equal on "silk" rows, elsewhere
+    within the float bound in 24-bit steps (+1 for the rounding)."""
+    import numpy as np
+    for t in range(len(ref["n"])):
+        for j, kind in enumerate(ref["kind"][t]):
+            m = int(ref["n"][t][j])
+            d = int(np.abs(got["pcm24"][t][j, :m].astype(np.int64)
+                           - ref["pcm24"][t][j, :m]).max(initial=0))
+            lim = {"silk": 0, "celt": int(PCM_ABS_TOL * 2 ** 23) + 1,
+                   "concealed": CLASSIC_LSB * 256 + 1}.get(kind)
+            if lim is not None and d > lim:
+                fail(f"{what}: tick {t} row {j}: decode24 differs by {d}")
+
+
+def phase_opus_rates(rfx, api, st, cr, jobs):
+    """opus_rates' checks (gateways and speech recognition front ends
+    that decode at 8-24 kHz): the third process's card runs (``cr``) held
+    to the port's CPU runs (``jobs``: futures of cpu_rates on the
+    cpu_lanes) and, on the fixture lanes, to the JAX decoder at the same
+    rate (torch_opus_rates.npz); K1, K2 and K4 launched in each run."""
+    import numpy as np
+    report = []
+    for key, inp, fs, c in ([(fs, api, fs, 1) for fs in RATES_FS]
+                            + [("stereo", st, RATES_STEREO_FS, 2)]):
+        card, counts = cr[key]["run"], cr[key]["counts"]
+        what = f"opus_rates {fs} Hz, {c} channel{'s' * (c == 2)}"
+        for k in ("K1 stereo" if c == 2 else "K1", "K2", "K4"):
+            if counts[k] == 0:
+                fail(f"{what}: kernel {k} launched no time")
+        if card["flagged"].any():
+            fail(f"{what}: lanes flagged")
+        lanes = inp["cpu_lanes"]
+        rows = [inp["packets"][i] for i in lanes]
+        cpu = jobs[key].result()
+        kinds = api_kinds if c == 1 else stereo_kinds
+        cpu["kind"] = kinds(cpu, rows, inp["fec"][lanes])
+        if kinds(card, rows, inp["fec"][lanes]) != cpu["kind"]:
+            fail(f"{what}: the card's CELT use differs from the CPU run's")
+        e_cpu = api_compare(card, cpu, f"{what}: card vs the CPU run")
+        d24_compare(card, cpu, f"{what}: card vs the CPU run")
+        fx_rows = [int(np.nonzero(lanes == i)[0][0]) for i in range(8)]
+        e_jax = rates_fixture_compare(
+            card, rfx, f"{'st' if c == 2 else 'api'}{fs // 1000}_{c}",
+            fx_rows, rows, inp["fec"][lanes], f"{what}: fixture lanes")
+        report.append(f"{fs // 1000} kHz x{c}: launches {counts}, card "
+                      f"{cr[key]['seconds']:.1f} s, CPU {cpu['seconds']:.1f}"
+                      f" s; vs CPU PCM {e_cpu[0]:.3g}, int16 {e_cpu[1]} "
+                      f"LSB; vs JAX PCM {e_jax[0]:.3g}, {e_jax[1]} steps "
+                      f"exact")
+    print(f"opus_rates at {RATES_LANES} lanes ({RATES_TICKS} ticks of the "
+          f"api traffic a rate, {STEREO_TICKS} of the stereo one at "
+          f"{RATES_STEREO_FS} Hz; ranges equal, SILK int16 and decode24 "
+          f"exact, card vs the CPU run on {len(api['cpu_lanes'])} / "
+          f"{len(st['cpu_lanes'])} lanes and vs JAX on the 8 fixture "
+          f"lanes): " + "; ".join(report))
+    return {key: cr[key]["counts"] for key in cr}
+
+
+def ms_inputs(mfx):
+    """opus_ms' traffic (a mixer or transcoder terminating surround and
+    ambisonic streams): per case of MS_CASES MS_LANES lanes over MS_TICKS,
+    lane i carrying the fixture's stream i % 2."""
+    out = {}
+    for case in MS_CASES:
+        plen, buf = mfx[case + "_plen"], mfx[case + "_packets"]
+        n = plen.shape[0]
+        out[case] = [[bytes(buf[i % n, t, :plen[i % n, t]])
+                      for t in range(MS_TICKS)] for i in range(MS_LANES)]
+    return out
+
+
+def ms_layout(mfx, case):
+    ch, streams, coupled = (int(v) for v in mfx[case + "_layout"])
+    return ch, streams, coupled, [int(m) for m in mfx[case + "_mapping"]]
+
+
+def ms_run(mfx, case, packets, device, keep=None, timed=False):
+    """``BatchedOpusMSDecoder`` (case "hi") or
+    ``BatchedOpusProjectionDecoder`` ("foa") at 48 kHz over len(packets)
+    lanes, one call a tick.  Per tick and kept lane: float PCM [L, W, C],
+    int16 (5.1: FLOAT2INT16, no soft clip; projection: the Q15 demix of
+    the internal channels' int16), decode24, n, the elementary decoders'
+    ranges [L, streams]; tick_ms with timed=True."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models.multistream import BatchedOpusMSDecoder
+    from opus_tpu_torch.models.opus_decoder import to_int24
+    from opus_tpu_torch.models.projection import BatchedOpusProjectionDecoder
+    from opus_tpu_torch.utils.soft_clip import float2int16_lanes
+    ch, streams, coupled, mapping = ms_layout(mfx, case)
+    b = len(packets)
+    keep = np.arange(b) if keep is None else np.asarray(keep)
+    if case == "foa":
+        dec = BatchedOpusProjectionDecoder(
+            b, 48000, ch, streams, coupled, mfx[case + "_matrix"].tobytes(),
+            device=device)
+        ms = dec.ms
+    else:
+        dec = ms = BatchedOpusMSDecoder(b, 48000, ch, streams, coupled,
+                                        mapping, device=device)
+    out = dict(pcm=[], pcm16=[], pcm24=[], n=[], rng=[], tick_ms=[])
+    k = torch.as_tensor(keep, device=ms.device)
+    for t in range(len(packets[0])):
+        if timed:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        x, n = ms.decode([row[t] for row in packets])
+        if case == "foa":
+            pcm = torch.matmul(x, dec.demix)
+            pcm16 = dec.demix_int16(float2int16_lanes(x))
+        else:
+            pcm, pcm16 = x, float2int16_lanes(x)
+        pcm24 = to_int24(pcm)
+        if timed:
+            e1.record()
+            torch.cuda.synchronize()
+            out["tick_ms"].append(e0.elapsed_time(e1))
+        if ms.status.any():
+            fail(f"opus_ms {case}: lanes refused: {ms.status.tolist()[:8]}")
+        out["pcm"].append(pcm.index_select(0, k).cpu().numpy())
+        out["pcm16"].append(pcm16.index_select(0, k).cpu().numpy())
+        out["pcm24"].append(pcm24.index_select(0, k).cpu().numpy())
+        out["n"].append(n[keep])
+        out["rng"].append(ms.final_range.index_select(0, k).cpu().numpy())
+    out["demix"] = dec.demix_q15.cpu().numpy() if case == "foa" else None
+    return out
+
+
+def cpu_ms(case, packets):
+    """An opus_ms run on the CPU over ``packets``' lanes, in a worker
+    process while the card runs."""
+    import numpy as np
+    t0 = time.time()
+    out = ms_run(dict(np.load(MS_FIXTURE)), case, packets, "cpu")
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def ms_card(dev, mfx, ms_in) -> dict:
+    """opus_ms' card runs (the third process): each case of MS_CASES over
+    MS_LANES lanes for MS_TICKS calls, the kernel counters reset around
+    it; the first MS_KEEP lanes' outputs returned (numpy)."""
+    out = {}
+    for case in MS_CASES:
+        run, counts, sec = counted(lambda: ms_run(
+            mfx, case, ms_in[case], dev, keep=range(MS_KEEP)))
+        out[case] = dict(run=run, counts=counts, seconds=sec)
+    return out
+
+
+def phase_opus_ms(dev, mfx, cr, jobs):
+    """opus_ms' checks: the third process's card runs (``cr``) held on
+    every kept lane to the JAX decoders (torch_opus_ms.npz: the elementary
+    decoders' final ranges, float PCM within PCM_ABS_TOL of decode24 /
+    2^23 (the projection's scaled by its demixing matrix's largest row
+    sum), decode24 and int16 exact on the channels of SILK-only streams;
+    the projection's Q15 demix fed JAX's internal int16 equal to JAX's
+    decode_int16) and on MS_CPU_LANES lanes to the port's CPU run
+    (``jobs``); the kernels each case runs launched."""
+    import numpy as np
+    import torch
+    from opus_tpu_torch.models.projection import BatchedOpusProjectionDecoder
+    report = []
+    for case in MS_CASES:
+        card, counts = cr[case]["run"], cr[case]["counts"]
+        what = f"opus_ms {case}"
+        need = ("K1 stereo", "K2") + (("K1", "K4") if case == "hi" else ())
+        for k in need:
+            if counts[k] == 0:
+                fail(f"{what}: kernel {k} launched no time")
+        ch, streams, coupled, mapping = ms_layout(mfx, case)
+        n_fx = mfx[case + "_plen"].shape[0]
+        gain = 1.0
+        if case == "foa":
+            gain = np.abs(card["demix"]).sum(axis=1).max() / 32768.0
+        modes = mfx[case + "_modes"]
+        e_jax, exact = 0.0, 0
+        for t in range(MS_TICKS):
+            for j in range(MS_KEEP):
+                s = j % n_fx
+                ref24 = mfx[case + "_pcm24"][s, t]
+                if card["n"][t][j] != ref24.shape[0] or not np.array_equal(
+                        card["rng"][t][j], mfx[case + "_rng"][s, t]):
+                    fail(f"{what}: tick {t} lane {j}: sample count or "
+                         f"final ranges differ from JAX")
+                e = float(np.abs(card["pcm"][t][j] - ref24 / 2.0 ** 23).max())
+                if not e <= PCM_ABS_TOL * gain + 2.0 ** -24:
+                    fail(f"{what}: tick {t} lane {j}: PCM err {e}")
+                e_jax = max(e_jax, e)
+                for c, m in enumerate(mapping):
+                    if m == 255:
+                        continue
+                    st = m // 2 if m < 2 * coupled else m - coupled
+                    if case != "foa" and (modes[s, :t + 1, st]
+                                          == 1000).all():
+                        want16 = np.clip(np.round(ref24[:, c] / 256.0),
+                                         -32768, 32767)
+                        if not (np.array_equal(card["pcm24"][t][j][:, c],
+                                               ref24[:, c])
+                                and np.array_equal(card["pcm16"][t][j][:, c],
+                                                   want16)):
+                            fail(f"{what}: tick {t} lane {j} channel {c}: "
+                                 f"SILK output differs from JAX")
+                        exact += 1
+        cpu = jobs[case].result()
+        e_cpu = 0.0
+        for t in range(MS_TICKS):
+            for j in range(MS_CPU_LANES):
+                if not np.array_equal(card["rng"][t][j], cpu["rng"][t][j]):
+                    fail(f"{what}: tick {t} lane {j}: ranges differ from the "
+                         f"CPU run")
+                e_cpu = max(e_cpu, float(np.abs(card["pcm"][t][j]
+                                                - cpu["pcm"][t][j]).max()))
+        if not e_cpu <= PCM_ABS_TOL * gain:
+            fail(f"{what}: card vs the CPU run: PCM err {e_cpu}")
+        extra = ""
+        if case == "foa":
+            dec = BatchedOpusProjectionDecoder(
+                1, 48000, ch, streams, coupled,
+                mfx[case + "_matrix"].tobytes(), device=dev)
+            x16 = torch.as_tensor(mfx[case + "_internal16"], device=dev)
+            got = dec.demix_int16(x16.flatten(0, 1)).cpu().numpy()
+            if not np.array_equal(got.reshape(mfx[case + "_pcm16"].shape),
+                                  mfx[case + "_pcm16"]):
+                fail(f"{what}: the Q15 demix of JAX's internal int16 "
+                     f"differs from JAX's decode_int16")
+            d16 = max(int(np.abs(card["pcm16"][t][j].astype(np.int64)
+                                 - mfx[case + "_pcm16"][j % n_fx, t]).max())
+                      for t in range(MS_TICKS) for j in range(MS_KEEP))
+            extra = (f", the card's Q15 demix of JAX's internal int16 "
+                     f"equal to JAX's int16, its own int16 within {d16} LSB")
+        report.append(f"{case} ({ch} channels, {streams} streams, "
+                      f"{coupled} coupled): launches {counts}, card "
+                      f"{cr[case]['seconds']:.1f} s, CPU {cpu['seconds']:.1f}"
+                      f" s; PCM vs JAX {e_jax:.3g}, vs CPU {e_cpu:.3g}; "
+                      f"{exact} SILK channel-ticks exact{extra}")
+    print(f"opus_ms at {MS_LANES} lanes x {MS_TICKS} ticks (the first "
+          f"{MS_KEEP} held to JAX, {MS_CPU_LANES} to the CPU run): "
+          + "; ".join(report))
+    return {case: cr[case]["counts"] for case in MS_CASES}
+
+
+def opus_rates_times(dev, smi, api_in):
+    """opus_api's traffic (B_DNN lanes, lanes at two packet offsets) at
+    RATES_TIME_FS for RATES_TIME_TICKS calls: CUDA event times of all but
+    the last, which is traced (device operations, device ms, busy share
+    of the median tick)."""
+    import numpy as np
+    nt = RATES_TIME_TICKS
+    inp = dict(api_in, packets=[row[:nt] for row in api_in["packets"]],
+               fec=api_in["fec"][:, :nt], size=api_in["size"][:, :nt])
+    run = rates_run(inp, dev, RATES_TIME_FS, 1, keep=np.zeros(0, np.int64),
+                    timed=True, trace_last=True)
+    ms = float(np.median(run["tick_ms"]))
+    ops, dms = run["trace"]
+    print(f"opus_rates times [{smi}]: opus_api's traffic at "
+          f"{RATES_TIME_FS} Hz, B={B_DNN}: ticks "
+          f"{', '.join(f'{v:.0f}' for v in run['tick_ms'])} ms (median "
+          f"{ms:.1f}); the last tick traced: {ops:.0f} device operations, "
+          f"{dms:.2f} ms device (busy {100 * dms / ms:.1f}% of the median "
+          f"tick)")
+    return dict(tick_ms=ms, ops=ops, dev_ms=dms)
+
+
+def opus_ms_times(dev, smi, mfx, ms_in):
+    """The 5.1 cell (MS_LANES lanes) for MS_TIME_TICKS calls, a fresh
+    decoder, CUDA event times of each."""
+    import numpy as np
+    run = ms_run(mfx, "hi", [row[:MS_TIME_TICKS] for row in ms_in["hi"]],
+                 dev, keep=np.zeros(0, np.int64), timed=True)
+    ms = float(np.median(run["tick_ms"]))
+    print(f"opus_ms times [{smi}]: 5.1 at 256 kb/s, {MS_LANES} streams "
+          f"({MS_LANES * 2} stereo + {MS_LANES * 2} mono elementary "
+          f"lanes): ticks {', '.join(f'{v:.1f}' for v in run['tick_ms'])} "
+          f"ms (median {ms:.1f})")
+    return dict(tick_ms=ms)
+
+
+def third_phases(api_r, st_r, ms_in) -> dict:
+    """The phases a third process on the card runs beside the first two
+    processes' early phases: opus_rates' and opus_ms' card runs, untimed;
+    the first process checks them."""
+    return _second(_rates_ms_phases, api_r, st_r, ms_in)
+
+
+def _rates_ms_phases(dev, res, api_r, st_r, ms_in):
+    import numpy as np
+    t_start = time.time()
+    where = " (third process)"
+    t0 = time.time()
+    res["rates"] = rates_card(dev, api_r, st_r)
+    phase_done(res["phase_s"], "opus_rates_card", t0, t_start, where)
+    t0 = time.time()
+    res["ms"] = ms_card(dev, dict(np.load(MS_FIXTURE)), ms_in)
+    phase_done(res["phase_s"], "opus_ms_card", t0, t_start, where)
+
+
 def phase_done(phase_s: dict, name: str, t0: float, t_start: float,
                where: str = "") -> None:
     """Record phase ``name``'s seconds since t0 and print them with the
@@ -5887,7 +6349,7 @@ def main() -> int:
                  SWB_FIXTURE, DRED_FIXTURE, PLC_FIXTURE, OSCE_FIXTURE,
                  FIXTURE10, ENC_FIXTURE10, DRED_ENC_FIXTURE, BBWE_FIXTURE,
                  SIM_FIXTURE, CELT_PLC_FIXTURE, SILK_PLC_FIXTURE,
-                 API_FIXTURE, STEREO_FIXTURE):
+                 API_FIXTURE, STEREO_FIXTURE, RATES_FIXTURE, MS_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 1
@@ -5936,10 +6398,26 @@ def main() -> int:
     # a second process on the card runs the encoder, 10 ms CELT, SILK and
     # both hybrid phases while this one runs the others, then opus_api's
     # and opus_stereo's untimed card runs while this one runs the loss
-    # phases; every timing phase runs after both have finished, alone on
-    # the card
-    with second_process() as second:
+    # phases; a third runs opus_rates' and opus_ms' untimed card runs from
+    # the start, their CPU references in two workers beside it; every
+    # timing phase runs after all have finished, alone on the card
+    afx = dict(np.load(API_FIXTURE))
+    stfx = dict(np.load(STEREO_FIXTURE))
+    rfx = dict(np.load(RATES_FIXTURE))
+    mfx = dict(np.load(MS_FIXTURE))
+    api_r, st_r = rates_inputs(dev, afx, stfx)
+    ms_in = ms_inputs(mfx)
+    with second_process() as second, second_process() as third, \
+            cpu_pool(2) as rpool:
         second_job = second.submit(second_phases)
+        third_job = third.submit(third_phases, api_r, st_r, ms_in)
+        rates_jobs = {key: rpool.submit(cpu_rates, inp, fs, c)
+                      for key, inp, fs, c in (
+                          [(fs, api_r, fs, 1) for fs in RATES_FS]
+                          + [("stereo", st_r, RATES_STEREO_FS, 2)])}
+        ms_jobs = {case: rpool.submit(cpu_ms, case,
+                                      ms_in[case][:MS_CPU_LANES])
+                   for case in MS_CASES}
         t0 = time.time()
         plain_outs, x_err, e_err, k2_err, k2_in = phase_kernel_vs_plain(
             lanes, dev, tabs)
@@ -6006,9 +6484,7 @@ def main() -> int:
             sl_in = sim_loss_inputs(dev, simfx)
             sl_job = pool.submit(cpu_sim_loss, sl_in["packets"],
                                  sl_in["lost"])
-            afx = dict(np.load(API_FIXTURE))
             api_in = opus_api_inputs(dev, afx)
-            stfx = dict(np.load(STEREO_FIXTURE))
             st_in = opus_stereo_inputs(stfx, B_DNN)
             late_job = second.submit(second_late, api_in, st_in)
             phase_done(phase_s, "loss_inputs", t0, t_main)
@@ -6065,6 +6541,20 @@ def main() -> int:
                                    late["stereo_one"])
             phase_done(phase_s, "opus_stereo", t0, t_main)
 
+        t0 = time.time()
+        sp3 = third_job.result()
+        print(sp3["log"], end="")
+        if sp3["fail"]:
+            fail(f"the third process: {sp3['fail']}")
+        phase_s.update(sp3["phase_s"])
+        phase_done(phase_s, "third_process_wait", t0, t_main)
+        t0 = time.time()
+        rates = phase_opus_rates(rfx, api_r, st_r, sp3["rates"], rates_jobs)
+        phase_done(phase_s, "opus_rates", t0, t_main)
+        t0 = time.time()
+        ms = phase_opus_ms(dev, mfx, sp3["ms"], ms_jobs)
+        phase_done(phase_s, "opus_ms", t0, t_main)
+
     t0 = time.time()
     t = phase_times(lanes, dev, tabs, k2_in, smi)
     t = phase_enc_times(enc_lanes, dev, smi, t)
@@ -6095,6 +6585,12 @@ def main() -> int:
     t0 = time.time()
     apt = opus_api_times(dev, smi, api)
     phase_done(phase_s, "opus_api_times", t0, t_main)
+    t0 = time.time()
+    rt = opus_rates_times(dev, smi, api_in)
+    phase_done(phase_s, "opus_rates_times", t0, t_main)
+    t0 = time.time()
+    mt = opus_ms_times(dev, smi, mfx, ms_in)
+    phase_done(phase_s, "opus_ms_times", t0, t_main)
 
     t0 = time.time()
     k5 = phase_k5(dev, smi)
@@ -6126,7 +6622,11 @@ def main() -> int:
                 "silk plc hybrid": sp["hybrid"]["counts"],
                 "opus api": api["counts"],
                 "opus stereo two channels": st["counts"][2],
-                "opus stereo one channel": st["counts"][1]}
+                "opus stereo one channel": st["counts"][1],
+                **{f"opus rates {k}" + (" Hz" if k != "stereo" else
+                                        f" {RATES_STEREO_FS} Hz"): v
+                   for k, v in rates.items()},
+                **{f"opus ms {k}": v for k, v in ms.items()}}
     print(f"launches per path ({NFRAMES} frames; the DRED chain "
           f"{CHAIN_FRAMES}): {per_path}")
 
@@ -6208,7 +6708,11 @@ def main() -> int:
           f"opus_stereo two-channel tick at B={B_DNN} {st['tick_ms']:.1f} "
           f"ms (busy {100 * st['dev_ms'] / st['tick_ms']:.1f}%), K1 stereo "
           f"at 20 ms {st['k1s']:.4f} ms (bound {st['k1s_bound'][0]:.6f} "
-          f"ms) beside the mono instantiation's {t['k1']:.4f} ms")
+          f"ms) beside the mono instantiation's {t['k1']:.4f} ms; "
+          f"opus_rates tick at {RATES_TIME_FS} Hz, B={B_DNN} "
+          f"{rt['tick_ms']:.1f} ms (busy "
+          f"{100 * rt['dev_ms'] / rt['tick_ms']:.1f}%); opus_ms 5.1 tick at "
+          f"B={MS_LANES} {mt['tick_ms']:.1f} ms")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

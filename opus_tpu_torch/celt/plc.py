@@ -284,7 +284,7 @@ def from_rows(d, c: int):
             for i in range(c)]
 
 
-def _noise(st, tabs, n: int, cc: int = 1):
+def _noise(st, tabs, n: int, cc: int = 1, downsample: int = 1):
     """The noise branch on every lane, over cc output channels: (the
     postfiltered signal of each channel [B, N] f32, each channel's new
     tail and hist, decayed energies [B, nb] f32, the LCG state).  The
@@ -324,13 +324,15 @@ def _noise(st, tabs, n: int, cc: int = 1):
     filt, syn = synth_step(torch.stack(xs, 1), torch.stack(es, 1), false,
                            false, periods, gains3[..., None] * comb[taps3],
                            dsps[0] if cc == 1 else to_rows(dsps),
-                           fs=mode.Fs, frame_size=n, lm=lm)
+                           fs=mode.Fs, frame_size=n, lm=lm,
+                           downsample=downsample)
     filts = list(filt.unflatten(0, (b, cc)).unbind(1))
     syns = [syn] if cc == 1 else from_rows(syn, cc)
     return filts, syns, es, seed
 
 
-def decode_lost(state: dict, tabs, lanes, out_channels: int = 1):
+def decode_lost(state: dict, tabs, lanes, out_channels: int = 1,
+                downsample: int = 1):
     """One concealed frame (reference: celt_decode_lost) on the lanes of
     ``lanes`` [B] bool that have decoded a packet before
     (``decoded_any``), over ``out_channels`` channels (2: the state of
@@ -343,7 +345,9 @@ def decode_lost(state: dict, tabs, lanes, out_channels: int = 1):
     periodic frame, and the relative distances of the pitch search's and
     the zeroing's decisions from a tie, ``pitch_margin`` (1 where the
     period was not searched) and ``zero_margin`` (the least over the
-    channels))."""
+    channels)).  downsample: 48000 / the decoder's rate; the concealment
+    runs at 48 kHz and every downsample-th de-emphasised sample is output
+    (pcm [B, CC, N / downsample])."""
     cc = out_channels
     mode = tabs.mode
     lm, m = tabs.lm, tabs.M
@@ -395,7 +399,7 @@ def decode_lost(state: dict, tabs, lanes, out_channels: int = 1):
             prefilter_and_fold=torch.where(per, 1,
                                            state["prefilter_and_fold"]))
     if any_noi:
-        f_n, syns, es, seed = _noise(state, tabs, n, cc)
+        f_n, syns, es, seed = _noise(state, tabs, n, cc, downsample)
         sel = noi[:, None]
         for k in range(cc):
             filt[k] = torch.where(sel, f_n[k], filt[k])
@@ -417,11 +421,12 @@ def decode_lost(state: dict, tabs, lanes, out_channels: int = 1):
             skip_plc=torch.where(noi, 1, state["skip_plc"]))
         if cc == 2:
             new["e_copy"] = torch.where(sel, es[1], state["e_copy"])
-    pcm = torch.zeros((b, cc, n), dtype=torch.float32, device=dev)
+    pcm = torch.zeros((b, cc, n // downsample), dtype=torch.float32,
+                      device=dev)
     if any_per or any_noi:
         mem = torch.stack([d["deemph"] for d in dsps], 1).flatten()
         y, deemph = deemphasize(torch.stack(filt, 1).flatten(0, 1), mem,
-                                mode.Fs, n)
+                                mode.Fs, n, downsample)
         y, deemph = y.unflatten(0, (b, cc)), deemph.unflatten(0, (b, cc))
         for k in range(cc):
             ndsp[k]["deemph"] = torch.where(conc, deemph[:, k],

@@ -677,8 +677,9 @@ def dred_enc_state_from_jax(jax_encs, device="cpu"):
 
 
 def opus_decoder_state(jax_decoders, device="cpu") -> dict:
-    """B scalar ``OpusDecoder``s of the JAX package (48 kHz, all with one
-    output channel count), taken mid-stream -> the port's per-lane
+    """B scalar ``OpusDecoder``s of the JAX package (all at one rate below
+    96 kHz and one output channel count), taken mid-stream -> the port's
+    per-lane
     ``BatchedOpusDecoder`` state (``BatchedOpusDecoder.set_state``): the
     CELT decoder (``celt_state_from_scalar`` with both channels' energy
     memory, and the second output channel's synthesis state on a
@@ -686,9 +687,9 @@ def opus_decoder_state(jax_decoders, device="cpu") -> dict:
     lane counts as having decoded), the SILK side (``silk_api.SilkLanes``:
     both channel states at their rates at the port's widest buffers, the
     first 320 samples of the scalar's outBuf, exc_Q14 and CNG buffer,
-    their packet flags and conditional-coding memory; both 48 kHz
-    resamplers: IIR state, the FIR's 8 taps, the delay line padded to the
-    widest; the stereo state: the 2-sample mid and side buffers and the
+    their packet flags and conditional-coding memory; both resamplers to
+    the decoder's rate, each field padded to ``resampler.WIDE``: the IIR
+    or AR2 state, the FIR history, the delay line; the stereo state: the 2-sample mid and side buffers and the
     last predictor; on the host each channel's rate (0 before its first
     frame or after a reset), the internal channel count and
     prev_decode_only_middle), the soft clip memories, the final range and
@@ -696,12 +697,21 @@ def opus_decoder_state(jax_decoders, device="cpu") -> dict:
     channels, frame size, last packet duration, the CELT decoder's start
     and end, the gain."""
     from .models.opus_decoder import BatchedOpusDecoder
-    from .models.silk_api import RS_DELAY, silk_fresh
+    from .models.silk_api import silk_fresh
+    from .silk.resampler import WIDE
     decs = list(jax_decoders)
     b = len(decs)
     cc = decs[0].channels
     celt = celt_state_from_scalar([d.celt for d in decs], device,
                                   out_channels=cc)
+    # the port's widths: a scalar field as long as the LPC order (10 at NB
+    # and MB) or the frame is zero-padded to them, outBuf cut to them
+    widths = {}
+    for key, name in SILK_SCALAR_KEYS.items():
+        v = silk_fresh(1, 16, "cpu")
+        for part in name.split("."):
+            v = v[part]
+        widths[key] = v.shape[1] if v.dim() > 1 else None
     chans, rss = [], []
     for k in range(2):
         fields = {}
@@ -710,7 +720,9 @@ def opus_decoder_state(jax_decoders, device="cpu") -> dict:
             for d in decs:
                 v = np.asarray(getattr(d.silk.channel_state[k], key),
                                np.int64)
-                rows.append(v.reshape(-1)[:320] if v.ndim else v)
+                w = widths[key]
+                rows.append(v if w is None else np.pad(
+                    v.reshape(-1)[:w], (0, max(0, w - v.size))))
             fields[key] = np.stack(rows)
         st = silk_state_from_scalar(fields, device)
         cs = [d.silk.channel_state[k] for d in decs]
@@ -728,14 +740,12 @@ def opus_decoder_state(jax_decoders, device="cpu") -> dict:
             m = torch.as_tensor(fresh, device=device)
             st = select_lanes(m, silk_fresh(b, 16, device), st)
         chans.append(st)
-        rs = dict(s_iir=np.zeros((b, 6), np.int64),
-                  s_fir=np.zeros((b, 8), np.int64),
-                  delay=np.zeros((b, RS_DELAY), np.int64))
+        rs = {k: np.zeros((b, w), np.int64) for k, w in WIDE.items()}
         for i, c in enumerate(cs):
             r = c.resampler
             if r is not None:
-                rs["s_iir"][i] = r.s_iir[:6]
-                rs["s_fir"][i] = r.s_fir[:8]
+                rs["s_iir"][i] = r.s_iir[:WIDE["s_iir"]]
+                rs["s_fir"][i] = r.s_fir[:WIDE["s_fir"]]
                 rs["delay"][i, :r.input_delay] = r.delay_buf[:r.input_delay]
         rss.append({key: torch.from_numpy(v).to(device)
                     for key, v in rs.items()})
@@ -776,3 +786,20 @@ def opus_decoder_state(jax_decoders, device="cpu") -> dict:
                                      np.int64), device=device),
         host={k: np.asarray(v, bool if k == "prev_redundancy" else np.int64)
               for k, v in host.items()})
+
+def opus_ms_decoder_state(jax_decoders, device="cpu") -> dict:
+    """B multistream decoders of the JAX package (``OpusMSDecoder``, or a
+    projection decoder's ``.ms``; one layout, one rate), taken mid-stream
+    -> the port's ``BatchedOpusMSDecoder.set_state`` dict: each elementary
+    decoder's state (``opus_decoder_state``) on its row of the inner
+    batched decoders, lane i's stream s at i * coupled + s (stereo) or
+    i * uncoupled + s - coupled (mono)."""
+    decs = list(jax_decoders)
+    cp, n = decs[0].coupled_streams, decs[0].streams
+    return dict(
+        coupled=opus_decoder_state([d.decoders[s] for d in decs
+                                    for s in range(cp)], device)
+        if cp else None,
+        mono=opus_decoder_state([d.decoders[s] for d in decs
+                                 for s in range(cp, n)], device)
+        if n > cp else None)

@@ -101,7 +101,8 @@ def _taps_at(ybuf, s0: int, t, g):
 
 def decode_step(x, band_log_e, transient, silence, periods, tap_gains,
                 state: dict, *, fs: int = 48000, frame_size: int = 960,
-                lm: int = 3, channels: int = 1, downmix: bool = False):
+                lm: int = 3, channels: int = 1, downmix: bool = False,
+                downsample: int = 1):
     """One frame of batched CELT decode DSP.
 
     x:          [B, C, N] normalized band shapes
@@ -113,29 +114,41 @@ def decode_step(x, band_log_e, transient, silence, periods, tap_gains,
     downmix:    C = 2 coded channels to one output channel, the average of
                 the two denormalised spectra (celt_decoder.c:413
                 celt_synthesis with CC = 1, C = 2); state then has B rows
-    returns (pcm [B, C, N] float in [-1, 1] ([B, 1, N] with downmix), new
-    state)
+    downsample: 48000 / the decoder's rate (1, 2, 3, 4 or 6): the spectrum
+                above the output's band is zeroed and every downsample-th
+                de-emphasised sample kept (celt_decoder.c deemphasis)
+    returns (pcm [B, C, N / downsample] float in [-1, 1] ([B, 1, ...]
+    with downmix), new state)
     """
     filt, dsp = synth_step(x, band_log_e, transient, silence, periods,
                            tap_gains, state, fs=fs, frame_size=frame_size,
-                           lm=lm, downmix=downmix)
-    pcm, deemph = deemphasize(filt, state["deemph"], fs, frame_size)
-    return pcm.reshape(x.shape[0], -1, x.shape[2]), dict(dsp, deemph=deemph)
+                           lm=lm, downmix=downmix, downsample=downsample)
+    pcm, deemph = deemphasize(filt, state["deemph"], fs, frame_size,
+                              downsample)
+    return pcm.reshape(x.shape[0], -1, pcm.shape[1]), dict(dsp,
+                                                            deemph=deemph)
 
 
-def deemphasize(filt, mem, fs: int = 48000, frame_size: int = 960):
+def deemphasize(filt, mem, fs: int = 48000, frame_size: int = 960,
+                downsample: int = 1):
     """De-emphasis y[n] = x[n] + coef*y[n-1] (kernel K2 on the card) of
-    the postfiltered signal [BC, N] -> (pcm in [-1, 1], new memory)."""
+    the postfiltered signal [BC, N] over all N samples, then every
+    ``downsample``-th sample kept (opus_tpu/celt/decoder.py:697-725) ->
+    (pcm [BC, N / downsample] in [-1, 1], new memory)."""
     mode = mode_create(fs, frame_size)
     y, deemph = deemphasis(filt, mem, float(mode.preemph[0]))
+    if downsample > 1:
+        y = y[:, ::downsample]
     return y * (1.0 / 32768.0), deemph
 
 
 def synth_step(x, band_log_e, transient, silence, periods, tap_gains,
                state: dict, *, fs: int = 48000, frame_size: int = 960,
-               lm: int = 3, downmix: bool = False):
+               lm: int = 3, downmix: bool = False, downsample: int = 1):
     """``decode_step`` up to the de-emphasis: returns (the postfiltered
-    signal [BC, N] f32, the new ``tail`` and ``hist``)."""
+    signal [BC, N] f32, the new ``tail`` and ``hist``).  With downsample
+    > 1 the bins from N / downsample up are zeroed (denormalise_bands'
+    bound, opus_tpu/celt/bands.py:1404-1409)."""
     mode = mode_create(fs, frame_size)
     n = mode.shortMdctSize << lm
     overlap = mode.overlap
@@ -157,6 +170,9 @@ def synth_step(x, band_log_e, transient, silence, periods, tap_gains,
         freq = 0.5 * (freq[:, :1] + freq[:, 1:])
         c, bc = 1, b
     freq = torch.where(silence[:, None, None], 0.0, freq).reshape(bc, n)
+    if downsample > 1:
+        freq = torch.cat([freq[:, :n // downsample],
+                          torch.zeros_like(freq[:, n // downsample:])], dim=1)
 
     # --- IMDCT: long and short paths, select per stream ---
     basis_l = const(("imdct", n, overlap),

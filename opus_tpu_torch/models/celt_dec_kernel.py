@@ -244,7 +244,8 @@ def _missing_decay(state: dict, tabs: DecTabs):
 def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
                               frame_fn=None, d0=None, channels: int = 1,
                               out_channels: int = 1,
-                              disable_inv: bool = False):
+                              disable_inv: bool = False,
+                              downsample: int = 1):
     """One frame at 2.5-20 ms: the K1 symbol pass + the synthesis stage
     (IMDCT/TDAC, postfilter, de-emphasis with K2).  state: the
     fused_celt_init_state dict (with ``channels=2`` for a decoder that
@@ -252,11 +253,13 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
     continue from (hybrid), or None.  channels: the frame's coded
     channels C (2: K1's stereo instantiation); out_channels: the output's
     CC (a mono frame is synthesised into both, a stereo frame's spectra
-    are averaged into one); disable_inv: the decoder's flag.  Mirrors
+    are averaged into one); disable_inv: the decoder's flag; downsample:
+    48000 / the decoder's rate (the synthesis runs at 48 kHz, every
+    downsample-th de-emphasised sample is kept).  Mirrors
     celt_decoder.c:1209-1614, the steps after a concealed frame included
     (the energies' decay, the fold of the extrapolated overlap, the
     background energies and the loss counters); returns (pcm [B, CC, N],
-    new state, err [B])."""
+    new state, err [B]), N the frame's samples at the decoder's rate."""
     ld = state["loss_duration"]
     if channels == 1:
         frame_fn = decode_frame if frame_fn is None else frame_fn
@@ -312,7 +315,8 @@ def kernel_celt_decode_to_pcm(buf_u8, lens, state: dict, tabs: DecTabs,
     pcm, dsp = decode_step(x, es_syn, transient, silence, periods, tgains,
                            dsps[0] if out_channels == 1 else to_rows(dsps),
                            fs=tabs.mode.Fs, frame_size=n_full, lm=tabs.lm,
-                           channels=x.shape[1], downmix=downmix)
+                           channels=x.shape[1], downmix=downmix,
+                           downsample=downsample)
     dsp_ch = [dsp] if out_channels == 1 else from_rows(dsp, 2)
 
     # ---- state carry (celt_decoder.c:1560-1614), per channel; a mono

@@ -1,10 +1,11 @@
-"""The top-level Opus decoder over B independent streams at 48 kHz, with
-one or two output channels.
+"""The top-level Opus decoder over B independent streams at 8, 12, 16,
+24 or 48 kHz, with one or two output channels.
 
-Port of ``opus_tpu/models/opus_decoder.py`` (``OpusDecoder(48000,
+Port of ``opus_tpu/models/opus_decoder.py`` (``OpusDecoder(fs,
 channels)``: the TOC, code 0-3 framing, mode dispatch, mode transitions
 and redundancy frames, loss and DTX, in-band FEC, ``decode_int16``,
-``OPUS_SET_GAIN``) for every packet of TOC configurations 0-31, mono or
+``decode24``, ``OPUS_SET_GAIN``) for every packet of TOC configurations
+0-31, mono or
 stereo: CELT-only at 2.5-20 ms, SILK-only NB/MB/WB at 10-60 ms (2-3
 frames in one SILK packet at 40/60 ms) and hybrid SWB/FB at 10/20 ms.
 Each lane gets its own packet (or None) at every call, and each lane's
@@ -12,7 +13,12 @@ mode, bandwidth, frame size and coded channel count may change from
 packet to packet.  A stereo packet on a one-channel decoder is mixed
 down as libopus does (the SILK mid channel; CELT's two spectra averaged,
 with ``disable_inv``); a mono packet on a two-channel decoder is
-synthesised into both channels.
+synthesised into both channels.  Below 48 kHz the SILK output is
+resampled to the decoder's rate and the CELT synthesis runs at 48 kHz and
+keeps every (48000 / fs)-th de-emphasised sample, as libopus does.  A
+packet that carries a quality extension (extension 124 in its padding,
+which the JAX package decodes at 48 and 96 kHz) is refused on its lane
+with OPUS_UNIMPLEMENTED: QEXT is not ported, and neither is 96 kHz.
 
 How a call runs.  The packets are parsed on the host and each lane's
 work is laid out as a list of jobs: its frames, or the concealment of a
@@ -22,7 +28,7 @@ round follows ``_decode_frame`` (:280-488) stage by stage over the lanes
 that need each stage: the transition concealment, the SILK half
 (``silk_api.SilkLanes``: the header, the LBRR frames, the stereo
 predictor, each SILK frame of the packet, mid/side -> left/right, the
-upsamplers), the redundancy signal, the CELT -> SILK redundant frame,
+resamplers), the redundancy signal, the CELT -> SILK redundant frame,
 the CELT frame (or a SILK frame's hybrid -> SILK fade), the SILK -> CELT
 redundant frame, then the splices, crossfades and gain lane by lane under
 masks.  Inside a stage the lanes are grouped by what fixes the code path
@@ -45,9 +51,9 @@ Kernels: K1 (every CELT frame, redundant frame and fade frame; LM 0-3;
 its mono or its stereo instantiation by the frame's coded channels), K2
 (every CELT synthesis and concealment, one row per output channel), K4
 (every SILK frame and concealment of each coded channel) on the card,
-their plain versions on CPU tensors.  Errors: an invalid packet sets
-``status`` on its lane for that call and leaves the lane's state
-untouched; a lane that K1 or the SILK symbol pass flags stays
+their plain versions on CPU tensors.  Errors: an invalid packet (or a
+QEXT one) sets ``status`` on its lane for that call and leaves the lane's
+state untouched; a lane that K1 or the SILK symbol pass flags stays
 ``flagged``.
 """
 
@@ -59,6 +65,7 @@ import numpy as np
 import torch
 
 from ..bitstream import packet as pkt
+from ..bitstream.extensions import ExtensionData, ExtensionIterator
 from ..celt.plc import decode_lost
 from ..ops import rc_kernel as K
 from ..ops.device_cache import const
@@ -69,8 +76,10 @@ from .celt_dec_fused import fused_celt_init_state
 from .celt_dec_kernel import dec_tabs, kernel_celt_decode_to_pcm
 from .silk_api import SilkLanes, put as _put, take as _take
 
-FS = 48000
-F20, F10, F5, F2_5 = 960, 480, 240, 120
+FS = 48000              # the CELT mode's rate: its synthesis runs at 48 kHz
+RATES = (8000, 12000, 16000, 24000, 48000)
+F2_5_48 = 120           # 2.5 ms at 48 kHz: the CELT overlap
+QEXT_EXTENSION_ID = 124     # (reference: celt/celt.h QEXT_EXTENSION_ID)
 CELT, SILK, HYBRID = (int(pkt.Mode.CELT_ONLY), int(pkt.Mode.SILK_ONLY),
                       int(pkt.Mode.HYBRID))
 # the CELT end band of each bandwidth (opus_decoder.py:413)
@@ -93,34 +102,58 @@ def _isr_khz(mode: int, bw: int) -> int:
 
 
 @lru_cache(maxsize=None)
-def _fade_gain(n: int) -> np.ndarray:
-    """smooth_fade's gains (src/opus_decoder.c:220): the squared CELT
-    window, float32."""
-    w = _window(n)
+def _fade_gain(inc: int) -> np.ndarray:
+    """smooth_fade's gains at 48000 / inc Hz (src/opus_decoder.c:220,
+    opus_decoder.py:235-246): the squared 120-sample CELT window taken at
+    every inc-th sample, float32."""
+    w = _window(F2_5_48)[::inc]
     return (w * w).astype(np.float32)
 
 
-def _smooth_fade(in1, in2, dev):
-    """g * in2 + (1 - g) * in1 over 2.5 ms [..., 120]
-    (opus_decoder.py:235)."""
-    g = const(("opus_fade", F2_5), lambda: _fade_gain(F2_5), dev)
+def _smooth_fade(in1, in2, inc: int, dev):
+    """g * in2 + (1 - g) * in1 over 2.5 ms [..., 120 / inc]."""
+    g = const(("opus_fade", inc), lambda: _fade_gain(inc), dev)
     return g * in2 + (1.0 - g) * in1
 
 
+def has_qext(parsed) -> bool:
+    """Whether a parsed packet's padding carries a quality extension for
+    one of its frames (opus_decoder.py:217-233)."""
+    if not parsed.padding:
+        return False
+    it = ExtensionIterator(parsed.padding, parsed.count)
+    while True:
+        ext = it.find(QEXT_EXTENSION_ID)
+        if not isinstance(ext, ExtensionData):
+            return False
+        if 0 <= ext.frame < parsed.count:
+            return True
+
+
+def to_int24(pcm):
+    """decode24's conversion (opus_decoder.py:187-197): RES2INT24, round to
+    nearest (half to even) of pcm * 2^23 in float64, clipped to int32."""
+    x = torch.round(pcm.to(torch.float64) * 8388608.0)
+    return x.clamp(-(1 << 31), (1 << 31) - 1).to(torch.int32)
+
+
 class BatchedOpusDecoder:
-    """B independent Opus streams decoded to 48 kHz float PCM with
-    ``channels`` (1 or 2) output channels on the card (the default
-    device: kernels K1, K2 and K4), or on the plain versions with
-    ``device="cpu"``.
+    """B independent Opus streams decoded to float PCM at ``fs`` (8000,
+    12000, 16000, 24000 or 48000 Hz) with ``channels`` (1 or 2) output
+    channels on the card (the default device: kernels K1, K2 and K4), or
+    on the plain versions with ``device="cpu"``.
 
     ``decode(packets)``: one packet (bytes) or None (lost) a lane ->
     (pcm float32 [B, W] with one channel, [B, W, 2] with two; n [B]
     numpy): lane i's output is pcm[i, :n[i]] (n counts samples per
     channel).  ``decode_int16`` adds
-    the soft clip (one memory per lane and channel) and FLOAT2INT16.
+    the soft clip (one memory per lane and channel) and FLOAT2INT16,
+    ``decode24`` the 24-bit conversion (int32, no soft clip).
     ``final_range`` [B] is each lane's ``rangeFinal``; ``status`` [B]
     (numpy) is 0, or OPUS_INVALID_PACKET on a lane whose packet of this
-    call was invalid (its state is untouched); ``flagged`` [B] (numpy)
+    call was invalid, or OPUS_UNIMPLEMENTED on a lane whose packet carries
+    a quality extension (QEXT is not ported; either way the lane's state
+    is untouched); ``flagged`` [B] (numpy)
     holds for a lane that K1 or the SILK symbol pass has flagged, for the
     rest of its stream.  ``set_gain(q8, lanes)`` is OPUS_SET_GAIN.
     ``events`` counts the frames of each kind that ran (for the tests and
@@ -129,8 +162,14 @@ class BatchedOpusDecoder:
     concealment contributed to the output (elsewhere the output is SILK's
     int16 / 32768 exactly)."""
 
-    def __init__(self, batch: int, channels: int = 1, device="cuda",
-                 max_payload: int = 1275):
+    def __init__(self, batch: int, fs: int = 48000, channels: int = 1,
+                 device="cuda", max_payload: int = 1275):
+        if fs == 96000:
+            raise ValueError("BatchedOpusDecoder: 96 kHz needs the quality "
+                             "extension (QEXT), which the port does not "
+                             "decode yet")
+        if fs not in RATES:
+            raise ValueError(f"BatchedOpusDecoder: fs must be one of {RATES}")
         if channels not in (1, 2):
             raise ValueError("BatchedOpusDecoder: channels must be 1 or 2")
         self.device = torch.device(device)
@@ -138,6 +177,11 @@ class BatchedOpusDecoder:
             raise RuntimeError("BatchedOpusDecoder: no CUDA device (pass "
                                "device='cpu' for the plain versions)")
         self.batch = batch
+        self.fs = fs
+        # CELT's decimation, and the frame lengths at fs
+        self.ds = FS // fs
+        self.f20, self.f10, self.f5, self.f2_5 = (fs // 50, fs // 100,
+                                                  fs // 200, fs // 400)
         self.channels = channels
         # libopus sets disable_inv on a decoder with one output channel
         # (opus_decoder.py:42)
@@ -146,7 +190,7 @@ class BatchedOpusDecoder:
         b, dev = batch, self.device
         self.events = {}
         self.celt = self._celt_fresh(b)
-        self.silk = SilkLanes(b, channels, dev, self.events)
+        self.silk = SilkLanes(b, channels, dev, self.events, fs // 1000)
         # one soft clip memory a lane ([B]) or a lane and channel ([B, 2])
         self.softclip_mem = torch.zeros((b, channels)[:channels],
                                         dtype=torch.float32, device=dev)
@@ -156,7 +200,7 @@ class BatchedOpusDecoder:
         self.mode = np.zeros(b, np.int64)
         self.bandwidth = np.zeros(b, np.int64)
         self.stream_channels = np.full(b, channels, np.int64)
-        self.frame_size = np.full(b, FS // 400, np.int64)
+        self.frame_size = np.full(b, fs // 400, np.int64)
         self.last_packet_duration = np.zeros(b, np.int64)
         self.celt_start = np.zeros(b, np.int64)
         self.celt_end = np.full(b, 21, np.int64)
@@ -214,6 +258,12 @@ class BatchedOpusDecoder:
         pcm, n = self.decode(packets, decode_fec, frame_size)
         return self.soft_clip_int16(pcm, n)
 
+    def decode24(self, packets, decode_fec=None, frame_size=None):
+        """``decode``, then RES2INT24 (opus_decoder.py:187) -> (pcm int32
+        [B, W] or [B, W, 2] in 24-bit scale, n [B])."""
+        pcm, n = self.decode(packets, decode_fec, frame_size)
+        return to_int24(pcm), n
+
     def soft_clip_int16(self, pcm, n):
         """The soft clip (each lane's and channel's memory) and FLOAT2INT16
         of ``decode``'s output (pcm, n) -> (pcm int16, n)."""
@@ -269,24 +319,24 @@ class BatchedOpusDecoder:
             jobs.append(("zeros", n))
             return
         mode = CELT if self.prev_redundancy[i] else int(self.prev_mode[i])
+        f20, f10, f5 = self.f20, self.f10, self.f5
         done = 0
         while done < n:
-            chunk = min(n - done, F20)
-            if chunk < F20:
-                if chunk > F10:
-                    chunk = F10
-                elif mode != SILK and F5 < chunk < F10:
-                    chunk = F5
+            chunk = min(n - done, f20)
+            if chunk < f20:
+                if chunk > f10:
+                    chunk = f10
+                elif mode != SILK and f5 < chunk < f10:
+                    chunk = f5
             jobs.append(("conceal", chunk, mode))
             done += chunk
 
-    @staticmethod
-    def _check(data, fec: bool, req) -> None:
+    def _check(self, data, fec: bool, req) -> None:
         """The refusal of a lane's arguments, raised before any lane's
         state or host field changes."""
         if data is None or len(data) == 0:
             return
-        if fec and req is not None and req % (FS // 400):
+        if fec and req is not None and req % (self.fs // 400):
             raise ValueError("FEC/PLC frame size must be a multiple of "
                              "2.5 ms")
 
@@ -297,17 +347,20 @@ class BatchedOpusDecoder:
         jobs = []
         if data is None or len(data) == 0:
             n = req if req is not None else (
-                int(self.last_packet_duration[i]) or FS // 50)
+                int(self.last_packet_duration[i]) or self.f20)
             self._conceal_jobs(i, n, jobs)
             if self.prev_mode[i] != 0:
                 self.last_packet_duration[i] = n
             return jobs
         data = bytes(data)
         parsed = pkt.packet_parse(data)
-        nfs = pkt.packet_get_samples_per_frame(data, FS)
-        if isinstance(parsed, int) or nfs * parsed.count * 25 > FS * 3 \
+        nfs = pkt.packet_get_samples_per_frame(data, self.fs)
+        if isinstance(parsed, int) or nfs * parsed.count * 25 > self.fs * 3 \
                 or max((len(f) for f in parsed.frames), default=0) > self.P:
             self.status[i] = pkt.OPUS_INVALID_PACKET
+            return jobs
+        if not fec and has_qext(parsed):
+            self.status[i] = pkt.OPUS_UNIMPLEMENTED
             return jobs
         mode = int(pkt.packet_get_mode(data))
         bw = int(pkt.packet_get_bandwidth(data))
@@ -344,7 +397,7 @@ class BatchedOpusDecoder:
 
     def _round(self, jobs, out: LaneOut) -> None:
         b, c = self.batch, self.channels
-        width = max([F20] + [j[2] for j in jobs
+        width = max([self.f20] + [j[2] for j in jobs
                              if j is not None and j[0] == "frame"])
         pcm = torch.zeros((b, c, width), dtype=torch.float32,
                           device=self.device)
@@ -418,11 +471,11 @@ class BatchedOpusDecoder:
         for i, (_k, chunk, mode) in conc:
             if mode in (SILK, HYBRID):
                 fs = int(self.silk.fs[0][i]) or 16
-                nb = 2 if max(10, 1000 * chunk // FS) == 10 else 4
+                nb = 2 if max(10, 1000 * chunk // self.fs) == 10 else 4
                 nch = int(self.silk.n_int[i]) or 1
                 silk.setdefault((fs, nb, nch), []).append(i)
             if mode != SILK:
-                n = min(F20, chunk)
+                n = min(self.f20, chunk)
                 if mode == HYBRID:
                     self.celt_start[i] = HYBRID_START
                 key = (n, int(self.celt_start[i]), int(self.celt_end[i]),
@@ -432,20 +485,21 @@ class BatchedOpusDecoder:
             lanes = np.zeros(b, bool)
             lanes[items] = True
             idx = self._idx(lanes)
-            out48 = self.silk.conceal_group(lanes, fs, nb, nch)
-            x = out48.to(torch.float32) * (1.0 / 32768.0)
+            out = self.silk.conceal_group(lanes, fs, nb, nch)
+            x = out.to(torch.float32) * (1.0 / 32768.0)
             w = min(x.shape[2], dst.shape[2])
             dst[idx, :, :w] = x[:, :, :w]
         for (n, start, end, accum), lanes_i in celt.items():
             lanes = np.zeros(b, bool)
             lanes[lanes_i] = True
             idx = self._idx(lanes)
-            tabs = dec_tabs(FS, n, start, end)
+            tabs = dec_tabs(FS, n * self.ds, start, end)
             st = _take(self.celt, idx)
             one = torch.ones(len(lanes_i), dtype=torch.bool,
                              device=self.device)
             y, new, _tr = decode_lost(st, tabs, one,
-                                      out_channels=self.channels)
+                                      out_channels=self.channels,
+                                      downsample=self.ds)
             self.celt = _put(self.celt, idx, new)
             self.celt_used[lanes] = True
             if accum:
@@ -457,7 +511,7 @@ class BatchedOpusDecoder:
     # ---- decoded frames ----------------------------------------------
 
     def _celt_fresh(self, n: int) -> dict:
-        st = fused_celt_init_state(n, dec_tabs(FS, F20), self.device,
+        st = fused_celt_init_state(n, dec_tabs(FS, 960), self.device,
                                    out_channels=self.channels)
         st["decoded_any"] = torch.ones_like(st["decoded_any"])
         return st
@@ -481,20 +535,22 @@ class BatchedOpusDecoder:
 
     def _celt_decode(self, groups, buf, lens, d, dst, accum_lanes=None):
         """CELT frames by group: groups {(n, start, end, C): lanes [B]
-        bool} over buf/lens (full B rows), continuing from d (full-B range
-        decoder dict) where given.  Writes (or, on ``accum_lanes``, adds)
+        bool} (n the frame's samples at fs) over buf/lens (full B rows),
+        continuing from d (full-B range decoder dict) where given.  Writes (or, on ``accum_lanes``, adds)
         the PCM into dst rows [B, CC, >= n]; returns (rng [B], err [B]) on
         the device (zeros outside the groups)."""
         rng = torch.zeros(self.batch, dtype=torch.int64, device=self.device)
         err = torch.zeros(self.batch, dtype=torch.bool, device=self.device)
         for (n, start, end, c), lanes in groups.items():
             idx = self._idx(lanes)
-            tabs = dec_tabs(FS, n, start, end)
+            tabs = dec_tabs(FS, n * self.ds, start, end)
             st = _take(self.celt, idx)
             d0 = None if d is None else _take(d, idx)
             kw = {} if c == 1 and self.channels == 1 else dict(
                 channels=c, out_channels=self.channels,
                 disable_inv=self.disable_inv)
+            if self.ds > 1:
+                kw["downsample"] = self.ds
             y, new, e = kernel_celt_decode_to_pcm(
                 buf.index_select(0, idx), lens.index_select(0, idx), st, tabs,
                 d0=d0, **kw)
@@ -518,6 +574,8 @@ class BatchedOpusDecoder:
         into pcm [B, CC, >= n]."""
         b, dev = self.batch, self.device
         cc = self.channels
+        f20, f10, f5, f2_5 = self.f20, self.f10, self.f5, self.f2_5
+        inc = self.ds
         on = np.zeros(b, bool)
         mode = np.zeros(b, np.int64)
         bw = np.zeros(b, np.int64)
@@ -536,13 +594,13 @@ class BatchedOpusDecoder:
             (is_celt & (prev != CELT) & ~prev_red)
             | (~is_celt & (prev == CELT)))
         buf, lens = self._pack(frames)
-        pcm_tr = torch.zeros((b, cc, F5), dtype=torch.float32, device=dev)
+        pcm_tr = torch.zeros((b, cc, f5), dtype=torch.float32, device=dev)
 
         # (a) the transition into CELT: conceal up to 5 ms in the old mode
         # first (:330-342)
         ta = transition & is_celt
         if ta.any():
-            self._conceal_into([(i, ("conceal", min(F5, int(size[i])),
+            self._conceal_into([(i, ("conceal", min(f5, int(size[i])),
                                      int(prev[i])))
                                 for i in np.nonzero(ta)[0]], pcm_tr)
             self._count("transition_conceal", int(ta.sum()))
@@ -555,10 +613,10 @@ class BatchedOpusDecoder:
             self.silk.reset(silk_on & (prev == CELT))
             isr = np.array([_isr_khz(int(mode[i]), int(bw[i])) if silk_on[i]
                             else 0 for i in range(b)])
-            nfr = np.where(size > F20, size // F20, 1)
-            nb = np.where(size == F10, 2, 4)
+            nfr = np.where(size > f20, size // f20, 1)
+            nb = np.where(size == f10, 2, 4)
             s2m = self.silk.prepare(silk_on, sc, isr,
-                                    isr * np.where(size == F10, 10, 20))
+                                    isr * np.where(size == f10, 10, 20))
             d_full = K.rk_init(buf, lens)
             keys = sorted({(int(isr[i]), int(nb[i]), int(nfr[i]), int(sc[i]))
                            for i in np.nonzero(silk_on)[0]})
@@ -566,12 +624,12 @@ class BatchedOpusDecoder:
                 g = silk_on & (isr == fs) & (nb == nbk) & (nfr == nf) \
                     & (sc == nch)
                 idx = self._idx(g)
-                out48, d, e = self.silk.decode_group(g, fs, nbk, nf, nch,
-                                                     buf, lens, fec, s2m)
+                out, d, e = self.silk.decode_group(g, fs, nbk, nf, nch,
+                                                   buf, lens, fec, s2m)
                 d_full = _put(d_full, idx, d)
                 sil_err = sil_err.index_copy(0, idx, e)
-                w = out48.shape[2]
-                pcm[idx, :, :w] = out48.to(torch.float32) * (1.0 / 32768.0)
+                w = out.shape[2]
+                pcm[idx, :, :w] = out.to(torch.float32) * (1.0 / 32768.0)
 
         # (c) the redundancy signal (:372-398)
         red = np.zeros(b, bool)
@@ -606,7 +664,7 @@ class BatchedOpusDecoder:
         # (d) the transition out of CELT without redundancy (:400-403)
         td = transition & ~is_celt
         if td.any():
-            self._conceal_into([(i, ("conceal", min(F5, int(size[i])),
+            self._conceal_into([(i, ("conceal", min(f5, int(size[i])),
                                      int(prev[i])))
                                 for i in np.nonzero(td)[0]], pcm_tr)
             self._count("transition_conceal", int(td.sum()))
@@ -614,7 +672,7 @@ class BatchedOpusDecoder:
 
         # the redundant frames' bytes (frame[len2:len2 + red_bytes])
         red_rng = torch.zeros(b, dtype=torch.int64, device=dev)
-        red_pcm = torch.zeros((b, cc, F20), dtype=torch.float32, device=dev)
+        red_pcm = torch.zeros((b, cc, f20), dtype=torch.float32, device=dev)
         rbuf = rlens = None
         if red.any():
             rows = []
@@ -629,7 +687,7 @@ class BatchedOpusDecoder:
         if e_lanes.any():
             self.celt_start[e_lanes] = 0
             rr, re = self._celt_decode(
-                self._groups(e_lanes, np.full(b, F5), endband, 0, sc),
+                self._groups(e_lanes, np.full(b, f5), endband, 0, sc),
                 rbuf, rlens, None, red_pcm)
             red_rng = torch.where(torch.as_tensor(e_lanes, device=dev), rr,
                                   red_rng)
@@ -650,7 +708,7 @@ class BatchedOpusDecoder:
             if reg.any():
                 hyb_reg = reg & (mode == HYBRID)
                 rr, k1_err = self._celt_decode(
-                    self._groups(reg, np.minimum(F20, size), endband,
+                    self._groups(reg, np.minimum(f20, size), endband,
                                  start_band, sc),
                     buf, lens2, d_full if hyb_reg.any() else None, pcm,
                     accum_lanes=hyb_reg)
@@ -658,7 +716,7 @@ class BatchedOpusDecoder:
             fc = celt_on & fec
             if fc.any():
                 # in-band FEC: the CELT half concealed (:429-436)
-                self._conceal_into([(i, ("conceal", min(F20, int(size[i])),
+                self._conceal_into([(i, ("conceal", min(f20, int(size[i])),
                                          HYBRID_CELT))
                                     for i in np.nonzero(fc)[0]], pcm)
                 rng = torch.where(torch.as_tensor(fc, device=dev),
@@ -669,12 +727,12 @@ class BatchedOpusDecoder:
             self.celt_start[fade] = 0
             fbuf = torch.full((b, 2), 0xFF, dtype=torch.uint8, device=dev)
             flen = torch.as_tensor(np.where(fade, 2, 0), device=dev)
-            tmp = torch.zeros((b, cc, F20), dtype=torch.float32, device=dev)
-            self._celt_decode(self._groups(fade, np.full(b, F2_5), endband,
+            tmp = torch.zeros((b, cc, f20), dtype=torch.float32, device=dev)
+            self._celt_decode(self._groups(fade, np.full(b, f2_5), endband,
                                            0, sc), fbuf, flen, None, tmp)
             fl = torch.as_tensor(fade, device=dev)[:, None, None]
-            pcm[:, :, :F2_5] = torch.where(
-                fl, pcm[:, :, :F2_5] + tmp[:, :, :F2_5], pcm[:, :, :F2_5])
+            pcm[:, :, :f2_5] = torch.where(
+                fl, pcm[:, :, :f2_5] + tmp[:, :, :f2_5], pcm[:, :, :f2_5])
             self._count("fade_hybrid_to_silk", int(fade.sum()))
 
         # (g) the 5 ms SILK -> CELT redundant frame and its fade (:451-460)
@@ -683,44 +741,44 @@ class BatchedOpusDecoder:
             self._celt_reset(g_lanes)
             self.celt_start[g_lanes] = 0
             rr, _re = self._celt_decode(
-                self._groups(g_lanes, np.full(b, F5), endband, 0, sc),
+                self._groups(g_lanes, np.full(b, f5), endband, 0, sc),
                 rbuf, rlens, None, red_pcm)
             red_rng = torch.where(torch.as_tensor(g_lanes, device=dev), rr,
                                   red_rng)
             for n in np.unique(size[g_lanes]):
                 m = torch.as_tensor(g_lanes & (size == n), device=dev)
-                a = int(n) - F2_5
-                faded = _smooth_fade(pcm[:, :, a:a + F2_5],
-                                     red_pcm[:, :, F2_5:F5], dev)
-                pcm[:, :, a:a + F2_5] = torch.where(
-                    m[:, None, None], faded, pcm[:, :, a:a + F2_5])
+                a = int(n) - f2_5
+                faded = _smooth_fade(pcm[:, :, a:a + f2_5],
+                                     red_pcm[:, :, f2_5:f5], inc, dev)
+                pcm[:, :, a:a + f2_5] = torch.where(
+                    m[:, None, None], faded, pcm[:, :, a:a + f2_5])
             self._count("redundancy_silk_to_celt", int(g_lanes.sum()))
 
         # (h) CELT -> SILK: the redundant audio spliced in (:461-468)
         h_lanes = red & c2s & ((prev != SILK) | prev_red)
         if h_lanes.any():
             m = torch.as_tensor(h_lanes, device=dev)[:, None, None]
-            head = torch.where(m, red_pcm[:, :, :F2_5], pcm[:, :, :F2_5])
-            mid = torch.where(m, _smooth_fade(red_pcm[:, :, F2_5:F5],
-                                              pcm[:, :, F2_5:F5], dev),
-                              pcm[:, :, F2_5:F5])
-            pcm[:, :, :F2_5] = head
-            pcm[:, :, F2_5:F5] = mid
+            head = torch.where(m, red_pcm[:, :, :f2_5], pcm[:, :, :f2_5])
+            mid = torch.where(m, _smooth_fade(red_pcm[:, :, f2_5:f5],
+                                              pcm[:, :, f2_5:f5], inc, dev),
+                              pcm[:, :, f2_5:f5])
+            pcm[:, :, :f2_5] = head
+            pcm[:, :, f2_5:f5] = mid
 
         # (i) the transition crossfade (:469-479)
         if transition.any():
-            long_ = torch.as_tensor(transition & (size >= F5),
+            long_ = torch.as_tensor(transition & (size >= f5),
                                     device=dev)[:, None, None]
-            short = torch.as_tensor(transition & (size < F5),
+            short = torch.as_tensor(transition & (size < f5),
                                     device=dev)[:, None, None]
-            head = torch.where(long_, pcm_tr[:, :, :F2_5], pcm[:, :, :F2_5])
+            head = torch.where(long_, pcm_tr[:, :, :f2_5], pcm[:, :, :f2_5])
             head = torch.where(short, _smooth_fade(
-                pcm_tr[:, :, :F2_5], pcm[:, :, :F2_5], dev), head)
+                pcm_tr[:, :, :f2_5], pcm[:, :, :f2_5], inc, dev), head)
             mid = torch.where(long_, _smooth_fade(
-                pcm_tr[:, :, F2_5:F5], pcm[:, :, F2_5:F5], dev),
-                pcm[:, :, F2_5:F5])
-            pcm[:, :, :F2_5] = head
-            pcm[:, :, F2_5:F5] = mid
+                pcm_tr[:, :, f2_5:f5], pcm[:, :, f2_5:f5], inc, dev),
+                pcm[:, :, f2_5:f5])
+            pcm[:, :, :f2_5] = head
+            pcm[:, :, f2_5:f5] = mid
             self._count("transition", int(transition.sum()))
 
         # (j) the gain, the final range, the mode memory (:481-488)

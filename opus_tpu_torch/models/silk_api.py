@@ -1,15 +1,18 @@
 """The SILK API level of the Opus decoder (silk/dec_API.c; the JAX
 package's ``opus_tpu/silk/api.py`` ``SilkDecoder.decode``) over B lanes:
 two channel states, the stereo predictor and mid/side -> left/right, the
-48 kHz resamplers of both output channels, and packets of 1-3 frames.
+resamplers of both output channels to the decoder's rate (8, 12, 16, 24
+or 48 kHz), and packets of 1-3 frames.
 
 A lane's SILK side is, as the scalar's ``SilkDecoder``: the mid (or
 mono) and side channel states (``fused_silk_dec.fused_init_state`` at
-the widest buffers), each channel's 48 kHz upsampler, the stereo state
+the widest buffers), each channel's resampler (at ``resampler.WIDE``: a
+lane's internal rate changes from packet to packet), the stereo state
 (``s_mid``, ``s_side``, ``pred_prev_q13``), and on the host each
 channel's internal rate (0 until its first frame), the internal channel
 count of the last packet and ``prev_decode_only_middle``.  The output
-channel count ``channels`` (1 or 2) is the decoder's.
+channel count ``channels`` (1 or 2) and rate ``fs_khz`` are the
+decoder's.
 
 A packet's frames decode group by group, a group being the lanes of one
 (internal rate, subframes, frames, internal channels): the header (each
@@ -17,7 +20,7 @@ channel's VAD and LBRR flags), a normal decode's parse of every LBRR
 frame, then frame by frame the stereo predictor and the mid-only flag,
 the mid frame and, unless the side is left out, the side frame, all on
 one range decoder per lane; then mid/side -> left/right and the
-upsamplers.  In-band FEC decodes the LBRR frames in place of the
+resamplers.  In-band FEC decodes the LBRR frames in place of the
 regular ones (concealing a frame without one); a lost packet conceals
 each channel.  Kernel K4 runs every frame's LPC synthesis and every
 concealment's, on the card.
@@ -32,16 +35,13 @@ import torch
 
 from ..ops.lanes import select_lanes
 from ..ops.rc_kernel import rk_init
-from ..silk.resampler import input_delay, upsample_to_48k
+from ..silk.resampler import resample_lanes, wide_init
 from ..silk.stereo import ms_to_lr, pred_q13
 from .fused_silk_dec import (CODE_CONDITIONALLY, CODE_INDEPENDENTLY,
                              CODE_INDEPENDENTLY_NO_LTP_SCALING, _Ctx,
                              fused_init_state, fused_silk_conceal,
                              fused_silk_decode, silk_header, silk_tabs,
                              skip_lbrr, stereo_pred_symbols)
-
-RS_DELAY = max(input_delay(k) for k in (8, 12, 16))
-
 
 def take(tree, idx):
     """A state tree's rows ``idx``."""
@@ -75,13 +75,6 @@ def silk_fresh(n: int, fs_khz: int, device) -> dict:
     return st
 
 
-def rs_fresh(n: int, device) -> dict:
-    z = torch.zeros
-    return dict(s_iir=z((n, 6), dtype=torch.int64, device=device),
-                s_fir=z((n, 8), dtype=torch.int64, device=device),
-                delay=z((n, RS_DELAY), dtype=torch.int64, device=device))
-
-
 def silk_view(st: dict, fs_khz: int) -> dict:
     """The SILK state of lanes at ``fs_khz``: the LTP memory is the first
     20 ms of the stored output buffer."""
@@ -101,16 +94,6 @@ def silk_unview(new: dict, old: dict) -> dict:
         v = new[k]
         out[k] = torch.cat([v, old[k][:, v.shape[1]:]], dim=1)
     return out
-
-
-def upsample(seq, rs, fs_khz: int, frame_ms: int):
-    """A channel's frame at fs_khz -> 48 kHz; rs: the stored upsampler
-    state (its delay line at the widest)."""
-    d = input_delay(fs_khz)
-    out, st = upsample_to_48k(seq, dict(rs, delay=rs["delay"][:, :d]),
-                              fs_khz, frame_ms)
-    st["delay"] = torch.cat([st["delay"], rs["delay"][:, d:]], dim=1)
-    return out, st
 
 
 def side_reset(st: dict, lanes):
@@ -136,15 +119,17 @@ def _pad3(flags):
 
 class SilkLanes:
     """The SILK side of B Opus decoder lanes with ``channels`` output
-    channels (see the module docstring).  ``events`` (a dict) counts the
-    groups' frames for the caller's report."""
+    channels at ``fs_khz`` (see the module docstring).  ``events`` (a
+    dict) counts the groups' frames for the caller's report."""
 
-    def __init__(self, batch: int, channels: int, device, events=None):
+    def __init__(self, batch: int, channels: int, device, events=None,
+                 fs_khz: int = 48):
         self.batch, self.cc, self.device = batch, channels, device
+        self.fs_khz = fs_khz
         self.events = {} if events is None else events
         b = batch
         self.ch = [silk_fresh(b, 16, device), silk_fresh(b, 16, device)]
-        self.rs = [rs_fresh(b, device), rs_fresh(b, device)]
+        self.rs = [wide_init(b, device), wide_init(b, device)]
         z2 = torch.zeros((b, 2), dtype=torch.int64, device=device)
         self.smid, self.sside, self.pred_prev = z2, z2.clone(), z2.clone()
         self.fs = np.zeros((2, b), np.int64)     # 0: none since a reset
@@ -191,7 +176,7 @@ class SilkLanes:
         idx = self._idx(lanes)
         n = len(idx)
         self.ch[k] = put(self.ch[k], idx, silk_fresh(n, 16, self.device))
-        self.rs[k] = put(self.rs[k], idx, rs_fresh(n, self.device))
+        self.rs[k] = put(self.rs[k], idx, wide_init(n, self.device))
         self.fs[k][lanes] = 0
 
     def reset(self, lanes) -> None:
@@ -229,7 +214,7 @@ class SilkLanes:
         new["plc_pitch_l_q8"] = torch.as_tensor(length[lanes] << 7,
                                                 device=self.device)
         self.ch[k] = put(self.ch[k], idx, new)
-        self.rs[k] = put(self.rs[k], idx, rs_fresh(n, self.device))
+        self.rs[k] = put(self.rs[k], idx, wide_init(n, self.device))
         self.fs[k][lanes] = fs
 
     def prepare(self, lanes, nch, isr, length):
@@ -261,13 +246,17 @@ class SilkLanes:
 
     # ---- the output stage ------------------------------------------------
 
-    def _emit(self, idx, xq0, xq1, pred, fs: int, ms: int, s2m=None):
+    def _resample(self, seq, rs, fs: int):
+        """A channel's frame at fs kHz -> the decoder's rate."""
+        return resample_lanes(seq, rs, fs, self.fs_khz)
+
+    def _emit(self, idx, xq0, xq1, pred, fs: int, s2m=None):
         """One frame's output (api.py:170-215): mid/side -> left/right with
         two output channels (else the mid, one sample late through s_mid),
-        each output channel's 48 kHz upsampler; a mono frame's second
-        output channel is the first's, or on stereo -> mono lanes
-        (``s2m`` [n] bool) the side resampler's output of the mid.
-        Returns [n, CC, 48 * ms] int64."""
+        each output channel's resampler to the decoder's rate; a mono
+        frame's second output channel is the first's, or on stereo -> mono
+        lanes (``s2m`` [n] bool) the side resampler's output of the mid.
+        Returns [n, CC, the frame's samples at fs_khz] int64."""
         n, L = xq0.shape
         seq1 = None
         if xq1 is not None and self.cc == 2:
@@ -284,18 +273,18 @@ class SilkLanes:
             sm = take(self.smid, idx)
             seq0 = torch.cat([sm[:, 1:], xq0[:, :-1]], dim=1)
             self.smid = put(self.smid, idx, xq0[:, -2:])
-        out0, r0 = upsample(seq0, take(self.rs[0], idx), fs, ms)
+        out0, r0 = self._resample(seq0, take(self.rs[0], idx), fs)
         self.rs[0] = put(self.rs[0], idx, r0)
         outs = [out0]
         if self.cc == 2:
             if seq1 is not None:
-                out1, r1 = upsample(seq1, take(self.rs[1], idx), fs, ms)
+                out1, r1 = self._resample(seq1, take(self.rs[1], idx), fs)
                 self.rs[1] = put(self.rs[1], idx, r1)
             else:
                 out1 = out0
                 if s2m is not None and bool(s2m.any()):
                     old = take(self.rs[1], idx)
-                    o, r1 = upsample(seq0, old, fs, ms)
+                    o, r1 = self._resample(seq0, old, fs)
                     out1 = torch.where(s2m[:, None], o, out0)
                     self.rs[1] = put(self.rs[1], idx,
                                      select_lanes(s2m, r1, old))
@@ -309,8 +298,8 @@ class SilkLanes:
         """The SILK frames of one group's packets (lanes [B] bool; fs kHz,
         nb subframes, nfr frames, nch coded channels; fec [B] bool: decode
         the LBRR frames; s2m [B] bool: stereo -> mono lanes).  Returns
-        (pcm [n, CC, nfr * 48 * 5 * nb] int64, the range decoder rows of
-        the group's lanes, error [n] bool)."""
+        (pcm [n, CC, nfr * fs_khz * 5 * nb] int64 at the decoder's rate,
+        the range decoder rows of the group's lanes, error [n] bool)."""
         dev = self.device
         idx = self._idx(lanes)
         n = len(idx)
@@ -375,7 +364,7 @@ class SilkLanes:
                     err = err | (e1 & has_side)
                 prev_dom = dom
                 self._count("silk_side_frames", int(has_side.sum()))
-            pcm.append(self._emit(idx, xq0, xq1, pred, fs, ms,
+            pcm.append(self._emit(idx, xq0, xq1, pred, fs,
                                   s2m_t if i == 0 else None))
         for k in range(nch):
             self.ch[k] = put(self.ch[k], idx, silk_unview(st[k], olds[k]))
@@ -392,7 +381,8 @@ class SilkLanes:
         FLAG_PACKET_LOST): each coded channel's concealment (the side's
         only where the last frame coded it, after the side reset), the
         last predictor, then the output stage; every channel's gain index
-        back to 10.  Returns pcm [n, CC, 48 * 5 * nb] int64."""
+        back to 10.  Returns pcm [n, CC, fs_khz * 5 * nb] int64 at the
+        decoder's rate."""
         idx = self._idx(lanes)
         olds = [take(self.ch[k], idx) for k in range(nch)]
         xq0, new0 = fused_silk_conceal(silk_view(olds[0], fs), fs_khz=fs,
@@ -417,4 +407,4 @@ class SilkLanes:
             self.ch[k] = put(self.ch[k], idx, silk_unview(news[k], olds[k]))
         self._count(f"silk_conceal_{fs}k_{5 * nb}ms"
                     + ("_stereo" if nch == 2 else ""), len(idx))
-        return self._emit(idx, xq0, xq1, pred, fs, 5 * nb)
+        return self._emit(idx, xq0, xq1, pred, fs)

@@ -1,23 +1,35 @@
-"""SILK's decoder-side upsampler to 48 kHz on [B] lanes in plain torch.
+"""SILK's decoder-direction resampler on [B] lanes in plain torch, for
+every pair of internal rate (8, 12, 16 kHz) and API rate (8, 12, 16, 24,
+48 kHz).
 
-Port of ``opus_tpu/silk/resampler_jax.py`` (``_c16``, ``UpsamplerState``,
-``_fir_plan``, ``upsampler_init``, ``_up2_hq_scan``, ``upsample_to_48k``),
-bit-exact with the scalar ``opus_tpu/silk/resampler.py`` ``Resampler``
-(reference: silk/resampler_private_IIR_FIR.c and _up2_HQ.c).  The gather
-plan of the fractional FIR is computed here from this module's own copy
-of the resampler's constants (``_DELAY_DEC``, ``_rate_id`` and the
-``inv_ratio_q16`` search of ``Resampler.__init__``).
+Port of ``opus_tpu/silk/resampler_jax.py`` (``_c16``, ``_fir_plan``,
+``upsampler_init``, ``_up2_hq_scan``, ``upsample_to_48k``), generalised
+to the scalar ``opus_tpu/silk/resampler.py`` ``Resampler``'s four paths
+and bit-exact with it (reference: silk/resampler.c and
+resampler_private_{up2_HQ,IIR_FIR,down_FIR,AR2}.c), the path chosen as
+``Resampler.__init__`` chooses it:
 
-- up2_HQ is a 6-state allpass recurrence: a Python loop over the frame's
-  input samples on [B, 2] int64 lanes (the even and the odd branch side
-  by side).  Its values stay below 2**28 for int16 input, so the products
-  are exact in int64 and ``(y * c) >> 16`` equals SMULWB with no wrap.
-- The fractional FIR reads 8 consecutive 2x samples at offsets that
-  advance by a constant step: 8 static gathers and multiply-adds.
+- COPY (equal rates): the input through the decoder's input delay;
+- UP2_HQ (8 -> 16, 12 -> 24 kHz): a 6-state allpass recurrence, a Python
+  loop over the input samples on [B, 2] int64 lanes (the even and the odd
+  branch side by side).  Its values stay below 2**28 for int16 input, so
+  the products are exact in int64 and ``(y * c) >> 16`` equals SMULWB;
+- IIR_FIR (8 -> 12, 8 -> 24, 12 -> 16, 16 -> 24, any rate -> 48 kHz):
+  UP2_HQ, then a fractional FIR that reads 8 consecutive 2x samples at
+  offsets that advance by a constant step: 8 static gathers and
+  multiply-adds;
+- DOWN_FIR (12 -> 8, 16 -> 8, 16 -> 12): the AR2 prefilter, a loop over
+  the input samples, then a symmetric FIR at static offsets, each term
+  shifted on its own as SMULWB / SMLAWB do.
 
-Not a TPU kernel, so plain torch is the port; a kernel for it is later
-performance work.  State is a dict of int64 tensors: ``s_iir`` [B, 6],
-``s_fir`` [B, 8], ``delay`` [B, input_delay].
+The gather plans follow ``Resampler.process``'s two calls (the 1 ms head,
+then the rest) and its 10 ms batches, and are computed here from this
+module's own copy of the resampler's constants (``_DELAY_DEC``,
+``_rate_id`` and the ``inv_ratio_q16`` search).  Not a TPU kernel, so
+plain torch is the port.  State is a dict of int64 tensors: ``s_iir``
+[B, 6] (UP2_HQ, IIR_FIR), [B, 2] (DOWN_FIR) or [B, 0] (COPY), ``s_fir``
+[B, FIR order] and ``delay`` [B, input delay]; ``resample_lanes`` keeps
+it at the widest of every pair (``WIDE``), for lanes whose rates change.
 """
 
 from __future__ import annotations
@@ -40,6 +52,15 @@ _DELAY_DEC = ((4, 0, 2, 0, 0, 0),
               (0, 9, 4, 7, 4, 4),
               (0, 3, 12, 7, 7, 7))
 
+COPY, UP2_HQ, IIR_FIR, DOWN_FIR = range(4)
+IN_RATES = (8, 12, 16)                  # kHz: SILK's internal rates
+API_RATES = (8, 12, 16, 24, 48)         # kHz: the decoder's output rates
+# the DOWN_FIR ratios of the decoder's pairs (Resampler.__init__):
+# (FIR order, fractions, coefficients)
+_DOWN = {(12, 8): (RESAMPLER_DOWN_ORDER_FIR0, 2, T.RESAMPLER_2_3_COEFS),
+         (16, 8): (RESAMPLER_DOWN_ORDER_FIR1, 1, T.RESAMPLER_1_2_COEFS),
+         (16, 12): (RESAMPLER_DOWN_ORDER_FIR0, 3, T.RESAMPLER_3_4_COEFS)}
+
 
 def _rate_id(r: int) -> int:
     return min(5, ((((r >> 12) - (1 if r > 16000 else 0))
@@ -60,52 +81,148 @@ def _inv_ratio_q16(fs_in: int, fs_out: int) -> int:
     return inv
 
 
+def path(fs_in_khz: int, fs_out_khz: int) -> int:
+    """Resampler.__init__'s choice for the pair: COPY, UP2_HQ, IIR_FIR or
+    DOWN_FIR."""
+    if fs_out_khz == fs_in_khz:
+        return COPY
+    if fs_out_khz == 2 * fs_in_khz:
+        return UP2_HQ
+    if fs_out_khz > fs_in_khz:
+        return IIR_FIR
+    if (fs_in_khz, fs_out_khz) not in _DOWN:
+        raise ValueError(f"resampler: no decoder path from {fs_in_khz} to "
+                         f"{fs_out_khz} kHz")
+    return DOWN_FIR
+
+
+def delay(fs_in_khz: int, fs_out_khz: int) -> int:
+    """The decoder's input delay of the pair (delay_matrix_dec)."""
+    return _DELAY_DEC[_rate_id(fs_in_khz * 1000)][_rate_id(fs_out_khz
+                                                           * 1000)]
+
+
 def input_delay(fs_in_khz: int) -> int:
-    return _DELAY_DEC[_rate_id(fs_in_khz * 1000)][_rate_id(48000)]
+    return delay(fs_in_khz, 48)
 
 
-@lru_cache(maxsize=None)
-def _fir_plan(fs_in_khz: int, frame_ms: int):
-    """The static FIR gather plan: mirrors Resampler.process()'s batching
-    and returns (idx [n_out, 8], coef [n_out, 8]) int64.  Indices address
-    Z = concat(s_fir (8), up2(seq)) where seq is the processing order
-    (delay head, then the rest)."""
-    fs_in = fs_in_khz * 1000
-    assert 48000 != 2 * fs_in and 48000 > fs_in, "IIR_FIR ratios only"
-    inv = _inv_ratio_q16(fs_in, 48000)
-    order = RESAMPLER_ORDER_FIR_12
-    batch_cap = fs_in_khz * RESAMPLER_MAX_BATCH_SIZE_MS
-    # the two _iir_fir calls: head (1 ms) then the rest, each split into
-    # batches of <= batch_cap input samples
-    calls = [fs_in_khz, fs_in_khz * frame_ms - fs_in_khz]
-    idx_rows, coef_rows = [], []
-    zpos = order          # up2 output write position within Z
-    for n_call in calls:
-        pos = 0
-        while pos < n_call:
-            n_in = min(n_call - pos, batch_cap)
-            buf_base = zpos - order
-            index_q16 = 0
-            while index_q16 < (n_in << 17):
-                ti = ((index_q16 & 0xFFFF) * 12) >> 16
-                b = index_q16 >> 16
-                taps = (list(RESAMPLER_FRAC_FIR_12[ti])
-                        + list(RESAMPLER_FRAC_FIR_12[11 - ti])[::-1])
-                idx_rows.append([buf_base + b + j for j in range(8)])
-                coef_rows.append(taps)
-                index_q16 += inv
-            zpos += 2 * n_in
-            pos += n_in
-    return (np.asarray(idx_rows, np.int64), np.asarray(coef_rows, np.int64))
+def widths(fs_in_khz: int, fs_out_khz: int) -> dict:
+    """The pair's state widths: s_iir, s_fir and delay."""
+    kind = path(fs_in_khz, fs_out_khz)
+    order = (_DOWN[(fs_in_khz, fs_out_khz)][0] if kind == DOWN_FIR
+             else RESAMPLER_ORDER_FIR_12 if kind == IIR_FIR else 0)
+    return dict(s_iir=(0, 6, 6, 2)[kind], s_fir=order,
+                delay=delay(fs_in_khz, fs_out_khz))
+
+
+# the widest state over every decoder pair (resample_lanes' store)
+WIDE = {k: max(widths(i, o)[k] for i in IN_RATES for o in API_RATES
+               if (i, o) in _DOWN or o >= i)
+        for k in ("s_iir", "s_fir", "delay")}
+
+
+def resampler_init(batch: int, fs_in_khz: int, fs_out_khz: int,
+                   device="cpu") -> dict:
+    """The zero state of Resampler(fs_in, fs_out) on ``batch`` lanes."""
+    return {k: torch.zeros((batch, w), dtype=torch.int64, device=device)
+            for k, w in widths(fs_in_khz, fs_out_khz).items()}
+
+
+def wide_init(batch: int, device="cpu") -> dict:
+    """The zero state at ``WIDE`` (any pair's state as ``resample_lanes``
+    stores it)."""
+    return {k: torch.zeros((batch, w), dtype=torch.int64, device=device)
+            for k, w in WIDE.items()}
 
 
 def upsampler_init(batch: int, fs_in_khz: int = 16, device="cpu") -> dict:
-    z = torch.zeros((batch, 6), dtype=torch.int64, device=device)
-    return dict(s_iir=z,
-                s_fir=torch.zeros((batch, RESAMPLER_ORDER_FIR_12),
-                                  dtype=torch.int64, device=device),
-                delay=torch.zeros((batch, input_delay(fs_in_khz)),
-                                  dtype=torch.int64, device=device))
+    return resampler_init(batch, fs_in_khz, 48, device)
+
+
+def _calls(fs_in_khz: int, n_in: int) -> list:
+    """Resampler.process's two calls (the 1 ms head, then the rest), each
+    split into batches of at most 10 ms: input lengths in order."""
+    cap = fs_in_khz * RESAMPLER_MAX_BATCH_SIZE_MS
+    out = []
+    for n_call in (fs_in_khz, n_in - fs_in_khz):
+        pos = 0
+        while pos < n_call:
+            out.append(min(n_call - pos, cap))
+            pos += out[-1]
+    return out
+
+
+def _inv_ratio(fs_in: int, fs_out: int, up2x: int) -> int:
+    """Resampler.__init__'s step in Q16 (silk_resampler_init)."""
+    inv = ((fs_in << (14 + up2x)) // fs_out) << 2
+    while (inv * fs_out) >> 16 < fs_in << up2x:
+        inv += 1
+    return inv
+
+
+def _inv_ratio_q16(fs_in: int, fs_out: int) -> int:
+    """Resampler.__init__'s step for the IIR_FIR path (up2x = 1)."""
+    return _inv_ratio(fs_in, fs_out, 1)
+
+
+@lru_cache(maxsize=None)
+def _fir_plan(fs_in_khz: int, frame_ms: int, fs_out_khz: int = 48):
+    """The static IIR_FIR gather plan: mirrors Resampler.process()'s
+    batching and returns (idx [n_out, 8], coef [n_out, 8]) int64.  Indices
+    address Z = concat(s_fir (8), up2(seq)) where seq is the processing
+    order (delay head, then the rest)."""
+    assert path(fs_in_khz, fs_out_khz) == IIR_FIR, "IIR_FIR ratios only"
+    inv = _inv_ratio_q16(fs_in_khz * 1000, fs_out_khz * 1000)
+    idx_rows, coef_rows = [], []
+    base = 0              # the batch's first up2 sample within Z, less 8
+    for n_in in _calls(fs_in_khz, fs_in_khz * frame_ms):
+        index_q16 = 0
+        while index_q16 < (n_in << 17):
+            ti = ((index_q16 & 0xFFFF) * 12) >> 16
+            b = index_q16 >> 16
+            taps = (list(RESAMPLER_FRAC_FIR_12[ti])
+                    + list(RESAMPLER_FRAC_FIR_12[11 - ti])[::-1])
+            idx_rows.append([base + b + j for j in range(8)])
+            coef_rows.append(taps)
+            index_q16 += inv
+        base += 2 * n_in
+    return (np.asarray(idx_rows, np.int64), np.asarray(coef_rows, np.int64))
+
+
+@lru_cache(maxsize=None)
+def _down_plan(fs_in_khz: int, fs_out_khz: int, n_in: int):
+    """The static DOWN_FIR tap plan of Resampler(fs_in, fs_out).process() on
+    n_in samples, as (a, b, coef) int64 [taps, n_out]: output j is
+    sum_t ((z[a] + z[b]) * coef) >> 16, each term shifted on its own as
+    SMULWB / SMLAWB do, over z = [s_fir | AR2 output of the processing
+    order | 0] (a zero at the end for the one-sided taps of the
+    fractional filters)."""
+    order, fracs, coefs = _DOWN[(fs_in_khz, fs_out_khz)]
+    fir = coefs[2:]
+    inv = _inv_ratio(fs_in_khz * 1000, fs_out_khz * 1000, 0)
+    zlen = order + n_in
+    rows_a, rows_b, rows_c = [], [], []
+    base = 0
+    for n in _calls(fs_in_khz, n_in):
+        index_q16 = 0
+        while index_q16 < n << 16:
+            b = base + (index_q16 >> 16)
+            if order == RESAMPLER_DOWN_ORDER_FIR0:
+                ind = ((index_q16 & 0xFFFF) * fracs) >> 16
+                p1, p2 = 9 * ind, 9 * (fracs - 1 - ind)
+                rows_a.append([b + j for j in range(9)]
+                              + [b + 17 - j for j in range(9)])
+                rows_c.append([fir[p1 + j] for j in range(9)]
+                              + [fir[p2 + j] for j in range(9)])
+                rows_b.append([zlen] * 18)
+            else:
+                rows_a.append([b + j for j in range(12)])
+                rows_b.append([b + order - 1 - j for j in range(12)])
+                rows_c.append([fir[j] for j in range(12)])
+            index_q16 += inv
+        base += n
+    return tuple(np.ascontiguousarray(np.asarray(r, np.int64).T)
+                 for r in (rows_a, rows_b, rows_c))
 
 
 def _up2_hq_scan(x, s_iir):
@@ -139,136 +256,6 @@ def _up2_hq_scan(x, s_iir):
     return y.reshape(x.shape[0], -1), s_fin
 
 
-def upsample_to_48k(x, st: dict, fs_in_khz: int = 16, frame_ms: int = 20):
-    """x: [B, fs_in_khz * frame_ms] int16-valued -> ([B, 48 * frame_ms]
-    int64 int16-valued, new state).  Bit-exact with
-    Resampler(fs_in * 1000, 48000).process()."""
-    x = x.to(torch.int64)
-    dev = x.device
-    idx_np, coef_np = _fir_plan(fs_in_khz, frame_ms)
-    n_in = fs_in_khz * frame_ms
-    delay = st["delay"].shape[1]
-    # processing order: [delay tail | x[:n_in - delay]]
-    seq = torch.cat([st["delay"], x[:, :n_in - delay]], dim=1)
-    y, s_iir = _up2_hq_scan(seq, st["s_iir"])
-    z = torch.cat([st["s_fir"], y], dim=1)          # [B, 8 + 2 * n_in]
-    idx = const(("rs_idx", fs_in_khz, frame_ms), lambda: idx_np.T.copy(),
-                dev)
-    coef = const(("rs_coef", fs_in_khz, frame_ms), lambda: coef_np.T.copy(),
-                 dev)
-    acc = z[:, idx[0]] * coef[0]
-    for j in range(1, 8):
-        acc = acc + z[:, idx[j]] * coef[j]
-    out = sat16(rshift_round(acc, 15))
-    new_st = dict(s_iir=s_iir, s_fir=z[:, -RESAMPLER_ORDER_FIR_12:],
-                  delay=x[:, n_in - delay:])
-    return out, new_st
-
-
-# ---------------------------------------------------------------------
-# the decoder-direction Resampler(16000, fs) for fs = 8, 12 and 24 kHz
-# (the rates of dred_decode's output besides 16 and 48 kHz)
-
-_FS_IN_KHZ = 16
-_DOWN = {8000: (RESAMPLER_DOWN_ORDER_FIR1, 1, T.RESAMPLER_1_2_COEFS),
-         12000: (RESAMPLER_DOWN_ORDER_FIR0, 3, T.RESAMPLER_3_4_COEFS)}
-DEC_RATES = (8000, 12000, 24000)
-
-
-def _inv_ratio(fs_in: int, fs_out: int, up2x: int) -> int:
-    """Resampler.__init__'s step in Q16 (silk_resampler_init)."""
-    inv = ((fs_in << (14 + up2x)) // fs_out) << 2
-    while (inv * fs_out) >> 16 < fs_in << up2x:
-        inv += 1
-    return inv
-
-
-def _calls(n_in: int) -> list:
-    """Resampler.process's two calls (the 1 ms head, then the rest), each
-    split into batches of at most 10 ms: input lengths in order."""
-    cap = _FS_IN_KHZ * RESAMPLER_MAX_BATCH_SIZE_MS
-    out = []
-    for n_call in (_FS_IN_KHZ, n_in - _FS_IN_KHZ):
-        pos = 0
-        while pos < n_call:
-            out.append(min(n_call - pos, cap))
-            pos += out[-1]
-    return out
-
-
-@lru_cache(maxsize=None)
-def _dec_plan(fs_out: int, n_in: int):
-    """The static tap plan of Resampler(16000, fs_out).process() on n_in
-    samples, as (a, b, coef) int64 [n_out, taps]: output j is
-    sum_t ((z[a] + z[b]) * coef) >> 16, each term shifted on its own as
-    SMULWB / SMLAWB do, over z = [s_fir | filtered input | 0] (the FIR
-    history, the AR2 (DOWN_FIR) or up2_HQ (IIR_FIR) output of the
-    processing order, and a zero at the end for one-sided taps).  The
-    IIR_FIR taps (16 bits by 16 bits, SMULBB) are put as coef << 16."""
-    rows_a, rows_b, rows_c = [], [], []
-    if fs_out in _DOWN:
-        order, fracs, coefs = _DOWN[fs_out]
-        fir = coefs[2:]
-        inv = _inv_ratio(_FS_IN_KHZ * 1000, fs_out, 0)
-        zlen = order + n_in
-        base = 0
-        for n in _calls(n_in):
-            index_q16 = 0
-            while index_q16 < n << 16:
-                b = base + (index_q16 >> 16)
-                if order == RESAMPLER_DOWN_ORDER_FIR0:
-                    ind = ((index_q16 & 0xFFFF) * fracs) >> 16
-                    p1, p2 = 9 * ind, 9 * (fracs - 1 - ind)
-                    a = [b + j for j in range(9)] + [b + 17 - j
-                                                     for j in range(9)]
-                    c = [fir[p1 + j] for j in range(9)] + [fir[p2 + j]
-                                                           for j in range(9)]
-                    bb = [zlen] * 18
-                else:
-                    a = [b + j for j in range(12)]
-                    bb = [b + order - 1 - j for j in range(12)]
-                    c = [fir[j] for j in range(12)]
-                rows_a.append(a)
-                rows_b.append(bb)
-                rows_c.append(c)
-                index_q16 += inv
-            base += n
-    else:
-        inv = _inv_ratio(_FS_IN_KHZ * 1000, fs_out, 1)
-        order = RESAMPLER_ORDER_FIR_12
-        zlen = order + 2 * n_in
-        base = 0
-        for n in _calls(n_in):
-            index_q16 = 0
-            while index_q16 < n << 17:
-                ti = ((index_q16 & 0xFFFF) * 12) >> 16
-                b = base + (index_q16 >> 16)
-                rows_a.append([b + j for j in range(8)])
-                rows_b.append([zlen] * 8)
-                rows_c.append([v << 16 for v in
-                               list(RESAMPLER_FRAC_FIR_12[ti])
-                               + list(RESAMPLER_FRAC_FIR_12[11 - ti])[::-1]])
-                index_q16 += inv
-            base += 2 * n
-    return tuple(np.asarray(r, np.int64) for r in (rows_a, rows_b, rows_c))
-
-
-def dec_resampler_init(batch: int, fs_out: int, device="cpu") -> dict:
-    """The zero state of Resampler(16000, fs_out) on ``batch`` lanes:
-    ``s_iir`` [B, 2] (AR2) or [B, 6] (up2_HQ), ``s_fir`` [B, order] and
-    ``delay`` [B, input_delay], int64."""
-    if fs_out not in DEC_RATES:
-        raise ValueError(f"dec_resampler_init: fs {fs_out} (8000, 12000 "
-                         f"or 24000)")
-    order = _DOWN[fs_out][0] if fs_out in _DOWN else RESAMPLER_ORDER_FIR_12
-    delay = _DELAY_DEC[_rate_id(_FS_IN_KHZ * 1000)][_rate_id(fs_out)]
-
-    def z(n):
-        return torch.zeros((batch, n), dtype=torch.int64, device=device)
-    return dict(s_iir=z(2 if fs_out in _DOWN else 6), s_fir=z(order),
-                delay=z(delay))
-
-
 def _ar2(x, s_iir, coefs):
     """silk_resampler_private_AR2 on [B] lanes, one step a sample: x [B, N]
     int16 values -> ([B, N] Q8 output, new state [B, 2])."""
@@ -284,31 +271,79 @@ def _ar2(x, s_iir, coefs):
     return torch.stack(outs, dim=1), torch.stack([s0, s1], dim=1)
 
 
-def resample_16k(x, st: dict, fs_out: int):
-    """x: [B, n_in] int16 values at 16 kHz (n_in a whole number of ms, at
-    least 2) -> ([B, n_in * fs_out / 16000] int64 int16 values, new state).
-    Bit-exact with Resampler(16000, fs_out).process() on each lane, the
-    state carried from call to call: DOWN_FIR 1/2 (8 kHz), DOWN_FIR 3/4
-    (12 kHz) and IIR_FIR (24 kHz)."""
+def resample(x, st: dict, fs_in_khz: int, fs_out_khz: int):
+    """x: [B, n_in] int16 values at fs_in (n_in a whole number of ms, at
+    least 2) -> ([B, n_in * fs_out / fs_in] int64 int16 values, new
+    state).  Bit-exact with Resampler(fs_in, fs_out).process() on each
+    lane, the state (``resampler_init``'s widths) carried from call to
+    call."""
     x = x.to(torch.int64)
     dev = x.device
     n_in = x.shape[1]
-    delay = st["delay"].shape[1]
-    seq = torch.cat([st["delay"], x[:, :n_in - delay]], dim=1)
-    if fs_out in _DOWN:
-        y, s_iir = _ar2(seq, st["s_iir"], _DOWN[fs_out][2])
-        shift = 6
-    else:
-        y, s_iir = _up2_hq_scan(seq, st["s_iir"])
-        shift = 15
+    d = st["delay"].shape[1]
+    kind = path(fs_in_khz, fs_out_khz)
+    # processing order: [delay tail | x[:n_in - delay]]
+    seq = torch.cat([st["delay"], x[:, :n_in - d]], dim=1)
+    new = dict(st, delay=x[:, n_in - d:])
+    if kind == COPY:
+        return seq, new
+    if kind == UP2_HQ:
+        out, new["s_iir"] = _up2_hq_scan(seq, st["s_iir"])
+        return out, new
+    key = (fs_in_khz, fs_out_khz, n_in)
+    if kind == IIR_FIR:
+        y, new["s_iir"] = _up2_hq_scan(seq, st["s_iir"])
+        z = torch.cat([st["s_fir"], y], dim=1)      # [B, 8 + 2 * n_in]
+        plan = _fir_plan(fs_in_khz, n_in // fs_in_khz, fs_out_khz)
+        idx, coef = (const(("rs_fir", key, k), lambda k=k: np.ascontiguousarray(
+            plan[k].T), dev) for k in range(2))
+        acc = z[:, idx[0]] * coef[0]
+        for j in range(1, 8):
+            acc = acc + z[:, idx[j]] * coef[j]
+        new["s_fir"] = z[:, -RESAMPLER_ORDER_FIR_12:]
+        return sat16(rshift_round(acc, 15)), new
     order = st["s_fir"].shape[1]
+    y, new["s_iir"] = _ar2(seq, st["s_iir"],
+                           _DOWN[(fs_in_khz, fs_out_khz)][2])
     z = torch.cat([st["s_fir"], y, torch.zeros_like(y[:, :1])], dim=1)
-    a, b, c = (const(("rs16", fs_out, n_in, k), lambda k=k: np.ascontiguousarray(
-        _dec_plan(fs_out, n_in)[k].T), dev) for k in range(3))
+    a, b, c = (const(("rs_down", key, k), lambda k=k: _down_plan(*key)[k],
+                     dev) for k in range(3))
     acc = ((z[:, a[0]] + z[:, b[0]]) * c[0]) >> 16
     for t in range(1, a.shape[0]):
         acc = acc + (((z[:, a[t]] + z[:, b[t]]) * c[t]) >> 16)
-    out = sat16(rshift_round(acc, shift))
-    new_st = dict(s_iir=s_iir, s_fir=z[:, -1 - order:-1],
-                  delay=x[:, n_in - delay:])
-    return out, new_st
+    new["s_fir"] = z[:, -1 - order:-1]
+    return sat16(rshift_round(acc, 6)), new
+
+
+def resample_lanes(x, wide: dict, fs_in_khz: int, fs_out_khz: int):
+    """``resample`` on a state stored at ``WIDE``: the pair's state is the
+    first columns of each field, the rest is kept as it is."""
+    w = widths(fs_in_khz, fs_out_khz)
+    out, new = resample(x, {k: v[:, :w[k]] for k, v in wide.items()},
+                        fs_in_khz, fs_out_khz)
+    return out, {k: torch.cat([new[k], v[:, w[k]:]], dim=1)
+                 for k, v in wide.items()}
+
+
+def upsample_to_48k(x, st: dict, fs_in_khz: int = 16, frame_ms: int = 20):
+    """x: [B, fs_in_khz * frame_ms] int16-valued -> ([B, 48 * frame_ms]
+    int64 int16-valued, new state): ``resample`` to 48 kHz."""
+    return resample(x, st, fs_in_khz, 48)
+
+
+# the decoder-direction Resampler(16000, fs) at the rates of dred_decode's
+# output besides 16 and 48 kHz
+DEC_RATES = (8000, 12000, 24000)
+
+
+def dec_resampler_init(batch: int, fs_out: int, device="cpu") -> dict:
+    """The zero state of Resampler(16000, fs_out) on ``batch`` lanes."""
+    if fs_out not in DEC_RATES:
+        raise ValueError(f"dec_resampler_init: fs {fs_out} (8000, 12000 "
+                         f"or 24000)")
+    return resampler_init(batch, 16, fs_out // 1000, device)
+
+
+def resample_16k(x, st: dict, fs_out: int):
+    """``resample`` from 16 kHz to fs_out (Hz)."""
+    return resample(x, st, 16, fs_out // 1000)

@@ -1,9 +1,9 @@
 """opus_demo's decode over N streams at once, on the port's top-level
 decoder (``BatchedOpusDecoder``): the counterpart of
 ``opus_tpu/tools/opus_demo.py`` ``decode`` (reference: src/opus_demo.c's
-decode loop) at 48 kHz with one or two output channels (``opus_demo -d
-48000 1|2``), without the simulated-loss and DRED options (those are
-``tools/sim_loss.py``'s).
+decode loop) at 8, 12, 16, 24 or 48 kHz with one or two output channels
+(``opus_demo -d <rate> 1|2``), without the simulated-loss and DRED
+options (those are ``tools/sim_loss.py``'s).
 
 Each input is a .bit file in opus_demo's format: per packet a 4-byte
 big-endian length, the encoder's 4-byte final range, then the packet.
@@ -16,7 +16,7 @@ stored with it (where that is not 0), and each stream is written as raw
 ``--device cpu``:
 
     python -m opus_tpu_torch.tools.opus_demo decode [--device cpu] \\
-        [--channels 2] in0.bit out0.pcm [in1.bit out1.pcm ...]
+        [--rate 16000] [--channels 2] in0.bit out0.pcm [in1.bit out1.pcm ...]
 
 Exit code 1 if a final range differs or a packet is invalid.
 """
@@ -43,17 +43,18 @@ def read_packets(bit_path: str):
     return packets
 
 
-def decode(bit_paths, pcm_paths, device="cuda", channels: int = 1) -> int:
-    """Decodes the streams of ``bit_paths`` as lanes of one decoder with
-    ``channels`` output channels and writes ``pcm_paths``; returns
-    opus_demo's exit code."""
+def decode(bit_paths, pcm_paths, device="cuda", channels: int = 1,
+           fs: int = 48000) -> int:
+    """Decodes the streams of ``bit_paths`` as lanes of one decoder at
+    ``fs`` with ``channels`` output channels and writes ``pcm_paths``;
+    returns opus_demo's exit code."""
     import torch
 
     from ..models.opus_decoder import BatchedOpusDecoder
 
     streams = [read_packets(p) for p in bit_paths]
     b = len(streams)
-    dec = BatchedOpusDecoder(b, channels=channels, device=device)
+    dec = BatchedOpusDecoder(b, fs=fs, channels=channels, device=device)
     outs = [[] for _ in range(b)]
     mismatches = np.zeros(b, np.int64)
     invalid = np.zeros(b, np.int64)
@@ -89,19 +90,21 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m opus_tpu_torch.tools."
                                 "opus_demo")
     sub = p.add_subparsers(dest="cmd", required=True)
-    d = sub.add_parser("decode", help="decode N .bit files as N lanes "
-                       "(48 kHz)")
+    d = sub.add_parser("decode", help="decode N .bit files as N lanes")
     d.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain versions)")
+    d.add_argument("--rate", type=int, default=48000,
+                   choices=(8000, 12000, 16000, 24000, 48000),
+                   help="output rate (opus_demo -d <rate> ...)")
     d.add_argument("--channels", type=int, default=1, choices=(1, 2),
-                   help="output channels (opus_demo -d 48000 1|2)")
+                   help="output channels (opus_demo -d <rate> 1|2)")
     d.add_argument("files", nargs="+",
                    help="in0.bit out0.pcm [in1.bit out1.pcm ...]")
     args = p.parse_args(argv)
     if len(args.files) % 2:
         p.error("files come in pairs: in.bit out.pcm")
     return decode(args.files[0::2], args.files[1::2], args.device,
-                  args.channels)
+                  args.channels, args.rate)
 
 
 if __name__ == "__main__":

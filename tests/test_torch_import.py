@@ -49,7 +49,9 @@ for name in ("opus_tpu_torch.models.hybrid_dec_fused",
              "opus_tpu_torch.convert",
              "opus_tpu_torch.models.opus_decoder",
              "opus_tpu_torch.utils.soft_clip",
-             "opus_tpu_torch.tools.opus_demo"):
+             "opus_tpu_torch.tools.opus_demo",
+             "opus_tpu_torch.models.multistream",
+             "opus_tpu_torch.models.projection"):
     assert name in names, name
 bad = sorted(m for m in sys.modules
              if m in ("jax", "opus_tpu") or m.startswith(("jax.",
@@ -147,6 +149,27 @@ def test_torch_resampler_constants_equal_jax_originals():
         rs = jr.Resampler(fs_khz * 1000, 48000)
         assert pr.input_delay(fs_khz) == rs.input_delay
         assert pr._inv_ratio_q16(fs_khz * 1000, 48000) == rs.inv_ratio_q16
+
+
+def test_torch_multistream_copies_equal_jax_originals():
+    """The multistream decoder's copy of the Vorbis surround mappings, the
+    projection decoder's channel-count helpers and the top-level decoder's
+    QEXT extension id equal the originals."""
+    from opus_tpu.models import multistream as jm
+    from opus_tpu.models import opus_decoder as jo
+    from opus_tpu.models import projection as jp
+    from opus_tpu_torch.models import multistream as pm
+    from opus_tpu_torch.models import opus_decoder as po
+    from opus_tpu_torch.models import projection as pp
+
+    assert pm.VORBIS_MAPPINGS == jm.VORBIS_MAPPINGS
+    for c in range(1, 9):
+        assert pm.default_surround_layout(c) == jm.default_surround_layout(c)
+    for c in (1, 4, 6, 9, 11, 16, 18, 25, 36, 49, 64):
+        assert pp.order_plus_one_from_channels(c) == \
+            jp.order_plus_one_from_channels(c)
+        assert pp.streams_from_channels(c) == jp.streams_from_channels(c)
+    assert po.QEXT_EXTENSION_ID == jo.QEXT_EXTENSION_ID
 
 
 def test_torch_dnn_and_bitstream_copies_equal_jax_originals():
